@@ -1,0 +1,62 @@
+"""Synthetic classification data and the paper's IID split (§5.2).
+
+A numpy copy of the JAX package's ``data/synthetic.py`` for the pieces the
+plain round uses: the same seeds give the same draws.
+
+* ``SyntheticClassification`` — a teacher-MLP labelling problem standing
+  in for CIFAR-10: class-balanced, learnable.
+* ``random_share_split`` — the paper's IID protocol: random shares
+  (bounded away from extremes), class-stratified per worker (Fig. 2).
+"""
+from __future__ import annotations
+
+from dataclasses import dataclass
+
+import numpy as np
+
+
+@dataclass
+class SyntheticClassification:
+    """Teacher-generated classification: x ~ N(0, I_d), y = argmax(teacher(x))."""
+    n_samples: int = 4096
+    n_features: int = 32
+    n_classes: int = 10
+    hidden: int = 64
+    seed: int = 0
+
+    def generate(self) -> tuple[np.ndarray, np.ndarray]:
+        rng = np.random.default_rng(self.seed)
+        w1 = rng.normal(0, 1.0 / np.sqrt(self.n_features),
+                        (self.n_features, self.hidden))
+        w2 = rng.normal(0, 1.0 / np.sqrt(self.hidden),
+                        (self.hidden, self.n_classes))
+        x = rng.normal(0, 1, (self.n_samples, self.n_features)).astype(
+            np.float32)
+        logits = np.tanh(x @ w1) @ w2
+        y = np.argmax(logits + 0.1 * rng.normal(size=logits.shape), axis=-1)
+        return x, y.astype(np.int32)
+
+
+def _bounded_shares(n_workers: int, rng, lo_frac: float = 0.3) -> np.ndarray:
+    """Random shares summing to 1 with min share >= lo_frac/n — the paper's
+    'avoid the extreme imbalance' control (§5.2.2)."""
+    raw = rng.random(n_workers) + lo_frac
+    return raw / raw.sum()
+
+
+def random_share_split(y: np.ndarray, n_workers: int,
+                       seed: int = 0) -> list[np.ndarray]:
+    """IID/stratified split (Fig. 2): heterogeneous sizes, per-class balance
+    inside each worker."""
+    rng = np.random.default_rng(seed)
+    shares = _bounded_shares(n_workers, rng)
+    worker_idx: list[list[int]] = [[] for _ in range(n_workers)]
+    for c in np.unique(y):
+        idx = np.flatnonzero(y == c)
+        rng.shuffle(idx)
+        bounds = np.floor(np.cumsum(shares) * len(idx)).astype(int)
+        prev = 0
+        for k, b in enumerate(bounds):
+            worker_idx[k].extend(idx[prev:b].tolist())
+            prev = b
+    return [np.asarray(sorted(w), dtype=np.int64) for w in worker_idx]

@@ -1,0 +1,231 @@
+"""The FedPC round core — Algorithm 1 over flat device buffers.
+
+A round scores goodness (Eq. (1)) → picks the pilot → ternarizes and packs
+every worker's evolution (Eq. (4)/(5), §3.3) → applies the master update
+(Eq. (3)). Here that is the plain wire: one batched-uplink launch and one
+fused-master launch over the flat ``(rows, 128)`` buffers of
+``repro_torch.core.flat``.
+
+* :class:`WirePath` owns the math: ``codes``/``combine``/``weights`` in
+  plain PyTorch, ``uplink_stacked``/``master`` through the kernels.
+* :class:`RoundState` is the whole public state between rounds: the
+  history P^{t-1}/P^{t-2}, last-round costs and the round counter.
+* :meth:`WirePath.round_step` is the recurrence itself. The round index,
+  the pilot ``k_star`` and the Eq. (3) weights stay device tensors: the
+  round branches are ``torch.where`` on a device round, the master kernel
+  reads the pilot's buffer in place at the device index, and nothing
+  syncs with the host.
+* :class:`RoundEngine` is the thin stateful wrapper that carries the
+  history for per-round drivers.
+"""
+from __future__ import annotations
+
+import functools
+from dataclasses import dataclass
+from typing import Any, NamedTuple
+
+import torch
+
+from repro_torch.core import flat as fl
+from repro_torch.core.goodness import select_pilot
+from repro_torch.core.ternary import ternarize, ternarize_round1
+from repro_torch.kernels import ops
+from repro_torch.kernels.ref import fma_f32
+from repro_torch.utils import PyTree, resolve_device, tree_map
+
+
+@dataclass(frozen=True)
+class WireConfig:
+    """The three public protocol scalars of the FedPC wire path."""
+    alpha0: float = 0.01      # Eq. (3) round-1 master step
+    beta: float = 0.2         # Eq. (5) significance threshold
+    alpha1: float = 0.01      # Eq. (4) round-1 threshold
+
+    @classmethod
+    def from_fedpc(cls, cfg) -> "WireConfig":
+        """Lift the wire scalars out of a ``core.fedpc.FedPCConfig``."""
+        return cls(alpha0=cfg.alpha0, beta=cfg.beta, alpha1=cfg.alpha_round1)
+
+
+class RoundState(NamedTuple):
+    """Device-resident state between rounds.
+
+    ``accountant`` and ``telemetry`` keep their places for the privacy and
+    telemetry slices and are always ``None`` on the plain wire.
+    """
+    buf_p1: torch.Tensor      # (rows, 128) — P^{t-1}
+    buf_p2: torch.Tensor      # (rows, 128) — P^{t-2}
+    prev_costs: torch.Tensor  # (N,) — C_k^{t-1}, +inf before round 1
+    round: torch.Tensor       # 0-d int32, 1-based round about to run
+    accountant: Any = None
+    telemetry: Any = None
+
+
+def init_round_state(init_params: PyTree, n_workers: int,
+                     layout: fl.FlatLayout | None = None, *,
+                     device=None) -> RoundState:
+    """Fresh :class:`RoundState` at round 1 (P^{t-2} = 0, costs = +inf) on
+    ``device`` (``None`` means CUDA, and raises without it)."""
+    dev = resolve_device(device)
+    layout = layout or fl.layout_of(init_params)
+    buf_p1 = fl.flatten_tree(init_params, layout).to(dev)
+    return RoundState(
+        buf_p1=buf_p1,
+        buf_p2=torch.zeros_like(buf_p1),
+        prev_costs=torch.full((n_workers,), float("inf"),
+                              dtype=torch.float32, device=dev),
+        round=torch.ones((), dtype=torch.int32, device=dev),
+    )
+
+
+@functools.lru_cache(maxsize=16)
+def _worker_ids(n: int, device: torch.device) -> torch.Tensor:
+    """``arange(n)`` on ``device``, made once per (n, device)."""
+    return torch.arange(n, device=device)
+
+
+@dataclass(frozen=True)
+class WirePath:
+    """Ternarize → pack → aggregate → master-update over flat buffers.
+
+    Buffers are passed to each method, so one WirePath serves any
+    ``(rows, 128)`` buffer. ``cfg.beta`` is the shared threshold; methods
+    that touch Eq. (5) or the Eq. (3) weights take an optional per-worker
+    override (``beta=`` a scalar, ``betas=`` an (N,) vector).
+    """
+    cfg: WireConfig = WireConfig()
+
+    # -- elementwise protocol math (plain PyTorch, device round index) -----
+
+    def codes(self, q: torch.Tensor, p1: torch.Tensor, p2: torch.Tensor,
+              t, *, beta=None) -> torch.Tensor:
+        """Eq. (4) at t <= 1 (``p1`` holds P^0), Eq. (5) after; int8 codes
+        of ``q.shape``."""
+        beta = self.cfg.beta if beta is None else beta
+        t1 = ternarize_round1(q, p1, self.cfg.alpha1)
+        tt = ternarize(q, p1, p2, beta)
+        return torch.where(ops.round_index(t, q.device) <= 1, t1, tt)
+
+    def combine(self, q_pilot: torch.Tensor, coeff: torch.Tensor,
+                p1: torch.Tensor, p2: torch.Tensor, t) -> torch.Tensor:
+        """Eq. (3) given ``coeff = Σ_k w_k T_k``: round 1 steps by
+        ``alpha0``, later rounds by P^{t-1} − P^{t-2}. ``q − coeff·mult``
+        is rounded once, as the master kernel's fused multiply-add."""
+        step = (p1 - p2).float()
+        t = ops.round_index(t, q_pilot.device)
+        mult = torch.where(t <= 1, torch.full_like(step, self.cfg.alpha0),
+                           step)
+        return fma_f32(-coeff.float(), mult, q_pilot.float()).view(
+            q_pilot.shape)
+
+    def weights(self, p_shares: torch.Tensor, k_star, t, *,
+                betas=None) -> torch.Tensor:
+        """Per-worker Eq. (3) weights: p_k at round 1 (the alpha0 rule),
+        p_k·beta_k after; the pilot's entry is zeroed."""
+        dev = p_shares.device
+        n = p_shares.shape[0]
+        not_pilot = (_worker_ids(n, dev) != k_star).float()
+        t = ops.round_index(t, dev)
+        if betas is None:
+            scale = torch.where(t <= 1, 1.0, self.cfg.beta)
+        else:
+            betas = betas.float()
+            scale = torch.where(t <= 1, torch.ones_like(betas), betas)
+        return not_pilot * p_shares.float() * scale
+
+    # -- fused kernel path over (rows, 128) buffers --------------------------
+
+    def uplink_stacked(self, bufs_q: torch.Tensor, buf_p1: torch.Tensor,
+                       buf_p2: torch.Tensor, *, t, betas=None
+                       ) -> torch.Tensor:
+        """All N workers' wire buffers in one launch: (N, rows, 128) →
+        (N, rows//4, 128) uint8."""
+        beta = self.cfg.beta if betas is None else betas
+        return ops.flat_ternary_pack_stacked(bufs_q, buf_p1, buf_p2, t=t,
+                                             beta=beta,
+                                             alpha1=self.cfg.alpha1)
+
+    def master(self, bufs_q: torch.Tensor, k_star, packed: torch.Tensor,
+               w: torch.Tensor, buf_p1: torch.Tensor, buf_p2: torch.Tensor,
+               *, t) -> torch.Tensor:
+        """Fused Eq. (3) over the packed wire codes, one launch; the
+        pilot's buffer is ``bufs_q[k_star]``, read in place."""
+        return ops.flat_master_update(bufs_q, k_star, packed, w, buf_p1,
+                                      buf_p2, t=t, alpha0=self.cfg.alpha0)
+
+    def round_from_stacked(self, bufs_q: torch.Tensor, k_star,
+                           w: torch.Tensor, buf_p1: torch.Tensor,
+                           buf_p2: torch.Tensor, *, t, betas=None
+                           ) -> tuple[torch.Tensor, torch.Tensor]:
+        """Batched uplink + fused master: two launches whatever N is.
+
+        The pilot's row is packed like everyone else's and masked out of
+        Eq. (3) by ``w[k_star] == 0``. ``k_star`` may be a device tensor.
+        Returns ``(new_global_buf, packed_wire)``.
+        """
+        packed = self.uplink_stacked(bufs_q, buf_p1, buf_p2, t=t,
+                                     betas=betas)
+        new_buf = self.master(bufs_q, k_star, packed, w, buf_p1, buf_p2, t=t)
+        return new_buf, packed
+
+    # -- the recurrence ------------------------------------------------------
+
+    def round_step(self, state: RoundState, bufs_q: torch.Tensor,
+                   costs: torch.Tensor, sizes: torch.Tensor, *, betas=None
+                   ) -> tuple[RoundState, torch.Tensor, dict]:
+        """Algorithm 1, one round, with no host sync.
+
+        ``bufs_q`` (N, rows, 128) every worker's flattened local model;
+        ``costs``/``sizes`` (N,) device tensors; ``betas`` an optional (N,)
+        per-worker beta_k. Returns ``(state', new_global_buf, info)`` with
+        ``info`` holding the round's device records (``k_star``,
+        ``goodness``, ``costs``) for one fetch after the run.
+        """
+        t = state.round
+        sizes = sizes.float()
+        costs = costs.float()
+        k_star, scores = select_pilot(costs, state.prev_costs, sizes, t)
+        p_shares = sizes / sizes.sum()
+        w = self.weights(p_shares, k_star, t, betas=betas)
+        new_buf, _packed = self.round_from_stacked(
+            bufs_q, k_star, w, state.buf_p1, state.buf_p2, t=t, betas=betas)
+        new_state = RoundState(buf_p1=new_buf, buf_p2=state.buf_p1,
+                               prev_costs=costs, round=t + 1)
+        info = {"k_star": k_star, "goodness": scores, "costs": costs}
+        return new_state, new_buf, info
+
+
+class RoundEngine:
+    """Carries the public history across rounds and drives :class:`WirePath`.
+
+    A per-round driver's protocol work is::
+
+        bufs_q = engine.flatten_locals(locals_)
+        new_params = engine.run_round(bufs_q, k_star, p_shares, t)
+
+    two kernel launches and one unflatten. ``device=None`` means CUDA.
+    """
+
+    def __init__(self, init_params: PyTree, cfg: WireConfig | None = None,
+                 *, device=None):
+        self.device = resolve_device(device)
+        self.layout = fl.layout_of(init_params)
+        self.wire = WirePath(cfg or WireConfig())
+        self.buf_p1 = fl.flatten_tree(init_params, self.layout).to(
+            self.device)                                        # P^{t-1}
+        self.buf_p2 = torch.zeros_like(self.buf_p1)             # P^{t-2}
+
+    def flatten_locals(self, locals_: list[PyTree]) -> torch.Tensor:
+        """Stack N worker trees into the (N, rows, 128) uplink input."""
+        stacked = tree_map(lambda *xs: torch.stack(xs), *locals_)
+        return fl.flatten_stacked(stacked, self.layout)
+
+    def run_round(self, bufs_q: torch.Tensor, k_star, p_shares: torch.Tensor,
+                  t, *, betas=None) -> PyTree:
+        """Alg. 1 lines 5-8 for one round; returns the new global tree and
+        advances the history. ``k_star`` may be a device tensor."""
+        w = self.wire.weights(p_shares, k_star, t, betas=betas)
+        new_buf, _packed = self.wire.round_from_stacked(
+            bufs_q, k_star, w, self.buf_p1, self.buf_p2, t=t, betas=betas)
+        self.buf_p1, self.buf_p2 = new_buf, self.buf_p1
+        return fl.unflatten_tree(new_buf, self.layout)

@@ -1,0 +1,176 @@
+"""The two kernels of the plain FedPC round: the batched uplink and the
+fused master, hand-written in CUDA C++ (``csrc/fused_wire.cu``).
+
+Both take the kernel views of the flat ``(rows, 128)`` buffer: float
+``(R, 512)`` views with ``R = rows // 4`` (four consecutive codes of one
+wire byte side by side, the §3.3 order) and packed uint8 ``(R, 128)``
+views. ``repro_torch.kernels.ops`` makes the views.
+
+Each wrapper checks device, dtype, shape, contiguity and (for the
+operands read as float4) 16-byte alignment, and raises on what its kernel does not take. A CUDA tensor launches the kernel
+on the current stream and bumps ``LAUNCHES``; a CPU tensor takes the plain
+PyTorch version beside it. Nothing falls back: a kernel that fails to build
+or launch raises.
+
+The plain versions repeat the kernels' arithmetic: the codes from
+``core.ternary``, the pack and decode in int32 (CPU torch has no shifts
+for every unsigned width), and the worker fold and the Eq. (3) combine
+each rounded once, as the kernel's fused multiply-adds round them
+(``kernels.ref.fma_f32``).
+"""
+from __future__ import annotations
+
+import ctypes
+
+import torch
+
+from repro_torch.core.packing import pack2bit
+from repro_torch.core.ternary import ternarize, ternarize_round1
+from repro_torch.kernels import build
+from repro_torch.kernels.ref import packed_master_accum_ref
+
+LANES = 128
+PACK = 4
+WIDE = LANES * PACK
+
+#: Kernel launches per wrapper; only a launch on the card counts.
+LAUNCHES = {"uplink_stacked": 0, "master": 0}
+
+_P = ctypes.c_void_p
+_bound: ctypes.CDLL | None = None
+
+
+def _lib() -> ctypes.CDLL:
+    """The built library with every function's C signature declared."""
+    global _bound
+    if _bound is None:
+        lib = build.load("fused_wire")
+        lib.fw_ternary_pack_stacked.argtypes = [
+            _P, _P, _P, _P, _P, ctypes.c_float, _P, ctypes.c_int,
+            ctypes.c_longlong, ctypes.c_int, _P]
+        lib.fw_ternary_pack_stacked.restype = ctypes.c_int
+        lib.fw_packed_master_update.argtypes = [
+            _P, _P, _P, _P, _P, _P, _P, ctypes.c_float, _P, ctypes.c_int,
+            ctypes.c_longlong, ctypes.c_int, _P]
+        lib.fw_packed_master_update.restype = ctypes.c_int
+        lib.fw_error_string.argtypes = [ctypes.c_int]
+        lib.fw_error_string.restype = ctypes.c_char_p
+        _bound = lib
+    return _bound
+
+
+def _check(name: str, x: torch.Tensor, dtype: torch.dtype, shape: tuple,
+           device: torch.device, *, float4: bool = False) -> None:
+    """Raise unless ``x`` is what the kernels take; ``float4`` operands
+    must also start on a 16-byte boundary on the card."""
+    if not isinstance(x, torch.Tensor):
+        raise TypeError(f"{name} must be a tensor, got {type(x).__name__}")
+    if x.dtype != dtype or tuple(x.shape) != shape:
+        raise ValueError(f"{name} must be {dtype} of shape {shape}, got "
+                         f"{x.dtype} of shape {tuple(x.shape)}")
+    if x.device != device:
+        raise ValueError(f"{name} is on {x.device}, expected {device}")
+    if not x.is_contiguous():
+        raise ValueError(f"{name} must be contiguous")
+    if float4 and device.type == "cuda" and x.data_ptr() % 16:
+        raise ValueError(f"{name} must be 16-byte aligned for float4 loads")
+
+
+def _launch(kind: str, fn, *args) -> None:
+    err = fn(*args)
+    if err != 0:
+        raise RuntimeError(f"{kind} kernel launch failed: "
+                           f"{_lib().fw_error_string(err).decode()}")
+    LAUNCHES[kind] += 1
+
+
+def _device_of(x: torch.Tensor) -> torch.device:
+    if x.device.type not in ("cuda", "cpu"):
+        raise ValueError(f"no wire kernel for device {x.device}")
+    return x.device
+
+
+# -- batched uplink: Eq. (4)/(5) + §3.3 pack for all N workers -------------
+
+def ternary_pack_stacked_plain(q, p1, p2, t, beta, alpha1: float
+                               ) -> torch.Tensor:
+    """Plain twin of :func:`ternary_pack_stacked`; any device."""
+    n, r, _ = q.shape
+    codes = torch.where(t <= 1, ternarize_round1(q, p1, alpha1),
+                        ternarize(q, p1, p2, beta.view(n, 1, 1)))
+    return pack2bit(codes).view(n, r, LANES)
+
+
+def ternary_pack_stacked(q: torch.Tensor, p1: torch.Tensor, p2: torch.Tensor,
+                         t: torch.Tensor, beta: torch.Tensor, alpha1: float
+                         ) -> torch.Tensor:
+    """All N workers' §3.3 wire buffers in one launch.
+
+    q (N, R, 512) float32, every worker's view; p1/p2 (R, 512) float32, the
+    shared history; t 0-d int32, the 1-based round (Eq. (4) at t <= 1 with
+    p1 = P^0, Eq. (5) after); beta (N,) float32 per-worker beta_k; alpha1
+    the Eq. (4) threshold. Returns (N, R, 128) uint8.
+    """
+    dev = _device_of(q)
+    n, r = q.shape[0], q.shape[1]
+    _check("q", q, torch.float32, (n, r, WIDE), dev, float4=True)
+    _check("p1", p1, torch.float32, (r, WIDE), dev, float4=True)
+    _check("p2", p2, torch.float32, (r, WIDE), dev, float4=True)
+    _check("t", t, torch.int32, (), dev)
+    _check("beta", beta, torch.float32, (n,), dev)
+    if n < 1:
+        raise ValueError("need at least one worker")
+    if dev.type == "cpu":
+        return ternary_pack_stacked_plain(q, p1, p2, t, beta, alpha1)
+    out = torch.empty((n, r, LANES), dtype=torch.uint8, device=dev)
+    _launch("uplink_stacked", _lib().fw_ternary_pack_stacked,
+            q.data_ptr(), p1.data_ptr(), p2.data_ptr(), beta.data_ptr(),
+            t.data_ptr(), float(alpha1), out.data_ptr(), n, r * LANES,
+            dev.index, torch.cuda.current_stream(dev).cuda_stream)
+    return out
+
+
+# -- fused master: decode + Σ_k w_k T_k + Eq. (3) --------------------------
+
+def packed_master_update_plain(q, k_star, packed, w, p1, p2, t,
+                               alpha0: float) -> torch.Tensor:
+    """Plain twin of :func:`packed_master_update`; any device."""
+    n = packed.shape[0]
+    q_pilot = q.index_select(0, k_star.reshape(1))[0]
+    return packed_master_accum_ref(q_pilot, packed.view(n, -1), w, p1, p2,
+                                   t, alpha0)
+
+
+def packed_master_update(q: torch.Tensor, k_star: torch.Tensor,
+                         packed: torch.Tensor, w: torch.Tensor,
+                         p1: torch.Tensor, p2: torch.Tensor, t: torch.Tensor,
+                         alpha0: float) -> torch.Tensor:
+    """Eq. (3) over every worker's packed codes in one launch.
+
+    q (N, R, 512) float32, every worker's view, of which the pilot's is
+    read in place at k_star, a 0-d int64 device index in [0, N) (the
+    kernel writes NaN for one outside it); packed (N, R, 128) uint8; w (N,)
+    float32, the Eq. (3) weights with the pilot's entry zeroed; p1/p2
+    (R, 512) float32; t 0-d int32 (alpha0 steps at t <= 1,
+    P^{t-1} − P^{t-2} after). Workers fold strictly in order k = 0..N−1.
+    Returns (R, 512) float32.
+    """
+    dev = _device_of(q)
+    n, r = q.shape[0], q.shape[1]
+    _check("q", q, torch.float32, (n, r, WIDE), dev, float4=True)
+    _check("k_star", k_star, torch.int64, (), dev)
+    _check("packed", packed, torch.uint8, (n, r, LANES), dev)
+    _check("w", w, torch.float32, (n,), dev)
+    _check("p1", p1, torch.float32, (r, WIDE), dev, float4=True)
+    _check("p2", p2, torch.float32, (r, WIDE), dev, float4=True)
+    _check("t", t, torch.int32, (), dev)
+    if dev.type == "cpu":
+        return packed_master_update_plain(q, k_star, packed, w, p1, p2, t,
+                                          alpha0)
+    out = torch.empty((r, WIDE), dtype=torch.float32, device=dev)
+    _launch("master", _lib().fw_packed_master_update,
+            q.data_ptr(), k_star.data_ptr(), packed.data_ptr(), w.data_ptr(),
+            p1.data_ptr(), p2.data_ptr(), t.data_ptr(), float(alpha0),
+            out.data_ptr(), n, r * LANES, dev.index,
+            torch.cuda.current_stream(dev).cuda_stream)
+    return out

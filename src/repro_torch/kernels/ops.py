@@ -1,0 +1,80 @@
+"""Wrappers of the wire kernels over the flat ``(rows, 128)`` buffers.
+
+They make the kernel views (``(rows, 128)`` ↔ ``(rows // 4, 512)`` float,
+``(rows // 4, 128)`` uint8), put the round index and the per-worker
+thresholds on the buffers' device without a host copy, and call
+``kernels.fused_wire``. The kernels pick a fixed launch shape.
+"""
+from __future__ import annotations
+
+import torch
+
+from repro_torch.kernels import fused_wire as fw
+
+LANES = fw.LANES
+PACK = fw.PACK
+
+
+def _device_scalar(x, dtype: torch.dtype, device: torch.device,
+                   what: str) -> torch.Tensor:
+    """``x`` as a 0-d ``dtype`` tensor on ``device``. A tensor already
+    there is used as it is, so a device scalar never syncs."""
+    if isinstance(x, torch.Tensor):
+        if x.device != device:
+            raise ValueError(f"{what} is on {x.device}, buffers on {device}")
+        return x.to(dtype).reshape(())
+    return torch.full((), int(x), dtype=dtype, device=device)
+
+
+def round_index(t, device: torch.device) -> torch.Tensor:
+    """The 1-based round as a 0-d int32 tensor on ``device``."""
+    return _device_scalar(t, torch.int32, device, "round index")
+
+
+def pilot_index(k_star, device: torch.device) -> torch.Tensor:
+    """The pilot's worker index as a 0-d int64 tensor on ``device``."""
+    return _device_scalar(k_star, torch.int64, device, "pilot index")
+
+
+def per_worker(beta, n: int, device: torch.device) -> torch.Tensor:
+    """A shared scalar or an (N,) vector of beta_k as an (N,) float32
+    tensor on ``device``."""
+    if isinstance(beta, torch.Tensor):
+        if beta.device != device:
+            raise ValueError(f"beta is on {beta.device}, buffers on {device}")
+        return beta.to(torch.float32).reshape(-1).expand(n).contiguous()
+    return torch.full((n,), float(beta), dtype=torch.float32, device=device)
+
+
+def flat_ternary_pack_stacked(bufs_q: torch.Tensor, buf_p1: torch.Tensor,
+                              buf_p2: torch.Tensor, *, t, beta,
+                              alpha1: float) -> torch.Tensor:
+    """Batched uplink: (N, rows, 128) worker buffers → (N, rows//4, 128)
+    packed wire buffers in one launch. ``t`` may be a device tensor;
+    ``beta`` is a shared scalar or a per-worker (N,) vector."""
+    n, rows, _ = bufs_q.shape
+    r4 = rows // PACK
+    dev = bufs_q.device
+    return fw.ternary_pack_stacked(
+        bufs_q.reshape(n, r4, fw.WIDE), buf_p1.reshape(r4, fw.WIDE),
+        buf_p2.reshape(r4, fw.WIDE), round_index(t, dev),
+        per_worker(beta, n, dev), alpha1)
+
+
+def flat_master_update(bufs_q: torch.Tensor, k_star,
+                       packed_stacked: torch.Tensor, w: torch.Tensor,
+                       buf_p1: torch.Tensor, buf_p2: torch.Tensor, *, t,
+                       alpha0: float) -> torch.Tensor:
+    """Fused Eq. (3) over all N packed wire buffers: bufs_q (N, rows, 128)
+    float32, whose pilot row ``k_star`` (a device tensor or an int) the
+    kernel reads in place; buf_p* (rows, 128) float32; packed_stacked
+    (N, rows//4, 128) uint8; w (N,) weights with the pilot zeroed.
+    Returns the new global (rows, 128) buffer."""
+    n, rows, _ = bufs_q.shape
+    r4 = rows // PACK
+    dev = bufs_q.device
+    out = fw.packed_master_update(
+        bufs_q.reshape(n, r4, fw.WIDE), pilot_index(k_star, dev),
+        packed_stacked, w.to(torch.float32), buf_p1.reshape(r4, fw.WIDE),
+        buf_p2.reshape(r4, fw.WIDE), round_index(t, dev), alpha0)
+    return out.reshape(rows, LANES)

@@ -1,0 +1,89 @@
+"""Small shared utilities: nested-dict pytrees, shape math, device choice.
+
+A "tree" here is a nested ``dict`` / ``list`` / ``tuple`` whose leaves are
+tensors (or anything else that is not one of those containers). Dict keys
+are walked in **sorted** order, as ``jax.tree_util`` does, so a model's
+flat buffer lays its leaves out exactly as the JAX package does
+(``layer0.b, layer0.w, layer1.b, ...``; ``layer10`` sorts before
+``layer2``).
+"""
+from __future__ import annotations
+
+import math
+from typing import Any, Callable
+
+import torch
+
+PyTree = Any
+
+
+def round_up(x: int, m: int) -> int:
+    return ((x + m - 1) // m) * m
+
+
+def cdiv(a: int, b: int) -> int:
+    return -(-a // b)
+
+
+def resolve_device(device=None) -> torch.device:
+    """``None`` means CUDA; raise when CUDA is absent rather than silently
+    running on the CPU. An explicit ``"cpu"`` is honoured."""
+    if device is None:
+        if not torch.cuda.is_available():
+            raise RuntimeError(
+                "CUDA is not available; pass device='cpu' to run on the CPU")
+        return torch.device("cuda")
+    return torch.device(device)
+
+
+def _is_node(x) -> bool:
+    return isinstance(x, (dict, list, tuple))
+
+
+def tree_flatten(tree: PyTree) -> tuple[list, Any]:
+    """Leaves in ``jax.tree_util`` order and a hashable structure."""
+    leaves: list = []
+
+    def walk(node):
+        if isinstance(node, dict):
+            keys = sorted(node)
+            return (dict, tuple(keys), tuple(walk(node[k]) for k in keys))
+        if isinstance(node, (list, tuple)):
+            return (type(node), len(node), tuple(walk(c) for c in node))
+        leaves.append(node)
+        return None
+
+    return leaves, walk(tree)
+
+
+def tree_leaves(tree: PyTree) -> list:
+    return tree_flatten(tree)[0]
+
+
+def tree_unflatten(treedef, leaves) -> PyTree:
+    it = iter(leaves)
+
+    def build(d):
+        if d is None:
+            return next(it)
+        kind, meta, children = d
+        built = [build(c) for c in children]
+        if kind is dict:
+            return dict(zip(meta, built))
+        if kind in (list, tuple):
+            return kind(built)
+        return kind(*built)            # a NamedTuple
+
+    return build(treedef)
+
+
+def tree_map(fn: Callable, tree: PyTree, *rest: PyTree) -> PyTree:
+    leaves, treedef = tree_flatten(tree)
+    others = [tree_flatten(r)[0] for r in rest]
+    return tree_unflatten(treedef,
+                          [fn(*xs) for xs in zip(leaves, *others)])
+
+
+def tree_size(tree: PyTree) -> int:
+    """Total number of scalar parameters in a tree."""
+    return sum(math.prod(x.shape) for x in tree_leaves(tree))

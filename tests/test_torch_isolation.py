@@ -1,0 +1,62 @@
+"""The port stands alone: no module of ``repro_torch``, and not
+``chip_smoke.py``, imports JAX or the JAX package, and its entry points run
+on CUDA unless told otherwise."""
+import ast
+import pkgutil
+import subprocess
+import sys
+from pathlib import Path
+
+import pytest
+import torch
+
+import repro_torch
+
+ROOT = Path(__file__).resolve().parents[1]
+SRC = ROOT / "src"
+FORBIDDEN = ("jax", "jaxlib", "repro")
+
+
+def test_no_module_imports_jax_or_the_jax_package():
+    names = [m.name for m in pkgutil.walk_packages(repro_torch.__path__,
+                                                   "repro_torch.")]
+    assert "repro_torch.fed.simulator" in names
+    assert "repro_torch.kernels.fused_wire" in names
+    script = (
+        "import importlib, sys\n"
+        f"for name in {names!r}:\n"
+        "    importlib.import_module(name)\n"
+        "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
+        f"{FORBIDDEN!r})\n"
+        "print(bad)\n")
+    out = subprocess.run([sys.executable, "-c", script], cwd=SRC,
+                         capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.strip() == "[]"
+
+
+def test_chip_smoke_imports_neither_jax_nor_the_jax_package():
+    # Every import statement of the script, those inside functions too.
+    tree = ast.parse((ROOT / "chip_smoke.py").read_text())
+    names = []
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            names += [a.name for a in node.names]
+        elif isinstance(node, ast.ImportFrom):
+            names.append(node.module or "")
+    assert "repro_torch.kernels" in names
+    assert [n for n in names if n.split(".")[0] in FORBIDDEN] == []
+
+
+def test_entry_points_default_to_cuda():
+    from repro_torch.fed.rounds import RoundEngine, init_round_state
+    from repro_torch.fed.simulator import FedSimulator
+    if torch.cuda.is_available():
+        pytest.skip("a card is present: the default device is usable")
+    params = {"w": torch.zeros(3, 4)}
+    with pytest.raises(RuntimeError, match="CUDA"):
+        FedSimulator([], params)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        RoundEngine(params)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        init_round_state(params, 2)
