@@ -1,8 +1,8 @@
 """FedPC configuration — the public protocol scalars of Algorithms 1 & 2.
 
-``privacy``, ``tree`` and ``faults`` keep their places so that a config
-written for the JAX package names them the same way; the simulator of
-this package refuses them until their slices are ported (ROADMAP).
+``tree`` and ``faults`` keep their places so that a config written for
+the JAX package names them the same way; the simulator of this package
+refuses them until their slices are ported (ROADMAP).
 """
 from __future__ import annotations
 
@@ -10,6 +10,8 @@ from dataclasses import dataclass
 from typing import Any
 
 import torch
+
+from repro_torch.privacy.spec import PrivacySpec
 
 
 @dataclass(frozen=True)
@@ -20,7 +22,8 @@ class FedPCConfig:
     alpha_round1: float = 0.01    # Eq. (4) threshold (worker lr at round 1)
     betas: tuple | None = None    # per-worker beta_k; None = uniform
     participation: float = 1.0    # C-fraction of workers per round
-    privacy: Any = None           # secure-agg / local-DP wire (not ported)
+    privacy: PrivacySpec | None = None  # secure-agg / local-DP wire
+    renorm_shares: bool = False   # Eq. (3) shares renormalized over sampled set
     tree: Any = None              # fan-in aggregation tree (not ported)
     faults: Any = None            # fault schedule (not ported)
 

@@ -2,14 +2,18 @@
 
 A round scores goodness (Eq. (1)) → picks the pilot → ternarizes and packs
 every worker's evolution (Eq. (4)/(5), §3.3) → applies the master update
-(Eq. (3)). Here that is the plain wire: one batched-uplink launch and one
-fused-master launch over the flat ``(rows, 128)`` buffers of
-``repro_torch.core.flat``.
+(Eq. (3)). Either wire is two launches over the flat ``(rows, 128)``
+buffers of ``repro_torch.core.flat``: the plain wire's batched uplink and
+fused master, or, with a :class:`~repro_torch.privacy.PrivacySpec`, the
+masked uplink (secure aggregation, optional local-DP randomized response)
+and the sum-then-unmask master.
 
 * :class:`WirePath` owns the math: ``codes``/``combine``/``weights`` in
-  plain PyTorch, ``uplink_stacked``/``master`` through the kernels.
+  plain PyTorch, ``uplink_stacked``/``master`` and ``uplink_masked``/
+  ``master_masked`` through the kernels.
 * :class:`RoundState` is the whole public state between rounds: the
-  history P^{t-1}/P^{t-2}, last-round costs and the round counter.
+  history P^{t-1}/P^{t-2}, last-round costs, the round counter and, on
+  the DP wire, the privacy accountant.
 * :meth:`WirePath.round_step` is the recurrence itself. The round index,
   the pilot ``k_star`` and the Eq. (3) weights stay device tensors: the
   round branches are ``torch.where`` on a device round, the master kernel
@@ -31,6 +35,10 @@ from repro_torch.core.goodness import select_pilot
 from repro_torch.core.ternary import ternarize, ternarize_round1
 from repro_torch.kernels import ops
 from repro_torch.kernels.ref import fma_f32
+from repro_torch.privacy import dp as pdp
+from repro_torch.privacy import masking as pvm
+from repro_torch.privacy.accountant import PrivacyAccountant
+from repro_torch.privacy.spec import PrivacySpec
 from repro_torch.utils import PyTree, resolve_device, tree_map
 
 
@@ -50,8 +58,9 @@ class WireConfig:
 class RoundState(NamedTuple):
     """Device-resident state between rounds.
 
-    ``accountant`` and ``telemetry`` keep their places for the privacy and
-    telemetry slices and are always ``None`` on the plain wire.
+    ``accountant`` is a :class:`PrivacyAccountant` when the wire runs the
+    DP mechanism, else ``None``; ``telemetry`` keeps its place for the
+    telemetry slice and is always ``None``.
     """
     buf_p1: torch.Tensor      # (rows, 128) — P^{t-1}
     buf_p2: torch.Tensor      # (rows, 128) — P^{t-2}
@@ -63,9 +72,11 @@ class RoundState(NamedTuple):
 
 def init_round_state(init_params: PyTree, n_workers: int,
                      layout: fl.FlatLayout | None = None, *,
+                     privacy: PrivacySpec | None = None,
                      device=None) -> RoundState:
     """Fresh :class:`RoundState` at round 1 (P^{t-2} = 0, costs = +inf) on
-    ``device`` (``None`` means CUDA, and raises without it)."""
+    ``device`` (``None`` means CUDA, and raises without it); with a
+    DP-enabled ``privacy`` spec it carries a zero accountant."""
     dev = resolve_device(device)
     layout = layout or fl.layout_of(init_params)
     buf_p1 = fl.flatten_tree(init_params, layout).to(dev)
@@ -75,6 +86,8 @@ def init_round_state(init_params: PyTree, n_workers: int,
         prev_costs=torch.full((n_workers,), float("inf"),
                               dtype=torch.float32, device=dev),
         round=torch.ones((), dtype=torch.int32, device=dev),
+        accountant=(PrivacyAccountant.zero(dev)
+                    if privacy is not None and privacy.dp_on else None),
     )
 
 
@@ -92,8 +105,22 @@ class WirePath:
     ``(rows, 128)`` buffer. ``cfg.beta`` is the shared threshold; methods
     that touch Eq. (5) or the Eq. (3) weights take an optional per-worker
     override (``beta=`` a scalar, ``betas=`` an (N,) vector).
+
+    An active ``privacy`` spec puts the round on the secure-aggregation /
+    local-DP wire: the uplink becomes masked fixed-point words and the
+    master a sum-then-unmask launch, still two launches and no host sync,
+    and the master never sees one worker's ternary directions.
+    ``renorm_shares`` renormalizes the data shares p_k over the sampled
+    workers when a participation mask is given.
     """
     cfg: WireConfig = WireConfig()
+    privacy: PrivacySpec | None = None
+    renorm_shares: bool = False
+
+    @property
+    def masked(self) -> bool:
+        """Whether rounds take the masked integer wire."""
+        return self.privacy is not None and self.privacy.active
 
     # -- elementwise protocol math (plain PyTorch, device round index) -----
 
@@ -119,11 +146,17 @@ class WirePath:
             q_pilot.shape)
 
     def weights(self, p_shares: torch.Tensor, k_star, t, *,
-                betas=None) -> torch.Tensor:
+                betas=None, mask=None) -> torch.Tensor:
         """Per-worker Eq. (3) weights: p_k at round 1 (the alpha0 rule),
-        p_k·beta_k after; the pilot's entry is zeroed."""
+        p_k·beta_k after; the pilot's entry is zeroed, and so are those of
+        workers outside an optional (N,) participation ``mask``. The shares
+        stay the global data shares unless ``renorm_shares`` renormalizes
+        them over the sampled workers."""
         dev = p_shares.device
         n = p_shares.shape[0]
+        if self.renorm_shares and mask is not None:
+            pm = p_shares.float() * mask.float()
+            p_shares = pm / torch.clamp_min(pm.sum(), 1e-12)
         not_pilot = (_worker_ids(n, dev) != k_star).float()
         t = ops.round_index(t, dev)
         if betas is None:
@@ -131,7 +164,10 @@ class WirePath:
         else:
             betas = betas.float()
             scale = torch.where(t <= 1, torch.ones_like(betas), betas)
-        return not_pilot * p_shares.float() * scale
+        w = not_pilot * p_shares.float() * scale
+        if mask is not None:
+            w = w * mask.float()
+        return w
 
     # -- fused kernel path over (rows, 128) buffers --------------------------
 
@@ -153,16 +189,75 @@ class WirePath:
         return ops.flat_master_update(bufs_q, k_star, packed, w, buf_p1,
                                       buf_p2, t=t, alpha0=self.cfg.alpha0)
 
+    # -- secure-aggregation / local-DP wire (repro_torch.privacy) ----------
+
+    def uplink_masked(self, bufs_q: torch.Tensor, buf_p1: torch.Tensor,
+                      buf_p2: torch.Tensor, *, t, w: torch.Tensor,
+                      betas=None, pmask=None
+                      ) -> tuple[torch.Tensor, torch.Tensor]:
+        """All N workers' masked wire words in one launch.
+
+        Builds the round's (N, N) pair keys and signs (participation
+        ``pmask`` folded in), the (N,) RR keys and the fixed-point weights
+        ``W_k`` of ``w`` on the device from the device round ``t``; the
+        kernel expands the streams in registers. Returns
+        ``(masked_words, wq)``, words (N, rows//4, 512) in
+        ``privacy.word_dtype``.
+        """
+        spec = self.privacy
+        n = bufs_q.shape[0]
+        dev = bufs_q.device
+        t = ops.round_index(t, dev)
+        wq = pvm.quantize_weights(w, spec.fixpoint_bits)
+        keys = pvm.pair_stream_keys(
+            spec.mask_seed if spec.masking_on else 0, n, t)
+        signs = pvm.pair_signs(n, participation=pmask, device=dev)
+        rrk = pdp.rr_stream_keys(spec.dp_seed, t, n)
+        y = ops.flat_ternary_pack_masked(
+            bufs_q, buf_p1, buf_p2, t=t,
+            beta=self.cfg.beta if betas is None else betas,
+            alpha1=self.cfg.alpha1, wq=wq, pair_keys=keys, pair_signs=signs,
+            rr_keys=rrk, rr_threshold=spec.rr_threshold,
+            word_bits=spec.modulus_bits, use_masks=spec.masking_on)
+        return y, wq
+
+    def master_masked(self, bufs_q: torch.Tensor, k_star,
+                      masked: torch.Tensor, wq: torch.Tensor,
+                      buf_p1: torch.Tensor, buf_p2: torch.Tensor, *, t
+                      ) -> torch.Tensor:
+        """Sum-then-unmask Eq. (3), one launch: the modular sum of the
+        masked words (the masks cancel), de-biased by the public Σ_k W_k (a
+        device scalar), descaled with the RR unbias folded in. The pilot's
+        buffer is ``bufs_q[k_star]``, read in place."""
+        sum_wq = pvm.as_u64(wq).sum()
+        return ops.flat_masked_master_update(
+            bufs_q, k_star, masked, sum_wq, buf_p1, buf_p2, t=t,
+            alpha0=self.cfg.alpha0, scale_mult=self.privacy.scale_mult)
+
     def round_from_stacked(self, bufs_q: torch.Tensor, k_star,
                            w: torch.Tensor, buf_p1: torch.Tensor,
-                           buf_p2: torch.Tensor, *, t, betas=None
+                           buf_p2: torch.Tensor, *, t, betas=None,
+                           pmask=None, alive=None
                            ) -> tuple[torch.Tensor, torch.Tensor]:
-        """Batched uplink + fused master: two launches whatever N is.
+        """Uplink + master: two launches whatever N is.
 
-        The pilot's row is packed like everyone else's and masked out of
-        Eq. (3) by ``w[k_star] == 0``. ``k_star`` may be a device tensor.
-        Returns ``(new_global_buf, packed_wire)``.
+        The pilot's row goes on the wire like everyone else's and drops
+        out of Eq. (3) by ``w[k_star] == 0``. ``k_star`` may be a device
+        tensor. On the masked wire ``pmask`` is the public participation
+        mask the pair signs fold in. ``alive`` (post-uplink deaths and
+        their mask repair) is not ported. Returns ``(new_global_buf,
+        wire_buffer)``.
         """
+        if alive is not None:
+            raise NotImplementedError(
+                "dropout repair (alive=) is not ported to repro_torch yet "
+                "(ROADMAP queue 1, item 10)")
+        if self.masked:
+            y, wq = self.uplink_masked(bufs_q, buf_p1, buf_p2, t=t, w=w,
+                                       betas=betas, pmask=pmask)
+            new_buf = self.master_masked(bufs_q, k_star, y, wq, buf_p1,
+                                         buf_p2, t=t)
+            return new_buf, y
         packed = self.uplink_stacked(bufs_q, buf_p1, buf_p2, t=t,
                                      betas=betas)
         new_buf = self.master(bufs_q, k_star, packed, w, buf_p1, buf_p2, t=t)
@@ -171,27 +266,43 @@ class WirePath:
     # -- the recurrence ------------------------------------------------------
 
     def round_step(self, state: RoundState, bufs_q: torch.Tensor,
-                   costs: torch.Tensor, sizes: torch.Tensor, *, betas=None
-                   ) -> tuple[RoundState, torch.Tensor, dict]:
+                   costs: torch.Tensor, sizes: torch.Tensor, *, betas=None,
+                   mask=None) -> tuple[RoundState, torch.Tensor, dict]:
         """Algorithm 1, one round, with no host sync.
 
         ``bufs_q`` (N, rows, 128) every worker's flattened local model;
         ``costs``/``sizes`` (N,) device tensors; ``betas`` an optional (N,)
-        per-worker beta_k. Returns ``(state', new_global_buf, info)`` with
-        ``info`` holding the round's device records (``k_star``,
-        ``goodness``, ``costs``) for one fetch after the run.
+        per-worker beta_k; ``mask`` an optional (N,) participation mask
+        (non-participants are left out of pilot selection and Eq. (3) and
+        carry their previous cost; their ``bufs_q`` row may be anything).
+        Returns ``(state', new_global_buf, info)`` with ``info`` holding
+        the round's device records (``k_star``, ``goodness``, ``costs``,
+        and ``mask`` when given) for one fetch after the run.
         """
         t = state.round
         sizes = sizes.float()
         costs = costs.float()
-        k_star, scores = select_pilot(costs, state.prev_costs, sizes, t)
+        if mask is not None:
+            mask = torch.as_tensor(mask, dtype=torch.float32,
+                                   device=costs.device)
+        k_star, scores = select_pilot(costs, state.prev_costs, sizes, t,
+                                      mask)
         p_shares = sizes / sizes.sum()
-        w = self.weights(p_shares, k_star, t, betas=betas)
-        new_buf, _packed = self.round_from_stacked(
-            bufs_q, k_star, w, state.buf_p1, state.buf_p2, t=t, betas=betas)
+        w = self.weights(p_shares, k_star, t, betas=betas, mask=mask)
+        new_buf, _wire = self.round_from_stacked(
+            bufs_q, k_star, w, state.buf_p1, state.buf_p2, t=t, betas=betas,
+            pmask=mask)
+        if mask is not None:     # non-participants reported no cost
+            costs = torch.where(mask > 0, costs, state.prev_costs)
+        accountant = state.accountant
+        if accountant is not None and self.masked and self.privacy.dp_on:
+            accountant = accountant.add(self.privacy.eps_round)
         new_state = RoundState(buf_p1=new_buf, buf_p2=state.buf_p1,
-                               prev_costs=costs, round=t + 1)
+                               prev_costs=costs, round=t + 1,
+                               accountant=accountant)
         info = {"k_star": k_star, "goodness": scores, "costs": costs}
+        if mask is not None:
+            info["mask"] = mask
         return new_state, new_buf, info
 
 

@@ -6,10 +6,11 @@ information-flow ledger.
 
 :meth:`FedSimulator.run_fedpc` steps rounds in a Python loop (workers are
 stateful Python objects), but the protocol stays on the device: each round
-is one :meth:`WirePath.round_step` (pilot selection, one batched-uplink
-launch, one fused-master launch), worker costs stay device scalars, and
-the ledger and pilot history are filled from one fetch after the last
-round. The only host syncs inside the loop are ``eval_every``'s.
+is one :meth:`WirePath.round_step` (pilot selection, one uplink launch,
+one master launch, on the plain wire or, with ``FedPCConfig.privacy``,
+the masked one), worker costs stay device scalars, and the ledger and
+pilot history are filled from one fetch after the last round. The only
+host syncs inside the loop are ``eval_every``'s.
 """
 from __future__ import annotations
 
@@ -65,9 +66,10 @@ class FedSimulator:
     def _check_plain(self, participation) -> None:
         """Refuse the branches of the round that later slices port."""
         cfg = self.fed_cfg
-        if cfg.privacy is not None:
-            raise _not_ported("the secure-aggregation / local-DP wire",
-                              "item 8")
+        if cfg.privacy is not None and cfg.privacy.enforce:
+            raise _not_ported(
+                "the traced-program audit that PrivacySpec(enforce=True) "
+                "asks for (privacy/audit.py)", "item 8")
         if cfg.tree is not None:
             raise _not_ported("tree aggregation", "item 9")
         if cfg.faults is not None:
@@ -96,10 +98,12 @@ class FedSimulator:
         return torch.tensor([cfg.beta if b is None else b for b in wb],
                             dtype=torch.float32, device=self.device)
 
-    def _backfill_ledger(self, t0: int, pilots: np.ndarray) -> None:
+    def _backfill_ledger(self, t0: int, pilots: np.ndarray,
+                         code_kind: str) -> None:
         """Record each round's uplink events from the one post-run fetch of
         the pilot history: every worker's cost, the pilot's params, every
-        other worker's packed codes."""
+        other worker's ``code_kind`` upload (packed codes, or masked words
+        on the secure wire, where no plaintext code crosses)."""
         for i, k_star in enumerate(pilots):
             t = t0 + i
             for k in range(self.n):
@@ -107,22 +111,28 @@ class FedSimulator:
             self.ledger.record(int(k_star), t, "pilot_params", True)
             for k in range(self.n):
                 if k != int(k_star):
-                    self.ledger.record(k, t, "packed_ternary", False)
+                    self.ledger.record(k, t, code_kind, False)
 
     def run_fedpc(self, rounds: int, eval_every: int = 0, *,
                   participation: Optional[float] = None, betas=None,
                   state: Optional[rd.RoundState] = None) -> SimResult:
-        """Run ``rounds`` rounds of the plain FedPC wire (resuming from
-        ``state`` if given). ``betas`` is an optional (N,) per-worker beta_k.
+        """Run ``rounds`` rounds of the FedPC wire (resuming from ``state``
+        if given): the plain wire, or the masked one when
+        ``FedPCConfig.privacy`` is active. ``betas`` is an optional (N,)
+        per-worker beta_k.
 
         Per round: workers train locally (device costs), then one
         ``round_step`` selects the pilot and runs the two wire kernels.
         """
         self._check_plain(participation)
-        wire = rd.WirePath(rd.WireConfig.from_fedpc(self.fed_cfg))
+        cfg = self.fed_cfg
+        wire = rd.WirePath(rd.WireConfig.from_fedpc(cfg),
+                           privacy=cfg.privacy,
+                           renorm_shares=cfg.renorm_shares)
         layout = fl.layout_of(self.init_params)
         if state is None:
             state = rd.init_round_state(self.init_params, self.n, layout,
+                                        privacy=cfg.privacy,
                                         device=self.device)
         t0 = int(state.round)                 # one setup-time sync
         betas_dev = self._betas(betas)
@@ -156,14 +166,19 @@ class FedSimulator:
             np.zeros((0,), np.int64)
         costs_mat = (torch.stack(raw_costs).cpu().numpy() if raw_costs
                      else np.zeros((0, self.n), np.float32))
-        self._backfill_ledger(t0, pilots)
+        self._backfill_ledger(
+            t0, pilots, "masked_words" if wire.masked else "packed_ternary")
+        if wire.masked:
+            wire_bytes = proto.fedpc_masked_bytes_per_round(
+                model_bytes, self.n, word_bits=cfg.privacy.modulus_bits)
+        else:
+            wire_bytes = proto.fedpc_bytes_per_round(model_bytes, self.n)
         weights = self.sizes.astype(np.float64)
         for i in range(len(pilots)):
             res.costs.append(float(np.average(
                 costs_mat[i].astype(np.float64), weights=weights)))
             res.pilot_history.append(int(pilots[i]))
-            res.bytes_per_round.append(
-                proto.fedpc_bytes_per_round(model_bytes, self.n))
+            res.bytes_per_round.append(wire_bytes)
         res.params = fl.unflatten_tree(state.buf_p1, layout)
         res.round_state = state
         return res

@@ -23,26 +23,14 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "wire_common.cuh"
+
 namespace {
 
-constexpr int kThreads = 256;
-
-// The biased 2-bit field (code + 1) of one parameter, exactly the rule of
-// _codes_any in the JAX package's kernels/fused_wire.py: Eq. (4) at
-// round <= 1 (p1 holds P^0), Eq. (5) after. The sign is taken of the
-// product delta * step, so a product that underflows to 0 gives code 0,
-// and the tie |delta| == beta * |step| counts as significant.
-__device__ __forceinline__ uint32_t wire_field(float q, float p1, float step,
-                                               float beta, float alpha1,
-                                               bool round1) {
-  const float delta = __fsub_rn(q, p1);
-  if (round1) {
-    return 1u + (delta > alpha1 ? 1u : 0u) - (delta < -alpha1 ? 1u : 0u);
-  }
-  if (!(fabsf(delta) >= __fmul_rn(beta, fabsf(step)))) return 1u;
-  const float prod = __fmul_rn(delta, step);
-  return 1u + (prod > 0.f ? 1u : 0u) - (prod < 0.f ? 1u : 0u);
-}
+using wire::blocks_for;
+using wire::kThreads;
+using wire::sub4;
+using wire::wire_field;
 
 // Replaces ternary_pack_stacked_2d (JAX package, kernels/fused_wire.py).
 // One thread per output byte (r, lane): it loads the shared history p1, p2
@@ -64,8 +52,7 @@ ternary_pack_stacked_kernel(const float4* __restrict__ q,
   const bool round1 = *t <= 1;
   const float4 a = p1[i];
   const float4 b = round1 ? a : p2[i];
-  const float4 step = make_float4(__fsub_rn(a.x, b.x), __fsub_rn(a.y, b.y),
-                                  __fsub_rn(a.z, b.z), __fsub_rn(a.w, b.w));
+  const float4 step = sub4(a, b);
   for (int k = 0; k < n; ++k) {
     const int64_t j = static_cast<int64_t>(k) * m + i;
     const float4 x = q[j];
@@ -126,16 +113,11 @@ packed_master_update_kernel(const float4* __restrict__ q,
   if (*t > 1) {
     const float4 a = p1[i];
     const float4 b = p2[i];
-    mult = make_float4(__fsub_rn(a.x, b.x), __fsub_rn(a.y, b.y),
-                       __fsub_rn(a.z, b.z), __fsub_rn(a.w, b.w));
+    mult = sub4(a, b);
   }
   const float4 x = q[pilot * m + i];
   out[i] = make_float4(__fmaf_rn(-c0, mult.x, x.x), __fmaf_rn(-c1, mult.y, x.y),
                        __fmaf_rn(-c2, mult.z, x.z), __fmaf_rn(-c3, mult.w, x.w));
-}
-
-unsigned blocks_for(int64_t m) {
-  return static_cast<unsigned>((m + kThreads - 1) / kThreads);
 }
 
 }  // namespace

@@ -1,0 +1,362 @@
+// Hand-written Hopper (sm_90a) kernels of the masked FedPC round: secure
+// aggregation by pairwise masks, with optional local-DP randomized response.
+//
+// Both keep the view of fused_wire.cu: thread i owns float4 i of every
+// (R, 512) operand, the flat elements e = 4i .. 4i+3, and the same four
+// wire words of every worker. m = R * 128 float4s per worker.
+//
+// Integer arithmetic is uint32 throughout: modular addition wraps as the
+// wire's modulus needs, and signed overflow (undefined in C++) never
+// arises. The 16-bit modulus keeps the low 16 bits of each word.
+//
+// Plain C interface, bound with ctypes (repro_torch/kernels/masked_wire.py):
+// pointers and the stream arrive as void*, each function makes the
+// tensors' device current, launches on the given stream, never
+// synchronises, and returns the first CUDA error it meets, 0 if none.
+
+#include <cuda_runtime.h>
+#include <stdint.h>
+
+#include "wire_common.cuh"
+
+namespace {
+
+using wire::blocks_for;
+using wire::kThreads;
+using wire::sub4;
+using wire::wire_field;
+
+// The lowbias32 finalizer of the JAX package's privacy/masking.py::mix32.
+__device__ __forceinline__ uint32_t mix32(uint32_t x) {
+  x ^= x >> 16;
+  x *= 0x7FEB352Du;
+  x ^= x >> 15;
+  x *= 0x846CA68Bu;
+  x ^= x >> 16;
+  return x;
+}
+
+// Replaces ternary_pack_masked_2d (JAX package, kernels/masked_wire.py).
+// Per worker k and element e: field = code + 1 (wire_field); with RR on,
+// rr = mix32(mix32(e) + rr_keys[k]) (a full word per element at either
+// modulus) replaces the field by (rr >> 16) % 3 when (rr & 0xFFFF) <
+// rr_threshold; the word is wq[k] * field plus the net mask
+// sum_l signs[k, l] * stream(keys[k, l]) mod 2^WordBits. The stream is
+// mix32(mix32(e) + key) per element at 32 bits; at 16 bits one word
+// u = mix32(mix32(e >> 1) + key) feeds element 2j with u & 0xFFFF and
+// element 2j + 1 with u >> 16.
+//
+// Bound: integer operations, not bytes. Each mask stream word costs an add,
+// a mix32 (2 multiplies, 3 xors, 3 shifts) and the signed fold, for every
+// active (k, l) pair: at N = 10, 16 bits, RR on, about 660 integer
+// operations per element, 360 of them shifts and logic that only the
+// INT32 pipe runs, against 68 bytes moved per element. The design
+// spends nothing else: the counter hashes mix32(e) are computed once per
+// thread and shared by all N * L streams; the (N, L) keys and signs are
+// staged in shared memory per block; pairs with sign 0 (the diagonal, and
+// non-participants) are skipped, a branch uniform across the block; p1/p2
+// are loaded once and the workers loop inside the thread; codes, fields,
+// RR words and masks live in registers only, and each worker's four words
+// leave in one 8- or 16-byte store. It folds each worker's row of the key
+// matrix (N (N - 1) stream expansions); sharing each pair's expansion
+// between its two endpoints would halve that.
+template <int kWordBits, bool kRR, bool kMasks>
+__global__ void __launch_bounds__(kThreads)
+ternary_pack_masked_kernel(const float4* __restrict__ q,
+                           const float4* __restrict__ p1,
+                           const float4* __restrict__ p2,
+                           const float* __restrict__ beta,
+                           const uint32_t* __restrict__ wq,
+                           const uint32_t* __restrict__ keys,
+                           const int32_t* __restrict__ signs,
+                           const uint32_t* __restrict__ rr_keys,
+                           const int32_t* __restrict__ t, float alpha1,
+                           uint32_t rr_threshold, void* __restrict__ out,
+                           int n, int cohort, int64_t m) {
+  extern __shared__ uint32_t staged[];     // keys, then signs: 2 * n * cohort
+  uint32_t* s_keys = staged;
+  int32_t* s_signs = reinterpret_cast<int32_t*>(staged + n * cohort);
+  if constexpr (kMasks) {
+    for (int j = threadIdx.x; j < n * cohort; j += kThreads) {
+      s_keys[j] = keys[j];
+      s_signs[j] = signs[j];
+    }
+    __syncthreads();
+  }
+  const int64_t i = static_cast<int64_t>(blockIdx.x) * kThreads + threadIdx.x;
+  if (i >= m) return;
+  const bool round1 = *t <= 1;
+  const float4 a = p1[i];
+  const float4 b = round1 ? a : p2[i];
+  const float4 step = sub4(a, b);
+
+  // Flat element index of this thread's first element (the wrapper keeps
+  // 4 * m within 32 bits).
+  const uint32_t e0 = static_cast<uint32_t>(i) * 4u;
+  uint32_t hr[4] = {0u, 0u, 0u, 0u};       // RR counter hashes, per element
+  if constexpr (kRR) {
+#pragma unroll
+    for (int j = 0; j < 4; ++j) hr[j] = mix32(e0 + j);
+  }
+  // Mask counter hashes: per element pair at 16 bits, per element at 32.
+  uint32_t hm[4] = {0u, 0u, 0u, 0u};
+  if constexpr (kMasks && kWordBits == 16) {
+    hm[0] = mix32(e0 >> 1);
+    hm[1] = mix32((e0 >> 1) + 1u);
+  } else if constexpr (kMasks) {
+#pragma unroll
+    for (int j = 0; j < 4; ++j) hm[j] = kRR ? hr[j] : mix32(e0 + j);
+  }
+
+  for (int k = 0; k < n; ++k) {
+    const int64_t at = static_cast<int64_t>(k) * m + i;
+    const float4 x = q[at];
+    const float bk = beta[k];
+    uint32_t f[4] = {wire_field(x.x, a.x, step.x, bk, alpha1, round1),
+                     wire_field(x.y, a.y, step.y, bk, alpha1, round1),
+                     wire_field(x.z, a.z, step.z, bk, alpha1, round1),
+                     wire_field(x.w, a.w, step.w, bk, alpha1, round1)};
+    if constexpr (kRR) {
+      const uint32_t rk = rr_keys[k];
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        const uint32_t rr = mix32(hr[j] + rk);
+        if ((rr & 0xFFFFu) < rr_threshold) f[j] = (rr >> 16) % 3u;
+      }
+    }
+    const uint32_t wk = wq[k];
+    uint32_t acc0 = wk * f[0], acc1 = wk * f[1], acc2 = wk * f[2],
+             acc3 = wk * f[3];
+    if constexpr (kMasks) {
+      const uint32_t* row_keys = s_keys + k * cohort;
+      const int32_t* row_signs = s_signs + k * cohort;
+      for (int l = 0; l < cohort; ++l) {
+        const int32_t s = row_signs[l];
+        if (s == 0) continue;
+        const uint32_t us = static_cast<uint32_t>(s);
+        const uint32_t key = row_keys[l];
+        if constexpr (kWordBits == 16) {
+          const uint32_t u0 = mix32(hm[0] + key);
+          const uint32_t u1 = mix32(hm[1] + key);
+          acc0 += us * (u0 & 0xFFFFu);
+          acc1 += us * (u0 >> 16);
+          acc2 += us * (u1 & 0xFFFFu);
+          acc3 += us * (u1 >> 16);
+        } else {
+          acc0 += us * mix32(hm[0] + key);
+          acc1 += us * mix32(hm[1] + key);
+          acc2 += us * mix32(hm[2] + key);
+          acc3 += us * mix32(hm[3] + key);
+        }
+      }
+    }
+    if constexpr (kWordBits == 16) {
+      reinterpret_cast<ushort4*>(out)[at] = make_ushort4(
+          static_cast<uint16_t>(acc0), static_cast<uint16_t>(acc1),
+          static_cast<uint16_t>(acc2), static_cast<uint16_t>(acc3));
+    } else {
+      reinterpret_cast<uint4*>(out)[at] = make_uint4(acc0, acc1, acc2, acc3);
+    }
+  }
+}
+
+// The word's signed residue at the wire width, as float.
+template <int kWordBits>
+__device__ __forceinline__ float residue(uint32_t acc, uint32_t sum_wq) {
+  const uint32_t d = acc - sum_wq;
+  if constexpr (kWordBits == 16) {
+    return __int2float_rn(static_cast<int16_t>(static_cast<uint16_t>(d)));
+  } else {
+    return __int2float_rn(static_cast<int32_t>(d));
+  }
+}
+
+// Replaces masked_master_update_2d (JAX package, kernels/masked_wire.py).
+// Per element: the N workers' words folded in uint32 registers (modular
+// addition is order-free, so the pairwise masks cancel to the bit and any
+// order gives the same sum), de-biased by the public sum_k W_k,
+// reinterpreted as signed at the wire width, descaled by scale_mult
+// (coeff is its own rounded product), and Eq. (3) as one fused
+// multiply-add, q - coeff * mult, as XLA:CPU contracts it in the reference.
+// At round <= 1 mult is alpha0 and the history is not read. The pilot's
+// model is read in place from the stacked worker buffers at the device
+// index k_star; an index outside [0, n) yields NaN.
+//
+// Bound: bytes. A handful of integer and float operations per element
+// against (2 N + 16) bytes at 16 bits; one 8- or 16-byte load per worker
+// per thread, and one 16-byte store.
+template <int kWordBits>
+__global__ void __launch_bounds__(kThreads)
+masked_master_update_kernel(const float4* __restrict__ q,
+                            const int64_t* __restrict__ k_star,
+                            const void* __restrict__ masked,
+                            const uint32_t* __restrict__ sum_wq,
+                            const float4* __restrict__ p1,
+                            const float4* __restrict__ p2,
+                            const int32_t* __restrict__ t, float alpha0,
+                            float scale_mult, float4* __restrict__ out, int n,
+                            int64_t m) {
+  const int64_t i = static_cast<int64_t>(blockIdx.x) * kThreads + threadIdx.x;
+  if (i >= m) return;
+  const int64_t pilot = *k_star;
+  if (pilot < 0 || pilot >= n) {
+    const float nan = __int_as_float(0x7fc00000);
+    out[i] = make_float4(nan, nan, nan, nan);
+    return;
+  }
+  uint32_t a0 = 0u, a1 = 0u, a2 = 0u, a3 = 0u;
+  for (int k = 0; k < n; ++k) {
+    const int64_t at = static_cast<int64_t>(k) * m + i;
+    if constexpr (kWordBits == 16) {
+      const ushort4 w = reinterpret_cast<const ushort4*>(masked)[at];
+      a0 += w.x;
+      a1 += w.y;
+      a2 += w.z;
+      a3 += w.w;
+    } else {
+      const uint4 w = reinterpret_cast<const uint4*>(masked)[at];
+      a0 += w.x;
+      a1 += w.y;
+      a2 += w.z;
+      a3 += w.w;
+    }
+  }
+  const uint32_t sw = *sum_wq;
+  const float c0 = __fmul_rn(residue<kWordBits>(a0, sw), scale_mult);
+  const float c1 = __fmul_rn(residue<kWordBits>(a1, sw), scale_mult);
+  const float c2 = __fmul_rn(residue<kWordBits>(a2, sw), scale_mult);
+  const float c3 = __fmul_rn(residue<kWordBits>(a3, sw), scale_mult);
+  float4 mult = make_float4(alpha0, alpha0, alpha0, alpha0);
+  if (*t > 1) mult = sub4(p1[i], p2[i]);
+  const float4 x = q[pilot * m + i];
+  out[i] = make_float4(__fmaf_rn(-c0, mult.x, x.x), __fmaf_rn(-c1, mult.y, x.y),
+                       __fmaf_rn(-c2, mult.z, x.z), __fmaf_rn(-c3, mult.w, x.w));
+}
+
+struct PackArgs {
+  const float4* q;
+  const float4* p1;
+  const float4* p2;
+  const float* beta;
+  const uint32_t* wq;
+  const uint32_t* keys;
+  const int32_t* signs;
+  const uint32_t* rr_keys;
+  const int32_t* t;
+  float alpha1;
+  uint32_t rr_threshold;
+  void* out;
+  int n;
+  int cohort;
+  int64_t m;
+  cudaStream_t stream;
+};
+
+template <int kWordBits, bool kRR, bool kMasks>
+cudaError_t launch_pack(const PackArgs& a) {
+  const size_t staged =
+      kMasks ? 2 * sizeof(uint32_t) * static_cast<size_t>(a.n) * a.cohort : 0;
+  if (staged > 48 * 1024) {
+    const cudaError_t err = cudaFuncSetAttribute(
+        ternary_pack_masked_kernel<kWordBits, kRR, kMasks>,
+        cudaFuncAttributeMaxDynamicSharedMemorySize,
+        static_cast<int>(staged));
+    if (err != cudaSuccess) return err;
+  }
+  ternary_pack_masked_kernel<kWordBits, kRR, kMasks>
+      <<<blocks_for(a.m), kThreads, staged, a.stream>>>(
+      a.q, a.p1, a.p2, a.beta, a.wq, a.keys, a.signs, a.rr_keys, a.t,
+      a.alpha1, a.rr_threshold, a.out, a.n, a.cohort, a.m);
+  return cudaGetLastError();
+}
+
+template <int kWordBits>
+cudaError_t launch_pack_bits(const PackArgs& a, bool rr, bool masks) {
+  if (rr) {
+    return masks ? launch_pack<kWordBits, true, true>(a)
+                 : launch_pack<kWordBits, true, false>(a);
+  }
+  return masks ? launch_pack<kWordBits, false, true>(a)
+               : launch_pack<kWordBits, false, false>(a);
+}
+
+}  // namespace
+
+extern "C" {
+
+// q (n, m) float4, p1/p2 (m,) float4, beta (n,) float, wq (n,) uint32,
+// keys (n, cohort) uint32, signs (n, cohort) int32, rr_keys (n,) uint32,
+// t int32 scalar, out (n, m) ushort4 (word_bits 16) or uint4 (32).
+int mw_ternary_pack_masked(const void* q, const void* p1, const void* p2,
+                           const void* beta, const void* wq, const void* keys,
+                           const void* signs, const void* rr_keys,
+                           const void* t, float alpha1,
+                           unsigned rr_threshold, int word_bits,
+                           int use_masks, void* out, int n, int cohort,
+                           long long m, int device, void* stream) {
+  const cudaError_t set = cudaSetDevice(device);
+  if (set != cudaSuccess) return static_cast<int>(set);
+  const PackArgs a{static_cast<const float4*>(q),
+                   static_cast<const float4*>(p1),
+                   static_cast<const float4*>(p2),
+                   static_cast<const float*>(beta),
+                   static_cast<const uint32_t*>(wq),
+                   static_cast<const uint32_t*>(keys),
+                   static_cast<const int32_t*>(signs),
+                   static_cast<const uint32_t*>(rr_keys),
+                   static_cast<const int32_t*>(t),
+                   alpha1,
+                   rr_threshold,
+                   out,
+                   n,
+                   cohort,
+                   m,
+                   static_cast<cudaStream_t>(stream)};
+  const bool rr = rr_threshold > 0;
+  const bool masks = use_masks != 0;
+  cudaError_t err;
+  if (word_bits == 16) {
+    err = launch_pack_bits<16>(a, rr, masks);
+  } else if (word_bits == 32) {
+    err = launch_pack_bits<32>(a, rr, masks);
+  } else {
+    err = cudaErrorInvalidValue;
+  }
+  return static_cast<int>(err);
+}
+
+// q (n, m) float4, k_star int64 scalar, masked (n, m) ushort4 / uint4,
+// sum_wq uint32 scalar, p1/p2/out (m,) float4, t int32 scalar.
+int mw_masked_master_update(const void* q, const void* k_star,
+                            const void* masked, const void* sum_wq,
+                            const void* p1, const void* p2, const void* t,
+                            float alpha0, float scale_mult, int word_bits,
+                            void* out, int n, long long m, int device,
+                            void* stream) {
+  const cudaError_t set = cudaSetDevice(device);
+  if (set != cudaSuccess) return static_cast<int>(set);
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const auto* qq = static_cast<const float4*>(q);
+  const auto* kk = static_cast<const int64_t*>(k_star);
+  const auto* sw = static_cast<const uint32_t*>(sum_wq);
+  const auto* a = static_cast<const float4*>(p1);
+  const auto* b = static_cast<const float4*>(p2);
+  const auto* tt = static_cast<const int32_t*>(t);
+  auto* o = static_cast<float4*>(out);
+  if (word_bits == 16) {
+    masked_master_update_kernel<16><<<blocks_for(m), kThreads, 0, s>>>(
+        qq, kk, masked, sw, a, b, tt, alpha0, scale_mult, o, n, m);
+  } else if (word_bits == 32) {
+    masked_master_update_kernel<32><<<blocks_for(m), kThreads, 0, s>>>(
+        qq, kk, masked, sw, a, b, tt, alpha0, scale_mult, o, n, m);
+  } else {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  return static_cast<int>(cudaGetLastError());
+}
+
+const char* mw_error_string(int code) {
+  return cudaGetErrorString(static_cast<cudaError_t>(code));
+}
+
+}  // extern "C"

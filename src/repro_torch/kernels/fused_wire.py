@@ -59,10 +59,11 @@ def _lib() -> ctypes.CDLL:
     return _bound
 
 
-def _check(name: str, x: torch.Tensor, dtype: torch.dtype, shape: tuple,
-           device: torch.device, *, float4: bool = False) -> None:
-    """Raise unless ``x`` is what the kernels take; ``float4`` operands
-    must also start on a 16-byte boundary on the card."""
+def check_operand(name: str, x: torch.Tensor, dtype: torch.dtype,
+                  shape: tuple, device: torch.device, *, align: int = 1
+                  ) -> None:
+    """Raise unless ``x`` is what the kernels take; an operand read in
+    ``align``-byte vectors must also start on such a boundary on the card."""
     if not isinstance(x, torch.Tensor):
         raise TypeError(f"{name} must be a tensor, got {type(x).__name__}")
     if x.dtype != dtype or tuple(x.shape) != shape:
@@ -72,8 +73,9 @@ def _check(name: str, x: torch.Tensor, dtype: torch.dtype, shape: tuple,
         raise ValueError(f"{name} is on {x.device}, expected {device}")
     if not x.is_contiguous():
         raise ValueError(f"{name} must be contiguous")
-    if float4 and device.type == "cuda" and x.data_ptr() % 16:
-        raise ValueError(f"{name} must be 16-byte aligned for float4 loads")
+    if device.type == "cuda" and x.data_ptr() % align:
+        raise ValueError(f"{name} must be {align}-byte aligned for vector "
+                         f"loads")
 
 
 def _launch(kind: str, fn, *args) -> None:
@@ -84,7 +86,7 @@ def _launch(kind: str, fn, *args) -> None:
     LAUNCHES[kind] += 1
 
 
-def _device_of(x: torch.Tensor) -> torch.device:
+def device_of(x: torch.Tensor) -> torch.device:
     if x.device.type not in ("cuda", "cpu"):
         raise ValueError(f"no wire kernel for device {x.device}")
     return x.device
@@ -111,13 +113,13 @@ def ternary_pack_stacked(q: torch.Tensor, p1: torch.Tensor, p2: torch.Tensor,
     p1 = P^0, Eq. (5) after); beta (N,) float32 per-worker beta_k; alpha1
     the Eq. (4) threshold. Returns (N, R, 128) uint8.
     """
-    dev = _device_of(q)
+    dev = device_of(q)
     n, r = q.shape[0], q.shape[1]
-    _check("q", q, torch.float32, (n, r, WIDE), dev, float4=True)
-    _check("p1", p1, torch.float32, (r, WIDE), dev, float4=True)
-    _check("p2", p2, torch.float32, (r, WIDE), dev, float4=True)
-    _check("t", t, torch.int32, (), dev)
-    _check("beta", beta, torch.float32, (n,), dev)
+    check_operand("q", q, torch.float32, (n, r, WIDE), dev, align=16)
+    check_operand("p1", p1, torch.float32, (r, WIDE), dev, align=16)
+    check_operand("p2", p2, torch.float32, (r, WIDE), dev, align=16)
+    check_operand("t", t, torch.int32, (), dev)
+    check_operand("beta", beta, torch.float32, (n,), dev)
     if n < 1:
         raise ValueError("need at least one worker")
     if dev.type == "cpu":
@@ -155,15 +157,15 @@ def packed_master_update(q: torch.Tensor, k_star: torch.Tensor,
     P^{t-1} − P^{t-2} after). Workers fold strictly in order k = 0..N−1.
     Returns (R, 512) float32.
     """
-    dev = _device_of(q)
+    dev = device_of(q)
     n, r = q.shape[0], q.shape[1]
-    _check("q", q, torch.float32, (n, r, WIDE), dev, float4=True)
-    _check("k_star", k_star, torch.int64, (), dev)
-    _check("packed", packed, torch.uint8, (n, r, LANES), dev)
-    _check("w", w, torch.float32, (n,), dev)
-    _check("p1", p1, torch.float32, (r, WIDE), dev, float4=True)
-    _check("p2", p2, torch.float32, (r, WIDE), dev, float4=True)
-    _check("t", t, torch.int32, (), dev)
+    check_operand("q", q, torch.float32, (n, r, WIDE), dev, align=16)
+    check_operand("k_star", k_star, torch.int64, (), dev)
+    check_operand("packed", packed, torch.uint8, (n, r, LANES), dev)
+    check_operand("w", w, torch.float32, (n,), dev)
+    check_operand("p1", p1, torch.float32, (r, WIDE), dev, align=16)
+    check_operand("p2", p2, torch.float32, (r, WIDE), dev, align=16)
+    check_operand("t", t, torch.int32, (), dev)
     if dev.type == "cpu":
         return packed_master_update_plain(q, k_star, packed, w, p1, p2, t,
                                           alpha0)

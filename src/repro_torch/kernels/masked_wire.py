@@ -1,0 +1,215 @@
+"""The two kernels of the masked FedPC round — the masked uplink and the
+sum-then-unmask master — hand-written in CUDA C++ (``csrc/masked_wire.cu``).
+
+They take the same ``(R, 512)`` float views as ``kernels.fused_wire`` and
+``(N, R, 512)`` wire words, ``uint16`` at the 16-bit modulus and
+``uint32`` at 32. The uplink regenerates the pairwise mask and RR streams
+in registers from the ``(N, L)`` key/sign matrices and the ``(N,)`` RR
+keys, so no code, field, RR or mask tensor ever reaches device memory;
+what it writes is already masked.
+
+Each wrapper checks device, dtype, shape, contiguity and alignment and
+raises on what its kernel does not take. A CUDA tensor launches the
+kernel on the current stream and bumps ``LAUNCHES``; a CPU tensor takes
+the plain PyTorch version beside it (``privacy.ref`` arithmetic over
+streams expanded by ``privacy.masking``/``privacy.dp``). Nothing falls
+back: a kernel that fails to build or launch raises.
+"""
+from __future__ import annotations
+
+import ctypes
+
+import torch
+
+from repro_torch.kernels import build
+from repro_torch.kernels.fused_wire import WIDE, check_operand, device_of
+from repro_torch.privacy import ref as pref
+from repro_torch.privacy.dp import rr_bits64
+from repro_torch.privacy.masking import (M32, as_u64, halves16_64,
+                                         index_hash64, mix32_64, to_words,
+                                         word_bits_of)
+
+#: Kernel launches per wrapper; only a launch on the card counts.
+LAUNCHES = {"uplink_masked": 0, "master_masked": 0}
+
+#: Bytes of shared memory a block may stage the (N, L) keys and signs in.
+MAX_STAGED_BYTES = 227 * 1024
+
+_WORD_DTYPES = {16: torch.uint16, 32: torch.uint32}
+_P = ctypes.c_void_p
+_bound: ctypes.CDLL | None = None
+
+
+def _lib() -> ctypes.CDLL:
+    """The built library with every function's C signature declared."""
+    global _bound
+    if _bound is None:
+        lib = build.load("masked_wire")
+        lib.mw_ternary_pack_masked.argtypes = [
+            _P, _P, _P, _P, _P, _P, _P, _P, _P, ctypes.c_float,
+            ctypes.c_uint, ctypes.c_int, ctypes.c_int, _P, ctypes.c_int,
+            ctypes.c_int, ctypes.c_longlong, ctypes.c_int, _P]
+        lib.mw_ternary_pack_masked.restype = ctypes.c_int
+        lib.mw_masked_master_update.argtypes = [
+            _P, _P, _P, _P, _P, _P, _P, ctypes.c_float, ctypes.c_float,
+            ctypes.c_int, _P, ctypes.c_int, ctypes.c_longlong, ctypes.c_int,
+            _P]
+        lib.mw_masked_master_update.restype = ctypes.c_int
+        lib.mw_error_string.argtypes = [ctypes.c_int]
+        lib.mw_error_string.restype = ctypes.c_char_p
+        _bound = lib
+    return _bound
+
+
+def _launch(kind: str, fn, *args) -> None:
+    err = fn(*args)
+    if err != 0:
+        raise RuntimeError(f"{kind} kernel launch failed: "
+                           f"{_lib().mw_error_string(err).decode()}")
+    LAUNCHES[kind] += 1
+
+
+# -- masked uplink -----------------------------------------------------------
+
+def _net_words64(keys: torch.Tensor, signs: torch.Tensor, size: int,
+                 word_bits: int) -> torch.Tensor:
+    """(N, size) int64 net masks ``Σ_l signs[k, l]·stream(keys[k, l])``
+    (before the modulus), row by row of the key matrix as the kernel
+    folds them."""
+    n, cohort = keys.shape
+    keys64 = as_u64(keys)
+    signs64 = signs.to(torch.int64)
+    h = index_hash64(size if word_bits == 32 else 2 * ((size + 1) // 2),
+                     word_bits, device=keys.device)
+    acc = torch.zeros((n, size), dtype=torch.int64, device=keys.device)
+    for lane in range(cohort):
+        u = mix32_64((h[None, :] + keys64[:, lane, None]) & M32)
+        if word_bits == 16:
+            u = halves16_64(u)
+        acc += signs64[:, lane, None] * u[:, :size]
+    return acc
+
+
+def ternary_pack_masked_plain(q, p1, p2, t, beta, alpha1: float, wq, keys,
+                              signs, rr_keys, *, rr_threshold: int = 0,
+                              word_bits: int = 32, use_masks: bool = True
+                              ) -> torch.Tensor:
+    """Plain twin of :func:`ternary_pack_masked`; any device."""
+    n, r, _ = q.shape
+    size = r * WIDE
+    if use_masks:
+        masks = to_words(_net_words64(keys, signs, size, word_bits),
+                         word_bits)
+    else:
+        masks = torch.zeros((n, size), dtype=_WORD_DTYPES[word_bits],
+                            device=q.device)
+    bits = (rr_bits64(rr_keys, size).view(n, r, WIDE)
+            if rr_threshold else None)
+    return pref.masked_codes_ref(q, p1, p2, t, beta, alpha1, wq,
+                                 masks.view(n, r, WIDE), bits, rr_threshold)
+
+
+def ternary_pack_masked(q: torch.Tensor, p1: torch.Tensor, p2: torch.Tensor,
+                        t: torch.Tensor, beta: torch.Tensor, alpha1: float,
+                        wq: torch.Tensor, keys: torch.Tensor,
+                        signs: torch.Tensor, rr_keys: torch.Tensor, *,
+                        rr_threshold: int = 0, word_bits: int = 32,
+                        use_masks: bool = True) -> torch.Tensor:
+    """All N workers' masked wire words in one launch.
+
+    q (N, R, 512) float32, every worker's view; p1/p2 (R, 512) float32;
+    t 0-d int32, the 1-based round (p2 is not read at t <= 1); beta (N,)
+    float32; wq (N,) uint32 fixed-point Eq. (3) weights; keys (N, L)
+    uint32 pair stream keys and signs (N, L) int32 the participation-folded
+    signs (row k is worker k's; L is the cohort); rr_keys (N,) uint32;
+    ``rr_threshold`` the uint16 flip threshold (0 = RR off); ``word_bits``
+    16 or 32; ``use_masks=False`` adds no mask (the unmasked debug wire).
+    Returns (N, R, 512) uint16 or uint32.
+    """
+    dev = device_of(q)
+    n, r = q.shape[0], q.shape[1]
+    cohort = keys.shape[1] if keys.dim() == 2 else -1
+    if word_bits not in _WORD_DTYPES:
+        raise ValueError(f"word_bits must be 16 or 32, got {word_bits}")
+    if not 0 <= int(rr_threshold) < 1 << 16:
+        raise ValueError(f"rr_threshold must be in [0, 2**16), got "
+                         f"{rr_threshold}")
+    check_operand("q", q, torch.float32, (n, r, WIDE), dev, align=16)
+    check_operand("p1", p1, torch.float32, (r, WIDE), dev, align=16)
+    check_operand("p2", p2, torch.float32, (r, WIDE), dev, align=16)
+    check_operand("t", t, torch.int32, (), dev)
+    check_operand("beta", beta, torch.float32, (n,), dev)
+    check_operand("wq", wq, torch.uint32, (n,), dev)
+    check_operand("keys", keys, torch.uint32, (n, cohort), dev)
+    check_operand("signs", signs, torch.int32, (n, cohort), dev)
+    check_operand("rr_keys", rr_keys, torch.uint32, (n,), dev)
+    if n < 1 or cohort < 1:
+        raise ValueError("need at least one worker and one key per row")
+    if r * WIDE > 1 << 32:
+        raise ValueError("flat element indices must fit in 32 bits")
+    if 8 * n * cohort > MAX_STAGED_BYTES:
+        raise ValueError(f"a ({n}, {cohort}) key matrix does not fit in "
+                         f"one block's shared memory")
+    if dev.type == "cpu":
+        return ternary_pack_masked_plain(
+            q, p1, p2, t, beta, alpha1, wq, keys, signs, rr_keys,
+            rr_threshold=rr_threshold, word_bits=word_bits,
+            use_masks=use_masks)
+    out = torch.empty((n, r, WIDE), dtype=_WORD_DTYPES[word_bits],
+                      device=dev)
+    _launch("uplink_masked", _lib().mw_ternary_pack_masked,
+            q.data_ptr(), p1.data_ptr(), p2.data_ptr(), beta.data_ptr(),
+            wq.data_ptr(), keys.data_ptr(), signs.data_ptr(),
+            rr_keys.data_ptr(), t.data_ptr(), float(alpha1),
+            int(rr_threshold), word_bits, int(bool(use_masks)),
+            out.data_ptr(), n, cohort, r * WIDE // 4, dev.index,
+            torch.cuda.current_stream(dev).cuda_stream)
+    return out
+
+
+# -- sum-then-unmask master ---------------------------------------------------
+
+def masked_master_update_plain(q, k_star, masked, sum_wq, p1, p2, t,
+                               alpha0: float, scale_mult: float
+                               ) -> torch.Tensor:
+    """Plain twin of :func:`masked_master_update`; any device."""
+    q_pilot = q.index_select(0, k_star.reshape(1))[0]
+    return pref.masked_master_ref(q_pilot, masked, sum_wq, p1, p2, t,
+                                  alpha0, scale_mult)
+
+
+def masked_master_update(q: torch.Tensor, k_star: torch.Tensor,
+                         masked: torch.Tensor, sum_wq: torch.Tensor,
+                         p1: torch.Tensor, p2: torch.Tensor, t: torch.Tensor,
+                         alpha0: float, scale_mult: float) -> torch.Tensor:
+    """Eq. (3) over the modular sum of every worker's masked words.
+
+    q (N, R, 512) float32, of which the pilot's view is read in place at
+    k_star, a 0-d int64 device index in [0, N) (the kernel writes NaN for
+    one outside it); masked (N, R, 512) uint16/uint32 (the dtype picks the
+    modulus); sum_wq 0-d uint32, the public Σ_k W_k; p1/p2 (R, 512)
+    float32; t 0-d int32; ``scale_mult`` the fixed-point descale with the
+    RR unbias folded in. Returns (R, 512) float32.
+    """
+    dev = device_of(q)
+    n, r = q.shape[0], q.shape[1]
+    bits = word_bits_of(masked)
+    check_operand("q", q, torch.float32, (n, r, WIDE), dev, align=16)
+    check_operand("k_star", k_star, torch.int64, (), dev)
+    check_operand("masked", masked, masked.dtype, (n, r, WIDE), dev,
+                  align=bits // 2)
+    check_operand("sum_wq", sum_wq, torch.uint32, (), dev)
+    check_operand("p1", p1, torch.float32, (r, WIDE), dev, align=16)
+    check_operand("p2", p2, torch.float32, (r, WIDE), dev, align=16)
+    check_operand("t", t, torch.int32, (), dev)
+    if dev.type == "cpu":
+        return masked_master_update_plain(q, k_star, masked, sum_wq, p1, p2,
+                                          t, alpha0, scale_mult)
+    out = torch.empty((r, WIDE), dtype=torch.float32, device=dev)
+    _launch("master_masked", _lib().mw_masked_master_update,
+            q.data_ptr(), k_star.data_ptr(), masked.data_ptr(),
+            sum_wq.data_ptr(), p1.data_ptr(), p2.data_ptr(), t.data_ptr(),
+            float(alpha0), float(scale_mult), bits, out.data_ptr(), n,
+            r * WIDE // 4, dev.index,
+            torch.cuda.current_stream(dev).cuda_stream)
+    return out

@@ -1,15 +1,18 @@
 """Wrappers of the wire kernels over the flat ``(rows, 128)`` buffers.
 
 They make the kernel views (``(rows, 128)`` ↔ ``(rows // 4, 512)`` float,
-``(rows // 4, 128)`` uint8), put the round index and the per-worker
-thresholds on the buffers' device without a host copy, and call
-``kernels.fused_wire``. The kernels pick a fixed launch shape.
+``(rows // 4, 128)`` uint8, ``(rows // 4, 512)`` masked words), put the
+round index and the per-worker thresholds on the buffers' device without
+a host copy, and call ``kernels.fused_wire`` or ``kernels.masked_wire``.
+The kernels pick a fixed launch shape.
 """
 from __future__ import annotations
 
 import torch
 
 from repro_torch.kernels import fused_wire as fw
+from repro_torch.kernels import masked_wire as mw
+from repro_torch.privacy.masking import as_u64, to_words
 
 LANES = fw.LANES
 PACK = fw.PACK
@@ -77,4 +80,67 @@ def flat_master_update(bufs_q: torch.Tensor, k_star,
         bufs_q.reshape(n, r4, fw.WIDE), pilot_index(k_star, dev),
         packed_stacked, w.to(torch.float32), buf_p1.reshape(r4, fw.WIDE),
         buf_p2.reshape(r4, fw.WIDE), round_index(t, dev), alpha0)
+    return out.reshape(rows, LANES)
+
+
+def flat_ternary_pack_masked(bufs_q: torch.Tensor, buf_p1: torch.Tensor,
+                             buf_p2: torch.Tensor, *, t, beta, alpha1: float,
+                             wq: torch.Tensor, pair_keys: torch.Tensor,
+                             pair_signs: torch.Tensor, rr_keys: torch.Tensor,
+                             rr_threshold: int = 0, word_bits: int = 32,
+                             use_masks: bool = True) -> torch.Tensor:
+    """Masked (secure-agg) uplink: (N, rows, 128) worker buffers →
+    (N, rows//4, 512) wire words (uint16 at ``word_bits=16``, else
+    uint32) in one launch.
+
+    ``wq`` (N,) uint32 fixed-point Eq. (3) weights; ``pair_keys`` (N, L)
+    uint32 and ``pair_signs`` (N, L) int32 the pair stream keys and
+    participation-folded signs (``privacy.masking.pair_stream_keys`` /
+    ``pair_signs``); ``rr_keys`` (N,) uint32 RR keys; ``rr_threshold`` the
+    uint16 flip threshold (0 = DP off); ``use_masks=False`` adds no mask.
+    ``t`` may be a device tensor; ``beta`` a shared scalar or an (N,)
+    vector.
+    """
+    n, rows, _ = bufs_q.shape
+    r4 = rows // PACK
+    dev = bufs_q.device
+    return mw.ternary_pack_masked(
+        bufs_q.reshape(n, r4, fw.WIDE), buf_p1.reshape(r4, fw.WIDE),
+        buf_p2.reshape(r4, fw.WIDE), round_index(t, dev),
+        per_worker(beta, n, dev), alpha1, wq.contiguous(),
+        pair_keys.contiguous(), pair_signs.contiguous(),
+        rr_keys.contiguous(), rr_threshold=rr_threshold,
+        word_bits=word_bits, use_masks=use_masks)
+
+
+def word_scalar(x, device: torch.device) -> torch.Tensor:
+    """An int, or an integer tensor already on ``device``, as a 0-d
+    uint32 tensor there (its value mod 2**32), with no host copy."""
+    if isinstance(x, torch.Tensor):
+        if x.device != device:
+            raise ValueError(f"scalar is on {x.device}, buffers on {device}")
+        return to_words(as_u64(x), 32).reshape(())
+    return to_words(torch.full((), as_u64(x), dtype=torch.int64,
+                               device=device), 32)
+
+
+def flat_masked_master_update(bufs_q: torch.Tensor, k_star,
+                              masked: torch.Tensor, sum_wq,
+                              buf_p1: torch.Tensor, buf_p2: torch.Tensor, *,
+                              t, alpha0: float, scale_mult: float
+                              ) -> torch.Tensor:
+    """Sum-then-unmask Eq. (3) over the masked wire words: bufs_q
+    (N, rows, 128) float32, whose pilot row ``k_star`` the kernel reads in
+    place; masked (N, rows//4, 512) uint16/uint32; ``sum_wq`` the public
+    Σ_k W_k (a device tensor or an int); ``scale_mult`` the fixed-point
+    descale with the RR unbias folded in. Returns the new global
+    (rows, 128) buffer."""
+    n, rows, _ = bufs_q.shape
+    r4 = rows // PACK
+    dev = bufs_q.device
+    out = mw.masked_master_update(
+        bufs_q.reshape(n, r4, fw.WIDE), pilot_index(k_star, dev), masked,
+        word_scalar(sum_wq, dev), buf_p1.reshape(r4, fw.WIDE),
+        buf_p2.reshape(r4, fw.WIDE), round_index(t, dev), alpha0,
+        scale_mult)
     return out.reshape(rows, LANES)

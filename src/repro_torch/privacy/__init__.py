@@ -1,0 +1,27 @@
+"""repro_torch.privacy — the privacy-preserving wire.
+
+Pairwise-masked secure aggregation (the master sees only the modular sum
+of the workers' fixed-point-weighted ternary fields, mod 2**16 by default
+or 2**32), local-DP 3-ary randomized response on the codes with exact
+unbiasing, and an (eps, delta) accountant carried in the round state. The
+mask and RR streams are counter-based (``masking.mix32`` chains): the CUDA
+uplink regenerates them in registers from tiny key matrices, and the
+expansions here are the reference.
+
+Not ported yet: the traced-program audit (``privacy/audit.py``), dropout
+recovery (``privacy/recovery.py``), and the per-worker ``_row``, slab and
+tree variants of the mask functions.
+"""
+from repro_torch.privacy.accountant import PrivacyAccountant
+from repro_torch.privacy.dp import (rr_bits, rr_fields, rr_stream_key,
+                                    rr_stream_keys)
+from repro_torch.privacy.masking import (mix32, net_masks, pair_incidence,
+                                         pair_signs, pair_stream_keys,
+                                         quantize_weights, stream_key)
+from repro_torch.privacy.spec import PrivacySpec
+
+__all__ = [
+    "PrivacyAccountant", "PrivacySpec", "mix32", "net_masks",
+    "pair_incidence", "pair_signs", "pair_stream_keys", "quantize_weights",
+    "rr_bits", "rr_fields", "rr_stream_key", "rr_stream_keys", "stream_key",
+]

@@ -22,6 +22,8 @@ def test_no_module_imports_jax_or_the_jax_package():
                                                    "repro_torch.")]
     assert "repro_torch.fed.simulator" in names
     assert "repro_torch.kernels.fused_wire" in names
+    assert "repro_torch.kernels.masked_wire" in names
+    assert "repro_torch.privacy.masking" in names
     script = (
         "import importlib, sys\n"
         f"for name in {names!r}:\n"
