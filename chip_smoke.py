@@ -7,43 +7,64 @@ Phases, each printing a line; any failure exits non-zero and prints no
 result:
 
 1. card   — requires CUDA; prints ``nvidia-smi``'s name and power limit.
-2. build  — builds the kernels of both paths from ``src/repro_torch/
-   kernels/csrc/{fused_wire,masked_wire}.cu``, one ``nvcc`` each, started
+2. build  — builds every kernel from ``src/repro_torch/kernels/csrc/
+   {fused_wire,masked_wire,partial_sum}.cu``, one ``nvcc`` each, started
    together; prints each kernel's registers and spills.
-3. check  — each plain-round kernel against its plain PyTorch version on
-   the card, bitwise, at both round branches, at the main-path shape
-   (N = 10 workers, R = rows/4 = 41,016) and at odd shapes (N ∈ {1, 3},
-   R = 8); then each masked-round kernel the same way, at 16 and 32 bits,
-   RR off and on, masks off and on, t ∈ {1, 2}, at the main-path shape and
-   at N ∈ {1, 2, 3, 33}, R = 8, with and without a participation-folded
-   sign matrix.
+3. check  — each kernel against its plain PyTorch version on the card,
+   bitwise. The plain round's at both round branches, at the main-path
+   shape (N = 10 workers, R = rows/4 = 41,016) and at N ∈ {1, 3}, R = 8.
+   The masked round's at 16 and 32 bits, RR off and on, masks off and on,
+   t ∈ {1, 2}, at the main-path shape and at N ∈ {1, 2, 3, 33}, R = 8,
+   with and without a participation-folded sign matrix. The tree's:
+   ``partial_sum`` at 16/32 bits, fanout ∈ {2, 4, 8}, C ∈ {5, 7, 10}
+   (ragged groups) and at the main-path shape (C = 10, fanout 4);
+   ``masked_partial_sum`` at 16/32 bits, G ∈ {1, 2, 3, 5}, sibling below
+   and equal to G, masks off and on, with a participation fold, and a
+   fully dropped subtree whose partial must be exactly zero;
+   ``mask_repair`` at 16/32 bits, P ∈ {1, 3, 9, 45} and the main path's
+   13, all-zero coefficients the identity; the masked master over C = 3
+   word rows beside a 10-row pilot stack.
 4. slice  — ``FedSimulator.run_fedpc``: 3 rounds, 10 workers, the MLP
    3072→4096→2048→10 (20,998,154 params, CIFAR-10 input width) on
-   synthetic data, ~1,024 samples per worker. Every launch counter is set
-   to 0 just before and read just after: each plain kernel must read 3
-   (one uplink and one master launch per round), each masked one 0;
-   ``round_step`` runs under ``torch.cuda.set_sync_debug_mode("error")``;
-   costs must be finite and bytes per round equal Eq. (8). A
-   quickstart-size federation then runs on the card and on the CPU (plain
-   versions) and must pick the same pilots.
-5. masked slice — the same federation at the same width with
+   synthetic data, ~1,024 samples per worker. Before each slice every
+   launch counter is set to 0, and it is read just after: each kernel of
+   the slice's path must read its launches (3 rounds of one uplink and
+   one master launch here), every other kernel 0; ``round_step`` runs
+   under ``torch.cuda.set_sync_debug_mode("error")``; costs must be
+   finite and bytes per round equal Eq. (8). A quickstart-size federation
+   then runs on the card and on the CPU (plain versions) and must pick
+   the same pilots.
+5. masked slice — the same federation with
    ``FedPCConfig(privacy=PrivacySpec(dp_epsilon=2.0, enforce=False))``:
-   16-bit words, pairwise masks and randomized response on. Each masked
-   kernel must read 3 launches and each plain one 0; no host sync in
-   ``round_step``; masked Eq. (8) bytes; 3 rounds on the accountant;
-   finite costs and model; the quickstart federation again on card and
-   CPU. Then, at full width, the masked and unmasked (``mask_seed=None``)
-   rounds must give different words and the same new global buffer, and
-   one masked uplink may raise the peak of device memory by no more than
-   its output and 1 MiB (no code or mask tensor is ever stored).
-6. times  — each kernel and its plain version with CUDA events at the
+   16-bit words, pairwise masks and randomized response on; masked
+   Eq. (8) bytes; 3 rounds on the accountant. Then, at full width, the
+   masked and unmasked (``mask_seed=None``) rounds must give different
+   words and the same new global buffer, and one masked uplink may raise
+   the peak of device memory by no more than its output and 1 MiB.
+6. tree slice — the plain federation through ``TreeSpec(fanout=2)``
+   (widths 10, 5, 3, 2): uplink 3, ``partial_sum`` 3,
+   ``masked_partial_sum`` 6, masked master 3 launches; tree Eq. (8)
+   bytes.
+7. masked tree slice — the masked federation through ``TreeSpec(
+   fanout=4)`` with ``recovery_threshold=2`` under ``FaultPlan(seed=0,
+   drop_before_uplink=0.05, drop_after_uplink=0.15, straggler=0.05)``:
+   one masked uplink, ``masked_partial_sum``, ``mask_repair`` and masked
+   master launch a round; bytes and recovery bytes by the JAX simulator's
+   rules from the schedule; at least one repaired post-uplink death; the
+   ledger's ``seed_shares``/``mask_recovery`` events. Then, at full
+   width, bitwise: the plain tree at fanout 2 == one group (fanout 16),
+   the masked tree == the flat masked round, and each repaired round ==
+   the survivors-only round.
+8. times  — each kernel and its plain version with CUDA events at the
    main-path shape (median of 25), beside its bound: device-memory bytes,
-   or integer operations for the masked uplink; the plain uplink also at
-   round 1 (no P^{t-2} read), the masked kernels at 16 and 32 bits, and
-   each round's whole wire (``WirePath.round_from_stacked``) beside the
-   sum of its two kernels; the masked uplink also without RR, without
-   masks and without either, to show where its time goes.
-7. bounds — the least time of each TPU kernel not ported yet at the
+   or integer operations for the stream-generating kernels; the plain
+   uplink also at round 1, the masked kernels at 16 and 32 bits, the
+   masked uplink without RR, without masks and without either, the
+   master over the tree root's C = 3 rows, the masks-off partial sums and
+   a ``torch.sum`` of sibling groups beside one; each round's whole wire
+   (``WirePath.round_from_stacked``, the tree rounds' too) beside the sum
+   of its kernels.
+9. bounds — the least time of each TPU kernel not ported yet at the
    main-path shape, by arithmetic from the shapes alone.
 
 The line before the last is one JSON object with every kernel's numbers;
@@ -115,7 +136,7 @@ def _kernel_label(mangled: str) -> str:
 def phase_build() -> None:
     """Build every kernel library at once: one nvcc per source."""
     from repro_torch.kernels import build
-    names = ("fused_wire", "masked_wire")
+    names = ("fused_wire", "masked_wire", "partial_sum")
 
     def timed(name):
         t0 = time.perf_counter()
@@ -268,6 +289,184 @@ def phase_check_masked(torch, dev) -> dict:
     return errs
 
 
+def _rand_words(torch, shape, bits: int, gen, dev):
+    """Random wire words of ``bits`` bits on ``dev``."""
+    from repro_torch.privacy import masking as pvm
+    x = torch.randint(0, 1 << 16, shape, generator=gen, device=dev)
+    if bits == 32:
+        x = x | (torch.randint(0, 1 << 16, shape, generator=gen,
+                               device=dev) << 16)
+    return pvm.to_words(x, bits)
+
+
+def _same_words(a, b) -> tuple[bool, float]:
+    """(bitwise equal, largest absolute difference of the word values)."""
+    from repro_torch.privacy import masking as pvm
+    diff = float((pvm.as_u64(a) - pvm.as_u64(b)).abs().max())
+    return a.dtype == b.dtype and a.shape == b.shape and diff == 0, diff
+
+
+def phase_check_tree(torch, dev) -> dict:
+    """The tree's and the repair's kernels, and the masked master over C
+    word rows beside an N-row pilot stack, against their plain versions,
+    bitwise. Returns the largest absolute difference per kernel at the
+    main-path shapes: N_WORKERS rows of R = ROWS // 4 at the leaves, and
+    the narrower levels and roots of both tree slices."""
+    from repro_torch.fed import rounds as rd
+    from repro_torch.kernels import masked_wire as mw
+    from repro_torch.kernels import partial_sum as ps
+    from repro_torch.privacy import masking as pvm
+    from repro_torch.privacy.spec import PrivacySpec
+    gen = torch.Generator(device=dev).manual_seed(SEED + 4)
+    r_main = ROWS // 4
+    errs = {"partial_sum": 0.0, "masked_partial_sum": 0.0,
+            "masked_partial_sum_off": 0.0, "mask_repair": 0.0,
+            "master_masked_tree": 0.0}
+    cases = dict.fromkeys(errs, 0)
+
+    def record(kind, ok, diff, where, r):
+        check(ok, f"{kind} differs from plain at {where}")
+        if r == r_main:
+            errs[kind] = max(errs[kind], diff)
+        cases[kind] += 1
+
+    # #9: 16/32 bits, fanout 2/4/8, C 5/7/10 (ragged groups included), and
+    # the plain tree slice's level 1 (C = 10, fanout 2) at full R.
+    grid = [(c, f, 8) for f in (2, 4, 8) for c in (5, 7, 10)]
+    for bits in (16, 32):
+        for c, fanout, r in grid + [(N_WORKERS, 4, r_main),
+                                    (N_WORKERS, TREE_FANOUT, r_main)]:
+            packed = torch.randint(0, 256, (c, r, 128), generator=gen,
+                                   device=dev, dtype=torch.uint8)
+            wq = pvm.to_words(torch.randint(
+                0, 1 << (14 if bits == 16 else 24), (c,), generator=gen,
+                device=dev), 32)
+            out = ps.partial_sum(packed, wq, fanout=fanout, word_bits=bits)
+            plain = ps.partial_sum_plain(packed, wq, fanout=fanout,
+                                         word_bits=bits)
+            torch.cuda.synchronize()
+            record("partial_sum", *_same_words(out, plain),
+                   f"bits={bits} C={c} fanout={fanout} R={r}", r)
+            del packed, out, plain
+    # #10: G in {1, 2, 3, 5}, sibling below and equal to G, masks on and
+    # off, with and without a participation-folded sign matrix.
+    grid = [(4, 4, 1, 8), (4, 2, 2, 8), (9, 3, 3, 8), (10, 2, 2, 8),
+            (10, 2, 5, 8), (7, 4, 2, 8), (N_WORKERS, 4, 3, r_main)]
+    t = torch.tensor(3, dtype=torch.int32, device=dev)
+    for bits in (16, 32):
+        for c, fanout, sib, r in grid:
+            g = -(-c // fanout)
+            words = _rand_words(torch, (c, r, 512), bits, gen, dev)
+            keys = pvm.pair_stream_keys(pvm.tree_level_seed(0, 1), g, t)
+            act = (torch.arange(g, device=dev) % 3 != 1).float()
+            for part in (None, act):
+                signs = pvm.tree_pair_signs(g, sib, participation=part,
+                                            device=dev)
+                for use_masks in (True, False):
+                    kw = dict(fanout=fanout, sibling=sib,
+                              use_masks=use_masks)
+                    out = ps.masked_partial_sum(words, keys, signs, **kw)
+                    plain = ps.masked_partial_sum_plain(words, keys, signs,
+                                                        **kw)
+                    torch.cuda.synchronize()
+                    record("masked_partial_sum", *_same_words(out, plain),
+                           f"bits={bits} C={c} fanout={fanout} sibling="
+                           f"{sib} R={r} part={part is not None} "
+                           f"masks={use_masks}", r)
+                    del out, plain
+            del words
+        # A fully dropped subtree: leaves 4..7 sent zero words and their
+        # level-1 nodes are inactive, so those partials are exactly zero.
+        words = _rand_words(torch, (8, 8, 512), bits, gen, dev)
+        words.view(torch.int16 if bits == 16 else torch.int32)[4:] = 0
+        act = torch.tensor([1.0, 1.0, 0.0, 0.0], device=dev)
+        keys = pvm.pair_stream_keys(pvm.tree_level_seed(0, 1), 4, t)
+        signs = pvm.tree_pair_signs(4, 2, participation=act, device=dev)
+        out = ps.masked_partial_sum(words, keys, signs, fanout=2, sibling=2)
+        plain = ps.masked_partial_sum_plain(words, keys, signs, fanout=2,
+                                            sibling=2)
+        torch.cuda.synchronize()
+        record("masked_partial_sum", *_same_words(out, plain),
+               f"bits={bits} dropped subtree", 8)
+        check(not bool((pvm.as_u64(out[2:]) != 0).any()),
+              f"a dropped subtree's partial is not zero at {bits} bits")
+        check(bool((pvm.as_u64(out[:2]) != 0).any()), "live partials zero")
+    # The plain tree slice's interior levels at full R: uint32 words, masks
+    # off, 5 partials into 3 and 3 into 2 (ragged), fanout and sibling 2.
+    for c in (5, 3):
+        g = -(-c // TREE_FANOUT)
+        words = _rand_words(torch, (c, r_main, 512), 32, gen, dev)
+        kw = dict(fanout=TREE_FANOUT, sibling=TREE_FANOUT, use_masks=False)
+        out = ps.masked_partial_sum(words, *rd._no_masks(g, dev), **kw)
+        plain = ps.masked_partial_sum_plain(words, *rd._no_masks(g, dev),
+                                            **kw)
+        torch.cuda.synchronize()
+        record("masked_partial_sum_off", *_same_words(out, plain),
+               f"bits=32 C={c} fanout={TREE_FANOUT} masks off R={r_main}",
+               r_main)
+        del words, out, plain
+    # #8: P in {1, 3, 9, 45} and the main path's 13 sibling pairs, random
+    # coefficients in {-1, 0, 1} and all zero (the identity).
+    for bits in (16, 32):
+        for p, r in ((1, 8), (3, 8), (9, 8), (45, 8), (13, r_main)):
+            y = _rand_words(torch, (r, 512), bits, gen, dev)
+            keys = pvm.to_words(torch.randint(0, 1 << 31, (p,),
+                                              generator=gen, device=dev), 32)
+            rand = torch.randint(-1, 2, (p,), generator=gen, device=dev,
+                                 dtype=torch.int32)
+            for coeff in (rand, torch.zeros_like(rand)):
+                out = mw.mask_repair(y, keys, coeff)
+                plain = mw.mask_repair_plain(y, keys, coeff)
+                torch.cuda.synchronize()
+                ok, diff = _same_words(out, plain)
+                record("mask_repair", ok and out.data_ptr() != y.data_ptr(),
+                       diff, f"bits={bits} P={p} R={r}", r)
+                if not bool(coeff.any()):
+                    check(_same_words(out, y)[0],
+                          f"zero coefficients changed the words at {bits}")
+                del out, plain
+            del y
+    # #7 at the tree roots' shapes beside N = 10 pilot rows: C = 3 rows at
+    # 16/32 bits and the privacy wire's scale (the masked tree's root), and
+    # C = 2 uint32 rows at scale 2**-24 (the plain tree's root).
+    q, p1, p2, _beta, _w, k = _inputs(torch, N_WORKERS, r_main, gen, dev)
+    roots = [(3, bits, 14, PrivacySpec(modulus_bits=bits,
+                                       dp_epsilon=DP_EPSILON).scale_mult)
+             for bits in (16, 32)]
+    roots.append((2, rd.TREE_PLAIN_WORD_BITS, rd.TREE_PLAIN_FIXPOINT_BITS,
+                  2.0 ** -rd.TREE_PLAIN_FIXPOINT_BITS))
+    for c, bits, wq_bits, smult in roots:
+        words = _rand_words(torch, (c, r_main, 512), bits, gen, dev)
+        sum_wq = pvm.to_words(torch.randint(0, 1 << wq_bits, (),
+                                            generator=gen, device=dev), 32)
+        for t in (1, 2):
+            tt = torch.tensor(t, dtype=torch.int32, device=dev)
+            out = mw.masked_master_update(q, k, words, sum_wq, p1, p2, tt,
+                                          0.01, smult)
+            ref = mw.masked_master_update_plain(q, k, words, sum_wq, p1, p2,
+                                                tt, 0.01, smult)
+            torch.cuda.synchronize()
+            record("master_masked_tree",
+                   torch.equal(out.view(torch.int32), ref.view(torch.int32))
+                   and bool(torch.isfinite(out).all()),
+                   float((out - ref).abs().max()),
+                   f"C={c} N={N_WORKERS} bits={bits} scale={smult} t={t}",
+                   r_main)
+            del out, ref
+        del words
+    del q, p1, p2
+    print(f"kernels: partial_sum ({cases['partial_sum']} cases), "
+          f"masked_partial_sum ({cases['masked_partial_sum']}, a dropped "
+          f"subtree's partial exactly zero; "
+          f"{cases['masked_partial_sum_off']} more at the plain tree's "
+          f"interior levels), mask_repair ({cases['mask_repair']}, zero "
+          f"coefficients the identity) and the masked master over C = 3 "
+          f"and C = 2 rows beside N = {N_WORKERS} "
+          f"({cases['master_masked_tree']}) bitwise equal to their plain "
+          f"versions", flush=True)
+    return errs
+
+
 def _federation(n_workers, n_samples, n_features, n_classes, seed):
     from repro_torch.data.pipeline import federated_loaders
     from repro_torch.data.synthetic import (SyntheticClassification,
@@ -297,6 +496,7 @@ def _drive(torch, sim, rounds: int):
     from repro_torch.fed.worker import Worker
     from repro_torch.kernels import fused_wire as fw
     from repro_torch.kernels import masked_wire as mw
+    from repro_torch.kernels import partial_sum as ps
     step_s: list[float] = []
     train_s: list[float] = []
     inner_step = rd.WirePath.round_step
@@ -325,7 +525,7 @@ def _drive(torch, sim, rounds: int):
     rd.WirePath.round_step = guarded
     Worker.train_round_device = timed_train
     try:
-        for counts in (fw.LAUNCHES, mw.LAUNCHES):
+        for counts in (fw.LAUNCHES, mw.LAUNCHES, ps.LAUNCHES):
             for k in counts:
                 counts[k] = 0
         torch.cuda.synchronize()
@@ -333,7 +533,7 @@ def _drive(torch, sim, rounds: int):
         res = sim.run_fedpc(rounds=rounds)
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
-        launches = {**fw.LAUNCHES, **mw.LAUNCHES}
+        launches = {**fw.LAUNCHES, **mw.LAUNCHES, **ps.LAUNCHES}
     finally:
         rd.WirePath.round_step = inner_step
         Worker.train_round_device = inner_train
@@ -341,20 +541,21 @@ def _drive(torch, sim, rounds: int):
     return res, launches, step_s, train_s, wall
 
 
-def _check_run(torch, res, launches: dict, on_path: tuple,
-               want_bytes: float, workers, label: str) -> dict:
-    """The checks common to both slices; returns the launch counts of the
-    path's own kernels."""
+def _check_run(torch, res, launches: dict, on_path: dict,
+               want_bytes: list, workers, label: str) -> dict:
+    """The checks common to every slice: each kernel of ``on_path`` (kind
+    → launches in the run) launched that often and every other kernel
+    never. Returns the launch counts of the path's own kernels."""
     import numpy as np
 
     from repro_torch.utils import tree_leaves
     for k, v in launches.items():
-        want = ROUNDS if k in on_path else 0
+        want = on_path.get(k, 0)
         check(v == want, f"{label}: {k} launched {v} times in {ROUNDS} "
               f"rounds, expected {want}")
     check(all(np.isfinite(res.costs)), f"{label}: costs not finite: "
           f"{res.costs}")
-    check(res.bytes_per_round == [want_bytes] * ROUNDS,
+    check(res.bytes_per_round == want_bytes,
           f"{label}: bytes per round {res.bytes_per_round} != {want_bytes}")
     check(all(0 <= k < N_WORKERS for k in res.pilot_history), "bad pilot")
     check(all(bool(torch.isfinite(p).all()) for p in tree_leaves(res.params)),
@@ -363,8 +564,9 @@ def _check_run(torch, res, launches: dict, on_path: tuple,
     print(f"{label}: run_fedpc {N_PARAMS:,} params x {N_WORKERS} workers, "
           f"rows {ROWS}, sizes {[w.loader.n for w in workers]}; costs "
           f"{[round(c, 5) for c in res.costs]}; pilots {res.pilot_history}; "
-          f"bytes/round {want_bytes:.0f}; launches {launches}; round_step "
-          f"under sync-debug 'error' with no sync", flush=True)
+          f"bytes/round {[round(b) for b in want_bytes]}; launches "
+          f"{launches}; round_step under sync-debug 'error' with no sync",
+          flush=True)
     return {k: launches[k] for k in on_path}
 
 
@@ -424,8 +626,9 @@ def phase_slice(torch, dev) -> dict:
     res, launches, step_s, train_s, wall = _drive(torch, sim, ROUNDS)
     want = proto.fedpc_bytes_per_round(proto.model_size_bytes(params),
                                        N_WORKERS)
-    own = _check_run(torch, res, launches, ("uplink_stacked", "master"),
-                     want, workers, "slice")
+    own = _check_run(torch, res, launches,
+                     {"uplink_stacked": ROUNDS, "master": ROUNDS},
+                     [want] * ROUNDS, workers, "slice")
     _print_round("round", step_s, train_s, wall, workers)
     _small_agrees(torch, dev, None, "small")
     return own
@@ -446,8 +649,9 @@ def phase_masked_slice(torch, dev) -> dict:
     res, launches, step_s, train_s, wall = _drive(torch, sim, ROUNDS)
     want = proto.fedpc_masked_bytes_per_round(
         proto.model_size_bytes(params), N_WORKERS, word_bits=16)
-    own = _check_run(torch, res, launches, ("uplink_masked", "master_masked"),
-                     want, workers, "masked slice")
+    own = _check_run(torch, res, launches,
+                     {"uplink_masked": ROUNDS, "master_masked": ROUNDS},
+                     [want] * ROUNDS, workers, "masked slice")
     acc = res.round_state.accountant
     check(acc is not None and int(acc.spent_rounds) == ROUNDS,
           "accountant did not count the rounds")
@@ -503,6 +707,168 @@ def phase_masked_wire(torch, dev) -> None:
           f"memory: one masked uplink raised the peak by {rise:,} bytes "
           f"for a {out_bytes:,}-byte output (+{rise - out_bytes:,})",
           flush=True)
+
+
+FAULTS = dict(seed=0, drop_before_uplink=0.05, drop_after_uplink=0.15,
+              straggler=0.05)             # the masked tree slice's plan
+TREE_FANOUT, MASKED_TREE_FANOUT = 2, 4
+
+
+def phase_tree_slice(torch, dev) -> dict:
+    """The plain round through a fan-in tree of fanout 2 (widths 10, 5, 3,
+    2) at full width; returns its launch counts."""
+    from repro_torch.core import protocol as proto
+    from repro_torch.core.fedpc import FedPCConfig
+    from repro_torch.core.tree import TreeSpec
+    from repro_torch.fed.simulator import FedSimulator
+    tree = TreeSpec(fanout=TREE_FANOUT)
+    workers, params = _full_width(torch, dev)
+    sim = FedSimulator(workers, params,
+                       FedPCConfig(n_workers=N_WORKERS, tree=tree),
+                       device=dev)
+    res, launches, step_s, train_s, wall = _drive(torch, sim, ROUNDS)
+    levels = tree.n_levels(N_WORKERS)
+    want = proto.fedpc_tree_bytes_per_round(
+        proto.model_size_bytes(params), N_WORKERS, TREE_FANOUT)
+    own = _check_run(torch, res, launches,
+                     {"uplink_stacked": ROUNDS, "partial_sum": ROUNDS,
+                      "masked_partial_sum": (levels - 1) * ROUNDS,
+                      "master_masked": ROUNDS},
+                     [want] * ROUNDS, workers, "tree slice")
+    check(sum(launches.values()) == tree.launches(N_WORKERS) * ROUNDS,
+          "tree slice: launches per round are not levels + 2")
+    print(f"tree slice: widths {tree.level_widths(N_WORKERS)}, "
+          f"{tree.launches(N_WORKERS)} launches a round", flush=True)
+    _print_round("tree round", step_s, train_s, wall, workers)
+    _small_agrees(torch, dev, FedPCConfig(n_workers=3, tree=tree),
+                  "tree small")
+    return own
+
+
+def phase_masked_tree_slice(torch, dev) -> dict:
+    """The masked round (16-bit words, masks and RR on) through a tree of
+    fanout 4 under the fault plan ``FAULTS`` at full width; returns its
+    launch counts."""
+    from repro_torch.core import protocol as proto
+    from repro_torch.core.fedpc import FedPCConfig
+    from repro_torch.core.tree import TreeSpec
+    from repro_torch.fed import faults as ft
+    from repro_torch.fed.simulator import FedSimulator
+    from repro_torch.privacy import recovery as pvr
+    from repro_torch.privacy.spec import PrivacySpec
+    spec = PrivacySpec(dp_epsilon=DP_EPSILON, recovery_threshold=2,
+                       enforce=False)
+    tree = TreeSpec(fanout=MASKED_TREE_FANOUT)
+    plan = ft.FaultPlan(**FAULTS)
+    cfg = FedPCConfig(n_workers=N_WORKERS, privacy=spec, tree=tree,
+                      faults=plan)
+    workers, params = _full_width(torch, dev)
+    sim = FedSimulator(workers, params, cfg, device=dev)
+    res, launches, step_s, train_s, wall = _drive(torch, sim, ROUNDS)
+    # The JAX simulator's byte rules, from the schedule on the host: a
+    # pre-uplink death sends no leaf words; each round deals every
+    # worker's within-group seeds and reconstructs each recoverable dead
+    # worker's (dead in a group that kept >= threshold survivors).
+    model_bytes = proto.model_size_bytes(params)
+    want, want_rec, schedule, recovered = [], [], [], 0
+    for t in range(1, ROUNDS + 1):
+        codes = plan.codes(t, N_WORKERS, device="cpu")
+        alive = (codes == ft.FAULT_NONE).float()
+        _, dead = pvr.effective_masks(None, alive, spec.recovery_threshold,
+                                      tree.fanout, N_WORKERS)
+        n_pre = int((codes == ft.DROP_BEFORE).sum())
+        want.append(proto.fedpc_tree_bytes_per_round(
+            model_bytes, N_WORKERS, tree.fanout, word_bits=16)
+            - model_bytes * n_pre * 16.0 / 32.0)
+        want_rec.append(
+            proto.recovery_dealing_bytes_per_round(N_WORKERS, tree.fanout)
+            + proto.recovery_reconstruction_bytes(
+                int(dead.sum()), spec.recovery_threshold, tree.fanout,
+                n_workers=N_WORKERS))
+        recovered += int(dead.sum())
+        schedule.append(codes.tolist())
+    check(recovered >= 1, "no post-uplink death in a viable group")
+    own = _check_run(torch, res, launches,
+                     {"uplink_masked": ROUNDS,
+                      "masked_partial_sum": ROUNDS * tree.n_levels(N_WORKERS),
+                      "mask_repair": ROUNDS, "master_masked": ROUNDS},
+                     want, workers, "masked tree slice")
+    check(res.recovery_bytes_per_round == want_rec,
+          f"recovery bytes {res.recovery_bytes_per_round} != {want_rec}")
+    acc = res.round_state.accountant
+    check(acc is not None and int(acc.spent_rounds) == ROUNDS,
+          "accountant did not count the rounds")
+    kinds = [k for (_, _, k, _) in sim.ledger.events]
+    check(kinds.count("mask_recovery") == recovered,
+          "ledger: mask_recovery events")
+    check(sorted(set(kinds)) == ["cost", "mask_recovery", "masked_words",
+                                 "pilot_params", "seed_shares"],
+          "ledger kinds")
+    print(f"masked tree slice: fault codes by round {schedule} (1 before "
+          f"the uplink, 2 after, 3 straggler); {recovered} recoverable "
+          f"post-uplink deaths repaired; recovery bytes/round {want_rec}; "
+          f"accountant {int(acc.spent_rounds)} rounds", flush=True)
+    _print_round("masked tree round", step_s, train_s, wall, workers)
+    _small_agrees(torch, dev, FedPCConfig(n_workers=3, privacy=spec,
+                                          tree=tree, faults=plan),
+                  "masked tree small")
+    return own
+
+
+def phase_tree_wire(torch, dev) -> None:
+    """At full width: tree == one-group tree (plain), masked tree == flat
+    masked round, repaired round == survivors-only round, all bitwise."""
+    from repro_torch.core.tree import TreeSpec
+    from repro_torch.fed import faults as ft
+    from repro_torch.fed import rounds as rd
+    from repro_torch.privacy import recovery as pvr
+    from repro_torch.privacy.spec import PrivacySpec
+    gen = torch.Generator(device=dev).manual_seed(SEED + 5)
+    n, r = N_WORKERS, ROWS // 4
+    q, p1, p2, beta, w, k = _inputs(torch, n, r, gen, dev)
+    bufs = q.view(n, ROWS, 128)
+    f1, f2 = p1.view(ROWS, 128), p2.view(ROWS, 128)
+    tt = torch.tensor(3, dtype=torch.int32, device=dev)
+
+    def same(a, b) -> bool:
+        return torch.equal(a.view(torch.int32), b.view(torch.int32))
+
+    plain = [rd.WirePath(tree=TreeSpec(f)).round_from_stacked(
+        bufs, k, w, f1, f2, t=tt, betas=beta)[0] for f in (TREE_FANOUT, 16)]
+    check(same(*plain), "plain tree at fanout 2 differs from one group")
+    spec = PrivacySpec(dp_epsilon=DP_EPSILON, enforce=False)
+    masked = [rd.WirePath(privacy=spec, tree=tree).round_from_stacked(
+        bufs, k, w, f1, f2, t=tt, betas=beta)[0]
+        for tree in (TreeSpec(MASKED_TREE_FANOUT), None)]
+    check(same(*masked), "masked tree differs from the flat masked round")
+    del plain, masked
+    spec = PrivacySpec(dp_epsilon=DP_EPSILON, recovery_threshold=2,
+                       enforce=False)
+    tree = TreeSpec(MASKED_TREE_FANOUT)
+    faulty = rd.WirePath(privacy=spec, tree=tree,
+                         faults=ft.FaultPlan(**FAULTS))
+    clean = rd.WirePath(privacy=spec, tree=tree)
+    sizes = torch.arange(1.0, n + 1.0, device=dev)
+    costs = torch.rand((n,), generator=gen, device=dev) + 0.5
+    repaired = []
+    for t in (1, 2):
+        st = rd.RoundState(f1, f2, torch.linspace(1.0, 2.0, n, device=dev),
+                           torch.tensor(t, dtype=torch.int32, device=dev))
+        _, out_f, info = faulty.round_step(st, bufs, costs, sizes,
+                                           betas=beta)
+        eff, dead = pvr.effective_masks(None, info["alive"], 2, tree.fanout,
+                                        n)
+        _, out_s, _ = clean.round_step(st, bufs, costs, sizes, betas=beta,
+                                       mask=eff)
+        check(same(out_f, out_s),
+              f"repaired round {t} differs from the survivors-only round")
+        repaired.append(int(dead.sum()))
+    check(sum(repaired) >= 1, "no repaired death in the wire check")
+    print(f"tree wire: full width, plain tree at fanout {TREE_FANOUT} == "
+          f"one group (fanout 16), masked tree at fanout "
+          f"{MASKED_TREE_FANOUT} == flat masked round, repaired rounds 1-2 "
+          f"({repaired} deaths repaired) == survivors-only rounds, all "
+          f"bitwise", flush=True)
 
 
 def _median_ms(torch, fn) -> float:
@@ -742,50 +1108,286 @@ def phase_times_masked(torch, dev, rate: float, launches: dict,
     return rows
 
 
-def print_unported_bounds(rate: float) -> None:
-    """The least time of each TPU kernel not ported yet, at the main-path
-    shape (m = 21,000,192 elements a worker view, N = 10): bytes it must
-    move (each input read once, each output written once) at the card's
-    memory rate, or integer ops counted as for the masked uplink, the
-    larger. Nothing here runs a kernel."""
-    m = ROWS * 128
-    n = N_WORKERS
-    pairs = n - 1             # one post-uplink death among n: its pairs
-    kernels = (
-        (3, "fused_wire.py:246 ternary_pack_any_2d",
-         "one worker's uplink, t >= 2", 3 * 4 * m + m / 4, (0, 0)),
-        (4, "fused_wire.py:205 ternary_pack_2d",
-         "one worker's Eq. (5) uplink", 3 * 4 * m + m / 4, (0, 0)),
-        (5, "fused_wire.py:228 ternary_pack_round1_2d",
-         "one worker's Eq. (4) uplink", 2 * 4 * m + m / 4, (0, 0)),
-        (8, "masked_wire.py:503 mask_repair_2d",
-         f"16-bit words, one death: {pairs} repair pairs", 2 * 2 * m,
-         (3 * m + pairs * 3 * m, 4.5 * m + pairs * 5.5 * m)),
-        (9, "partial_sum.py:179 partial_sum_2d",
-         f"{n} packed leaves into 3 uint32 partials (fanout 4)",
-         n * m / 4 + 3 * 4 * m, (0, 0)),
-        (10, "partial_sum.py:229 masked_partial_sum_2d",
-         f"{n} 16-bit leaf words into 3 masked partials (fanout 4)",
-         n * 2 * m + 3 * 2 * m, (3 * (3 + 2 * 3) * m, 3 * (4.5 + 2 * 5.5) * m)),
-        (11, "ternary_encode.py:45 ternary_encode_2d",
-         "one worker's Eq. (5) int8 codes", 3 * 4 * m + m, (0, 0)),
-        (12, "ternary_encode.py:63 ternary_encode_round1_2d",
-         "one worker's Eq. (4) int8 codes", 2 * 4 * m + m, (0, 0)),
-        (13, "pack2bit.py:47/65 pack2bit_2d / unpack2bit_2d",
-         "one worker's int8 codes <-> packed bytes", m + m / 4, (0, 0)),
-        (14, "master_update.py:35 master_update_2d",
-         f"Eq. (3) over {n} workers' int8 codes", n * m + 4 * 4 * m,
-         (0, 0)),
-    )
-    for row, name, what, nbytes, (alu, total) in kernels:
+def phase_times_tree(torch, dev, rate: float, launches: dict,
+                     errs: dict) -> list[dict]:
+    """The tree's and the repair's kernels, the masked master over C = 3
+    rows and their plain versions at the main-path shapes (N = 10 leaves;
+    the plain tree's fanout 2 and uint32 words for ``partial_sum`` and the
+    masks-off levels; the masked tree's fanout 4 and 16-bit words; the
+    repair of round 1 of ``FAULTS``), and each tree round's whole wire
+    beside its kernels."""
+    from repro_torch.core.tree import TreeSpec
+    from repro_torch.fed import faults as ft
+    from repro_torch.fed import rounds as rd
+    from repro_torch.kernels import fused_wire as fw
+    from repro_torch.kernels import masked_wire as mw
+    from repro_torch.kernels import partial_sum as ps
+    from repro_torch.privacy import masking as pvm
+    from repro_torch.privacy import recovery as pvr
+    from repro_torch.privacy.spec import PrivacySpec
+    n, r = N_WORKERS, ROWS // 4
+    m = r * 512                                    # elements per view
+    gen = torch.Generator(device=dev).manual_seed(SEED + 6)
+    q, p1, p2, beta, w, k = _inputs(torch, n, r, gen, dev)
+    bufs = q.view(n, ROWS, 128)
+    f1, f2 = p1.view(ROWS, 128), p2.view(ROWS, 128)
+    tt = torch.tensor(2, dtype=torch.int32, device=dev)
+    t1 = torch.tensor(1, dtype=torch.int32, device=dev)
+    before = {**fw.LAUNCHES, **mw.LAUNCHES, **ps.LAUNCHES}
+    spec = PrivacySpec(dp_epsilon=DP_EPSILON, recovery_threshold=2,
+                       enforce=False)
+    fan = MASKED_TREE_FANOUT
+    g = -(-n // fan)
+    g1 = -(-n // TREE_FANOUT)                       # the plain tree's level 1
+    # The main path's operands: plain leaves, masked leaves with
+    # tree-scoped signs, the level-1 keys and signs, round 1's repair.
+    tree_wire = rd.WirePath(privacy=spec, tree=TreeSpec(fan),
+                            faults=ft.FaultPlan(**FAULTS))
+    packed = fw.ternary_pack_stacked(q, p1, p2, tt, beta, 0.01)
+    wq24 = pvm.quantize_weights(w, rd.TREE_PLAIN_FIXPOINT_BITS)
+    y, _wq = tree_wire.uplink_masked(bufs, f1, f2, t=t1, w=w, betas=beta)
+    keys = pvm.pair_stream_keys(pvm.tree_level_seed(0, 1), g, t1)
+    signs = pvm.tree_pair_signs(g, g, device=dev)
+    active = int((signs != 0).sum())
+    top = ps.masked_partial_sum(y, keys, signs, fanout=fan, sibling=g)
+    alive = ft.FaultPlan(**FAULTS).alive(t1, n)
+    alive_eff, dead_eff = pvr.effective_masks(None, alive, 2, fan, n)
+    rkeys, rcoeff = tree_wire._repair(*tree_wire._leaf_pairs(n, t1, None, dev),
+                                      alive_eff, dead_eff)
+    live_pairs = int((rcoeff != 0).sum())
+    pairs = rkeys.shape[0]
+    row0 = top[0].contiguous()
+    smult = spec.scale_mult
+    sum_wq = pvm.to_words(pvm.as_u64(_wq).sum(), 32)
+    # (bytes, ALU-only ops, all int ops, kernel, plain, name, replaces,
+    # source, kind, what). Integer ops as nvcc compiles them (the masked
+    # uplink's model, chip_smoke.uplink_masked_int_ops): a counter hash or
+    # a stream word is 9 ops, 6 ALU-only; at 16 bits one hash or stream
+    # word serves two elements, and a stream word's signed fold costs two
+    # multiply-adds (5.5 ops a element, 3 ALU-only); a 2-bit field decode
+    # is a shift and a mask (ALU-only) and a multiply-add.
+    work = {
+        "partial_sum": (
+            n * m // 4 + 4 * n + g1 * 4 * m, 2 * n * m, 3 * n * m,
+            lambda: ps.partial_sum(packed, wq24, fanout=TREE_FANOUT,
+                                   word_bits=32),
+            lambda: ps.partial_sum_plain(packed, wq24, fanout=TREE_FANOUT,
+                                         word_bits=32),
+            "partial_sum", "src/repro/kernels/partial_sum.py:179",
+            "partial_sum.cu", f"{n} packed leaves into {g1} uint32 partials"),
+        "masked_partial_sum": (
+            n * 2 * m + g * 2 * m + 8 * g * g,
+            (3 * g + 3 * active) * m, (4.5 * g + 5.5 * active + n) * m,
+            lambda: ps.masked_partial_sum(y, keys, signs, fanout=fan,
+                                          sibling=g),
+            lambda: ps.masked_partial_sum_plain(y, keys, signs, fanout=fan,
+                                                sibling=g),
+            "masked_partial_sum", "src/repro/kernels/partial_sum.py:229",
+            "partial_sum.cu",
+            f"{n} 16-bit leaf words into {g} masked partials, {active} "
+            f"active pairs"),
+        "mask_repair": (
+            2 * 2 * m + 8 * pairs, (3 + 3 * live_pairs) * m,
+            (4.5 + 5.5 * live_pairs) * m,
+            lambda: mw.mask_repair(row0, rkeys, rcoeff),
+            lambda: mw.mask_repair_plain(row0, rkeys, rcoeff),
+            "mask_repair", "src/repro/kernels/masked_wire.py:503",
+            "masked_wire.cu",
+            f"16-bit words, {pairs} pairs, {live_pairs} with a coefficient"),
+    }
+    rows, kernel_ms = [], {}
+    for kind, (nbytes, alu, total, kern, plain, name, replaces, src,
+               what) in work.items():
+        ms = _median_ms(torch, kern)
+        plain_ms = _median_ms(torch, plain)
+        kernel_ms[kind] = ms
         bytes_ms = nbytes / rate * 1e3
         ops_ms = int_bound_ms(alu, total)
+        bound_ms = max(bytes_ms, ops_ms)
         by = "bytes" if bytes_ms >= ops_ms else "operations"
-        ops = (f", {alu / 1e9:.2f} G ALU-only / {total / 1e9:.2f} G int ops "
-               f"= {ops_ms:.4f} ms" if total else "")
-        print(f"bound: #{row} {name} ({what}): {max(bytes_ms, ops_ms):.4f} "
-              f"ms by {by}: {nbytes / 1e6:.1f} MB = {bytes_ms:.4f} ms{ops} "
-              f"(not ported)", flush=True)
+        print(f"time: {name} ({what}) {ms:.4f} ms (plain {plain_ms:.4f} "
+              f"ms); bound {bound_ms:.4f} ms by {by}: {nbytes / 1e6:.1f} MB "
+              f"at {rate / 1e12:.2f} TB/s = {bytes_ms:.4f} ms, "
+              f"{alu / 1e9:.2f} G ALU-only / {total / 1e9:.2f} G int ops = "
+              f"{ops_ms:.4f} ms; {bound_ms / ms:.1%} of bound", flush=True)
+        rows.append({
+            "name": name, "route": "cuda",
+            "source": f"src/repro_torch/kernels/csrc/{src}",
+            "replaces": replaces, "launches": launches[kind],
+            "max_abs_err": errs[kind], "ms": ms, "plain_ms": plain_ms,
+            "bound_ms": bound_ms, "bound_by": by, "library_ms": None})
+
+    # The masked master at the tree's root: C = g word rows.
+    c3_bytes = g * 2 * m + 4 + 8 + 3 * m * 4 + 4 + m * 4
+    c3_ms = _median_ms(torch, lambda: mw.masked_master_update(
+        q, k, top, sum_wq, p1, p2, tt, 0.01, smult))
+    c3_plain = _median_ms(torch, lambda: mw.masked_master_update_plain(
+        q, k, top, sum_wq, p1, p2, tt, 0.01, smult))
+    c3_bound = max(c3_bytes / rate * 1e3,
+                   int_bound_ms((g + 6) * m, (g + 6) * m))
+    print(f"time: masked_master_update 16-bit over C = {g} rows {c3_ms:.4f} "
+          f"ms (plain {c3_plain:.4f} ms); bound {c3_bound:.4f} ms by bytes: "
+          f"{c3_bytes / 1e6:.1f} MB; {c3_bound / c3_ms:.1%} of bound",
+          flush=True)
+
+    # The plain tree's interior levels (masks off, uint32, fanout 2: 5
+    # partials into 3, then 3 into 2), one round's two launches together,
+    # and the one PyTorch call that sums ragged sibling groups of their
+    # int32 view: an out-of-place index_add into zeros.
+    p5 = ps.partial_sum(packed, wq24, fanout=TREE_FANOUT, word_bits=32)
+    p3 = ps.masked_partial_sum(p5, *rd._no_masks(3, dev), fanout=TREE_FANOUT,
+                               sibling=TREE_FANOUT, use_masks=False)
+    off = {"ms": 0.0, "plain_ms": 0.0, "bound_ms": 0.0, "library_ms": 0.0}
+    lib_note = []
+    for c_in, words in ((5, p5), (3, p3)):
+        gg = -(-c_in // TREE_FANOUT)
+        kz, sz = rd._no_masks(gg, dev)
+        kw = dict(fanout=TREE_FANOUT, sibling=TREE_FANOUT, use_masks=False)
+        want = ps.masked_partial_sum(words, kz, sz, **kw)
+        ms = _median_ms(torch, lambda: ps.masked_partial_sum(
+            words, kz, sz, **kw))
+        plain_ms = _median_ms(torch, lambda: ps.masked_partial_sum_plain(
+            words, kz, sz, **kw))
+        zeros = torch.zeros((gg, r, 512), dtype=torch.int32, device=dev)
+        idx = torch.arange(c_in, device=dev) // TREE_FANOUT
+        flat = words.view(torch.int32)
+
+        def lib_call():
+            return torch.index_add(zeros, 0, idx, flat)
+        try:
+            same = torch.equal(lib_call(), want.view(torch.int32))
+            lib_ms = _median_ms(torch, lib_call) if same else None
+            lib_note.append(f"{c_in} into {gg}: index_add "
+                            + (f"{lib_ms:.4f} ms" if same else
+                               "differs from the kernel's words"))
+        except RuntimeError as exc:
+            lib_ms = None
+            lib_note.append(f"{c_in} into {gg}: index_add does not run "
+                            f"({str(exc).splitlines()[0]})")
+        nbytes = (c_in + gg) * 4 * m
+        print(f"time: masked_partial_sum, masks off, uint32, {c_in} into "
+              f"{gg} (fanout {TREE_FANOUT}) {ms:.4f} ms (plain {plain_ms:.4f} "
+              f"ms); bound {nbytes / rate * 1e3:.4f} ms by bytes: "
+              f"{nbytes / 1e6:.1f} MB; {lib_note[-1]}", flush=True)
+        off["ms"] += ms
+        off["plain_ms"] += plain_ms
+        off["bound_ms"] += nbytes / rate * 1e3
+        off["library_ms"] = (None if lib_ms is None or off["library_ms"] is
+                             None else off["library_ms"] + lib_ms)
+        del want, zeros
+    rows.append({
+        "name": "masked_partial_sum (masks off: 5 into 3 and 3 into 2, "
+                "one plain tree round's two launches)",
+        "route": "cuda", "source": "src/repro_torch/kernels/csrc/"
+                                   "partial_sum.cu",
+        "replaces": "src/repro/kernels/partial_sum.py:229",
+        "launches": launches["masked_partial_sum_off"],
+        "max_abs_err": errs["masked_partial_sum_off"], **off,
+        "bound_by": "bytes"})
+    # The view-sum that sums sibling groups where C is a multiple of the
+    # fanout (12 16-bit words into 3), on the words and on a signed view.
+    w12 = _rand_words(torch, (12, r, 512), 16, gen, dev)
+    kz, sz = rd._no_masks(3, dev)
+    k12 = _median_ms(torch, lambda: ps.masked_partial_sum(
+        w12, kz, sz, fanout=4, sibling=3, use_masks=False))
+    want12 = pvm.as_u64(ps.masked_partial_sum(w12, kz, sz, fanout=4,
+                                              sibling=3, use_masks=False))
+    calls = {"words.view(3, 4, R, 512).sum(1) on the uint16 words":
+             lambda: w12.view(3, 4, r, 512).sum(1),
+             "the same on their int16 view with dtype=int16":
+             lambda: w12.view(torch.int16).view(3, 4, r, 512).sum(
+                 1, dtype=torch.int16)}
+    lib = []
+    for what, call in calls.items():
+        try:
+            out = call()
+            same = torch.equal(pvm.as_u64(out) & 0xFFFF, want12)
+            lib.append(f"{what} {_median_ms(torch, call):.4f} ms ({out.dtype}"
+                       f", the kernel's words mod 2**16: {same})")
+        except RuntimeError as exc:
+            lib.append(f"{what} does not run ({str(exc).splitlines()[0]})")
+    print(f"time: 12 16-bit words into 3, masks off: kernel {k12:.4f} ms; "
+          + "; ".join(lib), flush=True)
+
+    # Each tree round's whole wire beside the sum of its kernels.
+    plain_tree = rd.WirePath(tree=TreeSpec(TREE_FANOUT))
+    p2r = ps.masked_partial_sum(p3, *rd._no_masks(2, dev),
+                                fanout=TREE_FANOUT, sibling=2,
+                                use_masks=False)
+    parts = {
+        "uplink": _median_ms(torch, lambda: fw.ternary_pack_stacked(
+            q, p1, p2, tt, beta, 0.01)),
+        "level 1": _median_ms(torch, lambda: ps.partial_sum(
+            packed, wq24, fanout=TREE_FANOUT, word_bits=32)),
+        "levels 2-3": sum(_median_ms(torch, lambda: ps.masked_partial_sum(
+            x, *rd._no_masks(gg, dev), fanout=TREE_FANOUT,
+            sibling=TREE_FANOUT, use_masks=False))
+            for x, gg in ((p5, 3), (p3, 2))),
+        "root": _median_ms(torch, lambda: mw.masked_master_update(
+            q, k, p2r, pvm.to_words(pvm.as_u64(wq24).sum(), 32), p1, p2, tt,
+            0.01, 2.0 ** -rd.TREE_PLAIN_FIXPOINT_BITS)),
+    }
+    wire_ms = _median_ms(torch, lambda: plain_tree.round_from_stacked(
+        bufs, k, w, f1, f2, t=tt, betas=beta))
+    both = sum(parts.values())
+    print(f"time: plain tree round_from_stacked (fanout {TREE_FANOUT}) "
+          f"{wire_ms:.4f} ms at t=2 vs its kernels {both:.4f} ms "
+          f"(+{wire_ms - both:.4f} ms): "
+          + ", ".join(f"{a} {b:.4f}" for a, b in parts.items()), flush=True)
+    up_ms = _median_ms(torch, lambda: tree_wire.uplink_masked(
+        bufs, f1, f2, t=t1, w=w, betas=beta))
+    copy_ms = _median_ms(torch, lambda: rd._signed(top[0]).copy_(
+        rd._signed(row0)))
+    # On the flat wire the repaired row joins the other N - 1 in a copy.
+    cat_ms = _median_ms(torch, lambda: torch.cat(
+        [rd._signed(y[0])[None], rd._signed(y[1:])]))
+    zero_ms = _median_ms(torch, lambda: rd._signed(y).where(
+        alive_eff[:, None, None] > 0, 0))
+    parts = {"uplink (with its keys)": up_ms,
+             "level 1": kernel_ms["masked_partial_sum"],
+             "repair": kernel_ms["mask_repair"], "root": c3_ms}
+    wire_ms = _median_ms(torch, lambda: tree_wire.round_from_stacked(
+        bufs, k, w, f1, f2, t=t1, betas=beta, alive=alive))
+    both = sum(parts.values())
+    print(f"time: masked tree round_from_stacked with repair (fanout {fan}, "
+          f"16-bit, round 1 of the plan) {wire_ms:.4f} ms vs its kernels "
+          f"{both:.4f} ms (+{wire_ms - both:.4f} ms): "
+          + ", ".join(f"{a} {b:.4f}" for a, b in parts.items())
+          + f"; inside the rest: dead-row zeroing {zero_ms:.4f} ms, the "
+          f"repaired row's copy into the root's operand {copy_ms:.4f} ms "
+          f"(on the flat wire, the copy of all {n} rows {cat_ms:.4f} ms)",
+          flush=True)
+    for counts in (fw.LAUNCHES, mw.LAUNCHES, ps.LAUNCHES):
+        counts.update({kk: before[kk] for kk in counts})  # not counted
+    return rows
+
+
+def print_unported_bounds(rate: float) -> None:
+    """The least time of each TPU kernel not ported yet, at the main-path
+    shape (m = 21,000,192 elements a worker view, N = 10): the bytes it
+    must move (each input read once, each output written once) at the
+    card's memory rate. Nothing here runs a kernel."""
+    m = ROWS * 128
+    n = N_WORKERS
+    kernels = (
+        (3, "fused_wire.py:246 ternary_pack_any_2d",
+         "one worker's uplink, t >= 2", 3 * 4 * m + m / 4),
+        (4, "fused_wire.py:205 ternary_pack_2d",
+         "one worker's Eq. (5) uplink", 3 * 4 * m + m / 4),
+        (5, "fused_wire.py:228 ternary_pack_round1_2d",
+         "one worker's Eq. (4) uplink", 2 * 4 * m + m / 4),
+        (11, "ternary_encode.py:45 ternary_encode_2d",
+         "one worker's Eq. (5) int8 codes", 3 * 4 * m + m),
+        (12, "ternary_encode.py:63 ternary_encode_round1_2d",
+         "one worker's Eq. (4) int8 codes", 2 * 4 * m + m),
+        (13, "pack2bit.py:47/65 pack2bit_2d / unpack2bit_2d",
+         "one worker's int8 codes <-> packed bytes", m + m / 4),
+        (14, "master_update.py:35 master_update_2d",
+         f"Eq. (3) over {n} workers' int8 codes", n * m + 4 * 4 * m),
+    )
+    for row, name, what, nbytes in kernels:
+        print(f"bound: #{row} {name} ({what}): {nbytes / rate * 1e3:.4f} ms "
+              f"by bytes: {nbytes / 1e6:.1f} MB (not ported)", flush=True)
 
 
 def main() -> int:
@@ -806,11 +1408,22 @@ def main() -> int:
         phase_build()
         errs = phase_check(torch, dev)
         errs.update(phase_check_masked(torch, dev))
+        errs.update(phase_check_tree(torch, dev))
+        errs["master_masked"] = max(errs["master_masked"],
+                                    errs["master_masked_tree"])
         launches = phase_slice(torch, dev)
         launches.update(phase_masked_slice(torch, dev))
         phase_masked_wire(torch, dev)
+        tree = phase_tree_slice(torch, dev)
+        masked_tree = phase_masked_tree_slice(torch, dev)
+        phase_tree_wire(torch, dev)
         rows = phase_times(torch, dev, rate, launches, errs)
         rows += phase_times_masked(torch, dev, rate, launches, errs)
+        rows += phase_times_tree(torch, dev, rate, {
+            "partial_sum": tree["partial_sum"],
+            "masked_partial_sum": masked_tree["masked_partial_sum"],
+            "mask_repair": masked_tree["mask_repair"],
+            "masked_partial_sum_off": tree["masked_partial_sum"]}, errs)
         print_unported_bounds(rate)
     except (SmokeError, RuntimeError, ImportError, OSError,
             subprocess.SubprocessError) as exc:

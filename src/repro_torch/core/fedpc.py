@@ -1,16 +1,15 @@
-"""FedPC configuration — the public protocol scalars of Algorithms 1 & 2.
-
-``tree`` and ``faults`` keep their places so that a config written for
-the JAX package names them the same way; the simulator of this package
-refuses them until their slices are ported (ROADMAP).
+"""FedPC configuration — the public protocol scalars of Algorithms 1 & 2,
+and the optional axes of the round: the privacy wire, a fan-in
+aggregation tree and a fault schedule.
 """
 from __future__ import annotations
 
 from dataclasses import dataclass
-from typing import Any
 
 import torch
 
+from repro_torch.core.tree import TreeSpec
+from repro_torch.fed.faults import FaultPlan
 from repro_torch.privacy.spec import PrivacySpec
 
 
@@ -24,8 +23,8 @@ class FedPCConfig:
     participation: float = 1.0    # C-fraction of workers per round
     privacy: PrivacySpec | None = None  # secure-agg / local-DP wire
     renorm_shares: bool = False   # Eq. (3) shares renormalized over sampled set
-    tree: Any = None              # fan-in aggregation tree (not ported)
-    faults: Any = None            # fault schedule (not ported)
+    tree: TreeSpec | None = None  # hierarchical fan-in aggregation tree
+    faults: FaultPlan | None = None  # deterministic fault schedule
 
     def __post_init__(self):
         if self.betas is not None and len(self.betas) != self.n_workers:

@@ -7,6 +7,7 @@ its full model (V), the N−1 others upload 2-bit codes (V/16 each)::
 """
 from __future__ import annotations
 
+from repro_torch.core.tree import TreeSpec
 from repro_torch.utils import PyTree, tree_size
 
 
@@ -31,6 +32,47 @@ def fedpc_masked_bytes_per_round(model_bytes: float, n_workers: int,
     parameter, 8x the 2-bit codes at 16 bits, 16x at 32. Download and
     pilot upload are unchanged."""
     return _fedpc_wire_bytes(model_bytes, n_workers, float(word_bits))
+
+
+def fedpc_tree_bytes_per_round(model_bytes: float, n_workers: int,
+                               fanout: int, *, levels: int | None = None,
+                               word_bits: int | None = None) -> float:
+    """Eq. (8) under hierarchical fan-in aggregation: ``V(N+1)`` download
+    and pilot upload; the N-1 non-pilot leaf uplinks carry 2-bit codes on
+    the plain tree (``word_bits=None``) or ``word_bits``-wide masked words;
+    each interior level l moves ``w_l`` partials of one integer word per
+    parameter (uint32 on the plain tree, ``word_bits`` on the masked one)."""
+    ts = TreeSpec(fanout=fanout, levels=levels)
+    leaf_bits = 2.0 if word_bits is None else float(word_bits)
+    interior_bits = 32.0 if word_bits is None else float(word_bits)
+    total = model_bytes * (n_workers + 1)
+    total += model_bytes * (n_workers - 1) * leaf_bits / 32.0
+    for w_l in ts.level_widths(n_workers)[1:]:
+        total += model_bytes * w_l * interior_bits / 32.0
+    return total
+
+
+def recovery_dealing_bytes_per_round(n_workers: int,
+                                     group_size: int | None = None) -> float:
+    """Dropout-recovery dealing per round: each worker deals one Shamir
+    share of its ``group_size - 1`` within-group pair seeds (4 bytes each)
+    to each of its ``group_size - 1`` siblings, ``n (g - 1)^2 · 4`` bytes.
+    ``group_size=None`` is the flat wire: one cohort-wide group."""
+    g = n_workers if group_size is None else group_size
+    return float(n_workers) * (g - 1) ** 2 * 4.0
+
+
+def recovery_reconstruction_bytes(n_deaths: int, threshold: int,
+                                  group_size: int | None = None, *,
+                                  n_workers: int | None = None) -> float:
+    """Dropout-recovery reconstruction: per post-uplink death,
+    ``threshold`` surviving siblings each upload their 4-byte-per-seed
+    share of the dead worker's ``group_size - 1`` seeds."""
+    if group_size is None:
+        if n_workers is None:
+            raise ValueError("flat-wire reconstruction needs n_workers")
+        group_size = n_workers
+    return float(n_deaths) * threshold * (group_size - 1) * 4.0
 
 
 def fedavg_bytes_per_round(model_bytes: float, n_workers: int) -> float:

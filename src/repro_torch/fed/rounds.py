@@ -2,11 +2,15 @@
 
 A round scores goodness (Eq. (1)) → picks the pilot → ternarizes and packs
 every worker's evolution (Eq. (4)/(5), §3.3) → applies the master update
-(Eq. (3)). Either wire is two launches over the flat ``(rows, 128)``
+(Eq. (3)). The flat wire is two launches over the flat ``(rows, 128)``
 buffers of ``repro_torch.core.flat``: the plain wire's batched uplink and
 fused master, or, with a :class:`~repro_torch.privacy.PrivacySpec`, the
 masked uplink (secure aggregation, optional local-DP randomized response)
-and the sum-then-unmask master.
+and the sum-then-unmask master. A :class:`~repro_torch.core.tree.TreeSpec`
+folds the uplinks through a fan-in tree of partial-sum launches before
+the root's master, and a :class:`~repro_torch.fed.faults.FaultPlan`
+drops workers each round, repairing the masked wire's sum with one more
+launch.
 
 * :class:`WirePath` owns the math: ``codes``/``combine``/``weights`` in
   plain PyTorch, ``uplink_stacked``/``master`` and ``uplink_masked``/
@@ -33,13 +37,24 @@ import torch
 from repro_torch.core import flat as fl
 from repro_torch.core.goodness import select_pilot
 from repro_torch.core.ternary import ternarize, ternarize_round1
+from repro_torch.core.tree import TreeSpec
+from repro_torch.fed.faults import FAULT_NONE, FaultPlan
 from repro_torch.kernels import ops
 from repro_torch.kernels.ref import fma_f32
 from repro_torch.privacy import dp as pdp
 from repro_torch.privacy import masking as pvm
+from repro_torch.privacy import recovery as pvr
 from repro_torch.privacy.accountant import PrivacyAccountant
 from repro_torch.privacy.spec import PrivacySpec
 from repro_torch.utils import PyTree, resolve_device, tree_map
+
+#: The plain (no-privacy) tree rides the integer wire, so float
+#: non-associativity cannot break tree == flat: leaves are weighted with
+#: fixed-point Eq. (3) coefficients at these parameters, every tree edge
+#: carries uint32 words, and the one root launch de-biases by the public
+#: ΣW_k and descales by 2**-TREE_PLAIN_FIXPOINT_BITS.
+TREE_PLAIN_WORD_BITS = 32
+TREE_PLAIN_FIXPOINT_BITS = 24
 
 
 @dataclass(frozen=True)
@@ -97,6 +112,22 @@ def _worker_ids(n: int, device: torch.device) -> torch.Tensor:
     return torch.arange(n, device=device)
 
 
+@functools.lru_cache(maxsize=16)
+def _no_masks(g: int, device: torch.device
+              ) -> tuple[torch.Tensor, torch.Tensor]:
+    """Zero (g, g) keys and signs of a tree level with masking off (the
+    kernel reads neither), made once per (g, device)."""
+    return (torch.zeros((g, g), dtype=torch.uint32, device=device),
+            torch.zeros((g, g), dtype=torch.int32, device=device))
+
+
+def _signed(words: torch.Tensor) -> torch.Tensor:
+    """Wire words viewed as the signed type of their width (same bits),
+    for the selects and copies that unsigned types lack on some backends."""
+    return words.view(torch.int16 if words.dtype == torch.uint16
+                      else torch.int32)
+
+
 @dataclass(frozen=True)
 class WirePath:
     """Ternarize → pack → aggregate → master-update over flat buffers.
@@ -112,10 +143,31 @@ class WirePath:
     and the master never sees one worker's ternary directions.
     ``renorm_shares`` renormalizes the data shares p_k over the sampled
     workers when a participation mask is given.
+
+    ``tree`` aggregates through a fan-in tree: each level folds sibling
+    groups of ``fanout`` children into partials in one launch, and the
+    root's masked master consumes the last level's w_L partials, so a
+    round costs ``levels + 2`` launches. De-bias and descale happen once,
+    at the root, and the result is the flat integer wire's bits. On the
+    masked wire the pair masks are scoped to sibling groups and each
+    interior node adds its own level-salted mask, so every tree edge
+    carries masked words; the plain tree rides the unmasked uint32 wire at
+    ``TREE_PLAIN_FIXPOINT_BITS``.
+
+    ``faults`` draws per-worker fault codes from the device round and
+    drops faulted workers from pilot selection and the aggregate. On the
+    plain wire they fold into the Eq. (3) weights; on the masked wire the
+    uplink was committed first, so dead rows leave the modular sum, the
+    root de-biases by the survivors' ΣW_k, and one ``mask_repair`` launch
+    adds back the survivors' uncancelled masks toward the dead (needs
+    ``privacy.recovery_threshold``; a sibling group left below it
+    degrades to an exact-zero subtree).
     """
     cfg: WireConfig = WireConfig()
     privacy: PrivacySpec | None = None
     renorm_shares: bool = False
+    tree: TreeSpec | None = None
+    faults: FaultPlan | None = None
 
     @property
     def masked(self) -> bool:
@@ -193,14 +245,15 @@ class WirePath:
 
     def uplink_masked(self, bufs_q: torch.Tensor, buf_p1: torch.Tensor,
                       buf_p2: torch.Tensor, *, t, w: torch.Tensor,
-                      betas=None, pmask=None
+                      betas=None, pmask=None, pairs=None
                       ) -> tuple[torch.Tensor, torch.Tensor]:
         """All N workers' masked wire words in one launch.
 
         Builds the round's (N, N) pair keys and signs (participation
-        ``pmask`` folded in), the (N,) RR keys and the fixed-point weights
-        ``W_k`` of ``w`` on the device from the device round ``t``; the
-        kernel expands the streams in registers. Returns
+        ``pmask`` folded in; ``pairs`` passes them in when the caller has
+        built them with :meth:`_leaf_pairs`), the (N,) RR keys and the
+        fixed-point weights ``W_k`` of ``w`` on the device from the device
+        round ``t``; the kernel expands the streams in registers. Returns
         ``(masked_words, wq)``, words (N, rows//4, 512) in
         ``privacy.word_dtype``.
         """
@@ -209,9 +262,8 @@ class WirePath:
         dev = bufs_q.device
         t = ops.round_index(t, dev)
         wq = pvm.quantize_weights(w, spec.fixpoint_bits)
-        keys = pvm.pair_stream_keys(
-            spec.mask_seed if spec.masking_on else 0, n, t)
-        signs = pvm.pair_signs(n, participation=pmask, device=dev)
+        keys, signs = (self._leaf_pairs(n, t, pmask, dev) if pairs is None
+                       else pairs)
         rrk = pdp.rr_stream_keys(spec.dp_seed, t, n)
         y = ops.flat_ternary_pack_masked(
             bufs_q, buf_p1, buf_p2, t=t,
@@ -220,6 +272,18 @@ class WirePath:
             rr_keys=rrk, rr_threshold=spec.rr_threshold,
             word_bits=spec.modulus_bits, use_masks=spec.masking_on)
         return y, wq
+
+    def _leaf_pairs(self, n: int, t, pmask, dev: torch.device
+                    ) -> tuple[torch.Tensor, torch.Tensor]:
+        """The leaves' (N, N) pair keys and signs at device round ``t``;
+        the signs are scoped to sibling groups on a tree, so leaf masks
+        cancel inside the level-1 partials."""
+        keys = pvm.pair_stream_keys(
+            self.privacy.mask_seed if self.privacy.masking_on else 0, n, t)
+        if self.tree is not None:
+            return keys, pvm.tree_pair_signs(n, self.tree.fanout,
+                                             participation=pmask, device=dev)
+        return keys, pvm.pair_signs(n, participation=pmask, device=dev)
 
     def master_masked(self, bufs_q: torch.Tensor, k_star,
                       masked: torch.Tensor, wq: torch.Tensor,
@@ -234,34 +298,157 @@ class WirePath:
             bufs_q, k_star, masked, sum_wq, buf_p1, buf_p2, t=t,
             alpha0=self.cfg.alpha0, scale_mult=self.privacy.scale_mult)
 
+    def _tree_fold_masked(self, y: torch.Tensor, *, t, pmask=None
+                          ) -> torch.Tensor:
+        """Fold the N masked leaf uplinks level by level down to the last
+        level's w_L partials, one launch a level.
+
+        Level l's nodes each sum their children (whose sibling-scoped
+        masks cancel in the modular sum) and add their own net mask from
+        the level-salted stream (``tree_level_seed(mask_seed, l)``),
+        scoped to level-l sibling groups. ``pmask`` folds upward: a node
+        is active iff any of its leaves is, and masks pair active nodes
+        only."""
+        spec, ts = self.privacy, self.tree
+        n = y.shape[0]
+        dev = y.device
+        t = ops.round_index(t, dev)
+        widths = ts.level_widths(n)
+        act = (None if pmask is None
+               else torch.as_tensor(pmask, dtype=torch.float32, device=dev))
+        cur = y
+        for lvl in range(1, len(widths)):
+            g = widths[lvl]
+            sib = ts.sibling_size(lvl, n)
+            if act is not None:
+                act = pvm.tree_activity(act, ts.fanout)
+            if spec.masking_on:
+                keys = pvm.pair_stream_keys(
+                    pvm.tree_level_seed(spec.mask_seed, lvl), g, t)
+            else:
+                keys = _no_masks(g, dev)[0]
+            signs = pvm.tree_pair_signs(g, sib, participation=act,
+                                        device=dev)
+            cur = ops.flat_masked_partial_sum(
+                cur, keys, signs, fanout=ts.fanout, sibling=sib,
+                use_masks=spec.masking_on)
+        return cur
+
+    def _tree_round_plain(self, bufs_q: torch.Tensor, k_star,
+                          w: torch.Tensor, buf_p1: torch.Tensor,
+                          buf_p2: torch.Tensor, *, t, betas=None
+                          ) -> tuple[torch.Tensor, torch.Tensor]:
+        """The plain tree round: packed §3.3 leaves → fixed-point weighted
+        level-1 partials → unmasked interior folds → one root
+        sum-and-descale, on the uint32 wire (weights at
+        ``TREE_PLAIN_FIXPOINT_BITS``), so the result is the flat integer
+        round's bits at every fanout."""
+        ts = self.tree
+        n = bufs_q.shape[0]
+        dev = bufs_q.device
+        packed = self.uplink_stacked(bufs_q, buf_p1, buf_p2, t=t,
+                                     betas=betas)
+        wq = pvm.quantize_weights(w, TREE_PLAIN_FIXPOINT_BITS)
+        cur = ops.flat_partial_sum(packed, wq, fanout=ts.fanout,
+                                   word_bits=TREE_PLAIN_WORD_BITS)
+        widths = ts.level_widths(n)
+        for lvl in range(2, len(widths)):
+            keys, signs = _no_masks(widths[lvl], dev)
+            cur = ops.flat_masked_partial_sum(
+                cur, keys, signs, fanout=ts.fanout,
+                sibling=ts.sibling_size(lvl, n), use_masks=False)
+        new_buf = ops.flat_masked_master_update(
+            bufs_q, k_star, cur, pvm.as_u64(wq).sum(), buf_p1, buf_p2, t=t,
+            alpha0=self.cfg.alpha0,
+            scale_mult=2.0 ** -TREE_PLAIN_FIXPOINT_BITS)
+        return new_buf, packed
+
+    def _viable(self, pmask, alive: torch.Tensor, n: int
+                ) -> tuple[torch.Tensor, torch.Tensor]:
+        """``recovery.effective_masks`` at the privacy spec's threshold,
+        over the tree's sibling groups (or the whole cohort)."""
+        if self.privacy.recovery_threshold is None:
+            raise ValueError(
+                "fault injection on the privacy wire requires "
+                "privacy.recovery_threshold (the Shamir t of the "
+                "dropout-recovery dealing) to be set")
+        return pvr.effective_masks(
+            pmask, alive, self.privacy.recovery_threshold,
+            self.tree.fanout if self.tree is not None else None, n)
+
+    def _repair(self, keys: torch.Tensor, signs: torch.Tensor,
+                alive_eff: torch.Tensor, dead_eff: torch.Tensor
+                ) -> tuple[torch.Tensor, torch.Tensor]:
+        """The (P,) keys and coefficients of the round's mask repair over
+        the static pairs a repair can touch (sibling-group pairs on a
+        tree), from the uplink's (N, N) pair ``keys`` and ``signs``, all
+        on the device."""
+        gsz = self.tree.fanout if self.tree is not None else None
+        i_idx, j_idx = pvr.repair_pair_index(keys.shape[0], gsz,
+                                             alive_eff.device)
+        return pvr.repair_coefficients(keys, signs, alive_eff, dead_eff,
+                                       i_idx, j_idx)
+
     def round_from_stacked(self, bufs_q: torch.Tensor, k_star,
                            w: torch.Tensor, buf_p1: torch.Tensor,
                            buf_p2: torch.Tensor, *, t, betas=None,
-                           pmask=None, alive=None
+                           pmask=None, alive=None, viable=None
                            ) -> tuple[torch.Tensor, torch.Tensor]:
-        """Uplink + master: two launches whatever N is.
+        """Uplink + master: two launches whatever N is, and one more a
+        tree level and a repair.
 
         The pilot's row goes on the wire like everyone else's and drops
         out of Eq. (3) by ``w[k_star] == 0``. ``k_star`` may be a device
         tensor. On the masked wire ``pmask`` is the public participation
-        mask the pair signs fold in. ``alive`` (post-uplink deaths and
-        their mask repair) is not ported. Returns ``(new_global_buf,
-        wire_buffer)``.
+        mask the pair signs fold in, and ``alive`` the (N,) post-fault
+        survival mask: dead rows leave the modular sum (their words are
+        zeroed in the returned wire buffer), the de-bias takes the
+        survivors' ΣW_k, and the survivors' masks toward the dead are
+        repaired in the first row of the words the root sums; ``viable``
+        passes in the ``(alive_eff, dead_eff)`` split of ``alive`` when
+        the caller has it. Returns ``(new_global_buf, wire_buffer)``.
         """
+        if not self.masked:
+            if self.tree is not None:
+                return self._tree_round_plain(bufs_q, k_star, w, buf_p1,
+                                              buf_p2, t=t, betas=betas)
+            packed = self.uplink_stacked(bufs_q, buf_p1, buf_p2, t=t,
+                                         betas=betas)
+            new_buf = self.master(bufs_q, k_star, packed, w, buf_p1, buf_p2,
+                                  t=t)
+            return new_buf, packed
+        n = bufs_q.shape[0]
+        pairs = self._leaf_pairs(n, ops.round_index(t, bufs_q.device), pmask,
+                                 bufs_q.device)
+        y, wq = self.uplink_masked(bufs_q, buf_p1, buf_p2, t=t, w=w,
+                                   betas=betas, pmask=pmask, pairs=pairs)
+        repair = None
         if alive is not None:
-            raise NotImplementedError(
-                "dropout repair (alive=) is not ported to repro_torch yet "
-                "(ROADMAP queue 1, item 10)")
-        if self.masked:
-            y, wq = self.uplink_masked(bufs_q, buf_p1, buf_p2, t=t, w=w,
-                                       betas=betas, pmask=pmask)
-            new_buf = self.master_masked(bufs_q, k_star, y, wq, buf_p1,
-                                         buf_p2, t=t)
-            return new_buf, y
-        packed = self.uplink_stacked(bufs_q, buf_p1, buf_p2, t=t,
-                                     betas=betas)
-        new_buf = self.master(bufs_q, k_star, packed, w, buf_p1, buf_p2, t=t)
-        return new_buf, packed
+            alive_eff, dead_eff = (self._viable(pmask, alive, n)
+                                   if viable is None else viable)
+            # Each dead row leaves the modular sum (its fields and its own
+            # net mask) and takes its W_k out of the de-bias; what remains
+            # is the survivors' uncancelled masks toward the dead.
+            y = _signed(y).where(alive_eff[:, None, None] > 0, 0).view(
+                y.dtype)
+            wq = wq.view(torch.int32).where(alive_eff > 0, 0).view(
+                torch.uint32)
+            if self.privacy.masking_on:
+                repair = self._repair(*pairs, alive_eff, dead_eff)
+        y_top = (y if self.tree is None
+                 else self._tree_fold_masked(y, t=t, pmask=pmask))
+        if repair is not None:
+            # Modular sums commute, so the leaves' residue rides up the
+            # tree unchanged and one launch repairs it in a fixed row.
+            fixed = ops.flat_mask_repair(y_top[0], *repair)
+            if y_top is y:       # y is returned: the repair is not written
+                y_top = torch.cat([_signed(fixed)[None],
+                                   _signed(y_top[1:])]).view(y.dtype)
+            else:
+                _signed(y_top[0]).copy_(_signed(fixed))
+        new_buf = self.master_masked(bufs_q, k_star, y_top, wq, buf_p1,
+                                     buf_p2, t=t)
+        return new_buf, y
 
     # -- the recurrence ------------------------------------------------------
 
@@ -275,25 +462,50 @@ class WirePath:
         per-worker beta_k; ``mask`` an optional (N,) participation mask
         (non-participants are left out of pilot selection and Eq. (3) and
         carry their previous cost; their ``bufs_q`` row may be anything).
+        With an active ``faults`` plan the round draws its fault codes
+        from ``state.round`` and leaves faulted workers out the same way
+        (on the masked wire through the repair of ``round_from_stacked``).
         Returns ``(state', new_global_buf, info)`` with ``info`` holding
         the round's device records (``k_star``, ``goodness``, ``costs``,
-        and ``mask`` when given) for one fetch after the run.
+        ``mask`` when given, ``alive`` under faults) for one fetch after
+        the run.
         """
         t = state.round
         sizes = sizes.float()
         costs = costs.float()
+        n = sizes.shape[0]
         if mask is not None:
             mask = torch.as_tensor(mask, dtype=torch.float32,
                                    device=costs.device)
+        av = viable = None
+        if self.faults is not None and self.faults.active:
+            av = (self.faults.codes(t, n) == FAULT_NONE).to(torch.float32)
+        if av is None:
+            sel_mask = mask
+        elif self.masked:
+            # A sibling group below the recovery threshold degrades to an
+            # exact-zero subtree, so its survivors are left out of pilot
+            # selection and the cost carry like the dead.
+            viable = self._viable(mask, av, n)
+            sel_mask = viable[0]
+        elif mask is None:
+            sel_mask = av
+        else:
+            sel_mask = mask * av
         k_star, scores = select_pilot(costs, state.prev_costs, sizes, t,
-                                      mask)
+                                      sel_mask)
         p_shares = sizes / sizes.sum()
-        w = self.weights(p_shares, k_star, t, betas=betas, mask=mask)
+        # The masked wire commits its Eq. (3) weights before faults show
+        # (the uplink is on the wire when a post-uplink death is seen), so
+        # dead rows leave downstream; the plain wire folds faults straight
+        # into the weights, which is the survivors-only aggregate.
+        w = self.weights(p_shares, k_star, t, betas=betas,
+                         mask=mask if self.masked else sel_mask)
         new_buf, _wire = self.round_from_stacked(
             bufs_q, k_star, w, state.buf_p1, state.buf_p2, t=t, betas=betas,
-            pmask=mask)
-        if mask is not None:     # non-participants reported no cost
-            costs = torch.where(mask > 0, costs, state.prev_costs)
+            pmask=mask, alive=av if self.masked else None, viable=viable)
+        if sel_mask is not None:     # left-out workers reported no cost
+            costs = torch.where(sel_mask > 0, costs, state.prev_costs)
         accountant = state.accountant
         if accountant is not None and self.masked and self.privacy.dp_on:
             accountant = accountant.add(self.privacy.eps_round)
@@ -303,6 +515,8 @@ class WirePath:
         info = {"k_star": k_star, "goodness": scores, "costs": costs}
         if mask is not None:
             info["mask"] = mask
+        if av is not None:
+            info["alive"] = av
         return new_state, new_buf, info
 
 

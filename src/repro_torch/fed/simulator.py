@@ -8,9 +8,11 @@ information-flow ledger.
 stateful Python objects), but the protocol stays on the device: each round
 is one :meth:`WirePath.round_step` (pilot selection, one uplink launch,
 one master launch, on the plain wire or, with ``FedPCConfig.privacy``,
-the masked one), worker costs stay device scalars, and the ledger and
-pilot history are filled from one fetch after the last round. The only
-host syncs inside the loop are ``eval_every``'s.
+the masked one; one partial-sum launch more a level of a
+``FedPCConfig.tree``, and one repair launch a masked round under a
+``FedPCConfig.faults`` plan), worker costs stay device scalars, and the
+ledger and pilot history are filled from one fetch after the last round.
+The only host syncs inside the loop are ``eval_every``'s.
 """
 from __future__ import annotations
 
@@ -24,8 +26,10 @@ from repro_torch.core import fedpc as fp
 from repro_torch.core import flat as fl
 from repro_torch.core import protocol as proto
 from repro_torch.core.privacy import LeakageLedger
+from repro_torch.fed import faults as ft
 from repro_torch.fed import rounds as rd
 from repro_torch.fed.worker import Worker
+from repro_torch.privacy import recovery as pvr
 from repro_torch.utils import PyTree, resolve_device, tree_map
 
 
@@ -38,6 +42,9 @@ class SimResult:
     eval_history: list = field(default_factory=list)
     round_state: Optional[rd.RoundState] = None        # resume handle
     bytes_per_round: list = field(default_factory=list)  # Eq. (8)
+    # Dropout-recovery control-plane bytes (share dealing and
+    # reconstruction), booked apart from the wire's.
+    recovery_bytes_per_round: list = field(default_factory=list)
 
 
 def _not_ported(what: str, item: str):
@@ -70,10 +77,6 @@ class FedSimulator:
             raise _not_ported(
                 "the traced-program audit that PrivacySpec(enforce=True) "
                 "asks for (privacy/audit.py)", "item 8")
-        if cfg.tree is not None:
-            raise _not_ported("tree aggregation", "item 9")
-        if cfg.faults is not None:
-            raise _not_ported("fault injection", "item 10")
         frac = cfg.participation if participation is None else participation
         if frac < 1.0:
             raise _not_ported("partial participation",
@@ -98,28 +101,107 @@ class FedSimulator:
         return torch.tensor([cfg.beta if b is None else b for b in wb],
                             dtype=torch.float32, device=self.device)
 
+    def _fault_codes(self, t0: int, n_rounds: int) -> np.ndarray | None:
+        """(R, N) host copy of the fault schedule, or None without an
+        active plan. The plan is a function of (seed, round, worker), so
+        the host recomputes it instead of fetching it."""
+        plan = self.fed_cfg.faults
+        if plan is None or not plan.active:
+            return None
+        return np.stack([plan.codes(t0 + i, self.n, device="cpu").numpy()
+                         for i in range(n_rounds)])
+
+    def _fault_split(self, codes: np.ndarray
+                     ) -> tuple[np.ndarray, np.ndarray]:
+        """(used, recoverable) boolean views of one masked round's fault
+        codes under the viability rule of ``recovery.effective_masks``:
+        the survivors in viable sibling groups, whose reports the master
+        used, and the dead whose seeds are reconstructed."""
+        cfg = self.fed_cfg
+        alive_eff, dead_eff = pvr.effective_masks(
+            None, torch.from_numpy(codes == ft.FAULT_NONE),
+            cfg.privacy.recovery_threshold,
+            cfg.tree.fanout if cfg.tree is not None else None, self.n)
+        return alive_eff.numpy() > 0, dead_eff.numpy() > 0
+
+    def _recovery_on(self) -> bool:
+        """Whether rounds deal and reconstruct mask seeds: an active fault
+        plan on the masked wire with masks and a recovery threshold."""
+        cfg = self.fed_cfg
+        spec = cfg.privacy
+        return (cfg.faults is not None and cfg.faults.active
+                and spec is not None and spec.masking_on
+                and spec.recovery_threshold is not None)
+
     def _backfill_ledger(self, t0: int, pilots: np.ndarray,
-                         code_kind: str) -> None:
+                         codes_mat: np.ndarray | None) -> None:
         """Record each round's uplink events from the one post-run fetch of
-        the pilot history: every worker's cost, the pilot's params, every
-        other worker's ``code_kind`` upload (packed codes, or masked words
-        on the secure wire, where no plaintext code crosses)."""
+        the pilot history: the recovery dealing and reconstructions, then
+        the cost of every worker that sent, the pilot's params, and every
+        other sender's upload (packed codes, or masked words on the secure
+        wire, where no plaintext code crosses). A pre-uplink death sends
+        nothing; later deaths and stragglers already sent."""
+        spec = self.fed_cfg.privacy
+        code_kind = ("masked_words" if spec is not None and spec.active
+                     else "packed_ternary")
         for i, k_star in enumerate(pilots):
             t = t0 + i
+            sent = (np.ones(self.n, bool) if codes_mat is None
+                    else codes_mat[i] != ft.DROP_BEFORE)
+            if self._recovery_on():
+                _, recoverable = self._fault_split(codes_mat[i])
+                for k in range(self.n):   # dealing precedes the faults
+                    self.ledger.record(k, t, "seed_shares", False)
+                for k in np.flatnonzero(recoverable):
+                    self.ledger.record(int(k), t, "mask_recovery", False)
             for k in range(self.n):
-                self.ledger.record(k, t, "cost", False)
+                if sent[k]:
+                    self.ledger.record(k, t, "cost", False)
             self.ledger.record(int(k_star), t, "pilot_params", True)
             for k in range(self.n):
-                if k != int(k_star):
+                if sent[k] and k != int(k_star):
                     self.ledger.record(k, t, code_kind, False)
+
+    def _round_bytes(self, model_bytes: int, codes: np.ndarray | None
+                     ) -> tuple[float, float]:
+        """(wire bytes, recovery bytes) of one round: Eq. (8) for the
+        round's wire and tree, less the leaf uplinks that pre-uplink
+        deaths never sent; the recovery dealing and reconstructions."""
+        cfg = self.fed_cfg
+        spec = cfg.privacy
+        masked = spec is not None and spec.active
+        if cfg.tree is not None:
+            wire_bytes = proto.fedpc_tree_bytes_per_round(
+                model_bytes, self.n, cfg.tree.fanout, levels=cfg.tree.levels,
+                word_bits=spec.modulus_bits if masked else None)
+        elif masked:
+            wire_bytes = proto.fedpc_masked_bytes_per_round(
+                model_bytes, self.n, word_bits=spec.modulus_bits)
+        else:
+            wire_bytes = proto.fedpc_bytes_per_round(model_bytes, self.n)
+        if codes is None:
+            return wire_bytes, 0.0
+        n_pre = int(np.sum(codes == ft.DROP_BEFORE))
+        leaf_bits = float(spec.modulus_bits) if masked else 2.0
+        wire_bytes -= model_bytes * n_pre * leaf_bits / 32.0
+        rec_bytes = 0.0
+        if self._recovery_on():
+            g = cfg.tree.fanout if cfg.tree is not None else None
+            _, recoverable = self._fault_split(codes)
+            rec_bytes = (proto.recovery_dealing_bytes_per_round(self.n, g)
+                         + proto.recovery_reconstruction_bytes(
+                             int(recoverable.sum()),
+                             spec.recovery_threshold, g, n_workers=self.n))
+        return wire_bytes, rec_bytes
 
     def run_fedpc(self, rounds: int, eval_every: int = 0, *,
                   participation: Optional[float] = None, betas=None,
                   state: Optional[rd.RoundState] = None) -> SimResult:
         """Run ``rounds`` rounds of the FedPC wire (resuming from ``state``
         if given): the plain wire, or the masked one when
-        ``FedPCConfig.privacy`` is active. ``betas`` is an optional (N,)
-        per-worker beta_k.
+        ``FedPCConfig.privacy`` is active, through ``FedPCConfig.tree``
+        when set and under ``FedPCConfig.faults`` when set. ``betas`` is an
+        optional (N,) per-worker beta_k.
 
         Per round: workers train locally (device costs), then one
         ``round_step`` selects the pilot and runs the two wire kernels.
@@ -128,7 +210,8 @@ class FedSimulator:
         cfg = self.fed_cfg
         wire = rd.WirePath(rd.WireConfig.from_fedpc(cfg),
                            privacy=cfg.privacy,
-                           renorm_shares=cfg.renorm_shares)
+                           renorm_shares=cfg.renorm_shares, tree=cfg.tree,
+                           faults=cfg.faults)
         layout = fl.layout_of(self.init_params)
         if state is None:
             state = rd.init_round_state(self.init_params, self.n, layout,
@@ -166,19 +249,30 @@ class FedSimulator:
             np.zeros((0,), np.int64)
         costs_mat = (torch.stack(raw_costs).cpu().numpy() if raw_costs
                      else np.zeros((0, self.n), np.float32))
-        self._backfill_ledger(
-            t0, pilots, "masked_words" if wire.masked else "packed_ternary")
-        if wire.masked:
-            wire_bytes = proto.fedpc_masked_bytes_per_round(
-                model_bytes, self.n, word_bits=cfg.privacy.modulus_bits)
-        else:
-            wire_bytes = proto.fedpc_bytes_per_round(model_bytes, self.n)
-        weights = self.sizes.astype(np.float64)
+        codes_mat = self._fault_codes(t0, len(pilots))
+        self._backfill_ledger(t0, pilots, codes_mat)
         for i in range(len(pilots)):
-            res.costs.append(float(np.average(
-                costs_mat[i].astype(np.float64), weights=weights)))
+            # The round's cost averages the reports the master used: not
+            # faulted and, on the masked wire, in a viable sibling group.
+            if codes_mat is None:
+                used = np.ones(self.n, bool)
+            elif wire.masked:
+                used = self._fault_split(codes_mat[i])[0]
+            else:
+                used = codes_mat[i] == ft.FAULT_NONE
+            eff = used.astype(np.float64)
+            if np.sum(eff) == 0:   # every report lost: the cost carries
+                res.costs.append(res.costs[-1] if res.costs
+                                 else float("inf"))
+            else:
+                vals = np.where(eff > 0, costs_mat[i], 0.0)
+                res.costs.append(float(np.average(
+                    vals, weights=self.sizes * eff)))
             res.pilot_history.append(int(pilots[i]))
+            wire_bytes, rec_bytes = self._round_bytes(
+                model_bytes, None if codes_mat is None else codes_mat[i])
             res.bytes_per_round.append(wire_bytes)
+            res.recovery_bytes_per_round.append(rec_bytes)
         res.params = fl.unflatten_tree(state.buf_p1, layout)
         res.round_state = state
         return res

@@ -1,7 +1,8 @@
 // Hand-written Hopper (sm_90a) kernels of the masked FedPC round: secure
-// aggregation by pairwise masks, with optional local-DP randomized response.
+// aggregation by pairwise masks, with optional local-DP randomized response,
+// and the dropout repair of a round whose workers died after their uplink.
 //
-// Both keep the view of fused_wire.cu: thread i owns float4 i of every
+// All keep the view of fused_wire.cu: thread i owns float4 i of every
 // (R, 512) operand, the flat elements e = 4i .. 4i+3, and the same four
 // wire words of every worker. m = R * 128 float4s per worker.
 //
@@ -22,19 +23,14 @@
 namespace {
 
 using wire::blocks_for;
+using wire::fold_stream;
 using wire::kThreads;
+using wire::load_words;
+using wire::mix32;
+using wire::store_words;
+using wire::stream_hashes;
 using wire::sub4;
 using wire::wire_field;
-
-// The lowbias32 finalizer of the JAX package's privacy/masking.py::mix32.
-__device__ __forceinline__ uint32_t mix32(uint32_t x) {
-  x ^= x >> 16;
-  x *= 0x7FEB352Du;
-  x ^= x >> 15;
-  x *= 0x846CA68Bu;
-  x ^= x >> 16;
-  return x;
-}
 
 // Replaces ternary_pack_masked_2d (JAX package, kernels/masked_wire.py).
 // Per worker k and element e: field = code + 1 (wire_field); with RR on,
@@ -99,6 +95,10 @@ ternary_pack_masked_kernel(const float4* __restrict__ q,
     for (int j = 0; j < 4; ++j) hr[j] = mix32(e0 + j);
   }
   // Mask counter hashes: per element pair at 16 bits, per element at 32.
+  // The stream arithmetic is wire::stream_hashes/fold_stream's, written out
+  // here: at 32 bits without RR the helpers' form made this kernel 1.60 ms
+  // where this one takes 1.12 (N = 10, R = 41,016, on an H100 80GB HBM3
+  // at 700 W), both at 32 registers.
   uint32_t hm[4] = {0u, 0u, 0u, 0u};
   if constexpr (kMasks && kWordBits == 16) {
     hm[0] = mix32(e0 >> 1);
@@ -179,11 +179,13 @@ __device__ __forceinline__ float residue(uint32_t acc, uint32_t sum_wq) {
 // (coeff is its own rounded product), and Eq. (3) as one fused
 // multiply-add, q - coeff * mult, as XLA:CPU contracts it in the reference.
 // At round <= 1 mult is alpha0 and the history is not read. The pilot's
-// model is read in place from the stacked worker buffers at the device
-// index k_star; an index outside [0, n) yields NaN.
+// model is read in place from the n stacked worker buffers at the device
+// index k_star; an index outside [0, n) yields NaN. The words are c rows,
+// any c >= 1: the n workers' own words on the flat wire, the w_L
+// last-level partials at a tree's root.
 //
 // Bound: bytes. A handful of integer and float operations per element
-// against (2 N + 16) bytes at 16 bits; one 8- or 16-byte load per worker
+// against (2 c + 16) bytes at 16 bits; one 8- or 16-byte load per word row
 // per thread, and one 16-byte store.
 template <int kWordBits>
 __global__ void __launch_bounds__(kThreads)
@@ -195,7 +197,7 @@ masked_master_update_kernel(const float4* __restrict__ q,
                             const float4* __restrict__ p2,
                             const int32_t* __restrict__ t, float alpha0,
                             float scale_mult, float4* __restrict__ out, int n,
-                            int64_t m) {
+                            int c, int64_t m) {
   const int64_t i = static_cast<int64_t>(blockIdx.x) * kThreads + threadIdx.x;
   if (i >= m) return;
   const int64_t pilot = *k_star;
@@ -204,33 +206,78 @@ masked_master_update_kernel(const float4* __restrict__ q,
     out[i] = make_float4(nan, nan, nan, nan);
     return;
   }
-  uint32_t a0 = 0u, a1 = 0u, a2 = 0u, a3 = 0u;
-  for (int k = 0; k < n; ++k) {
-    const int64_t at = static_cast<int64_t>(k) * m + i;
-    if constexpr (kWordBits == 16) {
-      const ushort4 w = reinterpret_cast<const ushort4*>(masked)[at];
-      a0 += w.x;
-      a1 += w.y;
-      a2 += w.z;
-      a3 += w.w;
-    } else {
-      const uint4 w = reinterpret_cast<const uint4*>(masked)[at];
-      a0 += w.x;
-      a1 += w.y;
-      a2 += w.z;
-      a3 += w.w;
-    }
+  uint32_t a[4] = {0u, 0u, 0u, 0u};
+  for (int k = 0; k < c; ++k) {
+    uint32_t w[4];
+    load_words<kWordBits>(masked, static_cast<int64_t>(k) * m + i, w);
+#pragma unroll
+    for (int j = 0; j < 4; ++j) a[j] += w[j];
   }
   const uint32_t sw = *sum_wq;
-  const float c0 = __fmul_rn(residue<kWordBits>(a0, sw), scale_mult);
-  const float c1 = __fmul_rn(residue<kWordBits>(a1, sw), scale_mult);
-  const float c2 = __fmul_rn(residue<kWordBits>(a2, sw), scale_mult);
-  const float c3 = __fmul_rn(residue<kWordBits>(a3, sw), scale_mult);
+  const float c0 = __fmul_rn(residue<kWordBits>(a[0], sw), scale_mult);
+  const float c1 = __fmul_rn(residue<kWordBits>(a[1], sw), scale_mult);
+  const float c2 = __fmul_rn(residue<kWordBits>(a[2], sw), scale_mult);
+  const float c3 = __fmul_rn(residue<kWordBits>(a[3], sw), scale_mult);
   float4 mult = make_float4(alpha0, alpha0, alpha0, alpha0);
   if (*t > 1) mult = sub4(p1[i], p2[i]);
   const float4 x = q[pilot * m + i];
   out[i] = make_float4(__fmaf_rn(-c0, mult.x, x.x), __fmaf_rn(-c1, mult.y, x.y),
                        __fmaf_rn(-c2, mult.z, x.z), __fmaf_rn(-c3, mult.w, x.w));
+}
+
+// Replaces mask_repair_2d (JAX package, kernels/masked_wire.py). Per
+// element of one (R, 512) word slab: y + sum_p coeff[p] * stream(keys[p])
+// mod 2^WordBits, written out of place, with the uplink's stream geometry
+// (fold_stream), so a dead worker's pair streams are regenerated bitwise
+// as its siblings folded them in. The P keys and coefficients are staged
+// in shared memory; a pair with coefficient 0 (all but the dead-live
+// pairs) is skipped, a branch every thread takes the same way.
+//
+// Bound: integer operations once more than a few pairs are live (an add
+// and a mix32 per stream word and pair), else bytes: one 8- or 16-byte
+// load and store a thread.
+template <int kWordBits>
+__global__ void __launch_bounds__(kThreads)
+mask_repair_kernel(const void* __restrict__ y,
+                   const uint32_t* __restrict__ keys,
+                   const int32_t* __restrict__ coeff, void* __restrict__ out,
+                   int n_pairs, int64_t m) {
+  extern __shared__ uint32_t staged[];     // keys, then coefficients
+  int32_t* s_coeff = reinterpret_cast<int32_t*>(staged + n_pairs);
+  for (int j = threadIdx.x; j < n_pairs; j += kThreads) {
+    staged[j] = keys[j];
+    s_coeff[j] = coeff[j];
+  }
+  __syncthreads();
+  const int64_t i = static_cast<int64_t>(blockIdx.x) * kThreads + threadIdx.x;
+  if (i >= m) return;
+  uint32_t acc[4];
+  load_words<kWordBits>(y, i, acc);
+  uint32_t h[4];
+  stream_hashes<kWordBits>(static_cast<uint32_t>(i) * 4u, h);
+  for (int p = 0; p < n_pairs; ++p) {
+    const int32_t cp = s_coeff[p];
+    if (cp == 0) continue;
+    fold_stream<kWordBits>(h, staged[p], static_cast<uint32_t>(cp), acc);
+  }
+  store_words<kWordBits>(out, i, acc);
+}
+
+template <int kWordBits>
+cudaError_t launch_repair(const void* y, const uint32_t* keys,
+                          const int32_t* coeff, void* out, int n_pairs,
+                          int64_t m, cudaStream_t stream) {
+  const size_t staged = 2 * sizeof(uint32_t) * static_cast<size_t>(n_pairs);
+  if (staged > 48 * 1024) {
+    const cudaError_t err = cudaFuncSetAttribute(
+        mask_repair_kernel<kWordBits>,
+        cudaFuncAttributeMaxDynamicSharedMemorySize,
+        static_cast<int>(staged));
+    if (err != cudaSuccess) return err;
+  }
+  mask_repair_kernel<kWordBits><<<blocks_for(m), kThreads, staged, stream>>>(
+      y, keys, coeff, out, n_pairs, m);
+  return cudaGetLastError();
 }
 
 struct PackArgs {
@@ -325,13 +372,13 @@ int mw_ternary_pack_masked(const void* q, const void* p1, const void* p2,
   return static_cast<int>(err);
 }
 
-// q (n, m) float4, k_star int64 scalar, masked (n, m) ushort4 / uint4,
+// q (n, m) float4, k_star int64 scalar, masked (c, m) ushort4 / uint4,
 // sum_wq uint32 scalar, p1/p2/out (m,) float4, t int32 scalar.
 int mw_masked_master_update(const void* q, const void* k_star,
                             const void* masked, const void* sum_wq,
                             const void* p1, const void* p2, const void* t,
                             float alpha0, float scale_mult, int word_bits,
-                            void* out, int n, long long m, int device,
+                            void* out, int n, int c, long long m, int device,
                             void* stream) {
   const cudaError_t set = cudaSetDevice(device);
   if (set != cudaSuccess) return static_cast<int>(set);
@@ -345,14 +392,35 @@ int mw_masked_master_update(const void* q, const void* k_star,
   auto* o = static_cast<float4*>(out);
   if (word_bits == 16) {
     masked_master_update_kernel<16><<<blocks_for(m), kThreads, 0, s>>>(
-        qq, kk, masked, sw, a, b, tt, alpha0, scale_mult, o, n, m);
+        qq, kk, masked, sw, a, b, tt, alpha0, scale_mult, o, n, c, m);
   } else if (word_bits == 32) {
     masked_master_update_kernel<32><<<blocks_for(m), kThreads, 0, s>>>(
-        qq, kk, masked, sw, a, b, tt, alpha0, scale_mult, o, n, m);
+        qq, kk, masked, sw, a, b, tt, alpha0, scale_mult, o, n, c, m);
   } else {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   return static_cast<int>(cudaGetLastError());
+}
+
+// y/out (m,) ushort4 / uint4, keys (n_pairs,) uint32, coeff (n_pairs,)
+// int32; n_pairs >= 1.
+int mw_mask_repair(const void* y, const void* keys, const void* coeff,
+                   int word_bits, void* out, int n_pairs, long long m,
+                   int device, void* stream) {
+  const cudaError_t set = cudaSetDevice(device);
+  if (set != cudaSuccess) return static_cast<int>(set);
+  const auto* kk = static_cast<const uint32_t*>(keys);
+  const auto* cc = static_cast<const int32_t*>(coeff);
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  cudaError_t err;
+  if (word_bits == 16) {
+    err = launch_repair<16>(y, kk, cc, out, n_pairs, m, s);
+  } else if (word_bits == 32) {
+    err = launch_repair<32>(y, kk, cc, out, n_pairs, m, s);
+  } else {
+    err = cudaErrorInvalidValue;
+  }
+  return static_cast<int>(err);
 }
 
 const char* mw_error_string(int code) {

@@ -30,6 +30,79 @@ __device__ __forceinline__ float4 sub4(float4 a, float4 b) {
                      __fsub_rn(a.z, b.z), __fsub_rn(a.w, b.w));
 }
 
+// The lowbias32 finalizer of the JAX package's privacy/masking.py::mix32.
+__device__ __forceinline__ uint32_t mix32(uint32_t x) {
+  x ^= x >> 16;
+  x *= 0x7FEB352Du;
+  x ^= x >> 15;
+  x *= 0x846CA68Bu;
+  x ^= x >> 16;
+  return x;
+}
+
+// The counter hashes of a counter stream over the four elements
+// e0 .. e0 + 3 (e0 a multiple of 4) that one thread owns: mix32(e) per
+// element at 32 bits; at 16 bits one hash per element pair, mix32(e >> 1),
+// in h[0] and h[1] (h[2], h[3] unused). The flat element index of an
+// (R, 512) view is r * 512 + c.
+template <int kWordBits>
+__device__ __forceinline__ void stream_hashes(uint32_t e0, uint32_t h[4]) {
+  if constexpr (kWordBits == 16) {
+    h[0] = mix32(e0 >> 1);
+    h[1] = mix32((e0 >> 1) + 1u);
+    h[2] = h[3] = 0u;
+  } else {
+#pragma unroll
+    for (int j = 0; j < 4; ++j) h[j] = mix32(e0 + j);
+  }
+}
+
+// acc[j] += s * stream(key) at the four elements of stream_hashes, mod
+// 2^32 (the caller truncates to the wire width). The stream word is
+// mix32(h + key); at 16 bits one word feeds two elements, its low half
+// the even one and its high half the odd one.
+template <int kWordBits>
+__device__ __forceinline__ void fold_stream(const uint32_t h[4], uint32_t key,
+                                            uint32_t s, uint32_t acc[4]) {
+  if constexpr (kWordBits == 16) {
+    const uint32_t u0 = mix32(h[0] + key);
+    const uint32_t u1 = mix32(h[1] + key);
+    acc[0] += s * (u0 & 0xFFFFu);
+    acc[1] += s * (u0 >> 16);
+    acc[2] += s * (u1 & 0xFFFFu);
+    acc[3] += s * (u1 >> 16);
+  } else {
+#pragma unroll
+    for (int j = 0; j < 4; ++j) acc[j] += s * mix32(h[j] + key);
+  }
+}
+
+// Four wire words at index `at` of a ushort4 (16-bit) or uint4 (32-bit)
+// array, widened to uint32, and stored back truncated.
+template <int kWordBits>
+__device__ __forceinline__ void load_words(const void* words, int64_t at,
+                                           uint32_t w[4]) {
+  if constexpr (kWordBits == 16) {
+    const ushort4 v = reinterpret_cast<const ushort4*>(words)[at];
+    w[0] = v.x; w[1] = v.y; w[2] = v.z; w[3] = v.w;
+  } else {
+    const uint4 v = reinterpret_cast<const uint4*>(words)[at];
+    w[0] = v.x; w[1] = v.y; w[2] = v.z; w[3] = v.w;
+  }
+}
+
+template <int kWordBits>
+__device__ __forceinline__ void store_words(void* words, int64_t at,
+                                            const uint32_t w[4]) {
+  if constexpr (kWordBits == 16) {
+    reinterpret_cast<ushort4*>(words)[at] = make_ushort4(
+        static_cast<uint16_t>(w[0]), static_cast<uint16_t>(w[1]),
+        static_cast<uint16_t>(w[2]), static_cast<uint16_t>(w[3]));
+  } else {
+    reinterpret_cast<uint4*>(words)[at] = make_uint4(w[0], w[1], w[2], w[3]);
+  }
+}
+
 inline unsigned blocks_for(int64_t m) {
   return static_cast<unsigned>((m + kThreads - 1) / kThreads);
 }

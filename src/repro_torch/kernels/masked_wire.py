@@ -1,5 +1,6 @@
-"""The two kernels of the masked FedPC round — the masked uplink and the
-sum-then-unmask master — hand-written in CUDA C++ (``csrc/masked_wire.cu``).
+"""The kernels of the masked FedPC round — the masked uplink, the
+sum-then-unmask master and the dropout repair — hand-written in CUDA C++
+(``csrc/masked_wire.cu``).
 
 They take the same ``(R, 512)`` float views as ``kernels.fused_wire`` and
 ``(N, R, 512)`` wire words, ``uint16`` at the 16-bit modulus and
@@ -25,12 +26,11 @@ from repro_torch.kernels import build
 from repro_torch.kernels.fused_wire import WIDE, check_operand, device_of
 from repro_torch.privacy import ref as pref
 from repro_torch.privacy.dp import rr_bits64
-from repro_torch.privacy.masking import (M32, as_u64, halves16_64,
-                                         index_hash64, mix32_64, to_words,
-                                         word_bits_of)
+from repro_torch.privacy.masking import net_words64, to_words, word_bits_of
+from repro_torch.privacy.recovery import mask_repair_ref
 
 #: Kernel launches per wrapper; only a launch on the card counts.
-LAUNCHES = {"uplink_masked": 0, "master_masked": 0}
+LAUNCHES = {"uplink_masked": 0, "master_masked": 0, "mask_repair": 0}
 
 #: Bytes of shared memory a block may stage the (N, L) keys and signs in.
 MAX_STAGED_BYTES = 227 * 1024
@@ -52,9 +52,13 @@ def _lib() -> ctypes.CDLL:
         lib.mw_ternary_pack_masked.restype = ctypes.c_int
         lib.mw_masked_master_update.argtypes = [
             _P, _P, _P, _P, _P, _P, _P, ctypes.c_float, ctypes.c_float,
-            ctypes.c_int, _P, ctypes.c_int, ctypes.c_longlong, ctypes.c_int,
-            _P]
+            ctypes.c_int, _P, ctypes.c_int, ctypes.c_int, ctypes.c_longlong,
+            ctypes.c_int, _P]
         lib.mw_masked_master_update.restype = ctypes.c_int
+        lib.mw_mask_repair.argtypes = [
+            _P, _P, _P, ctypes.c_int, _P, ctypes.c_int, ctypes.c_longlong,
+            ctypes.c_int, _P]
+        lib.mw_mask_repair.restype = ctypes.c_int
         lib.mw_error_string.argtypes = [ctypes.c_int]
         lib.mw_error_string.restype = ctypes.c_char_p
         _bound = lib
@@ -71,25 +75,6 @@ def _launch(kind: str, fn, *args) -> None:
 
 # -- masked uplink -----------------------------------------------------------
 
-def _net_words64(keys: torch.Tensor, signs: torch.Tensor, size: int,
-                 word_bits: int) -> torch.Tensor:
-    """(N, size) int64 net masks ``Σ_l signs[k, l]·stream(keys[k, l])``
-    (before the modulus), row by row of the key matrix as the kernel
-    folds them."""
-    n, cohort = keys.shape
-    keys64 = as_u64(keys)
-    signs64 = signs.to(torch.int64)
-    h = index_hash64(size if word_bits == 32 else 2 * ((size + 1) // 2),
-                     word_bits, device=keys.device)
-    acc = torch.zeros((n, size), dtype=torch.int64, device=keys.device)
-    for lane in range(cohort):
-        u = mix32_64((h[None, :] + keys64[:, lane, None]) & M32)
-        if word_bits == 16:
-            u = halves16_64(u)
-        acc += signs64[:, lane, None] * u[:, :size]
-    return acc
-
-
 def ternary_pack_masked_plain(q, p1, p2, t, beta, alpha1: float, wq, keys,
                               signs, rr_keys, *, rr_threshold: int = 0,
                               word_bits: int = 32, use_masks: bool = True
@@ -98,7 +83,7 @@ def ternary_pack_masked_plain(q, p1, p2, t, beta, alpha1: float, wq, keys,
     n, r, _ = q.shape
     size = r * WIDE
     if use_masks:
-        masks = to_words(_net_words64(keys, signs, size, word_bits),
+        masks = to_words(net_words64(keys, signs, size, word_bits),
                          word_bits)
     else:
         masks = torch.zeros((n, size), dtype=_WORD_DTYPES[word_bits],
@@ -182,22 +167,27 @@ def masked_master_update(q: torch.Tensor, k_star: torch.Tensor,
                          masked: torch.Tensor, sum_wq: torch.Tensor,
                          p1: torch.Tensor, p2: torch.Tensor, t: torch.Tensor,
                          alpha0: float, scale_mult: float) -> torch.Tensor:
-    """Eq. (3) over the modular sum of every worker's masked words.
+    """Eq. (3) over the modular sum of the masked words.
 
     q (N, R, 512) float32, of which the pilot's view is read in place at
     k_star, a 0-d int64 device index in [0, N) (the kernel writes NaN for
-    one outside it); masked (N, R, 512) uint16/uint32 (the dtype picks the
-    modulus); sum_wq 0-d uint32, the public Σ_k W_k; p1/p2 (R, 512)
-    float32; t 0-d int32; ``scale_mult`` the fixed-point descale with the
-    RR unbias folded in. Returns (R, 512) float32.
+    one outside it); masked (C, R, 512) uint16/uint32 (the dtype picks the
+    modulus), C >= 1 word rows: the N workers' words on the flat wire, the
+    w_L last-level partials at a tree's root; sum_wq 0-d uint32, the
+    public Σ_k W_k; p1/p2 (R, 512) float32; t 0-d int32; ``scale_mult``
+    the fixed-point descale with the RR unbias folded in. Returns
+    (R, 512) float32.
     """
     dev = device_of(q)
     n, r = q.shape[0], q.shape[1]
+    c = masked.shape[0] if masked.dim() == 3 else -1
     bits = word_bits_of(masked)
     check_operand("q", q, torch.float32, (n, r, WIDE), dev, align=16)
     check_operand("k_star", k_star, torch.int64, (), dev)
-    check_operand("masked", masked, masked.dtype, (n, r, WIDE), dev,
+    check_operand("masked", masked, masked.dtype, (c, r, WIDE), dev,
                   align=bits // 2)
+    if c < 1:
+        raise ValueError("need at least one row of masked words")
     check_operand("sum_wq", sum_wq, torch.uint32, (), dev)
     check_operand("p1", p1, torch.float32, (r, WIDE), dev, align=16)
     check_operand("p2", p2, torch.float32, (r, WIDE), dev, align=16)
@@ -209,7 +199,53 @@ def masked_master_update(q: torch.Tensor, k_star: torch.Tensor,
     _launch("master_masked", _lib().mw_masked_master_update,
             q.data_ptr(), k_star.data_ptr(), masked.data_ptr(),
             sum_wq.data_ptr(), p1.data_ptr(), p2.data_ptr(), t.data_ptr(),
-            float(alpha0), float(scale_mult), bits, out.data_ptr(), n,
+            float(alpha0), float(scale_mult), bits, out.data_ptr(), n, c,
             r * WIDE // 4, dev.index,
+            torch.cuda.current_stream(dev).cuda_stream)
+    return out
+
+
+# -- dropout repair -----------------------------------------------------------
+
+def mask_repair_plain(y: torch.Tensor, keys: torch.Tensor,
+                      coeff: torch.Tensor) -> torch.Tensor:
+    """Plain twin of :func:`mask_repair`; any device."""
+    if keys.shape[0] == 0:
+        return y
+    return mask_repair_ref(y, keys, coeff, word_bits=word_bits_of(y))
+
+
+def mask_repair(y: torch.Tensor, keys: torch.Tensor, coeff: torch.Tensor
+                ) -> torch.Tensor:
+    """Repair one slab of masked words after post-uplink deaths: returns a
+    new (R, 512) tensor ``y + Σ_p coeff[p]·stream(keys[p])`` mod
+    2**word_bits, in one launch, and never writes into ``y``.
+
+    y (R, 512) uint16/uint32 (the dtype picks the modulus); keys (P,)
+    uint32 pair stream keys and coeff (P,) int32 coefficients
+    (``privacy.recovery.repair_coefficients``). The stream geometry is the
+    masked uplink's (flat element index ``r·512 + c``). P = 0 returns
+    ``y`` itself, with no launch.
+    """
+    dev = device_of(y)
+    r = y.shape[0] if y.dim() == 2 else -1
+    p = keys.shape[0] if keys.dim() == 1 else -1
+    bits = word_bits_of(y)
+    check_operand("y", y, y.dtype, (r, WIDE), dev, align=bits // 2)
+    check_operand("keys", keys, torch.uint32, (p,), dev)
+    check_operand("coeff", coeff, torch.int32, (p,), dev)
+    if r * WIDE > 1 << 32:
+        raise ValueError("flat element indices must fit in 32 bits")
+    if 8 * p > MAX_STAGED_BYTES:
+        raise ValueError(f"{p} repair pairs do not fit in one block's "
+                         f"shared memory")
+    if p == 0:
+        return y
+    if dev.type == "cpu":
+        return mask_repair_plain(y, keys, coeff)
+    out = torch.empty_like(y)
+    _launch("mask_repair", _lib().mw_mask_repair,
+            y.data_ptr(), keys.data_ptr(), coeff.data_ptr(), bits,
+            out.data_ptr(), p, r * WIDE // 4, dev.index,
             torch.cuda.current_stream(dev).cuda_stream)
     return out

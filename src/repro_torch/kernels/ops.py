@@ -3,8 +3,8 @@
 They make the kernel views (``(rows, 128)`` ↔ ``(rows // 4, 512)`` float,
 ``(rows // 4, 128)`` uint8, ``(rows // 4, 512)`` masked words), put the
 round index and the per-worker thresholds on the buffers' device without
-a host copy, and call ``kernels.fused_wire`` or ``kernels.masked_wire``.
-The kernels pick a fixed launch shape.
+a host copy, and call ``kernels.fused_wire``, ``kernels.masked_wire``
+or ``kernels.partial_sum``. The kernels pick a fixed launch shape.
 """
 from __future__ import annotations
 
@@ -12,6 +12,7 @@ import torch
 
 from repro_torch.kernels import fused_wire as fw
 from repro_torch.kernels import masked_wire as mw
+from repro_torch.kernels import partial_sum as ps
 from repro_torch.privacy.masking import as_u64, to_words
 
 LANES = fw.LANES
@@ -131,7 +132,8 @@ def flat_masked_master_update(bufs_q: torch.Tensor, k_star,
                               ) -> torch.Tensor:
     """Sum-then-unmask Eq. (3) over the masked wire words: bufs_q
     (N, rows, 128) float32, whose pilot row ``k_star`` the kernel reads in
-    place; masked (N, rows//4, 512) uint16/uint32; ``sum_wq`` the public
+    place; masked (C, rows//4, 512) uint16/uint32, any C >= 1 (the N
+    workers' words, or a tree's last-level partials); ``sum_wq`` the public
     Σ_k W_k (a device tensor or an int); ``scale_mult`` the fixed-point
     descale with the RR unbias folded in. Returns the new global
     (rows, 128) buffer."""
@@ -144,3 +146,38 @@ def flat_masked_master_update(bufs_q: torch.Tensor, k_star,
         buf_p2.reshape(r4, fw.WIDE), round_index(t, dev), alpha0,
         scale_mult)
     return out.reshape(rows, LANES)
+
+
+def flat_mask_repair(words: torch.Tensor, pair_keys: torch.Tensor,
+                     pair_coeff: torch.Tensor) -> torch.Tensor:
+    """Dropout repair over one masked-word slab (kernel view): a new
+    (rows//4, 512) buffer ``words + Σ_p coeff[p]·stream(keys[p])`` mod
+    2**modulus_bits in one launch (none for P = 0). ``pair_keys`` (P,)
+    uint32 and ``pair_coeff`` (P,) int32 come from
+    ``privacy.recovery.repair_coefficients``; the kernel skips the pairs
+    whose coefficient is 0."""
+    return mw.mask_repair(words, pair_keys.contiguous(),
+                          pair_coeff.to(torch.int32).contiguous())
+
+
+def flat_partial_sum(packed: torch.Tensor, wq: torch.Tensor, *, fanout: int,
+                     word_bits: int = 32) -> torch.Tensor:
+    """Leaf-level tree sub-aggregate over the packed wire: (C, rows//4,
+    128) uint8 children + (C,) uint32 fixed-point weights →
+    (ceil(C / fanout), rows//4, 512) word partials, one launch. The ragged
+    last group folds only the children that exist."""
+    return ps.partial_sum(packed, wq.contiguous(), fanout=fanout,
+                          word_bits=word_bits)
+
+
+def flat_masked_partial_sum(words: torch.Tensor, keys: torch.Tensor,
+                            signs: torch.Tensor, *, fanout: int,
+                            sibling: int, use_masks: bool = True
+                            ) -> torch.Tensor:
+    """Interior tree sub-aggregate over word partials: (C, rows//4, 512)
+    children → (ceil(C / fanout), rows//4, 512) parents in the same wire
+    dtype, each parent's own sibling-scoped net mask added in the kernel
+    from the level's (G, G) ``keys``/``signs``."""
+    return ps.masked_partial_sum(words, keys.contiguous(),
+                                 signs.contiguous(), fanout=fanout,
+                                 sibling=sibling, use_masks=use_masks)

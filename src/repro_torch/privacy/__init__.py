@@ -8,9 +8,12 @@ mask and RR streams are counter-based (``masking.mix32`` chains): the CUDA
 uplink regenerates them in registers from tiny key matrices, and the
 expansions here are the reference.
 
-Not ported yet: the traced-program audit (``privacy/audit.py``), dropout
-recovery (``privacy/recovery.py``), and the per-worker ``_row``, slab and
-tree variants of the mask functions.
+Dropout recovery (``recovery``: Shamir shares of the pair seeds, the
+repair's device operands) and the tree forms of the masks
+(``masking.tree_level_seed``, ``tree_pair_signs``, ``tree_activity``) are
+here too. Not ported yet: the traced-program audit (``audit`` holds only
+its recovery guard) and the per-worker ``_row`` and slab forms of the
+mask functions.
 """
 from repro_torch.privacy.accountant import PrivacyAccountant
 from repro_torch.privacy.dp import (rr_bits, rr_fields, rr_stream_key,

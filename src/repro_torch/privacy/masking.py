@@ -224,6 +224,60 @@ def pair_signs(n: int, *, participation=None, device=None) -> torch.Tensor:
     return signs
 
 
+def tree_level_seed(seed: int, level: int) -> int:
+    """Mask seed of tree level ``level`` (0 = the leaves) as its uint32
+    value: level 0 keeps the root seed, every higher level mixes a level
+    salt, ``mix32(seed + level·SALT mod 2**32)``, so a level's pair
+    streams are independent of the leaves' with the same pair id."""
+    if level == 0:
+        return as_u64(seed)
+    return mix32_64((as_u64(seed) + level * _SALT_TREE_LEVEL) & M32)
+
+
+def tree_pair_signs(n: int, sibling: int, *, participation=None,
+                    device=None) -> torch.Tensor:
+    """:func:`pair_signs` scoped to contiguous sibling groups of size
+    ``sibling``: a pair's masks are active only when both endpoints share
+    a parent (``i // sibling == j // sibling``), so each node's net mask
+    cancels inside its parent's partial sum."""
+    signs = pair_signs(n, participation=participation, device=device)
+    idx = torch.arange(n, device=signs.device)
+    same = (idx[:, None] // sibling) == (idx[None, :] // sibling)
+    return signs * same.to(torch.int32)
+
+
+def tree_activity(mask, fanout: int) -> torch.Tensor:
+    """Fold a (w,) participation/activity mask one tree level up: a node
+    is active iff any of its (at most ``fanout``) children is. Returns
+    (ceil(w / fanout),) float32 0/1."""
+    m = (torch.as_tensor(mask) > 0).to(torch.float32)
+    w = m.shape[0]
+    g = -(-w // fanout)
+    m = torch.nn.functional.pad(m, (0, g * fanout - w))
+    return m.view(g, fanout).amax(dim=1)
+
+
+def net_words64(keys: torch.Tensor, signs: torch.Tensor, size: int,
+                word_bits: int) -> torch.Tensor:
+    """(K, size) int64 signed stream sums ``Σ_l signs[k, l]·stream(keys[k,
+    l])`` (before the modulus) over elements ``[0, size)``, lane by lane of
+    the (K, L) key matrix as the kernels fold them: every worker's net mask
+    in the masked uplink, a tree node's in the partial sum, the repair term
+    (K = 1, coefficients for signs)."""
+    k, lanes = keys.shape
+    keys64 = as_u64(keys)
+    signs64 = signs.to(torch.int64)
+    h = index_hash64(size if word_bits == 32 else 2 * ((size + 1) // 2),
+                     word_bits, device=keys.device)
+    acc = torch.zeros((k, size), dtype=torch.int64, device=keys.device)
+    for lane in range(lanes):
+        u = mix32_64((h[None, :] + keys64[:, lane, None]) & M32)
+        if word_bits == 16:
+            u = halves16_64(u)
+        acc += signs64[:, lane, None] * u[:, :size]
+    return acc
+
+
 def net_masks(seed, n: int, t, shape: tuple, *, word_bits: int = 32,
               participation=None, shard_idx=0, device=None) -> torch.Tensor:
     """Every worker's net mask of round ``t``, ``(n, *shape)`` in the wire

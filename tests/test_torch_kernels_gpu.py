@@ -1,5 +1,7 @@
 """The CUDA wire kernels against their plain PyTorch versions, on the card:
-the plain round's uplink and master, and the masked round's.
+the plain round's uplink and master, the masked round's, the tree's two
+partial sums and the dropout repair, and the round core's tree and fault
+branches chained on the card and on the CPU.
 
 Needs a CUDA card and ``nvcc``; every test here is marked ``gpu`` and skips
 where ``torch.cuda.is_available()`` is false. It imports nothing of JAX, so
@@ -11,9 +13,12 @@ import numpy as np
 import pytest
 import torch
 
+from repro_torch.core.tree import TreeSpec
 from repro_torch.fed import rounds as rd
+from repro_torch.fed.faults import FaultPlan
 from repro_torch.kernels import fused_wire as tfw
 from repro_torch.kernels import masked_wire as tmw
+from repro_torch.kernels import partial_sum as tps
 from repro_torch.privacy import dp as pdp
 from repro_torch.privacy import masking as pvm
 from repro_torch.privacy.spec import PrivacySpec
@@ -216,3 +221,153 @@ def test_masked_round_step_on_card_matches_cpu(cuda, bits):
     acc_cpu, acc_card = states["cpu"].accountant, states[cuda].accountant
     assert int(acc_card.spent_rounds) == 4
     assert float(acc_card.eps_sum) == float(acc_cpu.eps_sum)
+
+
+def _u(x: torch.Tensor) -> np.ndarray:
+    return pvm.as_u64(x).cpu().numpy()
+
+
+def _rand_words(rng, shape, bits, dev):
+    a = rng.integers(0, 1 << bits, shape, dtype=np.uint64)
+    return pvm.to_words(torch.from_numpy(a.astype(np.int64)), bits).to(dev)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("bits", [16, 32])
+@pytest.mark.parametrize("c,fanout", [(5, 2), (7, 4), (10, 4), (10, 8),
+                                      (8, 8), (7, 3)])
+@pytest.mark.parametrize("r", [8, 64])
+def test_partial_sum_matches_plain_on_card(cuda, bits, c, fanout, r):
+    rng = np.random.default_rng(c * fanout + bits + r)
+    packed = torch.from_numpy(rng.integers(0, 256, (c, r, 128),
+                                           dtype=np.uint8)).to(cuda)
+    wq = pvm.to_words(torch.from_numpy(rng.integers(
+        0, 1 << (14 if bits == 16 else 24), c)), 32).to(cuda)
+    before = tps.LAUNCHES["partial_sum"]
+    out = tps.partial_sum(packed, wq, fanout=fanout, word_bits=bits)
+    assert tps.LAUNCHES["partial_sum"] == before + 1
+    plain = tps.partial_sum_plain(packed, wq, fanout=fanout, word_bits=bits)
+    torch.cuda.synchronize()
+    assert out.dtype == plain.dtype and out.shape == plain.shape
+    assert np.array_equal(_u(out), _u(plain))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("bits", [16, 32])
+@pytest.mark.parametrize("c,fanout,sib", [(4, 4, 1), (4, 2, 2), (9, 3, 3),
+                                          (10, 2, 2), (10, 2, 5), (7, 4, 2),
+                                          (10, 4, 3)])
+def test_masked_partial_sum_matches_plain_on_card(cuda, bits, c, fanout,
+                                                  sib):
+    rng = np.random.default_rng(c + 10 * fanout + bits + sib)
+    r = 64
+    g = -(-c // fanout)
+    words = _rand_words(rng, (c, r, 512), bits, cuda)
+    t = torch.tensor(3, dtype=torch.int32, device=cuda)
+    keys = pvm.pair_stream_keys(pvm.tree_level_seed(7, 1), g, t)
+    act = torch.from_numpy((rng.random(g) < 0.7).astype(np.float32)).to(cuda)
+    for part in (None, act):
+        signs = pvm.tree_pair_signs(g, sib, participation=part, device=cuda)
+        for use_masks in (True, False):
+            before = tps.LAUNCHES["masked_partial_sum"]
+            out = tps.masked_partial_sum(words, keys, signs, fanout=fanout,
+                                         sibling=sib, use_masks=use_masks)
+            assert tps.LAUNCHES["masked_partial_sum"] == before + 1
+            plain = tps.masked_partial_sum_plain(
+                words, keys, signs, fanout=fanout, sibling=sib,
+                use_masks=use_masks)
+            torch.cuda.synchronize()
+            assert out.dtype == words.dtype
+            assert np.array_equal(_u(out), _u(plain))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("bits", [16, 32])
+@pytest.mark.parametrize("p", [1, 3, 9, 45])
+def test_mask_repair_matches_plain_on_card(cuda, bits, p):
+    rng = np.random.default_rng(bits + p)
+    y = _rand_words(rng, (64, 512), bits, cuda)
+    keys = pvm.to_words(torch.from_numpy(rng.integers(0, 1 << 32, p)),
+                        32).to(cuda)
+    for coeff in (rng.integers(-1, 2, p), np.zeros(p, np.int64)):
+        cf = torch.from_numpy(coeff.astype(np.int32)).to(cuda)
+        before = tmw.LAUNCHES["mask_repair"]
+        out = tmw.mask_repair(y, keys, cf)
+        assert tmw.LAUNCHES["mask_repair"] == before + 1
+        plain = tmw.mask_repair_plain(y, keys, cf)
+        torch.cuda.synchronize()
+        assert out.data_ptr() != y.data_ptr()
+        assert np.array_equal(_u(out), _u(plain))
+        if not coeff.any():
+            assert np.array_equal(_u(out), _u(y))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("bits", [16, 32])
+@pytest.mark.parametrize("t", [1, 2])
+def test_masked_master_over_c_rows_matches_plain_on_card(cuda, bits, t):
+    rng = np.random.default_rng(bits + t)
+    n, c, r = 10, 3, 64
+    q, p1, p2 = _history(rng, n, r)
+    dq, dp1, dp2 = (torch.from_numpy(a).to(cuda) for a in (q, p1, p2))
+    words = _rand_words(rng, (c, r, 512), bits, cuda)
+    sum_wq = pvm.to_words(torch.tensor(12345, device=cuda), 32)
+    dt = torch.tensor(t, dtype=torch.int32, device=cuda)
+    spec = PrivacySpec(modulus_bits=bits, dp_epsilon=2.0)
+    for k in (0, 9):
+        kk = torch.tensor(k, device=cuda)
+        out = tmw.masked_master_update(dq, kk, words, sum_wq, dp1, dp2, dt,
+                                       ALPHA0, spec.scale_mult)
+        plain = tmw.masked_master_update_plain(dq, kk, words, sum_wq, dp1,
+                                               dp2, dt, ALPHA0,
+                                               spec.scale_mult)
+        torch.cuda.synchronize()
+        assert torch.equal(out.view(torch.int32), plain.view(torch.int32))
+    for k in (-1, n):                       # the pilot bound is N, not C
+        out = tmw.masked_master_update(dq, torch.tensor(k, device=cuda),
+                                       words, sum_wq, dp1, dp2, dt, ALPHA0,
+                                       1.0)
+        assert bool(out.isnan().all())
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("bits,fanout", [(None, 2), (16, 4), (32, 3),
+                                         (16, None)])
+def test_tree_and_fault_round_steps_on_card_match_cpu(cuda, bits, fanout):
+    # The tree and fault branches of the round core, chained: the card's
+    # kernels and the CPU's plain versions give the same bits, with one
+    # partial-sum launch a level and one repair launch a masked round.
+    rng = np.random.default_rng(7)
+    n, rows = 10, 96
+    p0 = rng.standard_normal((rows, 128), dtype=np.float32) * 0.1
+    sizes = rng.integers(100, 900, n).astype(np.float32)
+    spec = (None if bits is None else
+            PrivacySpec(modulus_bits=bits, dp_epsilon=2.0,
+                        recovery_threshold=2, enforce=False))
+    wire = rd.WirePath(rd.WireConfig(), privacy=spec,
+                       tree=None if fanout is None else TreeSpec(fanout),
+                       faults=FaultPlan(seed=3, drop_before_uplink=0.1,
+                                        drop_after_uplink=0.25,
+                                        straggler=0.1))
+    states = {d: rd.init_round_state({"w": torch.from_numpy(p0).to(d)}, n,
+                                     privacy=spec, device=d)
+              for d in ("cpu", cuda)}
+    before = {**tmw.LAUNCHES, **tps.LAUNCHES}
+    for _ in range(4):
+        bufs = (states["cpu"].buf_p1.numpy()[None]
+                + rng.standard_normal((n, rows, 128), dtype=np.float32) * .01)
+        costs = rng.random(n, dtype=np.float32) + 0.5
+        for d in states:
+            states[d], _, info = wire.round_step(
+                states[d], torch.from_numpy(bufs).to(d),
+                torch.from_numpy(costs).to(d), torch.from_numpy(sizes).to(d))
+    after = {**tmw.LAUNCHES, **tps.LAUNCHES}
+    levels = 0 if fanout is None else TreeSpec(fanout).n_levels(n)
+    launched = {k: after[k] - before[k] for k in after}
+    assert launched["master_masked"] == (0 if bits is None and fanout is None
+                                         else 4)
+    assert launched["mask_repair"] == (0 if bits is None else 4)
+    assert (launched["partial_sum"] + launched["masked_partial_sum"]
+            == 4 * levels)
+    for a, b in zip(states["cpu"][:4], states[cuda][:4]):   # bitwise
+        assert torch.equal(a.view(torch.int32), b.cpu().view(torch.int32))

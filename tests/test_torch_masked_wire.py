@@ -188,6 +188,9 @@ def test_wrappers_refuse_what_the_kernel_does_not_take():
     with pytest.raises(ValueError):              # sum_wq not uint32
         tmw.masked_master_update(q, k, words, sw.to(torch.int64), p, p, t,
                                  0.01, 1.0)
-    with pytest.raises(ValueError):              # one worker's words only
-        tmw.masked_master_update(q, k, words[:1].contiguous(), sw, p, p, t,
+    with pytest.raises(ValueError):              # words of other rows R
+        tmw.masked_master_update(q, k, words[:, :1].contiguous(), sw, p, p,
+                                 t, 0.01, 1.0)
+    with pytest.raises(ValueError):              # no word row at all
+        tmw.masked_master_update(q, k, words[:0].contiguous(), sw, p, p, t,
                                  0.01, 1.0)

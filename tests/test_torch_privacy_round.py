@@ -155,9 +155,10 @@ def test_masked_round_equals_unmasked_round(bits):
 
 
 def test_dropout_repair_is_refused():
+    # A repair needs the Shamir threshold of the recovery dealing.
     wire = trd.WirePath(privacy=TSpec(enforce=False))
     z = torch.zeros((2, 32, 128))
-    with pytest.raises(NotImplementedError, match="item 10"):
+    with pytest.raises(ValueError, match="recovery_threshold"):
         wire.round_from_stacked(z, torch.tensor(0), torch.zeros(2), z[0],
                                 z[0], t=1, alive=torch.ones(2))
 
