@@ -7,9 +7,10 @@ Phases, each printing a line; any failure exits non-zero and prints no
 result:
 
 1. card   — requires CUDA; prints ``nvidia-smi``'s name and power limit.
-2. build  — builds every kernel from ``src/repro_torch/kernels/csrc/
-   {fused_wire,masked_wire,partial_sum}.cu``, one ``nvcc`` each, started
-   together; prints each kernel's registers and spills.
+2. build  — builds every kernel from the six ``src/repro_torch/kernels/
+   csrc/*.cu`` (``fused_wire``, ``masked_wire``, ``partial_sum``,
+   ``ternary_encode``, ``pack2bit``, ``master_update``), one ``nvcc``
+   each, started together; prints each kernel's registers and spills.
 3. check  — each kernel against its plain PyTorch version on the card,
    bitwise. The plain round's at both round branches, at the main-path
    shape (N = 10 workers, R = rows/4 = 41,016) and at N ∈ {1, 3}, R = 8.
@@ -23,7 +24,12 @@ result:
    fully dropped subtree whose partial must be exactly zero;
    ``mask_repair`` at 16/32 bits, P ∈ {1, 3, 9, 45} and the main path's
    13, all-zero coefficients the identity; the masked master over C = 3
-   word rows beside a 10-row pilot stack.
+   word rows beside a 10-row pilot stack. The one-worker uplinks (static
+   Eq. (5), Eq. (4), and at a device round t ∈ {1, 2, 3} with beta_k
+   sliced from a vector), the encode at both rules, pack and unpack and
+   the unfused master at one worker's main-path view and small ones;
+   unpack on all 256 byte values, pack on random int8, the unfused master
+   at N ∈ {1, 10, 33} on ternary and random int8 codes.
 4. slice  — ``FedSimulator.run_fedpc``: 3 rounds, 10 workers, the MLP
    3072→4096→2048→10 (20,998,154 params, CIFAR-10 input width) on
    synthetic data, ~1,024 samples per worker. Before each slice every
@@ -34,6 +40,17 @@ result:
    finite and bytes per round equal Eq. (8). A quickstart-size federation
    then runs on the card and on the CPU (plain versions) and must pick
    the same pilots.
+   worker rounds — on each of the slice's three rounds' own inputs (its
+   ten trained models and history), bitwise: the round built a worker at
+   a time (``WirePath.uplink`` ten times, stacked, then ``master``: 11
+   launches) == the batched round's bytes and new buffer; the same with
+   ``WirePath.uplink_traced`` at a device round and per-worker beta_k,
+   under sync-debug "error"; the unfused round (``ops.ternary_encode``,
+   ``pack2bit``, ``unpack2bit`` a worker, then one ``ops.master_update``
+   at t = 2, 3: 31 launches) == the fused round's bytes and new buffer,
+   with round 1's bytes through ``ternary_encode_round1`` == the Eq. (4)
+   uplink's. Then the ``ops`` functions on the MLP's own leaves and on
+   sizes that are not multiples of 4 or 512, card against CPU, bitwise.
 5. masked slice — the same federation with
    ``FedPCConfig(privacy=PrivacySpec(dp_epsilon=2.0, enforce=False))``:
    16-bit words, pairwise masks and randomized response on; masked
@@ -63,12 +80,15 @@ result:
    master over the tree root's C = 3 rows, the masks-off partial sums and
    a ``torch.sum`` of sibling groups beside one; each round's whole wire
    (``WirePath.round_from_stacked``, the tree rounds' too) beside the sum
-   of its kernels.
-9. bounds — the least time of each TPU kernel not ported yet at the
-   main-path shape, by arithmetic from the shapes alone.
+   of its kernels; the one-worker uplinks, encode, pack, unpack and the
+   unfused master (beside the two-call PyTorch composition
+   ``addcmul(q, tensordot(w, codes), p1 - p2)``), and the per-worker
+   round's wire against the batched round's.
 
-The line before the last is one JSON object with every kernel's numbers;
-the last is ``{"ok": true, "device": {...}}``.
+The line before the last is one JSON object with every kernel's numbers,
+one entry a kernel function, each with ``row``, its row in the kernel
+table of ``PERF.md`` (#1–#14); the last is ``{"ok": true, "device":
+{...}}``.
 """
 from __future__ import annotations
 
@@ -91,6 +111,9 @@ N_FEATURES, N_CLASSES = 3072, 10
 N_PARAMS = 20_998_154
 ROWS = 164_064
 REPEATS = 25
+QUEUED = 10                       # calls per timing when queued
+SLEEP_CYCLES = 40_000_000         # ~20 ms of card clock: the host queues them
+SCRUB_BYTES = 128 << 20           # read before each queued call: over the L2
 FP32_OPS_PER_S = 67e12            # H100 SXM, float32 outside tensor cores
 # H100 SXM INT32 pipe: 132 SMs x 64 lanes x 1.98 GHz boost clock (the FMA
 # pipe takes integer multiply-adds at the same rate beside it).
@@ -125,18 +148,28 @@ def phase_card(torch) -> tuple[str, int, float]:
 
 
 def _kernel_label(mangled: str) -> str:
-    """``name<template args>`` of a mangled kernel symbol."""
-    m = re.search(r"([a-z_]+_kernel)(?:I((?:L[ib]\d+E)+)E)?", mangled)
-    if m is None:
-        return mangled
-    args = re.findall(r"L[ib](\d+)E", m.group(2) or "")
-    return m.group(1) + (f"<{','.join(args)}>" if args else "")
+    """``name<template args>`` of a mangled kernel symbol: the
+    length-prefixed identifier ending in ``_kernel`` (the length's digits
+    may follow the hex digits of the anonymous namespace), then its int,
+    bool or enum template arguments."""
+    for run in re.finditer(r"\d+(?=[a-z])", mangled):
+        digits = run.group()
+        for i in range(len(digits)):
+            size = int(digits[i:])
+            name = mangled[run.end():run.end() + size]
+            if name.endswith("_kernel"):
+                rest = mangled[run.end() + size:]
+                head = rest[:rest.find("EE")] if rest.startswith("I") else ""
+                args = re.findall(r"L(?:[ib]|N\w*?E)(\d+)", head)
+                return name + (f"<{','.join(args)}>" if args else "")
+    return mangled
 
 
 def phase_build() -> None:
     """Build every kernel library at once: one nvcc per source."""
     from repro_torch.kernels import build
-    names = ("fused_wire", "masked_wire", "partial_sum")
+    names = ("fused_wire", "masked_wire", "partial_sum", "ternary_encode",
+             "pack2bit", "master_update")
 
     def timed(name):
         t0 = time.perf_counter()
@@ -157,6 +190,31 @@ def phase_build() -> None:
         print(f"build: {name} in {dt:.1f} s -> {so.name}", flush=True)
         for kernel, use in usage.items():
             print(f"build:   {kernel}: {'; '.join(use)}", flush=True)
+
+
+def _counters() -> tuple[dict, ...]:
+    """Every kernel module's launch counter."""
+    from repro_torch.kernels import (fused_wire, master_update, masked_wire,
+                                     pack2bit, partial_sum, ternary_encode)
+    return (fused_wire.LAUNCHES, masked_wire.LAUNCHES, partial_sum.LAUNCHES,
+            ternary_encode.LAUNCHES, pack2bit.LAUNCHES, master_update.LAUNCHES)
+
+
+def _zero_counts() -> None:
+    for counts in _counters():
+        for k in counts:
+            counts[k] = 0
+
+
+def _read_counts() -> dict:
+    """Every kernel's launches, by kind (the kinds are unique)."""
+    return {k: v for counts in _counters() for k, v in counts.items()}
+
+
+def _restore_counts(saved: dict) -> None:
+    """Put back counts read before a phase whose launches do not count."""
+    for counts in _counters():
+        counts.update({k: saved[k] for k in counts})
 
 
 def _inputs(torch, n: int, r: int, gen, dev):
@@ -486,17 +544,15 @@ def _federation(n_workers, n_samples, n_features, n_classes, seed):
             for k in range(n_workers)]
 
 
-def _drive(torch, sim, rounds: int):
+def _drive(torch, sim, rounds: int, capture: list | None = None):
     """``sim.run_fedpc(rounds)`` with every launch counter set to 0 just
     before and read just after, ``round_step`` under sync-debug "error"
     (any host sync inside it raises) and timed between syncs, as is each
-    worker's local training. Returns (result, launches, step_s, train_s,
-    wall_s)."""
+    worker's local training. With ``capture`` a list, each round's
+    ``(P^{t-1}, P^{t-2}, worker buffers, sizes, k_star)`` is appended to it.
+    Returns (result, launches, step_s, train_s, wall_s)."""
     from repro_torch.fed import rounds as rd
     from repro_torch.fed.worker import Worker
-    from repro_torch.kernels import fused_wire as fw
-    from repro_torch.kernels import masked_wire as mw
-    from repro_torch.kernels import partial_sum as ps
     step_s: list[float] = []
     train_s: list[float] = []
     inner_step = rd.WirePath.round_step
@@ -512,6 +568,10 @@ def _drive(torch, sim, rounds: int):
             torch.cuda.set_sync_debug_mode(0)
         torch.cuda.synchronize()
         step_s.append(time.perf_counter() - t0)
+        if capture is not None:
+            state, bufs_q, _costs, sizes = args[:4]
+            capture.append((state.buf_p1, state.buf_p2, bufs_q, sizes,
+                            out[2]["k_star"]))
         return out
 
     def timed_train(self, params):
@@ -525,15 +585,13 @@ def _drive(torch, sim, rounds: int):
     rd.WirePath.round_step = guarded
     Worker.train_round_device = timed_train
     try:
-        for counts in (fw.LAUNCHES, mw.LAUNCHES, ps.LAUNCHES):
-            for k in counts:
-                counts[k] = 0
+        _zero_counts()
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         res = sim.run_fedpc(rounds=rounds)
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
-        launches = {**fw.LAUNCHES, **mw.LAUNCHES, **ps.LAUNCHES}
+        launches = _read_counts()
     finally:
         rd.WirePath.round_step = inner_step
         Worker.train_round_device = inner_train
@@ -617,13 +675,17 @@ def _full_width(torch, dev):
     return workers, params
 
 
-def phase_slice(torch, dev) -> dict:
-    """The plain round at full width; returns its launch counts."""
+def phase_slice(torch, dev, capture: list) -> dict:
+    """The plain round at full width; returns its launch counts and leaves
+    each round's inputs in ``capture`` (``_drive``), the flat layout last."""
+    from repro_torch.core import flat as fl
     from repro_torch.core import protocol as proto
     from repro_torch.fed.simulator import FedSimulator
     workers, params = _full_width(torch, dev)
     sim = FedSimulator(workers, params, device=dev)
-    res, launches, step_s, train_s, wall = _drive(torch, sim, ROUNDS)
+    res, launches, step_s, train_s, wall = _drive(torch, sim, ROUNDS,
+                                                  capture)
+    capture.append(fl.layout_of(params))
     want = proto.fedpc_bytes_per_round(proto.model_size_bytes(params),
                                        N_WORKERS)
     own = _check_run(torch, res, launches,
@@ -871,19 +933,351 @@ def phase_tree_wire(torch, dev) -> None:
           f"bitwise", flush=True)
 
 
-def _median_ms(torch, fn) -> float:
+def _bitwise(torch, a, b) -> tuple[bool, float]:
+    """(bitwise equal, largest absolute difference): floats compared as
+    their int32 bits, integers as values."""
+    if a.dtype != b.dtype or a.shape != b.shape:
+        return False, float("inf")
+    if a.dtype == torch.float32:
+        return (torch.equal(a.view(torch.int32), b.view(torch.int32)),
+                float((a - b).abs().max()))
+    return torch.equal(a, b), float((a.long() - b.long()).abs().max())
+
+
+def phase_check_unfused(torch, dev) -> dict:
+    """The one-worker uplinks (#3, #4, #5), the encode (#11, #12), pack and
+    unpack (#13) and the unfused master (#14) against their plain versions
+    on the card, bitwise: at the main-path shapes (one worker's view of
+    R = ROWS / 4 rows; the master over N = 10 workers) and small ones; #13
+    on all 256 byte values and on random int8 codes, #14 at N = 1, 10, 33
+    on ternary and on random int8 codes. Returns the largest absolute
+    difference per kernel at the main-path shape."""
+    from repro_torch.core.ternary import ternarize, ternarize_round1
+    from repro_torch.kernels import fused_wire as fw
+    from repro_torch.kernels import master_update as mu
+    from repro_torch.kernels import pack2bit as pk
+    from repro_torch.kernels import ternary_encode as te
+    gen = torch.Generator(device=dev).manual_seed(SEED + 8)
+    r_main = ROWS // 4
+    errs = dict.fromkeys(("uplink", "uplink_round1", "uplink_traced",
+                          "encode", "encode_round1", "pack", "unpack",
+                          "master_update"), 0.0)
+    cases = dict.fromkeys(errs, 0)
+
+    def record(kind, got, want, where, main):
+        ok, diff = _bitwise(torch, got, want)
+        check(ok, f"{kind} differs from plain at {where}")
+        if main:
+            errs[kind] = max(errs[kind], diff)
+        cases[kind] += 1
+
+    alpha = torch.tensor(0.01, device=dev)
+    for n, r in ((N_WORKERS, r_main), (3, 8), (1, 2)):
+        main = r == r_main
+        q, p1, p2, beta, w, _k = _inputs(torch, n, r, gen, dev)
+        q0 = q[0]
+        record("uplink_round1", fw.ternary_pack_round1(q0, p1, 0.01),
+               fw.ternary_pack_round1_plain(q0, p1, 0.01), f"R={r}", main)
+        record("uplink", fw.ternary_pack(q0, p1, p2, 0.2),
+               fw.ternary_pack_plain(q0, p1, p2, 0.2), f"R={r}", main)
+        for t in (1, 2, 3):
+            tt = torch.tensor(t, dtype=torch.int32, device=dev)
+            for k in range(n):                 # beta_k sliced from a vector
+                record("uplink_traced",
+                       fw.ternary_pack_any(q[k], p1, p2, tt, beta[k], alpha),
+                       fw.ternary_pack_any_plain(q[k], p1, p2, tt, beta[k],
+                                                 alpha),
+                       f"R={r} t={t} worker {k}", main)
+        f0, f1, f2 = (x.reshape(4 * r, 128) for x in (q0, p1, p2))
+        codes = te.ternary_encode(f0, f1, f2, 0.2)
+        record("encode", codes, ternarize(f0, f1, f2, 0.2), f"R={r}", main)
+        record("encode_round1", te.ternary_encode_round1(f0, f1, 0.01),
+               ternarize_round1(f0, f1, 0.01), f"R={r}", main)
+        packed = pk.pack2bit(codes.view(r, 512))
+        record("pack", packed, pk.pack2bit_plain(codes.view(r, 512)),
+               f"R={r}", main)
+        record("unpack", pk.unpack2bit(packed), pk.unpack2bit_plain(packed),
+               f"R={r}", main)
+        tern = torch.stack([te.ternary_encode(x.reshape(4 * r, 128), f1, f2,
+                                              0.2) for x in q])
+        record("master_update", mu.master_update(f0, tern, w, f1, f2),
+               mu.master_update_plain(f0, tern, w, f1, f2), f"N={n} R={r}",
+               main)
+        del q, p1, p2, codes, packed, tern
+    every = torch.arange(256, dtype=torch.uint8, device=dev).repeat(32)
+    every = every.view(64, 128)
+    record("unpack", pk.unpack2bit(every), pk.unpack2bit_plain(every),
+           "all 256 bytes", False)
+    check(torch.equal(pk.pack2bit(pk.unpack2bit(every)), every),
+          "pack(unpack(b)) != b over all 256 bytes")
+    for lo, hi in ((-1, 3), (-128, 128)):
+        c = torch.randint(lo, hi, (64, 512), generator=gen, device=dev,
+                          dtype=torch.int8)
+        record("pack", pk.pack2bit(c), pk.pack2bit_plain(c),
+               f"codes in [{lo}, {hi})", False)
+    for n in (1, N_WORKERS, 33):
+        q, p1, p2, _beta, w, _k = _inputs(torch, n, 16, gen, dev)
+        f0, f1, f2 = (x.reshape(64, 128) for x in (q[0], p1, p2))
+        for lo, hi in ((-1, 2), (-128, 128)):
+            tern = torch.randint(lo, hi, (n, 64, 128), generator=gen,
+                                 device=dev, dtype=torch.int8)
+            record("master_update", mu.master_update(f0, tern, w, f1, f2),
+                   mu.master_update_plain(f0, tern, w, f1, f2),
+                   f"N={n} codes in [{lo}, {hi})", False)
+    torch.cuda.synchronize()
+    print("kernels: " + ", ".join(f"{k} ({v} cases)" for k, v in
+                                   cases.items())
+          + " bitwise equal to their plain versions (unpack on all 256 "
+          "bytes, pack on random int8, master_update at N = 1, 10, 33)",
+          flush=True)
+    return errs
+
+
+def _leaf_checks(torch, dev, leaves: dict, n_workers: int) -> None:
+    """The arbitrary-shape ``ops`` functions on the card against the same
+    calls on CPU copies (the plain versions), bitwise; ``leaves`` maps a
+    name to (q of each worker, P^{t-1}, P^{t-2}) of one shape."""
+    from repro_torch.kernels import ops
+    for name, (qs, p1, p2) in leaves.items():
+        outs = {}
+        for where, d in (("card", dev), ("cpu", torch.device("cpu"))):
+            qd = [x.to(d) for x in qs]
+            a, b = p1.to(d), p2.to(d)
+            codes = [ops.ternary_encode(x, a, b, 0.2) for x in qd]
+            packed = ops.pack2bit(codes[0])
+            w = torch.linspace(0.0, 0.1, n_workers, device=d)
+            outs[where] = [codes[0], ops.ternary_encode_round1(qd[0], a,
+                                                                0.01),
+                            packed, ops.unpack2bit(packed, codes[0].numel()),
+                            ops.ternary_pack(qd[0], a, b, 0.2),
+                            ops.ternary_pack_round1(qd[0], a, 0.01),
+                            ops.master_update(qd[0], torch.stack(codes), w, a,
+                                              b)]
+        for i, (x, y) in enumerate(zip(outs["card"], outs["cpu"])):
+            check(_bitwise(torch, x.cpu(), y)[0],
+                  f"ops output {i} of {name} differs from the plain version")
+        n = qs[0].numel()
+        check(torch.equal(outs["card"][2], outs["card"][4]),
+              f"{name}: fused uplink differs from pack2bit(encode)")
+        check(outs["card"][2].numel() == -(-n // 4), f"{name}: byte count")
+        if n % 4:       # the zero pad's fields in the last byte are code 0
+            tail = int(outs["card"][2][-1]) >> (2 * (n % 4))
+            check(tail == 0b01010101 >> (2 * (n % 4)),
+                  f"{name}: pad fields of the last byte are not code 0")
+    shapes = ", ".join(f"{k} {tuple(v[1].shape)}" for k, v in leaves.items())
+    print(f"shapes: ops.ternary_encode(_round1), pack2bit, unpack2bit, "
+          f"ternary_pack(_round1) and master_update over {n_workers} workers "
+          f"on {shapes} bitwise equal to their plain versions; pad fields "
+          f"code 0", flush=True)
+
+
+def phase_worker_rounds(torch, dev, captured: list) -> dict:
+    """At full width, on each round's own inputs from the plain slice
+    (``captured``: per round P^{t-1}, P^{t-2}, the ten trained models'
+    buffers, sizes, k_star; the flat layout last), bitwise:
+
+    - the per-worker static round: ten ``WirePath.uplink`` launches (#5 at
+      t = 1, #4 after), stacked, then ``WirePath.master`` (#2) == the
+      batched round's bytes and new buffer;
+    - the per-worker traced round: ten ``WirePath.uplink_traced`` (#3) at
+      a device t with beta_k sliced from a per-worker vector, under
+      sync-debug "error", then the master == the batched round;
+    - the unfused round: per worker ``ops.ternary_encode`` (#11; #12 at
+      t = 1), ``ops.pack2bit`` and ``ops.unpack2bit`` (#13), then one
+      ``ops.master_update`` (#14, t > 1) with ``core.update.
+      masked_weights``: bytes == #1's, codes back == codes, new buffer ==
+      #2's; at t = 1 Eq. (3) by ``core.update.master_update_round1``
+      (plain, no kernel) within rtol 1e-5, atol 1e-6 of #2's.
+
+    Each path's launches are counted from 0 and must be one uplink a
+    worker and one master, or three launches a worker and one master.
+    Then the ``ops`` functions on the MLP's leaves and odd shapes. Returns
+    the launches of each new kernel over the three paths."""
+    import numpy as np
+
+    from repro_torch.core import flat as fl
+    from repro_torch.core import update as cu
+    from repro_torch.fed import rounds as rd
+    from repro_torch.kernels import ops
+    layout = captured[-1]
+    wire = rd.WirePath()
+    cfg = wire.cfg
+    n = N_WORKERS
+    m = ROWS * 128
+    gen = torch.Generator(device=dev).manual_seed(SEED + 7)
+    betas = torch.rand((n,), generator=gen, device=dev) * 0.3
+    totals: dict[str, int] = {}
+
+    def counted(label: str, expect: dict, fn):
+        torch.cuda.synchronize()
+        _zero_counts()
+        out = fn()
+        torch.cuda.synchronize()
+        got = {k: v for k, v in _read_counts().items() if v}
+        check(got == expect, f"{label}: launches {got}, expected {expect}")
+        for k, v in got.items():
+            totals[k] = totals.get(k, 0) + v
+        return out
+
+    def same(a, b, what: str) -> None:
+        check(_bitwise(torch, a, b)[0], what)
+
+    r1_gap = 0.0
+    for t, (p1, p2, bufs, sizes, k) in enumerate(captured[:-1], start=1):
+        tt = torch.tensor(t, dtype=torch.int32, device=dev)
+        shares = sizes.float() / sizes.float().sum()
+        w = wire.weights(shares, k, tt)
+
+        def static():
+            packed = torch.stack([wire.uplink(bufs[j], p1, p2, t=t)
+                                  for j in range(n)])
+            return packed, wire.master(bufs, k, packed, w, p1, p2, t=tt)
+        up = "uplink_round1" if t == 1 else "uplink"
+        packed, new = counted(f"static round {t}", {up: n, "master": 1},
+                              static)
+        want_new, want_packed = wire.round_from_stacked(bufs, k, w, p1, p2,
+                                                        t=tt)
+        same(packed, want_packed, f"static round {t}: bytes")
+        same(new, want_new, f"static round {t}: new buffer")
+
+        wb = wire.weights(shares, k, tt, betas=betas)
+
+        def traced():
+            torch.cuda.set_sync_debug_mode("error")
+            try:
+                pk_ = torch.stack([wire.uplink_traced(bufs[j], p1, p2, t=tt,
+                                                      beta=betas[j])
+                                   for j in range(n)])
+                return pk_, wire.master(bufs, k, pk_, wb, p1, p2, t=tt)
+            finally:
+                torch.cuda.set_sync_debug_mode(0)
+        packed_b, new_b = counted(f"traced round {t}",
+                                  {"uplink_traced": n, "master": 1}, traced)
+        want_new_b, want_packed_b = wire.round_from_stacked(
+            bufs, k, wb, p1, p2, t=tt, betas=betas)
+        same(packed_b, want_packed_b, f"traced round {t}: bytes")
+        same(new_b, want_new_b, f"traced round {t}: new buffer")
+
+        pilot = bufs.index_select(0, k.reshape(1))[0]
+
+        def unfused():
+            if t == 1:
+                codes = [ops.ternary_encode_round1(bufs[j], p1, cfg.alpha1)
+                         for j in range(n)]
+            else:
+                codes = [ops.ternary_encode(bufs[j], p1, p2, cfg.beta)
+                         for j in range(n)]
+            wire_bytes = [ops.pack2bit(c) for c in codes]
+            back = torch.stack([ops.unpack2bit(b, m) for b in wire_bytes])
+            out = None
+            if t > 1:
+                wm = cu.masked_weights(shares, torch.full(
+                    (n,), cfg.beta, device=dev), k)
+                out = ops.master_update(pilot, back.view(n, ROWS, 128), wm,
+                                        p1, p2)
+            return codes, wire_bytes, back, out
+        expect = {"encode_round1" if t == 1 else "encode": n, "pack": n,
+                  "unpack": n}
+        if t > 1:
+            expect["master_update"] = 1
+        codes, wire_bytes, back, new_u = counted(f"unfused round {t}",
+                                                 expect, unfused)
+        for j in range(n):
+            same(wire_bytes[j], want_packed[j].reshape(-1),
+                 f"unfused round {t}: worker {j}'s bytes differ from #1's")
+            same(back[j], codes[j].reshape(-1),
+                 f"unfused round {t}: worker {j}'s codes do not come back")
+        if t > 1:
+            same(new_u, want_new, f"unfused round {t}: new buffer != #2's")
+        else:
+            for j in range(n):
+                same(wire_bytes[j], packed[j].reshape(-1),
+                     f"unfused round 1: worker {j}'s bytes differ from #5's")
+            new_u = cu.master_update_round1(pilot, back.view(n, ROWS, 128),
+                                            shares, k, cfg.alpha0)
+            r1_gap = float((new_u - want_new).abs().max())
+            check(bool(torch.allclose(new_u, want_new, rtol=1e-5,
+                                      atol=1e-6)),
+                  f"unfused round 1 (plain Eq. (3)) off #2's by {r1_gap}")
+        del codes, wire_bytes, back, new_u, packed, packed_b, new, new_b
+    print(f"worker rounds: full width, rounds 1-{ROUNDS} of the plain slice: "
+          f"per-worker static round ({n} uplinks + master) and per-worker "
+          f"traced round (beta_k from a per-worker vector, no host sync) == "
+          f"the batched round, bytes and new buffer; unfused round (encode, "
+          f"pack, unpack a worker + master_update) == the fused round, bytes "
+          f"and new buffer, codes unpacked == codes encoded; round 1's plain "
+          f"Eq. (3) within {r1_gap:.3g} of #2's; launches {totals}",
+          flush=True)
+
+    # The ops functions on the MLP's own leaves (round 2's models), and on
+    # sizes with n % 4 != 0 and n % 512 != 0.
+    p1, p2, bufs = captured[1][:3]
+    trees = [fl.unflatten_tree(b, layout) for b in (*bufs[:3], p1, p2)]
+    leaves = {}
+    for name in ("layer0.w", "layer2.w", "layer2.b"):
+        a, b = name.split(".")
+        leaves[name] = ([tr[a][b] for tr in trees[:3]], trees[3][a][b],
+                        trees[4][a][b])
+    for size, shape in ((999, (999,)), (105, (3, 5, 7))):
+        leaves[str(shape)] = ([x.reshape(-1)[:size].reshape(shape)
+                               for x in bufs[:3]],
+                              p1.reshape(-1)[:size].reshape(shape),
+                              p2.reshape(-1)[:size].reshape(shape))
+    check(np.prod(leaves["layer0.w"][1].shape) == N_FEATURES * HIDDEN[0],
+          "unexpected first weight")
+    _leaf_checks(torch, dev, leaves, 3)
+    return totals
+
+
+_queue: dict = {}       # the sleep's and the L2 scrub's own times, once
+
+
+def _median_ms(torch, fn, queued: bool = False) -> float:
+    """Median over REPEATS of one call's time in CUDA events. By default
+    one call from an idle card: the wrapper's host time up to its launch
+    counts. ``queued``: QUEUED calls enqueued behind a ``torch.cuda._sleep``
+    that keeps the card busy meanwhile, so the events time the device
+    alone (the host must queue them within the sleep), each call after a
+    read of SCRUB_BYTES that leaves none of its operands in the 50 MB L2
+    cache; the scrub's own time is taken off."""
+    if queued and not _queue:
+        scrub = torch.empty(SCRUB_BYTES // 4, dtype=torch.int32,
+                            device="cuda")
+        _queue["read"] = lambda: scrub.max()
+        _queue["sleep_ms"] = _median_ms(
+            torch, lambda: torch.cuda._sleep(SLEEP_CYCLES))
+        _queue["scrub_ms"] = _median_ms(torch, lambda: None, queued=True)
     fn()
     torch.cuda.synchronize()
     times = []
+    calls = QUEUED if queued else 1
     for _ in range(REPEATS):
         a = torch.cuda.Event(enable_timing=True)
         b = torch.cuda.Event(enable_timing=True)
+        if queued:
+            torch.cuda._sleep(SLEEP_CYCLES)
+        t0 = time.perf_counter()
         a.record()
-        fn()
+        for _ in range(calls):
+            if queued:
+                _queue["read"]()
+            fn()
         b.record()
+        host_ms = (time.perf_counter() - t0) * 1e3
         b.synchronize()
-        times.append(a.elapsed_time(b))
-    return statistics.median(times)
+        times.append(a.elapsed_time(b) / calls)
+        if queued:
+            check(host_ms < 0.8 * _queue["sleep_ms"],
+                  f"queued timing: the host took {host_ms:.2f} ms to queue "
+                  f"{calls} calls, the sleep lasts {_queue['sleep_ms']:.2f}"
+                  f" ms")
+    return statistics.median(times) - _queue.get("scrub_ms", 0.0) * queued
+
+
+def _kernel_ms(torch, fn) -> tuple[float, float]:
+    """(device time per launch with the launches queued, time of one call
+    from the host) of a kernel's wrapper."""
+    return _median_ms(torch, fn, queued=True), _median_ms(torch, fn)
 
 
 def phase_times(torch, dev, rate: float, launches: dict,
@@ -917,21 +1311,23 @@ def phase_times(torch, dev, rate: float, launches: dict,
                                                   tt, 0.01),
             "packed_master_update", "src/repro/kernels/fused_wire.py:335"),
     }
-    before = dict(fw.LAUNCHES)
+    saved = _read_counts()
     rows, kernel_ms = [], {}
     for kind, (nbytes, ops, kern, plain, name, replaces) in work.items():
-        ms = _median_ms(torch, kern)
+        ms, call_ms = _kernel_ms(torch, kern)
         plain_ms = _median_ms(torch, plain)
-        kernel_ms[kind] = ms
+        kernel_ms[kind] = call_ms
         bytes_ms = nbytes / rate * 1e3
         ops_ms = ops / FP32_OPS_PER_S * 1e3
         bound_ms = max(bytes_ms, ops_ms)
-        print(f"time: {name} {ms:.4f} ms (plain {plain_ms:.4f} ms); bound "
+        print(f"time: {name} {ms:.4f} ms on the device ({call_ms:.4f} ms a "
+              f"call from the host; plain {plain_ms:.4f} ms); bound "
               f"{bound_ms:.4f} ms = {nbytes / 1e6:.1f} MB at "
               f"{rate / 1e12:.2f} TB/s; {bound_ms / ms:.1%} of bound; "
               f"achieved {nbytes / (ms * 1e-3) / 1e9:.0f} GB/s", flush=True)
         rows.append({
-            "name": name, "route": "cuda",
+            "name": name, "row": 1 if kind == "uplink_stacked" else 2,
+            "route": "cuda",
             "source": "src/repro_torch/kernels/csrc/fused_wire.cu",
             "replaces": replaces, "launches": launches[kind],
             "max_abs_err": errs[kind], "ms": ms, "plain_ms": plain_ms,
@@ -956,7 +1352,7 @@ def phase_times(torch, dev, rate: float, launches: dict,
     both = kernel_ms["uplink_stacked"] + kernel_ms["master"]
     print(f"time: round_from_stacked {wire_ms:.4f} ms at t=2 vs its two "
           f"kernels {both:.4f} ms (+{wire_ms - both:.4f} ms)", flush=True)
-    fw.LAUNCHES.update(before)                     # timing launches not counted
+    _restore_counts(saved)                         # timing launches not counted
     return rows
 
 
@@ -1020,7 +1416,7 @@ def phase_times_masked(torch, dev, rate: float, launches: dict,
     tt = torch.tensor(2, dtype=torch.int32, device=dev)
     m = r * 512                                    # elements per view
     f32 = 4
-    before = dict(mw.LAUNCHES)
+    saved = _read_counts()
     rows = []
     for bits in (16, 32):
         spec = PrivacySpec(modulus_bits=bits, dp_epsilon=DP_EPSILON,
@@ -1056,13 +1452,14 @@ def phase_times_masked(torch, dev, rate: float, launches: dict,
         kernel_ms = {}
         for kind, (nbytes, ops_ms, ops_text, kern, plain, name,
                    replaces) in work.items():
-            ms = _median_ms(torch, kern)
+            ms, call_ms = _kernel_ms(torch, kern)
             plain_ms = _median_ms(torch, plain)
-            kernel_ms[kind] = ms
+            kernel_ms[kind] = call_ms
             bytes_ms = nbytes / rate * 1e3
             bound_ms = max(bytes_ms, ops_ms)
             by = "bytes" if bytes_ms >= ops_ms else "operations"
-            print(f"time: {name} {bits}-bit {ms:.4f} ms (plain "
+            print(f"time: {name} {bits}-bit {ms:.4f} ms on the device "
+                  f"({call_ms:.4f} ms a call from the host; plain "
                   f"{plain_ms:.4f} ms); bound {bound_ms:.4f} ms by {by}: "
                   f"{nbytes / 1e6:.1f} MB at {rate / 1e12:.2f} TB/s = "
                   f"{bytes_ms:.4f} ms, {ops_text} = {ops_ms:.4f} ms; "
@@ -1070,7 +1467,8 @@ def phase_times_masked(torch, dev, rate: float, launches: dict,
                   f"{nbytes / (ms * 1e-3) / 1e9:.0f} GB/s", flush=True)
             if bits == 16:
                 rows.append({
-                    "name": name, "route": "cuda",
+                    "name": name, "row": 6 if kind == "uplink_masked" else 7,
+                    "route": "cuda",
                     "source": "src/repro_torch/kernels/csrc/masked_wire.cu",
                     "replaces": replaces, "launches": launches[kind],
                     "max_abs_err": errs[kind], "ms": ms,
@@ -1084,7 +1482,7 @@ def phase_times_masked(torch, dev, rate: float, launches: dict,
             kw_part = dict(rr_threshold=thr if rr_on else 0, word_bits=bits,
                            use_masks=masks_on)
             part_ms = _median_ms(torch, lambda: mw.ternary_pack_masked(
-                *args, **kw_part))
+                *args, **kw_part), queued=True)
             part_bound = max(
                 (up_bytes - (0 if masks_on else keys.numel() * 8)) / rate
                 * 1e3, int_bound_ms(*uplink_masked_int_ops(
@@ -1104,7 +1502,7 @@ def phase_times_masked(torch, dev, rate: float, launches: dict,
               f"at t=2 vs its two kernels {both:.4f} ms "
               f"(+{wire_ms - both:.4f} ms)", flush=True)
         del words
-    mw.LAUNCHES.update(before)                     # timing launches not counted
+    _restore_counts(saved)                         # timing launches not counted
     return rows
 
 
@@ -1133,7 +1531,7 @@ def phase_times_tree(torch, dev, rate: float, launches: dict,
     f1, f2 = p1.view(ROWS, 128), p2.view(ROWS, 128)
     tt = torch.tensor(2, dtype=torch.int32, device=dev)
     t1 = torch.tensor(1, dtype=torch.int32, device=dev)
-    before = {**fw.LAUNCHES, **mw.LAUNCHES, **ps.LAUNCHES}
+    saved = _read_counts()
     spec = PrivacySpec(dp_epsilon=DP_EPSILON, recovery_threshold=2,
                        enforce=False)
     fan = MASKED_TREE_FANOUT
@@ -1198,20 +1596,23 @@ def phase_times_tree(torch, dev, rate: float, launches: dict,
     rows, kernel_ms = [], {}
     for kind, (nbytes, alu, total, kern, plain, name, replaces, src,
                what) in work.items():
-        ms = _median_ms(torch, kern)
+        ms, call_ms = _kernel_ms(torch, kern)
         plain_ms = _median_ms(torch, plain)
-        kernel_ms[kind] = ms
+        kernel_ms[kind] = call_ms
         bytes_ms = nbytes / rate * 1e3
         ops_ms = int_bound_ms(alu, total)
         bound_ms = max(bytes_ms, ops_ms)
         by = "bytes" if bytes_ms >= ops_ms else "operations"
-        print(f"time: {name} ({what}) {ms:.4f} ms (plain {plain_ms:.4f} "
+        print(f"time: {name} ({what}) {ms:.4f} ms on the device "
+              f"({call_ms:.4f} ms a call from the host; plain {plain_ms:.4f} "
               f"ms); bound {bound_ms:.4f} ms by {by}: {nbytes / 1e6:.1f} MB "
               f"at {rate / 1e12:.2f} TB/s = {bytes_ms:.4f} ms, "
               f"{alu / 1e9:.2f} G ALU-only / {total / 1e9:.2f} G int ops = "
               f"{ops_ms:.4f} ms; {bound_ms / ms:.1%} of bound", flush=True)
         rows.append({
-            "name": name, "route": "cuda",
+            "name": name, "row": {"partial_sum": 9, "masked_partial_sum": 10,
+                                  "mask_repair": 8}[kind],
+            "route": "cuda",
             "source": f"src/repro_torch/kernels/csrc/{src}",
             "replaces": replaces, "launches": launches[kind],
             "max_abs_err": errs[kind], "ms": ms, "plain_ms": plain_ms,
@@ -1219,14 +1620,15 @@ def phase_times_tree(torch, dev, rate: float, launches: dict,
 
     # The masked master at the tree's root: C = g word rows.
     c3_bytes = g * 2 * m + 4 + 8 + 3 * m * 4 + 4 + m * 4
-    c3_ms = _median_ms(torch, lambda: mw.masked_master_update(
+    c3_ms, c3_call = _kernel_ms(torch, lambda: mw.masked_master_update(
         q, k, top, sum_wq, p1, p2, tt, 0.01, smult))
     c3_plain = _median_ms(torch, lambda: mw.masked_master_update_plain(
         q, k, top, sum_wq, p1, p2, tt, 0.01, smult))
     c3_bound = max(c3_bytes / rate * 1e3,
                    int_bound_ms((g + 6) * m, (g + 6) * m))
     print(f"time: masked_master_update 16-bit over C = {g} rows {c3_ms:.4f} "
-          f"ms (plain {c3_plain:.4f} ms); bound {c3_bound:.4f} ms by bytes: "
+          f"ms on the device ({c3_call:.4f} ms a call from the host; plain "
+          f"{c3_plain:.4f} ms); bound {c3_bound:.4f} ms by bytes: "
           f"{c3_bytes / 1e6:.1f} MB; {c3_bound / c3_ms:.1%} of bound",
           flush=True)
 
@@ -1244,7 +1646,7 @@ def phase_times_tree(torch, dev, rate: float, launches: dict,
         kz, sz = rd._no_masks(gg, dev)
         kw = dict(fanout=TREE_FANOUT, sibling=TREE_FANOUT, use_masks=False)
         want = ps.masked_partial_sum(words, kz, sz, **kw)
-        ms = _median_ms(torch, lambda: ps.masked_partial_sum(
+        ms, call_ms = _kernel_ms(torch, lambda: ps.masked_partial_sum(
             words, kz, sz, **kw))
         plain_ms = _median_ms(torch, lambda: ps.masked_partial_sum_plain(
             words, kz, sz, **kw))
@@ -1256,7 +1658,8 @@ def phase_times_tree(torch, dev, rate: float, launches: dict,
             return torch.index_add(zeros, 0, idx, flat)
         try:
             same = torch.equal(lib_call(), want.view(torch.int32))
-            lib_ms = _median_ms(torch, lib_call) if same else None
+            lib_ms = (_median_ms(torch, lib_call, queued=True) if same
+                      else None)
             lib_note.append(f"{c_in} into {gg}: index_add "
                             + (f"{lib_ms:.4f} ms" if same else
                                "differs from the kernel's words"))
@@ -1266,7 +1669,8 @@ def phase_times_tree(torch, dev, rate: float, launches: dict,
                             f"({str(exc).splitlines()[0]})")
         nbytes = (c_in + gg) * 4 * m
         print(f"time: masked_partial_sum, masks off, uint32, {c_in} into "
-              f"{gg} (fanout {TREE_FANOUT}) {ms:.4f} ms (plain {plain_ms:.4f} "
+              f"{gg} (fanout {TREE_FANOUT}) {ms:.4f} ms on the device "
+              f"({call_ms:.4f} ms a call from the host; plain {plain_ms:.4f} "
               f"ms); bound {nbytes / rate * 1e3:.4f} ms by bytes: "
               f"{nbytes / 1e6:.1f} MB; {lib_note[-1]}", flush=True)
         off["ms"] += ms
@@ -1278,7 +1682,7 @@ def phase_times_tree(torch, dev, rate: float, launches: dict,
     rows.append({
         "name": "masked_partial_sum (masks off: 5 into 3 and 3 into 2, "
                 "one plain tree round's two launches)",
-        "route": "cuda", "source": "src/repro_torch/kernels/csrc/"
+        "row": 10, "route": "cuda", "source": "src/repro_torch/kernels/csrc/"
                                    "partial_sum.cu",
         "replaces": "src/repro/kernels/partial_sum.py:229",
         "launches": launches["masked_partial_sum_off"],
@@ -1289,7 +1693,7 @@ def phase_times_tree(torch, dev, rate: float, launches: dict,
     w12 = _rand_words(torch, (12, r, 512), 16, gen, dev)
     kz, sz = rd._no_masks(3, dev)
     k12 = _median_ms(torch, lambda: ps.masked_partial_sum(
-        w12, kz, sz, fanout=4, sibling=3, use_masks=False))
+        w12, kz, sz, fanout=4, sibling=3, use_masks=False), queued=True)
     want12 = pvm.as_u64(ps.masked_partial_sum(w12, kz, sz, fanout=4,
                                               sibling=3, use_masks=False))
     calls = {"words.view(3, 4, R, 512).sum(1) on the uint16 words":
@@ -1302,11 +1706,13 @@ def phase_times_tree(torch, dev, rate: float, launches: dict,
         try:
             out = call()
             same = torch.equal(pvm.as_u64(out) & 0xFFFF, want12)
-            lib.append(f"{what} {_median_ms(torch, call):.4f} ms ({out.dtype}"
+            lib.append(f"{what} {_median_ms(torch, call, queued=True):.4f} "
+                       f"ms ({out.dtype}"
                        f", the kernel's words mod 2**16: {same})")
         except RuntimeError as exc:
             lib.append(f"{what} does not run ({str(exc).splitlines()[0]})")
-    print(f"time: 12 16-bit words into 3, masks off: kernel {k12:.4f} ms; "
+    print(f"time: 12 16-bit words into 3, masks off, on the device: kernel "
+          f"{k12:.4f} ms; "
           + "; ".join(lib), flush=True)
 
     # Each tree round's whole wire beside the sum of its kernels.
@@ -1345,7 +1751,7 @@ def phase_times_tree(torch, dev, rate: float, launches: dict,
         alive_eff[:, None, None] > 0, 0))
     parts = {"uplink (with its keys)": up_ms,
              "level 1": kernel_ms["masked_partial_sum"],
-             "repair": kernel_ms["mask_repair"], "root": c3_ms}
+             "repair": kernel_ms["mask_repair"], "root": c3_call}
     wire_ms = _median_ms(torch, lambda: tree_wire.round_from_stacked(
         bufs, k, w, f1, f2, t=t1, betas=beta, alive=alive))
     both = sum(parts.values())
@@ -1357,37 +1763,161 @@ def phase_times_tree(torch, dev, rate: float, launches: dict,
           f"repaired row's copy into the root's operand {copy_ms:.4f} ms "
           f"(on the flat wire, the copy of all {n} rows {cat_ms:.4f} ms)",
           flush=True)
-    for counts in (fw.LAUNCHES, mw.LAUNCHES, ps.LAUNCHES):
-        counts.update({kk: before[kk] for kk in counts})  # not counted
+    _restore_counts(saved)                         # timing launches not counted
     return rows
 
 
-def print_unported_bounds(rate: float) -> None:
-    """The least time of each TPU kernel not ported yet, at the main-path
-    shape (m = 21,000,192 elements a worker view, N = 10): the bytes it
-    must move (each input read once, each output written once) at the
-    card's memory rate. Nothing here runs a kernel."""
-    m = ROWS * 128
-    n = N_WORKERS
-    kernels = (
-        (3, "fused_wire.py:246 ternary_pack_any_2d",
-         "one worker's uplink, t >= 2", 3 * 4 * m + m / 4),
-        (4, "fused_wire.py:205 ternary_pack_2d",
-         "one worker's Eq. (5) uplink", 3 * 4 * m + m / 4),
-        (5, "fused_wire.py:228 ternary_pack_round1_2d",
-         "one worker's Eq. (4) uplink", 2 * 4 * m + m / 4),
-        (11, "ternary_encode.py:45 ternary_encode_2d",
-         "one worker's Eq. (5) int8 codes", 3 * 4 * m + m),
-        (12, "ternary_encode.py:63 ternary_encode_round1_2d",
-         "one worker's Eq. (4) int8 codes", 2 * 4 * m + m),
-        (13, "pack2bit.py:47/65 pack2bit_2d / unpack2bit_2d",
-         "one worker's int8 codes <-> packed bytes", m + m / 4),
-        (14, "master_update.py:35 master_update_2d",
-         f"Eq. (3) over {n} workers' int8 codes", n * m + 4 * 4 * m),
-    )
-    for row, name, what, nbytes in kernels:
-        print(f"bound: #{row} {name} ({what}): {nbytes / rate * 1e3:.4f} ms "
-              f"by bytes: {nbytes / 1e6:.1f} MB (not ported)", flush=True)
+def phase_times_unfused(torch, dev, rate: float, launches: dict,
+                        errs: dict) -> list[dict]:
+    """The one-worker uplinks, the encode, pack, unpack and the unfused
+    master, and their plain versions, at the main-path shapes (one worker's
+    view of m = ROWS·128 elements; the master over N = 10 workers' codes),
+    beside their bounds; the two-call PyTorch composition of #14; and the
+    per-worker round's wire (11 launches) against the batched round's (2)."""
+    from repro_torch.core.ternary import ternarize, ternarize_round1
+    from repro_torch.fed import rounds as rd
+    from repro_torch.kernels import fused_wire as fw
+    from repro_torch.kernels import master_update as mu
+    from repro_torch.kernels import pack2bit as pk
+    from repro_torch.kernels import ternary_encode as te
+    saved = _read_counts()
+    n, r = N_WORKERS, ROWS // 4
+    m = r * 512                                    # elements per view
+    gen = torch.Generator(device=dev).manual_seed(SEED + 9)
+    q, p1, p2, beta, w, k = _inputs(torch, n, r, gen, dev)
+    tt = torch.tensor(2, dtype=torch.int32, device=dev)
+    alpha = torch.tensor(0.01, device=dev)
+    q0 = q[0]
+    f0, f1, f2 = (x.reshape(ROWS, 128) for x in (q0, p1, p2))
+    codes = te.ternary_encode(f0, f1, f2, 0.2)
+    packed = pk.pack2bit(codes.view(r, 512))
+    tern = torch.stack([te.ternary_encode(x.reshape(ROWS, 128), f1, f2, 0.2)
+                        for x in q])
+    f32 = 4
+    csrc = "src/repro_torch/kernels/csrc/"
+    none_why = "none: no PyTorch call"
+    # kind: (table row, bytes, float ops, int ops, kernel, plain, name,
+    # replaces, source, library note). Bytes at t = 2: every input read
+    # once (a device scalar too), every output written once.
+    work = {
+        "uplink_traced": (
+            3, 3 * m * f32 + 3 * 4 + m // 4, 4 * m, 0,
+            lambda: fw.ternary_pack_any(q0, p1, p2, tt, beta[0], alpha),
+            lambda: fw.ternary_pack_any_plain(q0, p1, p2, tt, beta[0], alpha),
+            "ternary_pack_any", "src/repro/kernels/fused_wire.py:246",
+            "fused_wire.cu", none_why + " ternarizes and packs 2-bit fields"),
+        "uplink": (
+            4, 3 * m * f32 + m // 4, 4 * m, 0,
+            lambda: fw.ternary_pack(q0, p1, p2, 0.2),
+            lambda: fw.ternary_pack_plain(q0, p1, p2, 0.2),
+            "ternary_pack", "src/repro/kernels/fused_wire.py:205",
+            "fused_wire.cu", none_why + " ternarizes and packs 2-bit fields"),
+        "uplink_round1": (
+            5, 2 * m * f32 + m // 4, m, 0,
+            lambda: fw.ternary_pack_round1(q0, p1, 0.01),
+            lambda: fw.ternary_pack_round1_plain(q0, p1, 0.01),
+            "ternary_pack_round1", "src/repro/kernels/fused_wire.py:228",
+            "fused_wire.cu", none_why + " ternarizes and packs 2-bit fields"),
+        "encode": (
+            11, 3 * m * f32 + m, 4 * m, 0,
+            lambda: te.ternary_encode(f0, f1, f2, 0.2),
+            lambda: ternarize(f0, f1, f2, 0.2),
+            "ternary_encode", "src/repro/kernels/ternary_encode.py:45",
+            "ternary_encode.cu", none_why + " computes the Eq. (5) code"),
+        "encode_round1": (
+            12, 2 * m * f32 + m, m, 0,
+            lambda: te.ternary_encode_round1(f0, f1, 0.01),
+            lambda: ternarize_round1(f0, f1, 0.01),
+            "ternary_encode_round1",
+            "src/repro/kernels/ternary_encode.py:63", "ternary_encode.cu",
+            none_why + " computes the Eq. (4) code"),
+        "pack": (
+            13, m + m // 4, 0, 3 * m,
+            lambda: pk.pack2bit(codes.view(r, 512)),
+            lambda: pk.pack2bit_plain(codes.view(r, 512)),
+            "pack2bit", "src/repro/kernels/pack2bit.py:47", "pack2bit.cu",
+            none_why + " packs 2-bit fields"),
+        "unpack": (
+            13, m // 4 + m, 0, 3 * m,
+            lambda: pk.unpack2bit(packed), lambda: pk.unpack2bit_plain(packed),
+            "unpack2bit", "src/repro/kernels/pack2bit.py:65", "pack2bit.cu",
+            none_why + " unpacks 2-bit fields"),
+        "master_update": (
+            14, n * m + 3 * m * f32 + n * f32 + m * f32, (2 * n + 2) * m, 0,
+            lambda: mu.master_update(f0, tern, w, f1, f2),
+            lambda: mu.master_update_plain(f0, tern, w, f1, f2),
+            "master_update", "src/repro/kernels/master_update.py:35",
+            "master_update.cu", None),
+    }
+    rows = []
+    for kind, (row, nbytes, fops, iops, kern, plain, name, replaces, src,
+               lib_note) in work.items():
+        ms, call_ms = _kernel_ms(torch, kern)
+        plain_ms = _median_ms(torch, plain)
+        bytes_ms = nbytes / rate * 1e3
+        ops_ms = max(fops / FP32_OPS_PER_S * 1e3, int_bound_ms(iops, iops))
+        bound_ms = max(bytes_ms, ops_ms)
+        by = "bytes" if bytes_ms >= ops_ms else "operations"
+        lib_ms = None
+        if kind == "master_update":
+            # The library yardstick: two PyTorch calls (a tensordot over
+            # the workers, then addcmul), beside the float conversion and
+            # the step they need; the library column takes one call, so
+            # it stays empty.
+            def lib_call():
+                return torch.addcmul(f0, torch.tensordot(w, tern.float(), 1),
+                                     f1 - f2, value=-1)
+            close = bool(torch.allclose(lib_call(), kern(), rtol=1e-5,
+                                        atol=1e-6))
+            lib_note = (f"two calls (tensordot + addcmul, with the codes' "
+                        f"float conversion and p1 - p2) "
+                        f"{_median_ms(torch, lib_call, queued=True):.4f} ms "
+                        f"on the device, within rtol 1e-5 of the kernel: "
+                        f"{close}")
+        print(f"time: {name} {ms:.4f} ms on the device ({call_ms:.4f} ms a "
+              f"call from the host; plain {plain_ms:.4f} ms); bound "
+              f"{bound_ms:.4f} ms by {by}: {nbytes / 1e6:.1f} MB at "
+              f"{rate / 1e12:.2f} TB/s = {bytes_ms:.4f} ms, ops "
+              f"{ops_ms:.4f} ms; {bound_ms / ms:.1%} of bound; achieved "
+              f"{nbytes / (ms * 1e-3) / 1e9:.0f} GB/s; library: {lib_note}",
+              flush=True)
+        rows.append({
+            "name": name, "row": row, "route": "cuda", "source": csrc + src,
+            "replaces": replaces, "launches": launches.get(kind, 0),
+            "max_abs_err": errs[kind], "ms": ms, "plain_ms": plain_ms,
+            "bound_ms": bound_ms, "bound_by": by, "library_ms": lib_ms})
+
+    # One round's wire a worker at a time (10 uplinks + the master: 11
+    # launches) against the batched round's (2), at t = 2.
+    wire = rd.WirePath()
+    bufs = q.view(n, ROWS, 128)
+    b1, b2 = p1.view(ROWS, 128), p2.view(ROWS, 128)
+    wp = wire.weights(torch.full((n,), 1.0 / n, device=dev), k, tt)
+
+    def per_worker():
+        stacked = torch.stack([wire.uplink(bufs[j], b1, b2, t=2)
+                               for j in range(n)])
+        return wire.master(bufs, k, stacked, wp, b1, b2, t=tt)
+
+    def per_worker_traced():
+        stacked = torch.stack([wire.uplink_traced(bufs[j], b1, b2, t=tt,
+                                                  beta=beta[j])
+                               for j in range(n)])
+        return wire.master(bufs, k, stacked, wp, b1, b2, t=tt)
+    def batched():
+        return wire.round_from_stacked(bufs, k, wp, b1, b2, t=tt)
+    for how, queued in (("a call from the host", False),
+                        ("on the device", True)):
+        one = _median_ms(torch, per_worker, queued)
+        one_t = _median_ms(torch, per_worker_traced, queued)
+        both = _median_ms(torch, batched, queued)
+        print(f"time: per-worker round wire at t=2 ({n} uplinks + stack + "
+              f"master, {n + 1} launches), {how}: {one:.4f} ms, traced "
+              f"{one_t:.4f} ms, against the batched round_from_stacked "
+              f"(2 launches) {both:.4f} ms: batching saves "
+              f"{one - both:.4f} ms ({one / both:.2f}x)", flush=True)
+    _restore_counts(saved)
+    return rows
 
 
 def main() -> int:
@@ -1411,7 +1941,11 @@ def main() -> int:
         errs.update(phase_check_tree(torch, dev))
         errs["master_masked"] = max(errs["master_masked"],
                                     errs["master_masked_tree"])
-        launches = phase_slice(torch, dev)
+        errs.update(phase_check_unfused(torch, dev))
+        captured: list = []
+        launches = phase_slice(torch, dev, captured)
+        worker_rounds = phase_worker_rounds(torch, dev, captured)
+        del captured
         launches.update(phase_masked_slice(torch, dev))
         phase_masked_wire(torch, dev)
         tree = phase_tree_slice(torch, dev)
@@ -1424,7 +1958,8 @@ def main() -> int:
             "masked_partial_sum": masked_tree["masked_partial_sum"],
             "mask_repair": masked_tree["mask_repair"],
             "masked_partial_sum_off": tree["masked_partial_sum"]}, errs)
-        print_unported_bounds(rate)
+        rows += phase_times_unfused(torch, dev, rate, worker_rounds, errs)
+        rows.sort(key=lambda row: row["row"])
     except (SmokeError, RuntimeError, ImportError, OSError,
             subprocess.SubprocessError) as exc:
         print(f"FAIL: {type(exc).__name__}: {exc}", file=sys.stderr)

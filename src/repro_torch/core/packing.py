@@ -21,7 +21,8 @@ def _shifts(device) -> torch.Tensor:
 
 def pack2bit(t: torch.Tensor) -> torch.Tensor:
     """int8 codes {-1,0,1} of any shape → 1-D uint8 of ``packed_size``
-    bytes (zero codes pad the last byte)."""
+    bytes (zero codes pad the last byte). Any other int8 code packs as the
+    JAX kernel's int32 sum of ``(c + 1)·4^j`` does: its low 8 bits."""
     flat = t.reshape(-1).to(torch.int32)
     pad = round_up(flat.numel(), PACK_FACTOR) - flat.numel()
     if pad:

@@ -14,7 +14,9 @@ launch.
 
 * :class:`WirePath` owns the math: ``codes``/``combine``/``weights`` in
   plain PyTorch, ``uplink_stacked``/``master`` and ``uplink_masked``/
-  ``master_masked`` through the kernels.
+  ``master_masked`` through the kernels, and the one-worker
+  ``uplink``/``uplink_traced``, from which a round can be built a worker
+  at a time with the same bits as the batched uplink.
 * :class:`RoundState` is the whole public state between rounds: the
   history P^{t-1}/P^{t-2}, last-round costs, the round counter and, on
   the DP wire, the privacy accountant.
@@ -222,6 +224,26 @@ class WirePath:
         return w
 
     # -- fused kernel path over (rows, 128) buffers --------------------------
+
+    def uplink(self, buf_q: torch.Tensor, buf_p1: torch.Tensor,
+               buf_p2: torch.Tensor, *, t: int) -> torch.Tensor:
+        """One worker's wire buffer at a static round ``t`` (a Python
+        int): (rows, 128) → (rows//4, 128) uint8, one launch, Eq. (4) at
+        t <= 1 and Eq. (5) after. A tensor ``t`` raises; device rounds go
+        to :meth:`uplink_traced`."""
+        return ops.flat_ternary_pack(buf_q, buf_p1, buf_p2, t=t,
+                                     beta=self.cfg.beta,
+                                     alpha1=self.cfg.alpha1)
+
+    def uplink_traced(self, buf_q: torch.Tensor, buf_p1: torch.Tensor,
+                      buf_p2: torch.Tensor, *, t, beta=None) -> torch.Tensor:
+        """Like :meth:`uplink`, but ``t`` (and an optional ``beta``, this
+        worker's beta_k) may be device scalars: the kernel reads them, so
+        nothing syncs."""
+        beta = self.cfg.beta if beta is None else beta
+        return ops.flat_ternary_pack_traced(buf_q, buf_p1, buf_p2, t=t,
+                                            beta=beta,
+                                            alpha1=self.cfg.alpha1)
 
     def uplink_stacked(self, bufs_q: torch.Tensor, buf_p1: torch.Tensor,
                        buf_p2: torch.Tensor, *, t, betas=None

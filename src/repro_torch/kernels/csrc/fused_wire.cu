@@ -1,13 +1,14 @@
-// Hand-written Hopper (sm_90a) kernels of the plain FedPC round.
+// Hand-written Hopper (sm_90a) kernels of the plain FedPC round: the
+// batched uplink, the one-worker uplinks and the fused master.
 //
-// Both work on the kernel views of the flat (rows, 128) float32 buffer
+// All work on the kernel views of the flat (rows, 128) float32 buffer
 // (repro_torch/core/flat.py): the (R, 512) float view, R = rows / 4, puts
 // the four consecutive codes of one wire byte side by side, so output byte
 // (r, lane) of the (R, 128) packed view reads exactly one float4 at float4
-// index r * 128 + lane of every (R, 512) operand. Both index one flat
+// index r * 128 + lane of every (R, 512) operand. Each indexes one flat
 // range of m = R * 128 such float4s / bytes per worker.
 //
-// Bound: both kernels do a handful of float operations per 16 bytes they
+// Bound: the kernels do a handful of float operations per 16 bytes they
 // move (well under one operation per byte, against the ~20 the card can do
 // in float32 per byte of device memory), so device-memory bytes bound them.
 // Their designs read every byte they need once and write every output byte
@@ -30,7 +31,7 @@ namespace {
 using wire::blocks_for;
 using wire::kThreads;
 using wire::sub4;
-using wire::wire_field;
+using wire::wire_byte;
 
 // Replaces ternary_pack_stacked_2d (JAX package, kernels/fused_wire.py).
 // One thread per output byte (r, lane): it loads the shared history p1, p2
@@ -55,15 +56,47 @@ ternary_pack_stacked_kernel(const float4* __restrict__ q,
   const float4 step = sub4(a, b);
   for (int k = 0; k < n; ++k) {
     const int64_t j = static_cast<int64_t>(k) * m + i;
-    const float4 x = q[j];
-    const float bk = beta[k];
-    const uint32_t byte =
-        wire_field(x.x, a.x, step.x, bk, alpha1, round1) |
-        wire_field(x.y, a.y, step.y, bk, alpha1, round1) << 2 |
-        wire_field(x.z, a.z, step.z, bk, alpha1, round1) << 4 |
-        wire_field(x.w, a.w, step.w, bk, alpha1, round1) << 6;
-    out[j] = static_cast<uint8_t>(byte);
+    out[j] = static_cast<uint8_t>(
+        wire_byte(q[j], a, step, beta[k], alpha1, round1));
   }
+}
+
+// The rule of a one-worker uplink.
+enum Rule : int {
+  kEq5 = 0,  // ternary_pack_2d: Eq. (5), a static round t >= 2
+  kEq4 = 1,  // ternary_pack_round1_2d: Eq. (4), q and P^0 only
+  kAny = 2,  // ternary_pack_any_2d: t, beta and alpha1 in device memory
+};
+
+// Replaces ternary_pack_2d, ternary_pack_round1_2d and ternary_pack_any_2d
+// (JAX package, kernels/fused_wire.py): one worker's uplink, one thread per
+// output byte, as the stacked kernel's loop body at N = 1. kEq5 and kEq4
+// take their threshold by value; kEq4 has no P^{t-2} operand at all. kAny
+// reads the round index, beta and alpha1 from device memory, so one launch
+// serves every round of a device-side loop and the caller never syncs to
+// branch on t; at t <= 1 it reads no p2 either. Bound, like the stacked
+// kernel, by device-memory bytes: three (two) float4 loads per byte out.
+template <Rule kRule>
+__global__ void __launch_bounds__(kThreads)
+ternary_pack_kernel(const float4* __restrict__ q,
+                    const float4* __restrict__ p1,
+                    const float4* __restrict__ p2,
+                    const int32_t* __restrict__ t,
+                    const float* __restrict__ beta_at,
+                    const float* __restrict__ alpha1_at, float beta,
+                    float alpha1, uint8_t* __restrict__ out, int64_t m) {
+  const int64_t i = static_cast<int64_t>(blockIdx.x) * kThreads + threadIdx.x;
+  if (i >= m) return;
+  bool round1 = kRule == kEq4;
+  if constexpr (kRule == kAny) {
+    round1 = *t <= 1;
+    beta = *beta_at;
+    alpha1 = *alpha1_at;
+  }
+  const float4 a = p1[i];
+  const float4 b = round1 ? a : p2[i];
+  out[i] = static_cast<uint8_t>(
+      wire_byte(q[i], a, sub4(a, b), beta, alpha1, round1));
 }
 
 // w_k * (field - 1) folded into the running sum. field * w_k - w_k is one
@@ -138,6 +171,31 @@ int fw_ternary_pack_stacked(const void* q, const void* p1, const void* p2,
       static_cast<const float4*>(p2), static_cast<const float*>(beta),
       static_cast<const int32_t*>(t), alpha1, static_cast<uint8_t*>(out), n,
       m);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// q/p1/p2 (m,) float4 (p2 unread for kEq4), out (m,) uint8; kAny reads
+// t (int32), beta and alpha1 (float) from device memory, the other rules
+// take beta and alpha1 by value.
+int fw_ternary_pack(int rule, const void* q, const void* p1, const void* p2,
+                    const void* t, const void* beta_at,
+                    const void* alpha1_at, float beta, float alpha1,
+                    void* out, long long m, int device, void* stream) {
+  const cudaError_t set = cudaSetDevice(device);
+  if (set != cudaSuccess) return static_cast<int>(set);
+  void (*kernel)(const float4*, const float4*, const float4*, const int32_t*,
+                 const float*, const float*, float, float, uint8_t*, int64_t);
+  switch (rule) {
+    case kEq5: kernel = ternary_pack_kernel<kEq5>; break;
+    case kEq4: kernel = ternary_pack_kernel<kEq4>; break;
+    case kAny: kernel = ternary_pack_kernel<kAny>; break;
+    default: return static_cast<int>(cudaErrorInvalidValue);
+  }
+  kernel<<<blocks_for(m), kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const float4*>(q), static_cast<const float4*>(p1),
+      static_cast<const float4*>(p2), static_cast<const int32_t*>(t),
+      static_cast<const float*>(beta_at), static_cast<const float*>(alpha1_at),
+      beta, alpha1, static_cast<uint8_t*>(out), m);
   return static_cast<int>(cudaGetLastError());
 }
 

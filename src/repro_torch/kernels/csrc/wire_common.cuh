@@ -25,6 +25,17 @@ __device__ __forceinline__ uint32_t wire_field(float q, float p1, float step,
   return 1u + (prod > 0.f ? 1u : 0u) - (prod < 0.f ? 1u : 0u);
 }
 
+// One §3.3 wire byte: the fields of the four consecutive parameters of a
+// float4, little-endian (parameter j in bits 2j, 2j + 1).
+__device__ __forceinline__ uint32_t wire_byte(float4 q, float4 p1, float4 step,
+                                              float beta, float alpha1,
+                                              bool round1) {
+  return wire_field(q.x, p1.x, step.x, beta, alpha1, round1) |
+         wire_field(q.y, p1.y, step.y, beta, alpha1, round1) << 2 |
+         wire_field(q.z, p1.z, step.z, beta, alpha1, round1) << 4 |
+         wire_field(q.w, p1.w, step.w, beta, alpha1, round1) << 6;
+}
+
 __device__ __forceinline__ float4 sub4(float4 a, float4 b) {
   return make_float4(__fsub_rn(a.x, b.x), __fsub_rn(a.y, b.y),
                      __fsub_rn(a.z, b.z), __fsub_rn(a.w, b.w));

@@ -1,5 +1,6 @@
-"""The two kernels of the plain FedPC round: the batched uplink and the
-fused master, hand-written in CUDA C++ (``csrc/fused_wire.cu``).
+"""The kernels of the plain FedPC round: the batched uplink, the one-worker
+uplinks and the fused master, hand-written in CUDA C++
+(``csrc/fused_wire.cu``).
 
 Both take the kernel views of the flat ``(rows, 128)`` buffer: float
 ``(R, 512)`` views with ``R = rows // 4`` (four consecutive codes of one
@@ -27,14 +28,20 @@ import torch
 from repro_torch.core.packing import pack2bit
 from repro_torch.core.ternary import ternarize, ternarize_round1
 from repro_torch.kernels import build
-from repro_torch.kernels.ref import packed_master_accum_ref
+from repro_torch.kernels.ref import (packed_master_accum_ref,
+                                     ternary_pack_ref,
+                                     ternary_pack_round1_ref)
 
 LANES = 128
 PACK = 4
 WIDE = LANES * PACK
 
 #: Kernel launches per wrapper; only a launch on the card counts.
-LAUNCHES = {"uplink_stacked": 0, "master": 0}
+LAUNCHES = {"uplink_stacked": 0, "master": 0, "uplink": 0,
+            "uplink_round1": 0, "uplink_traced": 0}
+
+# The one-worker uplink's rule (csrc/fused_wire.cu, enum Rule) per kind.
+_RULES = {"uplink": 0, "uplink_round1": 1, "uplink_traced": 2}
 
 _P = ctypes.c_void_p
 _bound: ctypes.CDLL | None = None
@@ -53,6 +60,10 @@ def _lib() -> ctypes.CDLL:
             _P, _P, _P, _P, _P, _P, _P, ctypes.c_float, _P, ctypes.c_int,
             ctypes.c_longlong, ctypes.c_int, _P]
         lib.fw_packed_master_update.restype = ctypes.c_int
+        lib.fw_ternary_pack.argtypes = [
+            ctypes.c_int, _P, _P, _P, _P, _P, _P, ctypes.c_float,
+            ctypes.c_float, _P, ctypes.c_longlong, ctypes.c_int, _P]
+        lib.fw_ternary_pack.restype = ctypes.c_int
         lib.fw_error_string.argtypes = [ctypes.c_int]
         lib.fw_error_string.restype = ctypes.c_char_p
         _bound = lib
@@ -130,6 +141,89 @@ def ternary_pack_stacked(q: torch.Tensor, p1: torch.Tensor, p2: torch.Tensor,
             t.data_ptr(), float(alpha1), out.data_ptr(), n, r * LANES,
             dev.index, torch.cuda.current_stream(dev).cuda_stream)
     return out
+
+
+# -- one-worker uplinks: Eq. (5), Eq. (4), or either by a device round ----
+
+def ternary_pack_plain(q, p1, p2, beta: float) -> torch.Tensor:
+    """Plain twin of :func:`ternary_pack`; any device."""
+    return ternary_pack_ref(q, p1, p2, beta).view(q.shape[0], LANES)
+
+
+def ternary_pack_round1_plain(q, p0, alpha: float) -> torch.Tensor:
+    """Plain twin of :func:`ternary_pack_round1`; any device."""
+    return ternary_pack_round1_ref(q, p0, alpha).view(q.shape[0], LANES)
+
+
+def ternary_pack_any_plain(q, p1, p2, t, beta, alpha1) -> torch.Tensor:
+    """Plain twin of :func:`ternary_pack_any`; any device."""
+    return ternary_pack_stacked_plain(q[None], p1, p2, t, beta.reshape(1),
+                                      alpha1)[0]
+
+
+def _pack_one(kind: str, q, p1, p2, t, beta, alpha1) -> torch.Tensor:
+    """Check one worker's (R, 512) views and launch the ``kind`` rule:
+    ``p2`` may be None (Eq. (4)); ``t``, ``beta`` and ``alpha1`` are 0-d
+    device tensors for the traced rule, numbers for the others."""
+    dev = device_of(q)
+    r = q.shape[0]
+    check_operand("q", q, torch.float32, (r, WIDE), dev, align=16)
+    check_operand("p1", p1, torch.float32, (r, WIDE), dev, align=16)
+    if p2 is not None:
+        check_operand("p2", p2, torch.float32, (r, WIDE), dev, align=16)
+    traced = kind == "uplink_traced"
+    if traced:
+        check_operand("t", t, torch.int32, (), dev)
+        check_operand("beta", beta, torch.float32, (), dev)
+        check_operand("alpha1", alpha1, torch.float32, (), dev)
+    if dev.type == "cpu":
+        if traced:
+            return ternary_pack_any_plain(q, p1, p2, t, beta, alpha1)
+        if p2 is None:
+            return ternary_pack_round1_plain(q, p1, alpha1)
+        return ternary_pack_plain(q, p1, p2, beta)
+    if traced:
+        at, by_value = (t.data_ptr(), beta.data_ptr(), alpha1.data_ptr()), (
+            0.0, 0.0)
+    else:
+        at, by_value = (None, None, None), (float(beta), float(alpha1))
+    out = torch.empty((r, LANES), dtype=torch.uint8, device=dev)
+    _launch(kind, _lib().fw_ternary_pack, _RULES[kind], q.data_ptr(),
+            p1.data_ptr(), None if p2 is None else p2.data_ptr(), *at,
+            *by_value, out.data_ptr(), r * LANES, dev.index,
+            torch.cuda.current_stream(dev).cuda_stream)
+    return out
+
+
+def ternary_pack(q: torch.Tensor, p1: torch.Tensor, p2: torch.Tensor,
+                 beta: float) -> torch.Tensor:
+    """One worker's §3.3 wire buffer by Eq. (5), a static round t >= 2.
+
+    q, p1, p2 (R, 512) float32: the worker's view and the history
+    P^{t-1}, P^{t-2}; beta the threshold. Returns (R, 128) uint8.
+    """
+    return _pack_one("uplink", q, p1, p2, None, beta, 0.0)
+
+
+def ternary_pack_round1(q: torch.Tensor, p0: torch.Tensor, alpha: float
+                        ) -> torch.Tensor:
+    """One worker's §3.3 wire buffer by Eq. (4), round 1: q and P^0
+    (R, 512) float32, threshold alpha; no P^{t-2} operand. Returns
+    (R, 128) uint8."""
+    return _pack_one("uplink_round1", q, p0, None, None, 0.0, alpha)
+
+
+def ternary_pack_any(q: torch.Tensor, p1: torch.Tensor, p2: torch.Tensor,
+                     t: torch.Tensor, beta: torch.Tensor,
+                     alpha1: torch.Tensor) -> torch.Tensor:
+    """One worker's §3.3 wire buffer at a device round: Eq. (4) at t <= 1
+    (p1 holds P^0; p2 is not read), Eq. (5) after.
+
+    q, p1, p2 (R, 512) float32; t 0-d int32, beta and alpha1 0-d float32,
+    all three read by the kernel from device memory, so no host sync.
+    Returns (R, 128) uint8.
+    """
+    return _pack_one("uplink_traced", q, p1, p2, t, beta, alpha1)
 
 
 # -- fused master: decode + Σ_k w_k T_k + Eq. (3) --------------------------

@@ -1,22 +1,34 @@
-"""Wrappers of the wire kernels over the flat ``(rows, 128)`` buffers.
+"""Wrappers of the wire kernels over the flat ``(rows, 128)`` buffers and
+over tensors of any shape.
 
 They make the kernel views (``(rows, 128)`` ↔ ``(rows // 4, 512)`` float,
 ``(rows // 4, 128)`` uint8, ``(rows // 4, 512)`` masked words), put the
 round index and the per-worker thresholds on the buffers' device without
-a host copy, and call ``kernels.fused_wire``, ``kernels.masked_wire``
-or ``kernels.partial_sum``. The kernels pick a fixed launch shape.
+a host copy, and call ``kernels.fused_wire``, ``kernels.masked_wire``,
+``kernels.partial_sum``, ``kernels.ternary_encode``, ``kernels.pack2bit``
+or ``kernels.master_update``. The arbitrary-shape functions
+(``ternary_encode`` … ``master_update``) zero-pad their operands to rows
+that are a multiple of 8, as the JAX package's ``ops`` do, and cut the
+result back to ``n`` codes or ``ceil(n / 4)`` bytes. The kernels pick a
+fixed launch shape.
 """
 from __future__ import annotations
 
 import torch
+import torch.nn.functional as F
 
 from repro_torch.kernels import fused_wire as fw
+from repro_torch.kernels import master_update as mu
 from repro_torch.kernels import masked_wire as mw
+from repro_torch.kernels import pack2bit as pk
 from repro_torch.kernels import partial_sum as ps
+from repro_torch.kernels import ternary_encode as te
 from repro_torch.privacy.masking import as_u64, to_words
+from repro_torch.utils import cdiv, round_up
 
 LANES = fw.LANES
 PACK = fw.PACK
+ROW_MULTIPLE = 8
 
 
 def _device_scalar(x, dtype: torch.dtype, device: torch.device,
@@ -27,7 +39,8 @@ def _device_scalar(x, dtype: torch.dtype, device: torch.device,
         if x.device != device:
             raise ValueError(f"{what} is on {x.device}, buffers on {device}")
         return x.to(dtype).reshape(())
-    return torch.full((), int(x), dtype=dtype, device=device)
+    value = float(x) if dtype.is_floating_point else int(x)
+    return torch.full((), value, dtype=dtype, device=device)
 
 
 def round_index(t, device: torch.device) -> torch.Tensor:
@@ -48,6 +61,117 @@ def per_worker(beta, n: int, device: torch.device) -> torch.Tensor:
             raise ValueError(f"beta is on {beta.device}, buffers on {device}")
         return beta.to(torch.float32).reshape(-1).expand(n).contiguous()
     return torch.full((n,), float(beta), dtype=torch.float32, device=device)
+
+
+def _to_2d(x: torch.Tensor, row_multiple: int, lane_multiple: int = LANES
+           ) -> tuple[torch.Tensor, int]:
+    """Flatten and zero-pad to (rows, lane_multiple) with rows a multiple
+    of ``row_multiple``; returns the view and the element count n. An
+    operand that needs no padding and starts on a 16-byte boundary is a
+    view, else a fresh copy."""
+    flat = x.reshape(-1)
+    n = flat.numel()
+    rows = round_up(max(cdiv(n, lane_multiple), 1), row_multiple)
+    pad = rows * lane_multiple - n
+    if pad or flat.data_ptr() % 16:
+        flat = F.pad(flat, (0, pad))
+    return flat.view(rows, lane_multiple), n
+
+
+def _static(what: str, x):
+    """Refuse a tensor where the JAX package takes a static Python number:
+    reading it would sync with the device."""
+    if isinstance(x, torch.Tensor):
+        raise TypeError(f"{what} must be a Python number here, got a tensor;"
+                        f" device values go to flat_ternary_pack_traced")
+    return x
+
+
+def ternary_encode(q: torch.Tensor, p1: torch.Tensor, p2: torch.Tensor,
+                   beta: float) -> torch.Tensor:
+    """Eq. (5) over a tensor of any shape; int8 codes of ``q.shape``."""
+    q2, n = _to_2d(q, ROW_MULTIPLE)
+    out = te.ternary_encode(q2, _to_2d(p1, ROW_MULTIPLE)[0],
+                            _to_2d(p2, ROW_MULTIPLE)[0], beta)
+    return out.reshape(-1)[:n].reshape(q.shape)
+
+
+def ternary_encode_round1(q: torch.Tensor, p0: torch.Tensor,
+                          alpha: float) -> torch.Tensor:
+    """Eq. (4) over a tensor of any shape; int8 codes of ``q.shape``."""
+    q2, n = _to_2d(q, ROW_MULTIPLE)
+    out = te.ternary_encode_round1(q2, _to_2d(p0, ROW_MULTIPLE)[0], alpha)
+    return out.reshape(-1)[:n].reshape(q.shape)
+
+
+def pack2bit(t: torch.Tensor) -> torch.Tensor:
+    """int8 codes of any shape → uint8 (ceil(n/4),) packed bytes; the
+    zero pad packs as code 0."""
+    t2, n = _to_2d(t, ROW_MULTIPLE, LANES * PACK)
+    return pk.pack2bit(t2).reshape(-1)[:cdiv(n, PACK)]
+
+
+def unpack2bit(b: torch.Tensor, n: int) -> torch.Tensor:
+    """uint8 packed bytes → int8 (n,) codes."""
+    b2, _ = _to_2d(b, ROW_MULTIPLE)
+    return pk.unpack2bit(b2).reshape(-1)[:n]
+
+
+def ternary_pack(q: torch.Tensor, p1: torch.Tensor, p2: torch.Tensor,
+                 beta: float) -> torch.Tensor:
+    """Fused Eq. (5) → §3.3 uplink over a tensor of any shape: equals
+    ``pack2bit(ternary_encode(q, p1, p2, beta))`` in one launch with no
+    int8 intermediate. Returns uint8 (ceil(n/4),)."""
+    wide = LANES * PACK
+    q2, n = _to_2d(q, ROW_MULTIPLE, wide)
+    out = fw.ternary_pack(q2, _to_2d(p1, ROW_MULTIPLE, wide)[0],
+                          _to_2d(p2, ROW_MULTIPLE, wide)[0], beta)
+    return out.reshape(-1)[:cdiv(n, PACK)]
+
+
+def ternary_pack_round1(q: torch.Tensor, p0: torch.Tensor,
+                        alpha: float) -> torch.Tensor:
+    """Round-1 (Eq. (4)) variant of :func:`ternary_pack`."""
+    wide = LANES * PACK
+    q2, n = _to_2d(q, ROW_MULTIPLE, wide)
+    out = fw.ternary_pack_round1(q2, _to_2d(p0, ROW_MULTIPLE, wide)[0],
+                                 alpha)
+    return out.reshape(-1)[:cdiv(n, PACK)]
+
+
+def flat_ternary_pack(buf_q: torch.Tensor, buf_p1: torch.Tensor,
+                      buf_p2: torch.Tensor, *, t: int, beta: float,
+                      alpha1: float) -> torch.Tensor:
+    """One worker's uplink over flat buffers: (rows, 128) → (rows//4, 128)
+    uint8 in one launch. ``t`` is the static 1-based round, a Python int:
+    round 1 takes Eq. (4) with ``alpha1`` against ``buf_p1`` (= P^0) and
+    never reads ``buf_p2``, later rounds Eq. (5) with ``beta``. A tensor
+    ``t`` or ``beta`` raises rather than sync."""
+    t, beta = _static("t", t), _static("beta", beta)
+    r4 = buf_q.shape[0] // PACK
+    wide = LANES * PACK
+    if t <= 1:
+        return fw.ternary_pack_round1(buf_q.reshape(r4, wide),
+                                      buf_p1.reshape(r4, wide), alpha1)
+    return fw.ternary_pack(buf_q.reshape(r4, wide), buf_p1.reshape(r4, wide),
+                           buf_p2.reshape(r4, wide), beta)
+
+
+def flat_ternary_pack_traced(buf_q: torch.Tensor, buf_p1: torch.Tensor,
+                             buf_p2: torch.Tensor, *, t, beta,
+                             alpha1) -> torch.Tensor:
+    """:func:`flat_ternary_pack` at a device round: ``t``, ``beta`` (this
+    worker's beta_k, e.g. sliced from a per-worker vector) and ``alpha1``
+    may be device tensors or numbers; the kernel reads all three from
+    device memory and picks Eq. (4) or (5), so nothing syncs."""
+    r4 = buf_q.shape[0] // PACK
+    wide = LANES * PACK
+    dev = buf_q.device
+    return fw.ternary_pack_any(
+        buf_q.reshape(r4, wide), buf_p1.reshape(r4, wide),
+        buf_p2.reshape(r4, wide), round_index(t, dev),
+        _device_scalar(beta, torch.float32, dev, "beta"),
+        _device_scalar(alpha1, torch.float32, dev, "alpha1"))
 
 
 def flat_ternary_pack_stacked(bufs_q: torch.Tensor, buf_p1: torch.Tensor,
@@ -181,3 +305,23 @@ def flat_masked_partial_sum(words: torch.Tensor, keys: torch.Tensor,
     return ps.masked_partial_sum(words, keys.contiguous(),
                                  signs.contiguous(), fanout=fanout,
                                  sibling=sibling, use_masks=use_masks)
+
+
+def master_update(q_pilot: torch.Tensor, tern_stacked: torch.Tensor,
+                  w: torch.Tensor, p1: torch.Tensor, p2: torch.Tensor
+                  ) -> torch.Tensor:
+    """Unfused Eq. (3), t > 1, over tensors of any shape: q_pilot, p1, p2
+    float32 of one shape; tern_stacked (N, *shape) int8 codes; w (N,) the
+    weights p_k·beta_k with the pilot's zeroed. Returns q_pilot's shape."""
+    n_workers = tern_stacked.shape[0]
+    q2, n = _to_2d(q_pilot, ROW_MULTIPLE)
+    rows = q2.shape[0]
+    flat = tern_stacked.reshape(n_workers, -1)
+    pad = rows * LANES - flat.shape[1]
+    if pad or flat.data_ptr() % 4:
+        flat = F.pad(flat, (0, pad))
+    out = mu.master_update(q2, flat.view(n_workers, rows, LANES),
+                           w.to(torch.float32).contiguous(),
+                           _to_2d(p1, ROW_MULTIPLE)[0],
+                           _to_2d(p2, ROW_MULTIPLE)[0])
+    return out.reshape(-1)[:n].reshape(q_pilot.shape)

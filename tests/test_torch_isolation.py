@@ -25,7 +25,8 @@ def test_no_module_imports_jax_or_the_jax_package():
     assert "repro_torch.kernels.masked_wire" in names
     assert "repro_torch.privacy.masking" in names
     for name in ("kernels.partial_sum", "fed.faults", "privacy.recovery",
-                 "privacy.audit", "core.tree"):
+                 "privacy.audit", "core.tree", "kernels.ternary_encode",
+                 "kernels.pack2bit", "kernels.master_update", "core.update"):
         assert f"repro_torch.{name}" in names
     script = (
         "import importlib, sys\n"

@@ -1,6 +1,7 @@
 """The CUDA wire kernels against their plain PyTorch versions, on the card:
 the plain round's uplink and master, the masked round's, the tree's two
-partial sums and the dropout repair, and the round core's tree and fault
+partial sums and the dropout repair, the one-worker uplinks, the unfused
+encode, pack, unpack and master, and the round core's tree and fault
 branches chained on the card and on the CPU.
 
 Needs a CUDA card and ``nvcc``; every test here is marked ``gpu`` and skips
@@ -17,8 +18,12 @@ from repro_torch.core.tree import TreeSpec
 from repro_torch.fed import rounds as rd
 from repro_torch.fed.faults import FaultPlan
 from repro_torch.kernels import fused_wire as tfw
+from repro_torch.kernels import master_update as tmu
 from repro_torch.kernels import masked_wire as tmw
+from repro_torch.kernels import ops
+from repro_torch.kernels import pack2bit as tpk
 from repro_torch.kernels import partial_sum as tps
+from repro_torch.kernels import ternary_encode as tte
 from repro_torch.privacy import dp as pdp
 from repro_torch.privacy import masking as pvm
 from repro_torch.privacy.spec import PrivacySpec
@@ -371,3 +376,134 @@ def test_tree_and_fault_round_steps_on_card_match_cpu(cuda, bits, fanout):
             == 4 * levels)
     for a, b in zip(states["cpu"][:4], states[cuda][:4]):   # bitwise
         assert torch.equal(a.view(torch.int32), b.cpu().view(torch.int32))
+
+
+def _same(a: torch.Tensor, b: torch.Tensor) -> bool:
+    """Bitwise equal (floats compared as their int32 bits)."""
+    torch.cuda.synchronize()
+    if a.dtype == torch.float32:
+        a, b = a.view(torch.int32), b.view(torch.int32)
+    return a.dtype == b.dtype and torch.equal(a, b)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("r", [8, 64])
+@pytest.mark.parametrize("t", [1, 2, 3])
+def test_one_worker_uplinks_match_plain_on_card(cuda, r, t):
+    rng = np.random.default_rng(r + t)
+    q, p1, p2 = _history(rng, 1, r)
+    q[0, 0, 64:96], q[0, 0, 96:128] = 0.1, -0.1     # exact ties at beta 0.2
+    dq, dp1, dp2 = (torch.from_numpy(a).to(cuda) for a in (q[0], p1, p2))
+    before = dict(tfw.LAUNCHES)
+    if t == 1:
+        out = tfw.ternary_pack_round1(dq, dp1, ALPHA1)
+        assert _same(out, tfw.ternary_pack_round1_plain(dq, dp1, ALPHA1))
+    else:
+        out = tfw.ternary_pack(dq, dp1, dp2, 0.2)
+        assert _same(out, tfw.ternary_pack_plain(dq, dp1, dp2, 0.2))
+    betas = torch.tensor([0.1, 0.2, 0.3], device=cuda)
+    dt = torch.tensor(t, dtype=torch.int32, device=cuda)
+    da = torch.tensor(ALPHA1, device=cuda)
+    for k in range(3):                               # a slice of a vector
+        got = tfw.ternary_pack_any(dq, dp1, dp2, dt, betas[k], da)
+        assert _same(got, tfw.ternary_pack_any_plain(dq, dp1, dp2, dt,
+                                                     betas[k], da))
+    assert _same(got.view(1, r, 128), tfw.ternary_pack_stacked(
+        dq[None], dp1, dp2, dt, betas[2:], ALPHA1))
+    kind = "uplink_round1" if t == 1 else "uplink"
+    assert tfw.LAUNCHES[kind] == before[kind] + 1
+    assert tfw.LAUNCHES["uplink_traced"] == before["uplink_traced"] + 3
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("r", [2, 16, 250])
+def test_encode_matches_plain_on_card(cuda, r):
+    rng = np.random.default_rng(r)
+    q, p1, p2 = _history(rng, 1, r)
+    dq, dp1, dp2 = (torch.from_numpy(a.reshape(-1, 128)).to(cuda)
+                    for a in (q[0], p1, p2))
+    before = dict(tte.LAUNCHES)
+    codes = tte.ternary_encode(dq, dp1, dp2, 0.2)
+    assert _same(codes, tte.ternary_encode(dq.cpu(), dp1.cpu(), dp2.cpu(),
+                                           0.2).to(cuda))
+    codes1 = tte.ternary_encode_round1(dq, dp1, ALPHA1)
+    assert _same(codes1, tte.ternary_encode_round1(dq.cpu(), dp1.cpu(),
+                                                   ALPHA1).to(cuda))
+    assert tte.LAUNCHES == {k: v + 1 for k, v in before.items()}
+    # Packed, the codes are the fused uplinks' bytes.
+    rr = dq.shape[0] // 4
+    packed = tpk.pack2bit(codes.view(rr, 512))
+    assert _same(packed, tfw.ternary_pack(dq.view(rr, 512), dp1.view(rr, 512),
+                                          dp2.view(rr, 512), 0.2))
+
+
+@pytest.mark.gpu
+def test_pack_and_unpack_match_plain_on_card(cuda):
+    # Every byte value; codes in the fields' range and over all of int8.
+    every = torch.arange(256, dtype=torch.uint8, device=cuda)
+    b = every.repeat(32).view(64, 128)
+    before = dict(tpk.LAUNCHES)
+    codes = tpk.unpack2bit(b)
+    assert _same(codes, tpk.unpack2bit_plain(b))
+    assert _same(tpk.pack2bit(codes), b)              # the round trip
+    gen = torch.Generator(device=cuda).manual_seed(1)
+    for lo, hi in ((-1, 3), (-128, 128)):
+        c = torch.randint(lo, hi, (64, 512), generator=gen, device=cuda,
+                          dtype=torch.int8)
+        assert _same(tpk.pack2bit(c), tpk.pack2bit_plain(c))
+    assert tpk.LAUNCHES == {"pack": before["pack"] + 3,
+                            "unpack": before["unpack"] + 1}
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("n", [1, 10, 33])
+def test_master_update_matches_plain_on_card(cuda, n):
+    rng = np.random.default_rng(n)
+    r = 64
+    q = torch.from_numpy(rng.standard_normal((n, r, 128), dtype=np.float32)
+                         ).to(cuda)
+    p1, p2 = (torch.from_numpy(rng.standard_normal((r, 128),
+                                                   dtype=np.float32)).to(cuda)
+              for _ in range(2))
+    w = torch.from_numpy(rng.random(n, dtype=np.float32) / n).to(cuda)
+    w[0] = 0.0
+    before = tmu.LAUNCHES["master_update"]
+    for lo, hi in ((-1, 2), (-128, 128)):
+        tern = torch.from_numpy(rng.integers(lo, hi, (n, r, 128)).astype(
+            np.int8)).to(cuda)
+        out = tmu.master_update(q[0], tern, w, p1, p2)
+        assert _same(out, tmu.master_update_plain(q[0], tern, w, p1, p2))
+    assert tmu.LAUNCHES["master_update"] == before + 2
+    # On ternary codes: the fused packed master's bits.
+    packed = torch.stack([tpk.pack2bit(tern_k.view(r // 4, 512))
+                          for tern_k in tern.clamp(-1, 1)])
+    fused = tfw.packed_master_update(
+        q.view(n, r // 4, 512), torch.tensor(0, device=cuda), packed, w,
+        p1.view(r // 4, 512), p2.view(r // 4, 512),
+        torch.tensor(2, dtype=torch.int32, device=cuda), ALPHA0)
+    out = tmu.master_update(q[0], tern.clamp(-1, 1), w, p1, p2)
+    assert _same(out, fused.view(r, 128))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("shape", [(999,), (3, 5, 7), (64, 37), (2048, 10)])
+def test_arbitrary_shape_ops_on_card_match_cpu(cuda, shape):
+    rng = np.random.default_rng(sum(shape))
+    q, p1, p2 = (rng.standard_normal(shape, dtype=np.float32)
+                 for _ in range(3))
+    tern = rng.integers(-1, 2, (4,) + shape).astype(np.int8)
+    w = rng.random(4, dtype=np.float32) / 4
+    args = {d: [torch.from_numpy(a).to(d) for a in (q, p1, p2, tern, w)]
+            for d in ("cpu", cuda)}
+    outs = {}
+    for d, (dq, dp1, dp2, dt, dw) in args.items():
+        codes = ops.ternary_encode(dq, dp1, dp2, 0.2)
+        packed = ops.pack2bit(codes)
+        outs[d] = [codes, ops.ternary_encode_round1(dq, dp1, ALPHA1), packed,
+                   ops.unpack2bit(packed, codes.numel()),
+                   ops.ternary_pack(dq, dp1, dp2, 0.2),
+                   ops.ternary_pack_round1(dq, dp1, ALPHA1),
+                   ops.master_update(dq, dt, dw, dp1, dp2)]
+    for a, b in zip(outs["cpu"], outs[cuda]):
+        assert _same(a.to(cuda), b)
+    assert torch.equal(outs[cuda][2], outs[cuda][4])   # fused == composed
