@@ -10,13 +10,18 @@ result:
 2. build  — builds every kernel from the six ``src/repro_torch/kernels/
    csrc/*.cu`` (``fused_wire``, ``masked_wire``, ``partial_sum``,
    ``ternary_encode``, ``pack2bit``, ``master_update``), one ``nvcc``
-   each, started together; prints each kernel's registers and spills.
+   each, started together; prints each kernel's registers and spills, and
+   fails if any kernel spills.
 3. check  — each kernel against its plain PyTorch version on the card,
    bitwise. The plain round's at both round branches, at the main-path
    shape (N = 10 workers, R = rows/4 = 41,016) and at N ∈ {1, 3}, R = 8.
    The masked round's at 16 and 32 bits, RR off and on, masks off and on,
-   t ∈ {1, 2}, at the main-path shape and at N ∈ {1, 2, 3, 33}, R = 8,
-   with and without a participation-folded sign matrix. The tree's:
+   t ∈ {1, 2}, at the main-path shape and at N ∈ {1, 2, 3, 10, 16, 17,
+   33}, R = 8, with and without a participation-folded sign matrix and
+   with tree-scoped signs (sibling groups of 2 and 4); the masked uplink
+   through the kernel its wrapper picks (the pair kernel up to 16
+   workers) and through the row-fold kernel, both against the plain
+   version. The tree's:
    ``partial_sum`` at 16/32 bits, fanout ∈ {2, 4, 8}, C ∈ {5, 7, 10}
    (ragged groups) and at the main-path shape (C = 10, fanout 4);
    ``masked_partial_sum`` at 16/32 bits, G ∈ {1, 2, 3, 5}, sibling below
@@ -76,7 +81,9 @@ result:
    main-path shape (median of 25), beside its bound: device-memory bytes,
    or integer operations for the stream-generating kernels; the plain
    uplink also at round 1, the masked kernels at 16 and 32 bits, the
-   masked uplink without RR, without masks and without either, the
+   masked uplink's pair kernel beside its row-fold kernel, its bound beside
+   the row-fold count of operations, the masked uplink without RR, without
+   masks and without either, the
    master over the tree root's C = 3 rows, the masks-off partial sums and
    a ``torch.sum`` of sibling groups beside one; each round's whole wire
    (``WirePath.round_from_stacked``, the tree rounds' too) beside the sum
@@ -113,6 +120,7 @@ ROWS = 164_064
 REPEATS = 25
 QUEUED = 10                       # calls per timing when queued
 SLEEP_CYCLES = 40_000_000         # ~20 ms of card clock: the host queues them
+SLEEP_DOUBLINGS = 4               # per repeat, before a queued timing fails
 SCRUB_BYTES = 128 << 20           # read before each queued call: over the L2
 FP32_OPS_PER_S = 67e12            # H100 SXM, float32 outside tensor cores
 # H100 SXM INT32 pipe: 132 SMs x 64 lanes x 1.98 GHz boost clock (the FMA
@@ -188,8 +196,32 @@ def phase_build() -> None:
                 usage.setdefault(kernel, []).append(
                     line.split(":", 1)[-1].strip())
         print(f"build: {name} in {dt:.1f} s -> {so.name}", flush=True)
+        # A kernel with one instantiation per worker count (its last
+        # template argument) is reported on one line over all of them.
+        families: dict[str, dict[str, str]] = {}
         for kernel, use in usage.items():
-            print(f"build:   {kernel}: {'; '.join(use)}", flush=True)
+            spills = [int(b) for b in re.findall(r"(\d+) bytes spill",
+                                                  " ".join(use))]
+            check(not any(spills), f"{kernel} of {name} spills registers")
+            head, _, last = kernel.rpartition(",")
+            if kernel.count(",") >= 3:
+                families.setdefault(head, {})[last.rstrip(">")] = " ".join(
+                    use)
+            else:
+                print(f"build:   {kernel}: {'; '.join(use)}", flush=True)
+        for head, uses in families.items():
+            every = " ".join(uses.values())
+            regs = [int(r) for r in re.findall(r"Used (\d+) registers",
+                                               every)]
+            frames = [int(b) for b in re.findall(r"(\d+) bytes stack",
+                                                 every)]
+            main = re.search(r"Used (\d+) registers",
+                             uses.get(str(N_WORKERS), ""))
+            print(f"build:   {head},N> for {len(uses)} worker counts: "
+                  f"{min(regs)}-{max(regs)} registers ("
+                  f"{main.group(1) if main else '?'} at N = {N_WORKERS}), "
+                  f"0 bytes spill stores and loads, stack frame at most "
+                  f"{max(frames)} bytes", flush=True)
 
 
 def _counters() -> tuple[dict, ...]:
@@ -265,10 +297,12 @@ def phase_check(torch, dev) -> dict:
     return errs
 
 
-def _masked_inputs(torch, n: int, gen, dev, participation: bool = False):
+def _masked_inputs(torch, n: int, gen, dev, participation: bool = False,
+                   sibling: int | None = None):
     """The masked uplink's pair keys, signs and RR keys of round 2, built
     as ``WirePath`` builds them, and the participation mask: with
-    ``participation`` about a third of the workers sit out."""
+    ``participation`` about a third of the workers sit out; with
+    ``sibling`` the signs are a tree's, scoped to sibling groups."""
     from repro_torch.privacy import dp as pdp
     from repro_torch.privacy import masking as pvm
     t = torch.tensor(2, dtype=torch.int32, device=dev)
@@ -276,7 +310,11 @@ def _masked_inputs(torch, n: int, gen, dev, participation: bool = False):
     if participation:
         part = (torch.rand((n,), generator=gen, device=dev) < 0.7).float()
     keys = pvm.pair_stream_keys(0, n, t)
-    signs = pvm.pair_signs(n, participation=part, device=dev)
+    if sibling is None:
+        signs = pvm.pair_signs(n, participation=part, device=dev)
+    else:
+        signs = pvm.tree_pair_signs(n, sibling, participation=part,
+                                    device=dev)
     return keys, signs, pdp.rr_stream_keys(1, t, n), part
 
 
@@ -290,12 +328,17 @@ def phase_check_masked(torch, dev) -> dict:
     gen = torch.Generator(device=dev).manual_seed(SEED + 2)
     errs = {"uplink_masked": 0.0, "master_masked": 0.0}
     cases = 0
-    shapes = ((N_WORKERS, ROWS // 4, False), (1, 8, False), (2, 8, False),
-              (3, 8, True), (33, 8, False), (33, 8, True))
-    for n, r, participation in shapes:
+    # (N, R, participation, sibling group of tree-scoped signs or None):
+    # the pair kernel runs up to 16 workers, the row-fold kernel beyond.
+    shapes = ((N_WORKERS, ROWS // 4, False, None), (1, 8, False, None),
+              (2, 8, False, None), (3, 8, True, None), (10, 8, True, 2),
+              (10, 8, False, 4), (16, 8, False, None), (16, 8, True, 4),
+              (17, 8, True, None), (17, 8, False, 4), (33, 8, False, None),
+              (33, 8, True, None))
+    for n, r, participation, sibling in shapes:
         q, p1, p2, beta, w, k = _inputs(torch, n, r, gen, dev)
         keys, signs, rrk, part = _masked_inputs(torch, n, gen, dev,
-                                                participation)
+                                                participation, sibling)
         if part is not None:
             w = w * part
         for bits in (16, 32):
@@ -313,6 +356,7 @@ def phase_check_masked(torch, dev) -> dict:
                         kw = dict(rr_threshold=thr, word_bits=bits,
                                   use_masks=use_masks)
                         words = mw.ternary_pack_masked(*args, **kw)
+                        rows = mw._ternary_pack_masked_rows(*args, **kw)
                         plain = mw.ternary_pack_masked_plain(*args, **kw)
                         out = mw.masked_master_update(
                             q, k, words, sum_wq, p1, p2, tt, 0.01, smult)
@@ -323,10 +367,14 @@ def phase_check_masked(torch, dev) -> dict:
                                         - pvm.as_u64(plain)).abs().max())
                         ma_err = float((out - ref).abs().max())
                         where = (f"N={n} R={r} part={participation} "
-                                 f"bits={bits} thr={thr} masks={use_masks} "
-                                 f"t={t}")
+                                 f"sibling={sibling} bits={bits} thr={thr} "
+                                 f"masks={use_masks} t={t}")
                         check(words.dtype == plain.dtype and up_err == 0,
                               f"masked uplink differs from plain at {where}")
+                        check(torch.equal(pvm.as_u64(rows),
+                                          pvm.as_u64(plain)),
+                              f"row-fold masked uplink differs from plain "
+                              f"at {where}")
                         check(torch.equal(out.view(torch.int32),
                                           ref.view(torch.int32)),
                               f"masked master differs from plain at {where}")
@@ -338,10 +386,12 @@ def phase_check_masked(torch, dev) -> dict:
                             errs["master_masked"] = max(
                                 errs["master_masked"], ma_err)
                         cases += 1
-                        del words, plain, out, ref
+                        del words, rows, plain, out, ref
         del q, p1, p2
-    print(f"kernels: masked uplink and master bitwise equal to their plain "
-          f"versions in all {cases} cases (N, R, participation in "
+    print(f"kernels: masked uplink (the wrapper's kernel, the pair kernel "
+          f"up to {mw.PAIR_MAX_WORKERS} workers, and the row-fold kernel) "
+          f"and master bitwise equal to their plain versions in all "
+          f"{cases} cases (N, R, participation, tree sibling group in "
           f"{list(shapes)}, 16/32 bits, RR off/on, masks off/on, "
           f"t = 1, 2)", flush=True)
     return errs
@@ -949,9 +999,10 @@ def phase_check_unfused(torch, dev) -> dict:
     unpack (#13) and the unfused master (#14) against their plain versions
     on the card, bitwise: at the main-path shapes (one worker's view of
     R = ROWS / 4 rows; the master over N = 10 workers) and small ones; #13
-    on all 256 byte values and on random int8 codes, #14 at N = 1, 10, 33
-    on ternary and on random int8 codes. Returns the largest absolute
-    difference per kernel at the main-path shape."""
+    on all 256 byte values, unpack on 1, 3 and 8 rows of random bytes, pack
+    on random int8 codes, #14 at N = 1, 10, 33 on ternary and on random
+    int8 codes. Returns the largest absolute difference per kernel at the
+    main-path shape."""
     from repro_torch.core.ternary import ternarize, ternarize_round1
     from repro_torch.kernels import fused_wire as fw
     from repro_torch.kernels import master_update as mu
@@ -1010,6 +1061,11 @@ def phase_check_unfused(torch, dev) -> dict:
            "all 256 bytes", False)
     check(torch.equal(pk.pack2bit(pk.unpack2bit(every)), every),
           "pack(unpack(b)) != b over all 256 bytes")
+    for r in (1, 3, 8):
+        b = torch.randint(0, 256, (r, 128), generator=gen, device=dev,
+                          dtype=torch.uint8)
+        record("unpack", pk.unpack2bit(b), pk.unpack2bit_plain(b),
+               f"{r} rows of random bytes", False)
     for lo, hi in ((-1, 3), (-128, 128)):
         c = torch.randint(lo, hi, (64, 512), generator=gen, device=dev,
                           dtype=torch.int8)
@@ -1229,7 +1285,7 @@ def phase_worker_rounds(torch, dev, captured: list) -> dict:
     return totals
 
 
-_queue: dict = {}       # the sleep's and the L2 scrub's own times, once
+_queue: dict = {}       # the sleep's rate, its length and the L2 scrub's time
 
 
 def _median_ms(torch, fn, queued: bool = False) -> float:
@@ -1237,40 +1293,51 @@ def _median_ms(torch, fn, queued: bool = False) -> float:
     one call from an idle card: the wrapper's host time up to its launch
     counts. ``queued``: QUEUED calls enqueued behind a ``torch.cuda._sleep``
     that keeps the card busy meanwhile, so the events time the device
-    alone (the host must queue them within the sleep), each call after a
-    read of SCRUB_BYTES that leaves none of its operands in the 50 MB L2
-    cache; the scrub's own time is taken off."""
+    alone, each call after a read of SCRUB_BYTES that leaves none of its
+    operands in the 50 MB L2 cache; the scrub's own time is taken off.
+    The host must queue the calls within 0.8 of the sleep: where it does
+    not (a busy host), the sleep is doubled and that repeat timed again,
+    at most SLEEP_DOUBLINGS times before the timing fails."""
     if queued and not _queue:
         scrub = torch.empty(SCRUB_BYTES // 4, dtype=torch.int32,
                             device="cuda")
         _queue["read"] = lambda: scrub.max()
-        _queue["sleep_ms"] = _median_ms(
-            torch, lambda: torch.cuda._sleep(SLEEP_CYCLES))
+        _queue["cycles"] = SLEEP_CYCLES
+        _queue["ms_per_cycle"] = _median_ms(
+            torch, lambda: torch.cuda._sleep(SLEEP_CYCLES)) / SLEEP_CYCLES
+        _queue["host_share"] = 0.0
         _queue["scrub_ms"] = _median_ms(torch, lambda: None, queued=True)
     fn()
     torch.cuda.synchronize()
     times = []
     calls = QUEUED if queued else 1
     for _ in range(REPEATS):
-        a = torch.cuda.Event(enable_timing=True)
-        b = torch.cuda.Event(enable_timing=True)
-        if queued:
-            torch.cuda._sleep(SLEEP_CYCLES)
-        t0 = time.perf_counter()
-        a.record()
-        for _ in range(calls):
+        for doubling in range(SLEEP_DOUBLINGS + 1):
+            a = torch.cuda.Event(enable_timing=True)
+            b = torch.cuda.Event(enable_timing=True)
             if queued:
-                _queue["read"]()
-            fn()
-        b.record()
-        host_ms = (time.perf_counter() - t0) * 1e3
-        b.synchronize()
-        times.append(a.elapsed_time(b) / calls)
-        if queued:
-            check(host_ms < 0.8 * _queue["sleep_ms"],
+                torch.cuda._sleep(_queue["cycles"])
+            t0 = time.perf_counter()
+            a.record()
+            for _ in range(calls):
+                if queued:
+                    _queue["read"]()
+                fn()
+            b.record()
+            host_ms = (time.perf_counter() - t0) * 1e3
+            b.synchronize()
+            if not queued:
+                break
+            sleep_ms = _queue["cycles"] * _queue["ms_per_cycle"]
+            if host_ms < 0.8 * sleep_ms:
+                _queue["host_share"] = max(_queue["host_share"],
+                                           host_ms / sleep_ms)
+                break
+            check(doubling < SLEEP_DOUBLINGS,
                   f"queued timing: the host took {host_ms:.2f} ms to queue "
-                  f"{calls} calls, the sleep lasts {_queue['sleep_ms']:.2f}"
-                  f" ms")
+                  f"{calls} calls, the sleep lasts {sleep_ms:.2f} ms")
+            _queue["cycles"] *= 2
+        times.append(a.elapsed_time(b) / calls)
     return statistics.median(times) - _queue.get("scrub_ms", 0.0) * queued
 
 
@@ -1357,7 +1424,7 @@ def phase_times(torch, dev, rate: float, launches: dict,
 
 
 def uplink_masked_int_ops(n: int, elems: int, bits: int, rr: bool,
-                          masks: bool, active_pairs: int
+                          masks: bool, expansions: int, folds: int = 2
                           ) -> tuple[float, float]:
     """(ALU-only, all) integer operations the masked uplink needs on these
     inputs, counted as ``nvcc`` compiles its code for sm_90a (read from
@@ -1369,15 +1436,19 @@ def uplink_masked_int_ops(n: int, elems: int, bits: int, rr: bool,
     compares) at 64 per SM per clock and all integer ops at twice that.
     An add and a mix32 are 9 ops, 6 of them ALU-only (3 shifts, 3 xors;
     the add and 2 multiplies go to the FMA pipe); a trailing ``& 0xFFFF``
-    folds into the last xor. Per element: the RR counter hash (9, 6); the
+    folds into the last xor, and ``u >> 16`` of a mix32 is the shift its
+    last step already made. Per element: the RR counter hash (9, 6); the
     mask counter hash per element pair at 16 bits (4.5, 3 per element),
     shared with RR at 32 or (9, 6) without it. Per worker and element: the
     weight multiply (1, 0) and, with RR, a stream word (9, 6), a compare
     (1, 1), a mod 3 (a multiply-high, a shift, a multiply-add: 3, 1) and a
-    select (1, 0). Per active (k, l) pair of the sign matrix: at 16 bits
-    per stream word of two elements a stream word (9, 6) and two
-    multiply-adds (5.5, 3 per element); at 32 bits per element a stream
-    word and a multiply-add (10, 6). Float operations are left out."""
+    select (1, 0). Per stream expansion (``expansions``: active unordered
+    pairs when each pair is expanded once and folded into both workers,
+    ``folds`` = 2; active entries of the sign matrix when each worker
+    expands its own row, ``folds`` = 1): at 16 bits a stream word of two
+    elements (4.5, 3 per element) and a multiply-add per element and fold;
+    at 32 bits per element a stream word (9, 6) and a multiply-add per
+    fold. Float operations are left out."""
     alu = total = 0.0
     if rr:
         alu, total = 6 * elems, 9 * elems
@@ -1388,9 +1459,9 @@ def uplink_masked_int_ops(n: int, elems: int, bits: int, rr: bool,
     total += n * elems * (1 + (14 if rr else 0))
     alu += n * elems * (8 if rr else 0)
     if masks:
-        per_pair = (3.0, 5.5) if bits == 16 else (6.0, 10.0)
-        alu += active_pairs * elems * per_pair[0]
-        total += active_pairs * elems * per_pair[1]
+        per_word = (3.0, 4.5) if bits == 16 else (6.0, 9.0)
+        alu += expansions * elems * per_word[0]
+        total += expansions * elems * (per_word[1] + folds)
     return alu, total
 
 
@@ -1412,7 +1483,8 @@ def phase_times_masked(torch, dev, rate: float, launches: dict,
     gen = torch.Generator(device=dev).manual_seed(SEED + 1)
     q, p1, p2, beta, w, k = _inputs(torch, n, r, gen, dev)
     keys, signs, rrk, _ = _masked_inputs(torch, n, gen, dev)
-    active = int((signs != 0).sum())
+    active = int((signs != 0).sum())               # ordered: the row fold's
+    pairs = int((signs.triu(1) != 0).sum())        # unordered: the least
     tt = torch.tensor(2, dtype=torch.int32, device=dev)
     m = r * 512                                    # elements per view
     f32 = 4
@@ -1431,11 +1503,14 @@ def phase_times_masked(torch, dev, rate: float, launches: dict,
         small = n * f32 * 3 + keys.numel() * 8 + f32   # beta, wq, rr, keys
         up_bytes = n * m * f32 + 2 * m * f32 + small + n * m * word
         ma_bytes = n * m * word + 4 + 8 + 3 * m * f32 + f32 + m * f32
-        alu, total = uplink_masked_int_ops(n, m, bits, True, True, active)
+        alu, total = uplink_masked_int_ops(n, m, bits, True, True, pairs)
+        row_alu, row_total = uplink_masked_int_ops(n, m, bits, True, True,
+                                                   active, folds=1)
         work = {
             "uplink_masked": (
                 up_bytes, int_bound_ms(alu, total),
-                f"{alu / 1e9:.2f} G ALU-only / {total / 1e9:.2f} G int ops",
+                f"{alu / 1e9:.2f} G ALU-only / {total / 1e9:.2f} G int ops "
+                f"({pairs} pairs expanded once)",
                 lambda: mw.ternary_pack_masked(*args, **kw),
                 lambda: mw.ternary_pack_masked_plain(*args, **kw),
                 "ternary_pack_masked", "src/repro/kernels/masked_wire.py:299"),
@@ -1449,12 +1524,12 @@ def phase_times_masked(torch, dev, rate: float, launches: dict,
                 "masked_master_update",
                 "src/repro/kernels/masked_wire.py:386"),
         }
-        kernel_ms = {}
+        kernel_ms, device_ms = {}, {}
         for kind, (nbytes, ops_ms, ops_text, kern, plain, name,
                    replaces) in work.items():
             ms, call_ms = _kernel_ms(torch, kern)
             plain_ms = _median_ms(torch, plain)
-            kernel_ms[kind] = call_ms
+            kernel_ms[kind], device_ms[kind] = call_ms, ms
             bytes_ms = nbytes / rate * 1e3
             bound_ms = max(bytes_ms, ops_ms)
             by = "bytes" if bytes_ms >= ops_ms else "operations"
@@ -1474,6 +1549,26 @@ def phase_times_masked(torch, dev, rate: float, launches: dict,
                     "max_abs_err": errs[kind], "ms": ms,
                     "plain_ms": plain_ms, "bound_ms": bound_ms,
                     "bound_by": by, "library_ms": None})
+        # The row-fold kernel at the same shape, in this run: the pair
+        # kernel's yardstick, and the bound it was held to before.
+        by_rows = mw._ternary_pack_masked_rows(*args, **kw)
+        check(torch.equal(pvm.as_u64(by_rows), pvm.as_u64(words)),
+              f"{bits}-bit row-fold and pair kernels differ at N = {n}")
+        del by_rows
+        pair_ms = device_ms["uplink_masked"]
+        rows_ms = _median_ms(torch, lambda: mw._ternary_pack_masked_rows(
+            *args, **kw), queued=True)
+        old_bound = max(up_bytes / rate * 1e3,
+                        int_bound_ms(row_alu, row_total))
+        new_bound = max(up_bytes / rate * 1e3, int_bound_ms(alu, total))
+        print(f"time: ternary_pack_masked {bits}-bit on the device, same "
+              f"run: pair kernel {pair_ms:.4f} ms, row-fold kernel "
+              f"{rows_ms:.4f} ms ({rows_ms / pair_ms:.2f}x); bound "
+              f"{new_bound:.4f} ms with each of the {pairs} active pairs "
+              f"expanded once ({alu / 1e9:.2f} G ALU-only / "
+              f"{total / 1e9:.2f} G int ops), {old_bound:.4f} ms by the "
+              f"row fold's {active} expansions ({row_alu / 1e9:.2f} G / "
+              f"{row_total / 1e9:.2f} G)", flush=True)
         # Where the uplink's time goes: the same launch without RR, without
         # masks, and without either.
         parts = []
@@ -1486,7 +1581,7 @@ def phase_times_masked(torch, dev, rate: float, launches: dict,
             part_bound = max(
                 (up_bytes - (0 if masks_on else keys.numel() * 8)) / rate
                 * 1e3, int_bound_ms(*uplink_masked_int_ops(
-                    n, m, bits, rr_on, masks_on, active)))
+                    n, m, bits, rr_on, masks_on, pairs)))
             parts.append(f"RR {'on' if rr_on else 'off'} masks "
                          f"{'on' if masks_on else 'off'} {part_ms:.4f} ms "
                          f"(bound {part_bound:.4f} ms)")
@@ -1838,7 +1933,9 @@ def phase_times_unfused(torch, dev, rate: float, launches: dict,
             "pack2bit", "src/repro/kernels/pack2bit.py:47", "pack2bit.cu",
             none_why + " packs 2-bit fields"),
         "unpack": (
-            13, m // 4 + m, 0, 3 * m,
+            # Per packed byte: an extract, the three shifts and two
+            # three-input logic ops of the spread, an add and an xor.
+            13, m // 4 + m, 0, 2 * m,
             lambda: pk.unpack2bit(packed), lambda: pk.unpack2bit_plain(packed),
             "unpack2bit", "src/repro/kernels/pack2bit.py:65", "pack2bit.cu",
             none_why + " unpacks 2-bit fields"),
@@ -1859,6 +1956,14 @@ def phase_times_unfused(torch, dev, rate: float, launches: dict,
         bound_ms = max(bytes_ms, ops_ms)
         by = "bytes" if bytes_ms >= ops_ms else "operations"
         lib_ms = None
+        if kind == "unpack":
+            # Not the same function, so not the library column: the time
+            # of writing the unpack's output alone, timed alike.
+            codes_out = torch.empty((r, 512), dtype=torch.int8, device=dev)
+            fill_ms = _median_ms(torch, lambda: codes_out.fill_(1),
+                                 queued=True)
+            lib_note += (f"; a fill_ of its {m / 1e6:.1f} MB of codes alone "
+                         f"{fill_ms:.4f} ms on the device")
         if kind == "master_update":
             # The library yardstick: two PyTorch calls (a tensordot over
             # the workers, then addcmul), beside the float conversion and
@@ -1960,6 +2065,11 @@ def main() -> int:
             "masked_partial_sum_off": tree["masked_partial_sum"]}, errs)
         rows += phase_times_unfused(torch, dev, rate, worker_rounds, errs)
         rows.sort(key=lambda row: row["row"])
+        print(f"time: queued timings behind a sleep of "
+              f"{_queue['cycles'] * _queue['ms_per_cycle']:.2f} ms "
+              f"({_queue['cycles']} cycles); the host queued "
+              f"{QUEUED} calls in at most {_queue['host_share']:.1%} of it",
+              flush=True)
     except (SmokeError, RuntimeError, ImportError, OSError,
             subprocess.SubprocessError) as exc:
         print(f"FAIL: {type(exc).__name__}: {exc}", file=sys.stderr)

@@ -23,8 +23,11 @@ from pathlib import Path
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch"
+# --split-compile=0 optimises a source's kernels on all CPU cores, for
+# masked_wire.cu's pair kernel has one instantiation per worker count.
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+              "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
+              "--split-compile=0")
 
 _lock = threading.Lock()
 _libs: dict[str, ctypes.CDLL] = {}

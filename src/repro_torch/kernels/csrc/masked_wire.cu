@@ -32,7 +32,9 @@ using wire::stream_hashes;
 using wire::sub4;
 using wire::wire_field;
 
-// Replaces ternary_pack_masked_2d (JAX package, kernels/masked_wire.py).
+// Replaces ternary_pack_masked_2d (JAX package, kernels/masked_wire.py),
+// in two kernels; the wrapper picks one by shape alone.
+//
 // Per worker k and element e: field = code + 1 (wire_field); with RR on,
 // rr = mix32(mix32(e) + rr_keys[k]) (a full word per element at either
 // modulus) replaces the field by (rr >> 16) % 3 when (rr & 0xFFFF) <
@@ -42,20 +44,27 @@ using wire::wire_field;
 // u = mix32(mix32(e >> 1) + key) feeds element 2j with u & 0xFFFF and
 // element 2j + 1 with u >> 16.
 //
-// Bound: integer operations, not bytes. Each mask stream word costs an add,
-// a mix32 (2 multiplies, 3 xors, 3 shifts) and the signed fold, for every
-// active (k, l) pair: at N = 10, 16 bits, RR on, about 660 integer
-// operations per element, 360 of them shifts and logic that only the
-// INT32 pipe runs, against 68 bytes moved per element. The design
-// spends nothing else: the counter hashes mix32(e) are computed once per
-// thread and shared by all N * L streams; the (N, L) keys and signs are
-// staged in shared memory per block; pairs with sign 0 (the diagonal, and
-// non-participants) are skipped, a branch uniform across the block; p1/p2
-// are loaded once and the workers loop inside the thread; codes, fields,
-// RR words and masks live in registers only, and each worker's four words
-// leave in one 8- or 16-byte store. It folds each worker's row of the key
-// matrix (N (N - 1) stream expansions); sharing each pair's expansion
-// between its two endpoints would halve that.
+// Bound: integer operations or bytes, about even. Each mask stream word
+// costs an add and a mix32 (2 multiplies, 3 xors, 3 shifts), each RR word
+// the same, against 68 bytes moved per element at 16 bits. Both kernels
+// compute the counter hashes mix32(e) once per thread and keep them in
+// registers; stage the keys and signs in shared memory per block; skip
+// pairs with sign 0 (the diagonal, non-participants, pairs a tree scopes
+// out), a branch uniform across the block; load p1/p2 once; keep codes,
+// fields, RR words and masks in registers only; and store each worker's
+// four words in one 8- or 16-byte store.
+//
+// ternary_pack_masked_pairs_kernel runs when the key matrix is square
+// (cohort == n) and n <= kPairMaxWorkers, the TPU kernel's whole-cohort
+// branch: one thread holds all n workers' four accumulators in registers
+// and expands each unordered pair {i, j} once, folding +s * u into worker
+// i and -s * u into worker j: n (n - 1) / 2 expansions per element word.
+// It reads only the upper triangle, so it needs symmetric keys and
+// antisymmetric signs (pair_stream_keys; pair_signs, tree_pair_signs).
+//
+// ternary_pack_masked_kernel runs otherwise (a rectangular key matrix,
+// or more workers than registers hold), the TPU kernel's grid branch:
+// each worker folds its own row of the key matrix, n * cohort expansions.
 template <int kWordBits, bool kRR, bool kMasks>
 __global__ void __launch_bounds__(kThreads)
 ternary_pack_masked_kernel(const float4* __restrict__ q,
@@ -157,6 +166,134 @@ ternary_pack_masked_kernel(const float4* __restrict__ q,
     } else {
       reinterpret_cast<uint4*>(out)[at] = make_uint4(acc0, acc1, acc2, acc3);
     }
+  }
+}
+
+// Most workers the pair kernel holds: 16 x 4 uint32 accumulators in
+// registers. The paper's federation has 10 nodes.
+constexpr int kPairMaxWorkers = 16;
+
+// The pair kernel for exactly kN workers: see the note above
+// ternary_pack_masked_kernel. The worker count is a template argument, so
+// every loop over workers and pairs unrolls with constant bounds, each
+// index into acc[k][j] is a constant and the array lives in registers, and
+// no guard on n is left: one instantiation per kN = 1 .. kPairMaxWorkers.
+// (A single kernel for up to 16 workers, its loops guarded by a runtime
+// n, took 1.0457 ms at 16 bits and 1.6789 at 32 for N = 10, RR and masks
+// on, R = 41,016, where this form takes 0.5339 and 0.6966, on an H100
+// 80GB HBM3 at 700 W: the guards kept 121 registers and 137 KB of code
+// for 16 workers at any n.) At most 128 registers a thread (two blocks an
+// SM) for the accumulators, hashes and the kN float4 loads in flight.
+template <int kWordBits, bool kRR, bool kMasks, int kN>
+__global__ void __launch_bounds__(kThreads, 2)
+ternary_pack_masked_pairs_kernel(const float4* __restrict__ q,
+                                 const float4* __restrict__ p1,
+                                 const float4* __restrict__ p2,
+                                 const float* __restrict__ beta,
+                                 const uint32_t* __restrict__ wq,
+                                 const uint32_t* __restrict__ keys,
+                                 const int32_t* __restrict__ signs,
+                                 const uint32_t* __restrict__ rr_keys,
+                                 const int32_t* __restrict__ t, float alpha1,
+                                 uint32_t rr_threshold,
+                                 void* __restrict__ out, int64_t m) {
+  // The (kN, kN) keys and signs as (key, sign) pairs, so each read in the
+  // unrolled pair loop is one 8-byte load at a constant offset.
+  __shared__ uint2 s_pairs[kN * kN];
+  if constexpr (kMasks) {
+    for (int j = threadIdx.x; j < kN * kN; j += kThreads) {
+      s_pairs[j] = make_uint2(keys[j], static_cast<uint32_t>(signs[j]));
+    }
+    __syncthreads();
+  }
+  const int64_t i = static_cast<int64_t>(blockIdx.x) * kThreads + threadIdx.x;
+  if (i >= m) return;
+  const bool round1 = *t <= 1;
+  const float4 a = p1[i];
+  const float4 b = round1 ? a : p2[i];
+  const float4 step = sub4(a, b);
+  // Every worker's float4 is requested before any is used: kN * 16 bytes
+  // in flight per thread.
+  float4 x[kN];
+#pragma unroll
+  for (int k = 0; k < kN; ++k) x[k] = q[static_cast<int64_t>(k) * m + i];
+
+  const uint32_t e0 = static_cast<uint32_t>(i) * 4u;
+  uint32_t hr[4] = {0u, 0u, 0u, 0u};       // RR counter hashes, per element
+  if constexpr (kRR) {
+#pragma unroll
+    for (int j = 0; j < 4; ++j) hr[j] = mix32(e0 + j);
+  }
+  uint32_t acc[kN][4];
+#pragma unroll
+  for (int k = 0; k < kN; ++k) {
+    const float bk = beta[k];
+    uint32_t f[4] = {wire_field(x[k].x, a.x, step.x, bk, alpha1, round1),
+                     wire_field(x[k].y, a.y, step.y, bk, alpha1, round1),
+                     wire_field(x[k].z, a.z, step.z, bk, alpha1, round1),
+                     wire_field(x[k].w, a.w, step.w, bk, alpha1, round1)};
+    if constexpr (kRR) {
+      const uint32_t rk = rr_keys[k];
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        const uint32_t rr = mix32(hr[j] + rk);
+        if ((rr & 0xFFFFu) < rr_threshold) f[j] = (rr >> 16) % 3u;
+      }
+    }
+    const uint32_t wk = wq[k];
+#pragma unroll
+    for (int j = 0; j < 4; ++j) acc[k][j] = wk * f[j];
+  }
+
+  if constexpr (kMasks) {
+    // Mask counter hashes, computed once: per element pair at 16 bits, per
+    // element at 32 (the RR hashes when RR is on).
+    uint32_t hm[4];
+    if constexpr (kWordBits == 16) {
+      hm[0] = mix32(e0 >> 1);
+      hm[1] = mix32((e0 >> 1) + 1u);
+      hm[2] = hm[3] = 0u;
+    } else {
+#pragma unroll
+      for (int j = 0; j < 4; ++j) hm[j] = kRR ? hr[j] : mix32(e0 + j);
+    }
+    // The 16-bit words keep the low halves of the accumulators, and the
+    // low half of s * u depends only on the low half of u: no & 0xFFFF.
+#pragma unroll
+    for (int r = 0; r < kN - 1; ++r) {
+#pragma unroll
+      for (int c = r + 1; c < kN; ++c) {
+        const uint2 pair = s_pairs[r * kN + c];
+        if (pair.y == 0u) continue;
+        const uint32_t key = pair.x;
+        const uint32_t up = pair.y;
+        const uint32_t down = 0u - up;
+        if constexpr (kWordBits == 16) {
+          const uint32_t u0 = mix32(hm[0] + key);
+          const uint32_t u1 = mix32(hm[1] + key);
+          acc[r][0] += up * u0;
+          acc[r][1] += up * (u0 >> 16);
+          acc[r][2] += up * u1;
+          acc[r][3] += up * (u1 >> 16);
+          acc[c][0] += down * u0;
+          acc[c][1] += down * (u0 >> 16);
+          acc[c][2] += down * u1;
+          acc[c][3] += down * (u1 >> 16);
+        } else {
+#pragma unroll
+          for (int j = 0; j < 4; ++j) {
+            const uint32_t u = mix32(hm[j] + key);
+            acc[r][j] += up * u;
+            acc[c][j] += down * u;
+          }
+        }
+      }
+    }
+  }
+
+#pragma unroll
+  for (int k = 0; k < kN; ++k) {
+    store_words<kWordBits>(out, static_cast<int64_t>(k) * m + i, acc[k]);
   }
 }
 
@@ -296,11 +433,31 @@ struct PackArgs {
   int n;
   int cohort;
   int64_t m;
+  bool pairs;
   cudaStream_t stream;
 };
 
+// The pair kernel instantiated for a.n workers: kN counts up to it.
+template <int kWordBits, bool kRR, bool kMasks, int kN = 1>
+cudaError_t launch_pairs(const PackArgs& a) {
+  if constexpr (kN > kPairMaxWorkers) {
+    return cudaErrorInvalidValue;
+  } else {
+    if (a.n != kN) return launch_pairs<kWordBits, kRR, kMasks, kN + 1>(a);
+    ternary_pack_masked_pairs_kernel<kWordBits, kRR, kMasks, kN>
+        <<<blocks_for(a.m), kThreads, 0, a.stream>>>(
+        a.q, a.p1, a.p2, a.beta, a.wq, a.keys, a.signs, a.rr_keys, a.t,
+        a.alpha1, a.rr_threshold, a.out, a.m);
+    return cudaGetLastError();
+  }
+}
+
 template <int kWordBits, bool kRR, bool kMasks>
 cudaError_t launch_pack(const PackArgs& a) {
+  if (a.pairs) {
+    if (a.cohort != a.n) return cudaErrorInvalidValue;
+    return launch_pairs<kWordBits, kRR, kMasks>(a);
+  }
   const size_t staged =
       kMasks ? 2 * sizeof(uint32_t) * static_cast<size_t>(a.n) * a.cohort : 0;
   if (staged > 48 * 1024) {
@@ -334,13 +491,16 @@ extern "C" {
 // q (n, m) float4, p1/p2 (m,) float4, beta (n,) float, wq (n,) uint32,
 // keys (n, cohort) uint32, signs (n, cohort) int32, rr_keys (n,) uint32,
 // t int32 scalar, out (n, m) ushort4 (word_bits 16) or uint4 (32).
+// pairs != 0 takes the pair kernel (cohort == n <= kPairMaxWorkers, keys
+// symmetric, signs antisymmetric), else the row-fold kernel.
 int mw_ternary_pack_masked(const void* q, const void* p1, const void* p2,
                            const void* beta, const void* wq, const void* keys,
                            const void* signs, const void* rr_keys,
                            const void* t, float alpha1,
                            unsigned rr_threshold, int word_bits,
-                           int use_masks, void* out, int n, int cohort,
-                           long long m, int device, void* stream) {
+                           int use_masks, int pairs, void* out, int n,
+                           int cohort, long long m, int device,
+                           void* stream) {
   const cudaError_t set = cudaSetDevice(device);
   if (set != cudaSuccess) return static_cast<int>(set);
   const PackArgs a{static_cast<const float4*>(q),
@@ -358,6 +518,7 @@ int mw_ternary_pack_masked(const void* q, const void* p1, const void* p2,
                    n,
                    cohort,
                    m,
+                   pairs != 0,
                    static_cast<cudaStream_t>(stream)};
   const bool rr = rr_threshold > 0;
   const bool masks = use_masks != 0;

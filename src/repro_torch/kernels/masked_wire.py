@@ -7,7 +7,9 @@ They take the same ``(R, 512)`` float views as ``kernels.fused_wire`` and
 ``uint32`` at 32. The uplink regenerates the pairwise mask and RR streams
 in registers from the ``(N, L)`` key/sign matrices and the ``(N,)`` RR
 keys, so no code, field, RR or mask tensor ever reaches device memory;
-what it writes is already masked.
+what it writes is already masked. It has two kernels, picked by shape
+alone (:func:`uses_pair_kernel`): one that expands each unordered pair
+once for all workers in registers, and one that folds each worker's row.
 
 Each wrapper checks device, dtype, shape, contiguity and alignment and
 raises on what its kernel does not take. A CUDA tensor launches the
@@ -35,6 +37,9 @@ LAUNCHES = {"uplink_masked": 0, "master_masked": 0, "mask_repair": 0}
 #: Bytes of shared memory a block may stage the (N, L) keys and signs in.
 MAX_STAGED_BYTES = 227 * 1024
 
+#: Most workers the pair kernel holds in registers (``kPairMaxWorkers``).
+PAIR_MAX_WORKERS = 16
+
 _WORD_DTYPES = {16: torch.uint16, 32: torch.uint32}
 _P = ctypes.c_void_p
 _bound: ctypes.CDLL | None = None
@@ -47,8 +52,8 @@ def _lib() -> ctypes.CDLL:
         lib = build.load("masked_wire")
         lib.mw_ternary_pack_masked.argtypes = [
             _P, _P, _P, _P, _P, _P, _P, _P, _P, ctypes.c_float,
-            ctypes.c_uint, ctypes.c_int, ctypes.c_int, _P, ctypes.c_int,
-            ctypes.c_int, ctypes.c_longlong, ctypes.c_int, _P]
+            ctypes.c_uint, ctypes.c_int, ctypes.c_int, ctypes.c_int, _P,
+            ctypes.c_int, ctypes.c_int, ctypes.c_longlong, ctypes.c_int, _P]
         lib.mw_ternary_pack_masked.restype = ctypes.c_int
         lib.mw_masked_master_update.argtypes = [
             _P, _P, _P, _P, _P, _P, _P, ctypes.c_float, ctypes.c_float,
@@ -94,6 +99,15 @@ def ternary_pack_masked_plain(q, p1, p2, t, beta, alpha1: float, wq, keys,
                                  masks.view(n, r, WIDE), bits, rr_threshold)
 
 
+def uses_pair_kernel(n: int, cohort: int) -> bool:
+    """Whether the masked uplink of N workers over an (N, L = cohort) key
+    matrix takes the pair kernel, which expands each unordered pair once
+    and folds it into both workers: a square matrix of at most
+    ``PAIR_MAX_WORKERS`` workers. Otherwise the row-fold kernel, where each
+    worker folds its own row, runs."""
+    return cohort == n and 1 <= n <= PAIR_MAX_WORKERS
+
+
 def ternary_pack_masked(q: torch.Tensor, p1: torch.Tensor, p2: torch.Tensor,
                         t: torch.Tensor, beta: torch.Tensor, alpha1: float,
                         wq: torch.Tensor, keys: torch.Tensor,
@@ -110,7 +124,31 @@ def ternary_pack_masked(q: torch.Tensor, p1: torch.Tensor, p2: torch.Tensor,
     ``rr_threshold`` the uint16 flip threshold (0 = RR off); ``word_bits``
     16 or 32; ``use_masks=False`` adds no mask (the unmasked debug wire).
     Returns (N, R, 512) uint16 or uint32.
+
+    Where :func:`uses_pair_kernel` holds, the kernel reads only the upper
+    triangle of a square key matrix: the keys must be symmetric and the
+    signs antisymmetric with a zero diagonal, as ``pair_stream_keys``,
+    ``pair_signs`` and ``tree_pair_signs`` build them (participation
+    folded in symmetrically).
     """
+    return _pack_masked(q, p1, p2, t, beta, alpha1, wq, keys, signs,
+                        rr_keys, rr_threshold, word_bits, use_masks,
+                        row_fold=False)
+
+
+def _ternary_pack_masked_rows(q, p1, p2, t, beta, alpha1, wq, keys, signs,
+                              rr_keys, *, rr_threshold: int = 0,
+                              word_bits: int = 32, use_masks: bool = True
+                              ) -> torch.Tensor:
+    """:func:`ternary_pack_masked` through the row-fold kernel at any
+    shape: the yardstick the pair kernel is timed and checked against."""
+    return _pack_masked(q, p1, p2, t, beta, alpha1, wq, keys, signs,
+                        rr_keys, rr_threshold, word_bits, use_masks,
+                        row_fold=True)
+
+
+def _pack_masked(q, p1, p2, t, beta, alpha1, wq, keys, signs, rr_keys,
+                 rr_threshold, word_bits, use_masks, *, row_fold: bool):
     dev = device_of(q)
     n, r = q.shape[0], q.shape[1]
     cohort = keys.shape[1] if keys.dim() == 2 else -1
@@ -140,13 +178,14 @@ def ternary_pack_masked(q: torch.Tensor, p1: torch.Tensor, p2: torch.Tensor,
             q, p1, p2, t, beta, alpha1, wq, keys, signs, rr_keys,
             rr_threshold=rr_threshold, word_bits=word_bits,
             use_masks=use_masks)
+    pairs = not row_fold and uses_pair_kernel(n, cohort)
     out = torch.empty((n, r, WIDE), dtype=_WORD_DTYPES[word_bits],
                       device=dev)
     _launch("uplink_masked", _lib().mw_ternary_pack_masked,
             q.data_ptr(), p1.data_ptr(), p2.data_ptr(), beta.data_ptr(),
             wq.data_ptr(), keys.data_ptr(), signs.data_ptr(),
             rr_keys.data_ptr(), t.data_ptr(), float(alpha1),
-            int(rr_threshold), word_bits, int(bool(use_masks)),
+            int(rr_threshold), word_bits, int(bool(use_masks)), int(pairs),
             out.data_ptr(), n, cohort, r * WIDE // 4, dev.index,
             torch.cuda.current_stream(dev).cuda_stream)
     return out

@@ -124,8 +124,9 @@ def test_round_step_on_card_matches_cpu(cuda):
         assert torch.equal(a.view(torch.int32), b.cpu().view(torch.int32))
 
 
-def _masked_operands(rng, n, r, t, bits, participation, dev):
-    """Every operand of the masked uplink, on ``dev``."""
+def _masked_operands(rng, n, r, t, bits, participation, dev, sibling=None):
+    """Every operand of the masked uplink, on ``dev``; ``sibling`` scopes
+    the signs to a tree's sibling groups."""
     q, p1, p2 = _history(rng, n, r)
     dq, dp1, dp2 = (torch.from_numpy(a).to(dev) for a in (q, p1, p2))
     dt = torch.tensor(t, dtype=torch.int32, device=dev)
@@ -139,32 +140,44 @@ def _masked_operands(rng, n, r, t, bits, participation, dev):
         w = w * part
     wq = pvm.quantize_weights(w, 14 if bits == 16 else 24)
     keys = pvm.pair_stream_keys(0, n, dt)
-    signs = pvm.pair_signs(n, participation=part, device=dev)
+    if sibling is None:
+        signs = pvm.pair_signs(n, participation=part, device=dev)
+    else:
+        signs = pvm.tree_pair_signs(n, sibling, participation=part,
+                                    device=dev)
     rrk = pdp.rr_stream_keys(1, dt, n)
     return dq, dp1, dp2, dt, beta, wq, keys, signs, rrk
 
 
 @pytest.mark.gpu
 @pytest.mark.parametrize("bits", [16, 32])
-@pytest.mark.parametrize("n,r,participation", [(1, 8, False), (2, 8, False),
-                                               (3, 8, True), (10, 64, False),
-                                               (33, 8, True)])
+@pytest.mark.parametrize("n,r,participation,sibling", [
+    (1, 8, False, None), (2, 8, False, None), (3, 8, True, None),
+    (10, 64, False, None), (33, 8, True, None), (16, 8, False, None),
+    (17, 8, True, None), (10, 8, True, 4), (16, 8, False, 2),
+    (17, 8, True, 4)])
 @pytest.mark.parametrize("t", [1, 2])
 @pytest.mark.parametrize("thr", [0, 3277])
 def test_masked_kernels_match_plain_on_card(cuda, bits, n, r, participation,
-                                            t, thr):
+                                            sibling, t, thr):
+    # Up to 16 workers the wrapper takes the pair kernel, beyond them the
+    # row-fold kernel; the row-fold kernel's private entry runs at every N.
     rng = np.random.default_rng(1000 * n + 10 * t + bits + thr)
-    ops = _masked_operands(rng, n, r, t, bits, participation, cuda)
+    ops = _masked_operands(rng, n, r, t, bits, participation, cuda, sibling)
     dq, dp1, dp2, dt, _, wq, _, _, _ = ops
     for use_masks in (True, False):
         kw = dict(rr_threshold=thr, word_bits=bits, use_masks=use_masks)
         before = tmw.LAUNCHES["uplink_masked"]
         words = tmw.ternary_pack_masked(*ops[:5], ALPHA1, *ops[5:], **kw)
         assert tmw.LAUNCHES["uplink_masked"] == before + 1
+        rows = tmw._ternary_pack_masked_rows(*ops[:5], ALPHA1, *ops[5:],
+                                             **kw)
+        assert tmw.LAUNCHES["uplink_masked"] == before + 2
         plain = tmw.ternary_pack_masked_plain(*ops[:5], ALPHA1, *ops[5:],
                                               **kw)
-        assert words.dtype == plain.dtype
+        assert words.dtype == rows.dtype == plain.dtype
         assert torch.equal(pvm.as_u64(words), pvm.as_u64(plain))
+        assert torch.equal(pvm.as_u64(rows), pvm.as_u64(words))
 
     sum_wq = pvm.to_words(pvm.as_u64(wq).sum(), 32)
     spec = PrivacySpec(modulus_bits=bits, dp_epsilon=2.0 if thr else None)
@@ -439,7 +452,8 @@ def test_encode_matches_plain_on_card(cuda, r):
 
 @pytest.mark.gpu
 def test_pack_and_unpack_match_plain_on_card(cuda):
-    # Every byte value; codes in the fields' range and over all of int8.
+    # Every byte value; codes in the fields' range and over all of int8;
+    # unpack also over 1, 3 and 8 rows of random bytes.
     every = torch.arange(256, dtype=torch.uint8, device=cuda)
     b = every.repeat(32).view(64, 128)
     before = dict(tpk.LAUNCHES)
@@ -447,12 +461,16 @@ def test_pack_and_unpack_match_plain_on_card(cuda):
     assert _same(codes, tpk.unpack2bit_plain(b))
     assert _same(tpk.pack2bit(codes), b)              # the round trip
     gen = torch.Generator(device=cuda).manual_seed(1)
+    for r in (1, 3, 8):
+        b = torch.randint(0, 256, (r, 128), generator=gen, device=cuda,
+                          dtype=torch.uint8)
+        assert _same(tpk.unpack2bit(b), tpk.unpack2bit_plain(b))
     for lo, hi in ((-1, 3), (-128, 128)):
         c = torch.randint(lo, hi, (64, 512), generator=gen, device=cuda,
                           dtype=torch.int8)
         assert _same(tpk.pack2bit(c), tpk.pack2bit_plain(c))
     assert tpk.LAUNCHES == {"pack": before["pack"] + 3,
-                            "unpack": before["unpack"] + 1}
+                            "unpack": before["unpack"] + 4}
 
 
 @pytest.mark.gpu

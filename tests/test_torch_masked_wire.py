@@ -48,26 +48,31 @@ def _tt(t):
 
 
 def _uplinks(q, p1, p2, w, t, betas, bits, thr, *, use_masks=True,
-             part=None):
-    """(port, reference) wire words for the same inputs."""
+             part=None, sibling=None, block_workers=1):
+    """(port, reference) wire words for the same inputs; ``sibling`` scopes
+    the signs to a tree's sibling groups."""
     n = q.shape[0]
     wq = jm.quantize_weights(w, FIX_BITS[bits])
+    tpart = None if part is None else torch.from_numpy(part)
+    if sibling is None:
+        jsigns = jm.pair_signs(n, participation=part)
+        tsigns = tm.pair_signs(n, participation=tpart)
+    else:
+        jsigns = jm.tree_pair_signs(n, sibling, participation=part)
+        tsigns = tm.tree_pair_signs(n, sibling, participation=tpart)
     want = jops.flat_ternary_pack_masked(
         jnp.asarray(q), jnp.asarray(p1), jnp.asarray(p2), t=t, beta=betas,
         alpha1=0.01, wq=wq, pair_keys=jm.pair_stream_keys(0, n, t),
-        pair_signs=jm.pair_signs(n, participation=part),
-        rr_keys=jdp.rr_stream_keys(1, t, n), rr_threshold=thr,
-        word_bits=bits, use_masks=use_masks, interpret=True,
-        block_rows=ROWS // 4, block_workers=1)
+        pair_signs=jsigns, rr_keys=jdp.rr_stream_keys(1, t, n),
+        rr_threshold=thr, word_bits=bits, use_masks=use_masks,
+        interpret=True, block_rows=ROWS // 4, block_workers=block_workers)
     tt = _tt(t)
     got = tops.flat_ternary_pack_masked(
         torch.from_numpy(q), torch.from_numpy(p1), torch.from_numpy(p2),
         t=tt, beta=torch.from_numpy(betas),
         alpha1=0.01, wq=tm.quantize_weights(torch.from_numpy(w),
                                             FIX_BITS[bits]),
-        pair_keys=tm.pair_stream_keys(0, n, tt),
-        pair_signs=tm.pair_signs(
-            n, participation=None if part is None else torch.from_numpy(part)),
+        pair_keys=tm.pair_stream_keys(0, n, tt), pair_signs=tsigns,
         rr_keys=tdp.rr_stream_keys(1, tt, n), rr_threshold=thr,
         word_bits=bits, use_masks=use_masks)
     return got, np.asarray(want)
@@ -102,6 +107,75 @@ def test_masked_uplink_unmasked_and_participation(bits):
     # Non-participants' words carry no mask: only W_k·field, and W_k = 0.
     got, _ = _uplinks(q, p1, p2, w, 2, betas, bits, 0, part=part)
     assert not tm.as_u64(got[part == 0]).any()
+
+
+@pytest.mark.parametrize("bits", [16, 32])
+@pytest.mark.parametrize("n,block_workers", [(10, 10), (17, 1)])
+def test_masked_uplink_plain_bitwise_under_tree_signs(bits, n,
+                                                      block_workers):
+    # A tree's leaf signs, scoped to sibling groups of 4 with a worker
+    # sitting out, RR on. At N = 10 the Pallas kernel holds the whole
+    # cohort and expands each pair once (the pair kernel's form); at N = 17
+    # each worker folds its row (the row-fold kernel's).
+    rng = np.random.default_rng(50 + n + bits)
+    q, p1, p2, w = _fixture(rng, n)
+    betas = np.linspace(0.1, 0.3, n).astype(np.float32)
+    part = np.ones(n, np.float32)
+    part[[1, n - 3]] = 0.0
+    got, want = _uplinks(q, p1, p2, w * part, 2, betas, bits, 3277,
+                         part=part, sibling=4, block_workers=block_workers)
+    assert tmw.uses_pair_kernel(n, n) == (block_workers == n)
+    np.testing.assert_array_equal(got.numpy(), want)
+    got_plain = tmw.ternary_pack_masked_plain(
+        torch.from_numpy(q).view(n, ROWS // 4, 512),
+        torch.from_numpy(p1).view(ROWS // 4, 512),
+        torch.from_numpy(p2).view(ROWS // 4, 512), _tt(2),
+        torch.from_numpy(betas),
+        0.01, tm.quantize_weights(torch.from_numpy(w * part), FIX_BITS[bits]),
+        tm.pair_stream_keys(0, n, _tt(2)),
+        tm.tree_pair_signs(n, 4, participation=torch.from_numpy(part)),
+        tdp.rr_stream_keys(1, _tt(2), n), rr_threshold=3277, word_bits=bits)
+    np.testing.assert_array_equal(got_plain.numpy().reshape(want.shape),
+                                  want)
+
+
+@pytest.mark.parametrize("n", [1, 2, 10, 16, 17, 33])
+def test_pair_kernel_dispatch(n):
+    # The pair kernel takes a square key matrix of at most 16 workers; the
+    # row-fold kernel any other shape.
+    assert tmw.PAIR_MAX_WORKERS == 16
+    assert tmw.uses_pair_kernel(n, n) == (n <= 16)
+    assert not tmw.uses_pair_kernel(n, n + 1)
+    assert not tmw.uses_pair_kernel(n, 33 if n != 33 else 10)
+    assert not tmw.uses_pair_kernel(n + 1, n)
+
+
+@pytest.mark.parametrize("n", [1, 2, 3, 10, 16, 17])
+@pytest.mark.parametrize("participation", [False, True])
+@pytest.mark.parametrize("sibling", [None, 2, 4])
+def test_pair_kernel_contract(n, participation, sibling):
+    # The pair kernel reads only the upper triangle: the keys the port
+    # builds are symmetric, the signs antisymmetric with a zero diagonal,
+    # flat or scoped to a tree's sibling groups, with participation folded
+    # in; and they equal the JAX package's.
+    rng = np.random.default_rng(n)
+    part = ((rng.random(n) < 0.7).astype(np.float32) if participation
+            else None)
+    tpart = None if part is None else torch.from_numpy(part)
+    keys = tm.pair_stream_keys(0, n, _tt(2))
+    if sibling is None:
+        signs = tm.pair_signs(n, participation=tpart)
+        want = jm.pair_signs(n, participation=part)
+    else:
+        signs = tm.tree_pair_signs(n, sibling, participation=tpart)
+        want = jm.tree_pair_signs(n, sibling, participation=part)
+    assert keys.dtype == torch.uint32 and signs.dtype == torch.int32
+    assert torch.equal(tm.as_u64(keys), tm.as_u64(keys).t())
+    assert torch.equal(signs, -signs.t())
+    assert not signs.diagonal().any()
+    np.testing.assert_array_equal(signs.numpy(), np.asarray(want))
+    np.testing.assert_array_equal(tm.as_u64(keys).numpy(),
+                                  np.asarray(jm.pair_stream_keys(0, n, 2)))
 
 
 @pytest.mark.parametrize("bits", [16, 32])
