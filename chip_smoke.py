@@ -28,8 +28,9 @@ result:
    and equal to G, masks off and on, with a participation fold, and a
    fully dropped subtree whose partial must be exactly zero;
    ``mask_repair`` at 16/32 bits, P ∈ {1, 3, 9, 45} and the main path's
-   13, all-zero coefficients the identity; the masked master over C = 3
-   word rows beside a 10-row pilot stack. The one-worker uplinks (static
+   13 at R ∈ {1, 8, 17} and the main path's, out of place, in place and
+   write-only, all-zero coefficients the identity; the masked master over
+   C = 3 word rows beside a 10-row pilot stack. The one-worker uplinks (static
    Eq. (5), Eq. (4), and at a device round t ∈ {1, 2, 3} with beta_k
    sliced from a vector), the encode at both rules, pack and unpack and
    the unfused master at one worker's main-path view and small ones;
@@ -76,7 +77,8 @@ result:
    ledger's ``seed_shares``/``mask_recovery`` events. Then, at full
    width, bitwise: the plain tree at fanout 2 == one group (fanout 16),
    the masked tree == the flat masked round, and each repaired round ==
-   the survivors-only round.
+   the survivors-only round, on the masked tree and on the flat masked
+   wire.
 8. times  — each kernel and its plain version with CUDA events at the
    main-path shape (median of 25), beside its bound: device-memory bytes,
    or integer operations for the stream-generating kernels; the plain
@@ -85,10 +87,13 @@ result:
    the row-fold count of operations, the masked uplink without RR, without
    masks and without either, the
    master over the tree root's C = 3 rows, the masks-off partial sums and
-   a ``torch.sum`` of sibling groups beside one; each round's whole wire
-   (``WirePath.round_from_stacked``, the tree rounds' too) beside the sum
-   of its kernels; the one-worker uplinks, encode, pack, unpack and the
-   unfused master (beside the two-call PyTorch composition
+   a ``torch.sum`` of sibling groups beside one; the repair in place (the
+   tree's form) beside its out-of-place and write-only forms and the
+   ``copy_`` and ``fill_`` of its row; each round's whole wire
+   (``WirePath.round_from_stacked``, the tree rounds' and the flat and
+   tree rounds with a repair too) beside the sum of its kernels, with the
+   fault path's selects on the device; the one-worker uplinks, encode,
+   pack, unpack and the unfused master (beside the two-call PyTorch composition
    ``addcmul(q, tensordot(w, codes), p1 - p2)``), and the per-worker
    round's wire against the batched round's.
 
@@ -514,25 +519,40 @@ def phase_check_tree(torch, dev) -> dict:
                r_main)
         del words, out, plain
     # #8: P in {1, 3, 9, 45} and the main path's 13 sibling pairs, random
-    # coefficients in {-1, 0, 1} and all zero (the identity).
+    # coefficients in {-1, 0, 1} and all zero (the identity), at R = 1, 8,
+    # 17 (not a multiple of a block's 1,024 chunks: 16 rows at 16 bits, 8
+    # at 32) and the main path's R; each out of place (y not written), in
+    # place (out=y, the tree's form) and write-only (y None, the flat
+    # wire's form, against the plain twin of a zero row).
     for bits in (16, 32):
-        for p, r in ((1, 8), (3, 8), (9, 8), (45, 8), (13, r_main)):
+        for p, r in ((1, 8), (3, 8), (9, 8), (45, 8), (13, 1), (13, 17),
+                     (13, r_main)):
             y = _rand_words(torch, (r, 512), bits, gen, dev)
             keys = pvm.to_words(torch.randint(0, 1 << 31, (p,),
                                               generator=gen, device=dev), 32)
             rand = torch.randint(-1, 2, (p,), generator=gen, device=dev,
                                  dtype=torch.int32)
             for coeff in (rand, torch.zeros_like(rand)):
-                out = mw.mask_repair(y, keys, coeff)
                 plain = mw.mask_repair_plain(y, keys, coeff)
+                out = mw.mask_repair(y, keys, coeff)
+                inplace = y.clone()
+                mw.mask_repair(inplace, keys, coeff, out=inplace)
+                alone = torch.full_like(y, 7)
+                mw.mask_repair(None, keys, coeff, out=alone)
+                term = mw.mask_repair_plain(torch.zeros_like(y), keys, coeff)
                 torch.cuda.synchronize()
+                where = f"bits={bits} P={p} R={r}"
                 ok, diff = _same_words(out, plain)
                 record("mask_repair", ok and out.data_ptr() != y.data_ptr(),
-                       diff, f"bits={bits} P={p} R={r}", r)
+                       diff, where, r)
+                record("mask_repair", *_same_words(inplace, plain),
+                       where + " in place", r)
+                record("mask_repair", *_same_words(alone, term),
+                       where + " write-only", r)
                 if not bool(coeff.any()):
                     check(_same_words(out, y)[0],
                           f"zero coefficients changed the words at {bits}")
-                del out, plain
+                del out, plain, inplace, alone, term
             del y
     # #7 at the tree roots' shapes beside N = 10 pilot rows: C = 3 rows at
     # 16/32 bits and the privacy wire's scale (the masked tree's root), and
@@ -567,8 +587,9 @@ def phase_check_tree(torch, dev) -> dict:
           f"masked_partial_sum ({cases['masked_partial_sum']}, a dropped "
           f"subtree's partial exactly zero; "
           f"{cases['masked_partial_sum_off']} more at the plain tree's "
-          f"interior levels), mask_repair ({cases['mask_repair']}, zero "
-          f"coefficients the identity) and the masked master over C = 3 "
+          f"interior levels), mask_repair ({cases['mask_repair']}: out of "
+          f"place, in place and write-only; zero coefficients the "
+          f"identity) and the masked master over C = 3 "
           f"and C = 2 rows beside N = {N_WORKERS} "
           f"({cases['master_masked_tree']}) bitwise equal to their plain "
           f"versions", flush=True)
@@ -927,6 +948,27 @@ def phase_masked_tree_slice(torch, dev) -> dict:
     return own
 
 
+def repair_operands(torch, dev):
+    """The main path's repair operands: the (P,) keys and coefficients of
+    round 1 of ``FAULTS`` on the masked tree (fanout 4, N_WORKERS leaves,
+    threshold 2): the 13 sibling pairs at N = 10, 3 of them live."""
+    from repro_torch.core.tree import TreeSpec
+    from repro_torch.fed import faults as ft
+    from repro_torch.fed import rounds as rd
+    from repro_torch.privacy import recovery as pvr
+    from repro_torch.privacy.spec import PrivacySpec
+    n = N_WORKERS
+    t1 = torch.tensor(1, dtype=torch.int32, device=dev)
+    wire = rd.WirePath(privacy=PrivacySpec(dp_epsilon=DP_EPSILON,
+                                           recovery_threshold=2,
+                                           enforce=False),
+                       tree=TreeSpec(MASKED_TREE_FANOUT),
+                       faults=ft.FaultPlan(**FAULTS))
+    eff, dead = pvr.effective_masks(None, wire.faults.alive(t1, n), 2,
+                                    MASKED_TREE_FANOUT, n)
+    return wire._repair(*wire._leaf_pairs(n, t1, None, dev), eff, dead)
+
+
 def phase_tree_wire(torch, dev) -> None:
     """At full width: tree == one-group tree (plain), masked tree == flat
     masked round, repaired round == survivors-only round, all bitwise."""
@@ -956,31 +998,42 @@ def phase_tree_wire(torch, dev) -> None:
     del plain, masked
     spec = PrivacySpec(dp_epsilon=DP_EPSILON, recovery_threshold=2,
                        enforce=False)
-    tree = TreeSpec(MASKED_TREE_FANOUT)
-    faulty = rd.WirePath(privacy=spec, tree=tree,
-                         faults=ft.FaultPlan(**FAULTS))
-    clean = rd.WirePath(privacy=spec, tree=tree)
     sizes = torch.arange(1.0, n + 1.0, device=dev)
     costs = torch.rand((n,), generator=gen, device=dev) + 0.5
-    repaired = []
-    for t in (1, 2):
-        st = rd.RoundState(f1, f2, torch.linspace(1.0, 2.0, n, device=dev),
-                           torch.tensor(t, dtype=torch.int32, device=dev))
-        _, out_f, info = faulty.round_step(st, bufs, costs, sizes,
-                                           betas=beta)
-        eff, dead = pvr.effective_masks(None, info["alive"], 2, tree.fanout,
-                                        n)
-        _, out_s, _ = clean.round_step(st, bufs, costs, sizes, betas=beta,
-                                       mask=eff)
-        check(same(out_f, out_s),
-              f"repaired round {t} differs from the survivors-only round")
-        repaired.append(int(dead.sum()))
-    check(sum(repaired) >= 1, "no repaired death in the wire check")
+    repaired = {}
+    # The tree repairs its root's first row in place; the flat wire sums
+    # the survivors' words and the repair term in a row of its own.
+    for tree in (TreeSpec(MASKED_TREE_FANOUT), None):
+        faulty = rd.WirePath(privacy=spec, tree=tree,
+                             faults=ft.FaultPlan(**FAULTS))
+        clean = rd.WirePath(privacy=spec, tree=tree)
+        what = "tree" if tree is not None else "flat"
+        repaired[what] = []
+        for t in (1, 2):
+            st = rd.RoundState(f1, f2,
+                               torch.linspace(1.0, 2.0, n, device=dev),
+                               torch.tensor(t, dtype=torch.int32,
+                                            device=dev))
+            _, out_f, info = faulty.round_step(st, bufs, costs, sizes,
+                                               betas=beta)
+            eff, dead = pvr.effective_masks(
+                None, info["alive"], 2,
+                None if tree is None else tree.fanout, n)
+            _, out_s, _ = clean.round_step(st, bufs, costs, sizes,
+                                           betas=beta, mask=eff)
+            check(same(out_f, out_s),
+                  f"repaired {what} round {t} differs from the "
+                  f"survivors-only round")
+            repaired[what].append(int(dead.sum()))
+            del out_f, out_s
+        check(sum(repaired[what]) >= 1,
+              f"no repaired death in the {what} wire check")
     print(f"tree wire: full width, plain tree at fanout {TREE_FANOUT} == "
           f"one group (fanout 16), masked tree at fanout "
-          f"{MASKED_TREE_FANOUT} == flat masked round, repaired rounds 1-2 "
-          f"({repaired} deaths repaired) == survivors-only rounds, all "
-          f"bitwise", flush=True)
+          f"{MASKED_TREE_FANOUT} == flat masked round; repaired rounds 1-2 "
+          f"== survivors-only rounds on the masked tree ({repaired['tree']} "
+          f"deaths repaired) and on the flat masked wire "
+          f"({repaired['flat']}), all bitwise", flush=True)
 
 
 def _bitwise(torch, a, b) -> tuple[bool, float]:
@@ -1644,12 +1697,13 @@ def phase_times_tree(torch, dev, rate: float, launches: dict,
     active = int((signs != 0).sum())
     top = ps.masked_partial_sum(y, keys, signs, fanout=fan, sibling=g)
     alive = ft.FaultPlan(**FAULTS).alive(t1, n)
-    alive_eff, dead_eff = pvr.effective_masks(None, alive, 2, fan, n)
-    rkeys, rcoeff = tree_wire._repair(*tree_wire._leaf_pairs(n, t1, None, dev),
-                                      alive_eff, dead_eff)
+    alive_eff, _dead = pvr.effective_masks(None, alive, 2, fan, n)
+    rkeys, rcoeff = repair_operands(torch, dev)
     live_pairs = int((rcoeff != 0).sum())
     pairs = rkeys.shape[0]
     row0 = top[0].contiguous()
+    rep = row0.clone()                  # repaired in place, as the tree does
+    spare = torch.empty_like(row0)
     smult = spec.scale_mult
     sum_wq = pvm.to_words(pvm.as_u64(_wq).sum(), 32)
     # (bytes, ALU-only ops, all int ops, kernel, plain, name, replaces,
@@ -1682,11 +1736,12 @@ def phase_times_tree(torch, dev, rate: float, launches: dict,
         "mask_repair": (
             2 * 2 * m + 8 * pairs, (3 + 3 * live_pairs) * m,
             (4.5 + 5.5 * live_pairs) * m,
-            lambda: mw.mask_repair(row0, rkeys, rcoeff),
+            lambda: mw.mask_repair(rep, rkeys, rcoeff, out=rep),
             lambda: mw.mask_repair_plain(row0, rkeys, rcoeff),
             "mask_repair", "src/repro/kernels/masked_wire.py:503",
             "masked_wire.cu",
-            f"16-bit words, {pairs} pairs, {live_pairs} with a coefficient"),
+            f"16-bit words, {pairs} pairs, {live_pairs} with a "
+            f"coefficient, in place"),
     }
     rows, kernel_ms = [], {}
     for kind, (nbytes, alu, total, kern, plain, name, replaces, src,
@@ -1698,12 +1753,28 @@ def phase_times_tree(torch, dev, rate: float, launches: dict,
         ops_ms = int_bound_ms(alu, total)
         bound_ms = max(bytes_ms, ops_ms)
         by = "bytes" if bytes_ms >= ops_ms else "operations"
+        extra = ""
+        if kind == "mask_repair":
+            # Its other forms, and the floors this timing allows the same
+            # row: a read and a write (copy_), a write alone (fill_).
+            forms = {
+                "out of place": lambda: mw.mask_repair(row0, rkeys, rcoeff),
+                "write-only": lambda: mw.mask_repair(None, rkeys, rcoeff,
+                                                     out=spare),
+                "copy_ floor": lambda: torch.empty_like(row0).copy_(row0),
+                "fill_ floor": lambda: spare.fill_(0)}
+            floors = {f: _median_ms(torch, fn, queued=True)
+                      for f, fn in forms.items()}
+            extra = "; on the device " + ", ".join(
+                f"{f} {t:.4f} ms" for f, t in floors.items()) + (
+                f"; {floors['copy_ floor'] / ms:.1%} of the copy_ floor")
         print(f"time: {name} ({what}) {ms:.4f} ms on the device "
               f"({call_ms:.4f} ms a call from the host; plain {plain_ms:.4f} "
               f"ms); bound {bound_ms:.4f} ms by {by}: {nbytes / 1e6:.1f} MB "
               f"at {rate / 1e12:.2f} TB/s = {bytes_ms:.4f} ms, "
               f"{alu / 1e9:.2f} G ALU-only / {total / 1e9:.2f} G int ops = "
-              f"{ops_ms:.4f} ms; {bound_ms / ms:.1%} of bound", flush=True)
+              f"{ops_ms:.4f} ms; {bound_ms / ms:.1%} of bound{extra}",
+              flush=True)
         rows.append({
             "name": name, "row": {"partial_sum": 9, "masked_partial_sum": 10,
                                   "mask_repair": 8}[kind],
@@ -1837,16 +1908,25 @@ def phase_times_tree(torch, dev, rate: float, launches: dict,
           + ", ".join(f"{a} {b:.4f}" for a, b in parts.items()), flush=True)
     up_ms = _median_ms(torch, lambda: tree_wire.uplink_masked(
         bufs, f1, f2, t=t1, w=w, betas=beta))
-    copy_ms = _median_ms(torch, lambda: rd._signed(top[0]).copy_(
-        rd._signed(row0)))
-    # On the flat wire the repaired row joins the other N - 1 in a copy.
-    cat_ms = _median_ms(torch, lambda: torch.cat(
-        [rd._signed(y[0])[None], rd._signed(y[1:])]))
-    zero_ms = _median_ms(torch, lambda: rd._signed(y).where(
-        alive_eff[:, None, None] > 0, 0))
+    # The fault path's parts beside the kernels, on the device (queued,
+    # L2-scrubbed): the dead leaves' zeroing; on the flat wire the same
+    # select written straight into rows 1..N of the master's N + 1 rows,
+    # beside the copy of all N rows (torch.cat) it replaced.
+    keep = alive_eff[:, None, None] > 0
+    operand = torch.empty((n + 1, r, 512), dtype=y.dtype, device=dev)
+    zero = rd._signed(y).new_zeros(())
+    on_device = {
+        "dead-row zeroing": lambda: rd._signed(y).where(keep, 0),
+        "the same select into rows 1..N of the flat operand":
+            lambda: torch.where(keep, rd._signed(y), zero,
+                                out=rd._signed(operand[1:])),
+        "the copy of all N rows it replaced (torch.cat)":
+            lambda: torch.cat([rd._signed(y[0])[None], rd._signed(y[1:])])}
+    part_ms = {a: _median_ms(torch, fn, queued=True)
+               for a, fn in on_device.items()}
     parts = {"uplink (with its keys)": up_ms,
              "level 1": kernel_ms["masked_partial_sum"],
-             "repair": kernel_ms["mask_repair"], "root": c3_call}
+             "repair in place": kernel_ms["mask_repair"], "root": c3_call}
     wire_ms = _median_ms(torch, lambda: tree_wire.round_from_stacked(
         bufs, k, w, f1, f2, t=t1, betas=beta, alive=alive))
     both = sum(parts.values())
@@ -1854,10 +1934,38 @@ def phase_times_tree(torch, dev, rate: float, launches: dict,
           f"16-bit, round 1 of the plan) {wire_ms:.4f} ms vs its kernels "
           f"{both:.4f} ms (+{wire_ms - both:.4f} ms): "
           + ", ".join(f"{a} {b:.4f}" for a, b in parts.items())
-          + f"; inside the rest: dead-row zeroing {zero_ms:.4f} ms, the "
-          f"repaired row's copy into the root's operand {copy_ms:.4f} ms "
-          f"(on the flat wire, the copy of all {n} rows {cat_ms:.4f} ms)",
-          flush=True)
+          + f"; inside the rest, on the device: dead-row zeroing "
+          f"{part_ms['dead-row zeroing']:.4f} ms; the root's first row is "
+          f"repaired in place, no copy", flush=True)
+    # The flat masked wire under the same plan: N + 1 rows at the master.
+    flat_wire = rd.WirePath(privacy=spec, faults=ft.FaultPlan(**FAULTS))
+    f_eff, f_dead = pvr.effective_masks(None, alive, 2, None, n)
+    f_pairs = flat_wire._leaf_pairs(n, t1, None, dev)
+    fkeys, fcoeff = flat_wire._repair(*f_pairs, f_eff, f_dead)
+    fy, fwq = flat_wire.uplink_masked(bufs, f1, f2, t=t1, w=w, betas=beta)
+    f_sum = pvm.to_words(pvm.as_u64(fwq).sum(), 32)
+    parts = {
+        "uplink (with its keys)": _median_ms(
+            torch, lambda: flat_wire.uplink_masked(bufs, f1, f2, t=t1, w=w,
+                                                   betas=beta)),
+        "repair term, write-only": _median_ms(
+            torch, lambda: mw.mask_repair(None, fkeys, fcoeff,
+                                          out=operand[0])),
+        f"master over C = {n + 1} rows": _median_ms(
+            torch, lambda: mw.masked_master_update(q, k, operand, f_sum, p1,
+                                                   p2, tt, 0.01, smult))}
+    wire_ms = _median_ms(torch, lambda: flat_wire.round_from_stacked(
+        bufs, k, w, f1, f2, t=t1, betas=beta, alive=alive))
+    both = sum(parts.values())
+    print(f"time: flat masked round_from_stacked with repair (16-bit, "
+          f"round 1 of the plan, {fkeys.shape[0]} pairs, "
+          f"{int((fcoeff != 0).sum())} with a coefficient) {wire_ms:.4f} ms "
+          f"vs its kernels {both:.4f} ms (+{wire_ms - both:.4f} ms): "
+          + ", ".join(f"{a} {b:.4f}" for a, b in parts.items())
+          + "; inside the rest, on the device: " + ", ".join(
+              f"{a} {b:.4f} ms" for a, b in part_ms.items()
+              if a != "dead-row zeroing"), flush=True)
+    del operand, fy
     _restore_counts(saved)                         # timing launches not counted
     return rows
 

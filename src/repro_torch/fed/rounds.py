@@ -426,7 +426,9 @@ class WirePath:
         survival mask: dead rows leave the modular sum (their words are
         zeroed in the returned wire buffer), the de-bias takes the
         survivors' ΣW_k, and the survivors' masks toward the dead are
-        repaired in the first row of the words the root sums; ``viable``
+        repaired in place in the first row of a tree root's partials, or on
+        the flat wire in a row of their own that the master sums beside
+        the N rows of words (no row is copied); ``viable``
         passes in the ``(alive_eff, dead_eff)`` split of ``alive`` when
         the caller has it. Returns ``(new_global_buf, wire_buffer)``.
         """
@@ -445,29 +447,38 @@ class WirePath:
         y, wq = self.uplink_masked(bufs_q, buf_p1, buf_p2, t=t, w=w,
                                    betas=betas, pmask=pmask, pairs=pairs)
         repair = None
+        y_top = None
         if alive is not None:
             alive_eff, dead_eff = (self._viable(pmask, alive, n)
                                    if viable is None else viable)
+            if self.privacy.masking_on:
+                repair = self._repair(*pairs, alive_eff, dead_eff)
             # Each dead row leaves the modular sum (its fields and its own
             # net mask) and takes its W_k out of the de-bias; what remains
             # is the survivors' uncancelled masks toward the dead.
-            y = _signed(y).where(alive_eff[:, None, None] > 0, 0).view(
-                y.dtype)
+            keep = alive_eff[:, None, None] > 0
+            if repair is not None and self.tree is None:
+                # Modular sums commute, so the flat master sums N + 1 rows:
+                # the survivors' words (the returned wire buffer) and, in
+                # row 0, the repair term alone; no row is copied.
+                y_top = torch.empty((n + 1, *y.shape[1:]), dtype=y.dtype,
+                                    device=y.device)
+                torch.where(keep, _signed(y), _signed(y).new_zeros(()),
+                            out=_signed(y_top[1:]))
+                y = y_top[1:]
+                ops.flat_mask_repair(None, *repair, out=y_top[0])
+            else:
+                y = _signed(y).where(keep, 0).view(y.dtype)
             wq = wq.view(torch.int32).where(alive_eff > 0, 0).view(
                 torch.uint32)
-            if self.privacy.masking_on:
-                repair = self._repair(*pairs, alive_eff, dead_eff)
-        y_top = (y if self.tree is None
-                 else self._tree_fold_masked(y, t=t, pmask=pmask))
-        if repair is not None:
-            # Modular sums commute, so the leaves' residue rides up the
-            # tree unchanged and one launch repairs it in a fixed row.
-            fixed = ops.flat_mask_repair(y_top[0], *repair)
-            if y_top is y:       # y is returned: the repair is not written
-                y_top = torch.cat([_signed(fixed)[None],
-                                   _signed(y_top[1:])]).view(y.dtype)
-            else:
-                _signed(y_top[0]).copy_(_signed(fixed))
+        if y_top is None:
+            y_top = (y if self.tree is None
+                     else self._tree_fold_masked(y, t=t, pmask=pmask))
+            if repair is not None:
+                # The leaves' residue rides up the tree unchanged, and one
+                # launch repairs it in place in the root's first row (the
+                # tree's own partials: at least one level always runs).
+                ops.flat_mask_repair(y_top[0], *repair, out=y_top[0])
         new_buf = self.master_masked(bufs_q, k_star, y_top, wq, buf_p1,
                                      buf_p2, t=t)
         return new_buf, y

@@ -71,13 +71,17 @@ class FedSimulator:
         self.evade_streak = evade_streak  # 0 = defence off
 
     def _check_plain(self, participation) -> None:
-        """Refuse the branches of the round that later slices port."""
+        """Refuse a participation fraction outside (0, 1] as the JAX
+        simulator does, then the branches of the round that later slices
+        port."""
         cfg = self.fed_cfg
+        frac = cfg.participation if participation is None else participation
+        if not 0.0 < frac <= 1.0:
+            raise ValueError(f"participation must be in (0, 1], got {frac}")
         if cfg.privacy is not None and cfg.privacy.enforce:
             raise _not_ported(
                 "the traced-program audit that PrivacySpec(enforce=True) "
                 "asks for (privacy/audit.py)", "item 8")
-        frac = cfg.participation if participation is None else participation
         if frac < 1.0:
             raise _not_ported("partial participation",
                               "item 4, participation_mask(s)")
@@ -196,12 +200,16 @@ class FedSimulator:
 
     def run_fedpc(self, rounds: int, eval_every: int = 0, *,
                   participation: Optional[float] = None, betas=None,
+                  participation_seed: int = 0,
                   state: Optional[rd.RoundState] = None) -> SimResult:
         """Run ``rounds`` rounds of the FedPC wire (resuming from ``state``
         if given): the plain wire, or the masked one when
         ``FedPCConfig.privacy`` is active, through ``FedPCConfig.tree``
         when set and under ``FedPCConfig.faults`` when set. ``betas`` is an
-        optional (N,) per-worker beta_k.
+        optional (N,) per-worker beta_k. ``participation`` must lie in
+        (0, 1]; below 1 it is not ported yet, so ``participation_seed``
+        (the JAX simulator's keyword for its mask schedule) is accepted
+        and unused.
 
         Per round: workers train locally (device costs), then one
         ``round_step`` selects the pilot and runs the two wire kernels.

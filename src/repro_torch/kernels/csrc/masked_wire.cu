@@ -2,9 +2,10 @@
 // aggregation by pairwise masks, with optional local-DP randomized response,
 // and the dropout repair of a round whose workers died after their uplink.
 //
-// All keep the view of fused_wire.cu: thread i owns float4 i of every
-// (R, 512) operand, the flat elements e = 4i .. 4i+3, and the same four
-// wire words of every worker. m = R * 128 float4s per worker.
+// The uplink and the master keep the view of fused_wire.cu: thread i owns
+// float4 i of every (R, 512) operand, the flat elements e = 4i .. 4i+3,
+// and the same four wire words of every worker. m = R * 128 float4s per
+// worker. The repair walks its one slab in 16-byte chunks instead.
 //
 // Integer arithmetic is uint32 throughout: modular addition wraps as the
 // wire's modulus needs, and signed overflow (undefined in C++) never
@@ -23,12 +24,10 @@
 namespace {
 
 using wire::blocks_for;
-using wire::fold_stream;
 using wire::kThreads;
 using wire::load_words;
 using wire::mix32;
 using wire::store_words;
-using wire::stream_hashes;
 using wire::sub4;
 using wire::wire_field;
 
@@ -364,57 +363,181 @@ masked_master_update_kernel(const float4* __restrict__ q,
 
 // Replaces mask_repair_2d (JAX package, kernels/masked_wire.py). Per
 // element of one (R, 512) word slab: y + sum_p coeff[p] * stream(keys[p])
-// mod 2^WordBits, written out of place, with the uplink's stream geometry
-// (fold_stream), so a dead worker's pair streams are regenerated bitwise
-// as its siblings folded them in. The P keys and coefficients are staged
-// in shared memory; a pair with coefficient 0 (all but the dead-live
-// pairs) is skipped, a branch every thread takes the same way.
+// mod 2^WordBits, with the uplink's stream geometry (fold_stream), so a
+// dead worker's pair streams are regenerated bitwise as its siblings
+// folded them in. kReadY = false drops y: the repair term alone into a
+// zero row, write-only. out may be y (in place): each thread reads its
+// words before it writes them, and no other thread touches them.
 //
-// Bound: integer operations once more than a few pairs are live (an add
-// and a mix32 per stream word and pair), else bytes: one 8- or 16-byte
-// load and store a thread.
+// Bound: bytes (a 16-bit row's read and write, 84 MB at the main path's
+// R) unless many pairs are live. The design answers what held the
+// one-word-group-a-thread kernel at 40% of that bound:
+// - each thread owns kRepairChunks 16-byte chunks (8 words at 16 bits, 4
+//   at 32), a block's width apart, and issues all their loads before any
+//   hashing: 64 bytes in flight a thread;
+// - a persistent grid (the SM count times the blocks an SM holds) walks
+//   the row, so each block stages its pairs once;
+// - warp 0 compacts the pairs with a coefficient into shared memory by
+//   ballot, once a block, after the first chunks' loads are issued; the
+//   element loop runs over those pairs only. Their count stays on the
+//   device: where fewer than P are live, the slot of the last pair holds
+//   (count, 0), so no static shared memory is needed beside the P pairs.
+// Chunk c's counter hashes are mix32(4c + j), j < 4, at both widths: at
+// 16 bits one per element pair (elements 8c + 2j, 8c + 2j + 1), at 32 one
+// per element (4c + j).
+constexpr int kRepairChunks = 4;
+
 template <int kWordBits>
+__device__ __forceinline__ void fold_chunk(const uint32_t h[4], uint32_t key,
+                                           uint32_t s, uint32_t acc[8]) {
+#pragma unroll
+  for (int j = 0; j < 4; ++j) {
+    const uint32_t u = mix32(h[j] + key);
+    if constexpr (kWordBits == 16) {
+      acc[2 * j] += s * u;            // only the low 16 bits are kept
+      acc[2 * j + 1] += s * (u >> 16);
+    } else {
+      acc[j] += s * u;
+    }
+  }
+}
+
+// Thread threadIdx.x's chunks of the span at `at`, zero past the end or
+// without y.
+template <bool kReadY>
+__device__ __forceinline__ void load_chunks(const uint4* y, int64_t at,
+                                            int64_t n_chunks,
+                                            uint4 (&v)[kRepairChunks]) {
+#pragma unroll
+  for (int u = 0; u < kRepairChunks; ++u) {
+    const int64_t c = at + u * kThreads + threadIdx.x;
+    v[u] = make_uint4(0u, 0u, 0u, 0u);
+    if (kReadY && c < n_chunks) v[u] = y[c];
+  }
+}
+
+template <int kWordBits, bool kReadY>
 __global__ void __launch_bounds__(kThreads)
-mask_repair_kernel(const void* __restrict__ y,
-                   const uint32_t* __restrict__ keys,
-                   const int32_t* __restrict__ coeff, void* __restrict__ out,
-                   int n_pairs, int64_t m) {
-  extern __shared__ uint32_t staged[];     // keys, then coefficients
-  int32_t* s_coeff = reinterpret_cast<int32_t*>(staged + n_pairs);
-  for (int j = threadIdx.x; j < n_pairs; j += kThreads) {
-    staged[j] = keys[j];
-    s_coeff[j] = coeff[j];
+mask_repair_kernel(const uint4* y, const uint32_t* __restrict__ keys,
+                   const int32_t* __restrict__ coeff, uint4* out,
+                   int n_pairs, int64_t n_chunks) {
+  extern __shared__ uint2 live[];          // (key, coeff) of the live pairs
+  constexpr int kSpan = kThreads * kRepairChunks;
+  const int64_t stride = static_cast<int64_t>(gridDim.x) * kSpan;
+  int64_t base = static_cast<int64_t>(blockIdx.x) * kSpan;
+  uint4 v[kRepairChunks];
+  load_chunks<kReadY>(y, base, n_chunks, v);
+  if (threadIdx.x < 32) {
+    const int lane = threadIdx.x;
+    int n_live = 0;
+    for (int p0 = 0; p0 < n_pairs; p0 += 32) {
+      const int p = p0 + lane;
+      const int32_t cp = p < n_pairs ? coeff[p] : 0;
+      const unsigned hit = __ballot_sync(0xFFFFFFFFu, cp != 0);
+      if (cp != 0) {
+        live[n_live + __popc(hit & ((1u << lane) - 1u))] =
+            make_uint2(keys[p], static_cast<uint32_t>(cp));
+      }
+      n_live += __popc(hit);
+    }
+    if (lane == 0 && n_live < n_pairs) {
+      live[n_pairs - 1] = make_uint2(static_cast<uint32_t>(n_live), 0u);
+    }
   }
   __syncthreads();
-  const int64_t i = static_cast<int64_t>(blockIdx.x) * kThreads + threadIdx.x;
-  if (i >= m) return;
-  uint32_t acc[4];
-  load_words<kWordBits>(y, i, acc);
-  uint32_t h[4];
-  stream_hashes<kWordBits>(static_cast<uint32_t>(i) * 4u, h);
-  for (int p = 0; p < n_pairs; ++p) {
-    const int32_t cp = s_coeff[p];
-    if (cp == 0) continue;
-    fold_stream<kWordBits>(h, staged[p], static_cast<uint32_t>(cp), acc);
+  int n_live = n_pairs;
+  if (n_pairs > 0 && live[n_pairs - 1].y == 0u) {
+    n_live = static_cast<int>(live[n_pairs - 1].x);
   }
-  store_words<kWordBits>(out, i, acc);
+  for (; base < n_chunks; base += stride) {
+    uint32_t acc[kRepairChunks][8];
+    uint32_t h[kRepairChunks][4];
+#pragma unroll
+    for (int u = 0; u < kRepairChunks; ++u) {
+      const uint32_t c = static_cast<uint32_t>(base + u * kThreads +
+                                               threadIdx.x);
+      const uint32_t w[4] = {v[u].x, v[u].y, v[u].z, v[u].w};
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        h[u][j] = mix32(4u * c + j);
+        if constexpr (kWordBits == 16) {
+          acc[u][2 * j] = w[j];
+          acc[u][2 * j + 1] = w[j] >> 16;
+        } else {
+          acc[u][j] = w[j];
+        }
+      }
+    }
+    if (base + stride < n_chunks) {
+      load_chunks<kReadY>(y, base + stride, n_chunks, v);
+    }
+    for (int p = 0; p < n_live; ++p) {
+      const uint2 kc = live[p];
+#pragma unroll
+      for (int u = 0; u < kRepairChunks; ++u) {
+        fold_chunk<kWordBits>(h[u], kc.x, kc.y, acc[u]);
+      }
+    }
+#pragma unroll
+    for (int u = 0; u < kRepairChunks; ++u) {
+      const int64_t c = base + u * kThreads + threadIdx.x;
+      if (c >= n_chunks) continue;
+      uint32_t w[4];
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        w[j] = kWordBits == 16
+                   ? __byte_perm(acc[u][2 * j], acc[u][2 * j + 1], 0x5410)
+                   : acc[u][j];
+      }
+      out[c] = make_uint4(w[0], w[1], w[2], w[3]);
+    }
+  }
+}
+
+// Blocks of the persistent grid: as many as fit on every SM at once with
+// this much shared memory, and no more than the chunks need.
+template <int kWordBits, bool kReadY>
+cudaError_t launch_repair_kernel(const void* y, const uint32_t* keys,
+                                 const int32_t* coeff, void* out,
+                                 int n_pairs, int64_t n_chunks,
+                                 cudaStream_t stream) {
+  const auto kernel = mask_repair_kernel<kWordBits, kReadY>;
+  const size_t staged = sizeof(uint2) * static_cast<size_t>(n_pairs);
+  cudaError_t err;
+  if (staged > 48 * 1024) {
+    err = cudaFuncSetAttribute(kernel,
+                               cudaFuncAttributeMaxDynamicSharedMemorySize,
+                               static_cast<int>(staged));
+    if (err != cudaSuccess) return err;
+  }
+  int device = 0, sms = 0, per_sm = 0;
+  if ((err = cudaGetDevice(&device)) != cudaSuccess) return err;
+  err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device);
+  if (err != cudaSuccess) return err;
+  err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel,
+                                                      kThreads, staged);
+  if (err != cudaSuccess) return err;
+  const int64_t span = kThreads * kRepairChunks;
+  const int64_t need = (n_chunks + span - 1) / span;
+  const int64_t fit = static_cast<int64_t>(sms) * (per_sm > 0 ? per_sm : 1);
+  const unsigned grid = static_cast<unsigned>(need < fit ? need : fit);
+  kernel<<<grid, kThreads, staged, stream>>>(
+      static_cast<const uint4*>(y), keys, coeff, static_cast<uint4*>(out),
+      n_pairs, n_chunks);
+  return cudaGetLastError();
 }
 
 template <int kWordBits>
 cudaError_t launch_repair(const void* y, const uint32_t* keys,
                           const int32_t* coeff, void* out, int n_pairs,
-                          int64_t m, cudaStream_t stream) {
-  const size_t staged = 2 * sizeof(uint32_t) * static_cast<size_t>(n_pairs);
-  if (staged > 48 * 1024) {
-    const cudaError_t err = cudaFuncSetAttribute(
-        mask_repair_kernel<kWordBits>,
-        cudaFuncAttributeMaxDynamicSharedMemorySize,
-        static_cast<int>(staged));
-    if (err != cudaSuccess) return err;
+                          int64_t rows, cudaStream_t stream) {
+  const int64_t n_chunks = rows * 512 * (kWordBits / 8) / 16;
+  if (y == nullptr) {
+    return launch_repair_kernel<kWordBits, false>(y, keys, coeff, out,
+                                                  n_pairs, n_chunks, stream);
   }
-  mask_repair_kernel<kWordBits><<<blocks_for(m), kThreads, staged, stream>>>(
-      y, keys, coeff, out, n_pairs, m);
-  return cudaGetLastError();
+  return launch_repair_kernel<kWordBits, true>(y, keys, coeff, out, n_pairs,
+                                               n_chunks, stream);
 }
 
 struct PackArgs {
@@ -563,10 +686,11 @@ int mw_masked_master_update(const void* q, const void* k_star,
   return static_cast<int>(cudaGetLastError());
 }
 
-// y/out (m,) ushort4 / uint4, keys (n_pairs,) uint32, coeff (n_pairs,)
-// int32; n_pairs >= 1.
+// y/out (rows, 512) words of word_bits bits, y NULL for the repair term
+// alone (write-only); out may be y. keys (n_pairs,) uint32, coeff
+// (n_pairs,) int32.
 int mw_mask_repair(const void* y, const void* keys, const void* coeff,
-                   int word_bits, void* out, int n_pairs, long long m,
+                   int word_bits, void* out, int n_pairs, long long rows,
                    int device, void* stream) {
   const cudaError_t set = cudaSetDevice(device);
   if (set != cudaSuccess) return static_cast<int>(set);
@@ -575,9 +699,9 @@ int mw_mask_repair(const void* y, const void* keys, const void* coeff,
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   cudaError_t err;
   if (word_bits == 16) {
-    err = launch_repair<16>(y, kk, cc, out, n_pairs, m, s);
+    err = launch_repair<16>(y, kk, cc, out, n_pairs, rows, s);
   } else if (word_bits == 32) {
-    err = launch_repair<32>(y, kk, cc, out, n_pairs, m, s);
+    err = launch_repair<32>(y, kk, cc, out, n_pairs, rows, s);
   } else {
     err = cudaErrorInvalidValue;
   }

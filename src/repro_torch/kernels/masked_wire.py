@@ -246,31 +246,48 @@ def masked_master_update(q: torch.Tensor, k_star: torch.Tensor,
 
 # -- dropout repair -----------------------------------------------------------
 
-def mask_repair_plain(y: torch.Tensor, keys: torch.Tensor,
-                      coeff: torch.Tensor) -> torch.Tensor:
-    """Plain twin of :func:`mask_repair`; any device."""
-    if keys.shape[0] == 0:
-        return y
-    return mask_repair_ref(y, keys, coeff, word_bits=word_bits_of(y))
+def mask_repair_plain(y: torch.Tensor | None, keys: torch.Tensor,
+                      coeff: torch.Tensor, *, out: torch.Tensor | None = None
+                      ) -> torch.Tensor:
+    """Plain twin of :func:`mask_repair`; any device. ``y`` None reads as a
+    zero row of ``out``'s shape."""
+    if y is None:
+        y = torch.zeros_like(out)
+    res = (y if keys.shape[0] == 0 else
+           mask_repair_ref(y, keys, coeff, word_bits=word_bits_of(y)))
+    if out is None:
+        return res
+    if out.data_ptr() != res.data_ptr():
+        out.copy_(res)
+    return out
 
 
-def mask_repair(y: torch.Tensor, keys: torch.Tensor, coeff: torch.Tensor
+def mask_repair(y: torch.Tensor | None, keys: torch.Tensor,
+                coeff: torch.Tensor, *, out: torch.Tensor | None = None
                 ) -> torch.Tensor:
-    """Repair one slab of masked words after post-uplink deaths: returns a
-    new (R, 512) tensor ``y + Σ_p coeff[p]·stream(keys[p])`` mod
-    2**word_bits, in one launch, and never writes into ``y``.
+    """Repair one slab of masked words after post-uplink deaths:
+    ``y + Σ_p coeff[p]·stream(keys[p])`` mod 2**word_bits, in one launch.
 
     y (R, 512) uint16/uint32 (the dtype picks the modulus); keys (P,)
     uint32 pair stream keys and coeff (P,) int32 coefficients
     (``privacy.recovery.repair_coefficients``). The stream geometry is the
-    masked uplink's (flat element index ``r·512 + c``). P = 0 returns
-    ``y`` itself, with no launch.
+    masked uplink's (flat element index ``r·512 + c``). By default the
+    result is a new tensor and ``y`` is not written; ``out`` (same dtype
+    and shape) takes it instead and is returned, and ``out=y`` repairs in
+    place. ``y`` None, with ``out`` given, writes the repair term alone (a
+    zero row repaired) without reading anything. P = 0 returns ``y``
+    itself with no launch (with ``out``, ``y`` copied into it, or zeros).
     """
-    dev = device_of(y)
-    r = y.shape[0] if y.dim() == 2 else -1
+    ref = y if y is not None else out
+    if ref is None:
+        raise ValueError("the write-only repair (y None) needs out")
+    dev = device_of(ref)
+    r = ref.shape[0] if ref.dim() == 2 else -1
     p = keys.shape[0] if keys.dim() == 1 else -1
-    bits = word_bits_of(y)
-    check_operand("y", y, y.dtype, (r, WIDE), dev, align=bits // 2)
+    bits = word_bits_of(ref)
+    for name, x in (("y", y), ("out", out)):
+        if x is not None:
+            check_operand(name, x, ref.dtype, (r, WIDE), dev, align=16)
     check_operand("keys", keys, torch.uint32, (p,), dev)
     check_operand("coeff", coeff, torch.int32, (p,), dev)
     if r * WIDE > 1 << 32:
@@ -278,13 +295,14 @@ def mask_repair(y: torch.Tensor, keys: torch.Tensor, coeff: torch.Tensor
     if 8 * p > MAX_STAGED_BYTES:
         raise ValueError(f"{p} repair pairs do not fit in one block's "
                          f"shared memory")
-    if p == 0:
+    if p == 0 and out is None:
         return y
-    if dev.type == "cpu":
-        return mask_repair_plain(y, keys, coeff)
-    out = torch.empty_like(y)
+    if dev.type == "cpu" or p == 0:
+        return mask_repair_plain(y, keys, coeff, out=out)
+    if out is None:
+        out = torch.empty_like(y)
     _launch("mask_repair", _lib().mw_mask_repair,
-            y.data_ptr(), keys.data_ptr(), coeff.data_ptr(), bits,
-            out.data_ptr(), p, r * WIDE // 4, dev.index,
+            None if y is None else y.data_ptr(), keys.data_ptr(),
+            coeff.data_ptr(), bits, out.data_ptr(), p, r, dev.index,
             torch.cuda.current_stream(dev).cuda_stream)
     return out

@@ -272,16 +272,19 @@ def flat_masked_master_update(bufs_q: torch.Tensor, k_star,
     return out.reshape(rows, LANES)
 
 
-def flat_mask_repair(words: torch.Tensor, pair_keys: torch.Tensor,
-                     pair_coeff: torch.Tensor) -> torch.Tensor:
-    """Dropout repair over one masked-word slab (kernel view): a new
-    (rows//4, 512) buffer ``words + Σ_p coeff[p]·stream(keys[p])`` mod
-    2**modulus_bits in one launch (none for P = 0). ``pair_keys`` (P,)
-    uint32 and ``pair_coeff`` (P,) int32 come from
-    ``privacy.recovery.repair_coefficients``; the kernel skips the pairs
-    whose coefficient is 0."""
+def flat_mask_repair(words: torch.Tensor | None, pair_keys: torch.Tensor,
+                     pair_coeff: torch.Tensor, *,
+                     out: torch.Tensor | None = None) -> torch.Tensor:
+    """Dropout repair over one masked-word slab (kernel view):
+    ``words + Σ_p coeff[p]·stream(keys[p])`` mod 2**modulus_bits in one
+    launch (none for P = 0), into a new (rows//4, 512) buffer, or into
+    ``out`` (``out=words`` repairs in place). ``words`` None writes the
+    repair term alone into ``out``. ``pair_keys`` (P,) uint32 and
+    ``pair_coeff`` (P,) int32 come from
+    ``privacy.recovery.repair_coefficients``; the kernel folds only the
+    pairs whose coefficient is not 0."""
     return mw.mask_repair(words, pair_keys.contiguous(),
-                          pair_coeff.to(torch.int32).contiguous())
+                          pair_coeff.to(torch.int32).contiguous(), out=out)
 
 
 def flat_partial_sum(packed: torch.Tensor, wq: torch.Tensor, *, fanout: int,

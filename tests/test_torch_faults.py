@@ -48,6 +48,7 @@ from repro_torch.fed.simulator import FedSimulator as TSim
 from repro_torch.fed.worker import Worker as TWorker
 from repro_torch.fed.worker import make_worker_configs as t_cfgs
 from repro_torch.kernels import masked_wire as tmw
+from repro_torch.kernels import ops as tops
 from repro_torch.models.mlp import mlp_loss_and_grad as t_lag
 from repro_torch.privacy import audit as taudit
 from repro_torch.privacy import masking as tpvm
@@ -240,6 +241,47 @@ def test_mask_repair_twin_matches_pallas(bits):
 
 
 @pytest.mark.parametrize("bits", [16, 32])
+@pytest.mark.parametrize("r", [3, 8, 64])
+@pytest.mark.parametrize("p", [1, 3, 9, 45])
+def test_mask_repair_out_forms_match_pallas(bits, r, p):
+    # In place (out=y), into a given buffer, and write-only (y None: the
+    # repair term alone, held to the Pallas kernel on a zero row), with no
+    # live pair, one and all, through the wrapper and through ops.
+    rng = np.random.default_rng(bits * r + p)
+    ya, yt = _words(rng, (r, 512), bits)
+    keys = rng.integers(0, 1 << 32, p, dtype=np.uint64).astype(np.uint32)
+    one = np.zeros(p, np.int32)
+    one[rng.integers(p)] = rng.choice([-1, 1])
+    zero = jnp.zeros_like(jnp.asarray(ya))
+    for coeff in (np.zeros(p, np.int32), one,
+                  rng.choice([-2, -1, 1, 2], p).astype(np.int32)):
+        jk, jc = jnp.asarray(keys), jnp.asarray(coeff)
+        want = _u(jmw.mask_repair_2d(jnp.asarray(ya), jk, jc,
+                                     interpret=True))
+        term = _u(jmw.mask_repair_2d(zero, jk, jc, interpret=True))
+        tk, tc = _u32(keys), torch.from_numpy(coeff)
+        for repair in (tmw.mask_repair, tops.flat_mask_repair):
+            inplace = yt.clone()
+            assert repair(inplace, tk, tc, out=inplace) is inplace
+            np.testing.assert_array_equal(_u(inplace), want)
+            out = torch.full_like(yt, 7)
+            assert repair(yt, tk, tc, out=out) is out
+            np.testing.assert_array_equal(_u(out), want)
+            np.testing.assert_array_equal(_u(yt), _u(ya))
+            alone = torch.full_like(yt, 7)
+            assert repair(None, tk, tc, out=alone) is alone
+            np.testing.assert_array_equal(_u(alone), term)
+        np.testing.assert_array_equal(
+            _u(tmw.mask_repair_plain(None, tk, tc, out=torch.full_like(
+                yt, 7))), term)
+    with pytest.raises(ValueError):
+        tmw.mask_repair(None, _u32(keys), torch.from_numpy(one))
+    with pytest.raises(ValueError):
+        tmw.mask_repair(yt, _u32(keys), torch.from_numpy(one),
+                        out=torch.empty((r, 256), dtype=yt.dtype))
+
+
+@pytest.mark.parametrize("bits", [16, 32])
 @pytest.mark.parametrize("t", [1, 2])
 def test_masked_master_over_c_rows_matches_pallas(bits, t):
     # The tree's root: C = 3 word rows beside a 10-row pilot stack.
@@ -290,8 +332,8 @@ def _wires(bits, fanout, plan, *, seed=5, threshold=2, dp=None):
 
 
 @pytest.mark.parametrize("bits,fanout,n", [(16, 4, 10), (32, 4, 10),
-                                           (16, None, 8), (32, 2, 7),
-                                           (16, 3, 9)])
+                                           (16, None, 8), (32, None, 8),
+                                           (32, 2, 7), (16, 3, 9)])
 def test_round_from_stacked_with_deaths_bitwise(bits, fanout, n):
     rng = np.random.default_rng(n + bits)
     bufs, p1, p2 = _history(rng, n)

@@ -1,8 +1,9 @@
 """The CUDA wire kernels against their plain PyTorch versions, on the card:
 the plain round's uplink and master, the masked round's, the tree's two
-partial sums and the dropout repair, the one-worker uplinks, the unfused
-encode, pack, unpack and master, and the round core's tree and fault
-branches chained on the card and on the CPU.
+partial sums and the dropout repair (out of place, in place and
+write-only), the one-worker uplinks, the unfused encode, pack, unpack and
+master, and the round core's tree and fault branches chained on the card
+and on the CPU.
 
 Needs a CUDA card and ``nvcc``; every test here is marked ``gpu`` and skips
 where ``torch.cuda.is_available()`` is false. It imports nothing of JAX, so
@@ -318,6 +319,85 @@ def test_mask_repair_matches_plain_on_card(cuda, bits, p):
         assert np.array_equal(_u(out), _u(plain))
         if not coeff.any():
             assert np.array_equal(_u(out), _u(y))
+
+
+def _repair_coeffs(rng, p):
+    """Random, all-zero and all-live coefficient vectors of P pairs."""
+    return (rng.integers(-1, 2, p), np.zeros(p, np.int64),
+            rng.choice([-3, -1, 1, 2], p))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("bits", [16, 32])
+@pytest.mark.parametrize("r,p", [(1, 1), (1, 13), (3, 9), (17, 45),
+                                 (1000, 13), (41016, 13), (64, 2000)])
+def test_mask_repair_in_place_and_write_only_match_plain_on_card(cuda, bits,
+                                                                 r, p):
+    # R = 1 and R not a multiple of a block's span of chunks (1,024 chunks:
+    # 16 rows at 16 bits, 8 at 32), a main-path row that takes several
+    # passes of the persistent grid, and P past 48 KB of shared memory.
+    rng = np.random.default_rng(bits * r + p)
+    y = _rand_words(rng, (r, 512), bits, cuda)
+    keys = pvm.to_words(torch.from_numpy(rng.integers(0, 1 << 32, p)),
+                        32).to(cuda)
+    zero = torch.zeros_like(y)
+    for coeff in _repair_coeffs(rng, p):
+        cf = torch.from_numpy(coeff.astype(np.int32)).to(cuda)
+        want = _u(tmw.mask_repair_plain(y, keys, cf))
+        before = tmw.LAUNCHES["mask_repair"]
+        inplace = y.clone()
+        got = tmw.mask_repair(inplace, keys, cf, out=inplace)
+        out = torch.full_like(y, 7)
+        into = tmw.mask_repair(y, keys, cf, out=out)
+        term = torch.full_like(y, 7)
+        alone = tmw.mask_repair(None, keys, cf, out=term)
+        assert tmw.LAUNCHES["mask_repair"] == before + 3
+        torch.cuda.synchronize()
+        assert got is inplace and into is out and alone is term
+        assert np.array_equal(_u(inplace), want)
+        assert np.array_equal(_u(out), want)
+        assert np.array_equal(_u(term),
+                              _u(tmw.mask_repair_plain(zero, keys, cf)))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("bits", [16, 32])
+def test_mask_repair_at_most_staged_pairs_on_card(cuda, bits):
+    # P = MAX_STAGED_BYTES / 8, every block's shared memory full of pairs,
+    # with one live pair and with all live.
+    rng = np.random.default_rng(bits)
+    p = tmw.MAX_STAGED_BYTES // 8
+    y = _rand_words(rng, (2, 512), bits, cuda)
+    keys = pvm.to_words(torch.from_numpy(rng.integers(0, 1 << 32, p)),
+                        32).to(cuda)
+    one = np.zeros(p, np.int64)
+    one[p // 2] = -1
+    for coeff in (one, rng.choice([-1, 1], p)):
+        cf = torch.from_numpy(coeff.astype(np.int32)).to(cuda)
+        out = tmw.mask_repair(y, keys, cf)
+        plain = tmw.mask_repair_plain(y, keys, cf)
+        torch.cuda.synchronize()
+        assert np.array_equal(_u(out), _u(plain))
+    with pytest.raises(ValueError):
+        tmw.mask_repair(y, torch.cat([keys, keys[:1]]),
+                        torch.zeros(p + 1, dtype=torch.int32, device=cuda))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("bits", [16, 32])
+def test_mask_repair_without_pairs_launches_nothing_on_card(cuda, bits):
+    rng = np.random.default_rng(bits)
+    y = _rand_words(rng, (3, 512), bits, cuda)
+    none = torch.zeros(0, dtype=torch.uint32, device=cuda)
+    cf = torch.zeros(0, dtype=torch.int32, device=cuda)
+    before = tmw.LAUNCHES["mask_repair"]
+    assert tmw.mask_repair(y, none, cf) is y
+    out = torch.full_like(y, 7)
+    assert tmw.mask_repair(y, none, cf, out=out) is out
+    term = tmw.mask_repair(None, none, cf, out=torch.full_like(y, 7))
+    assert tmw.LAUNCHES["mask_repair"] == before
+    assert np.array_equal(_u(out), _u(y))
+    assert not _u(term).any()
 
 
 @pytest.mark.gpu

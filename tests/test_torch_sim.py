@@ -24,6 +24,7 @@ from repro.fed.worker import make_worker_configs as j_cfgs
 from repro.models.mlp import init_mlp_classifier as j_init
 from repro.models.mlp import mlp_loss_and_grad as j_lag
 from repro_torch.convert import params_from_numpy
+from repro_torch.core.fedpc import FedPCConfig as TCfg
 from repro_torch.data.pipeline import BatchIterator
 from repro_torch.data.pipeline import federated_loaders as t_loaders
 from repro_torch.data.synthetic import SyntheticClassification as TData
@@ -34,6 +35,7 @@ from repro_torch.fed.worker import WorkerConfig as TWorkerConfig
 from repro_torch.fed.worker import make_worker_configs as t_cfgs
 from repro_torch.models.mlp import mlp_accuracy
 from repro_torch.models.mlp import mlp_loss_and_grad as t_lag
+from repro_torch.privacy.spec import PrivacySpec as TSpec
 from repro_torch.utils import tree_leaves
 
 
@@ -128,3 +130,37 @@ def test_unported_branches_raise():
     sim.evade_streak = 2
     with pytest.raises(NotImplementedError, match="evasion"):
         sim.run_fedpc(rounds=1)
+
+
+@pytest.mark.parametrize("frac", [1.5, 0.0, -1.0])
+def test_participation_out_of_range_raises_as_reference(frac):
+    # Refused before anything runs, with the JAX simulator's message, and
+    # before the refusal of the not-ported audit (enforce=True).
+    jparams, params_np = _init_np()
+    jw, _ = _federation(JData, j_split, j_loaders, j_cfgs, JWorker, j_lag)
+    tw, _ = _federation(TData, t_split, t_loaders, t_cfgs, TWorker, t_lag)
+    with pytest.raises(ValueError) as jerr:
+        JSim(jw, jparams).run_fedpc(rounds=1, participation=frac,
+                                    participation_seed=3)
+    tsim = TSim(tw, params_from_numpy(params_np, device="cpu"),
+                device="cpu")
+    with pytest.raises(ValueError) as terr:
+        tsim.run_fedpc(rounds=1, participation=frac, participation_seed=3)
+    assert str(terr.value) == str(jerr.value)
+    assert str(terr.value) == f"participation must be in (0, 1], got {frac}"
+    tsim.fed_cfg = TCfg(n_workers=3, privacy=TSpec())    # enforce=True
+    with pytest.raises(ValueError, match=r"must be in \(0, 1\]"):
+        tsim.run_fedpc(rounds=1, participation=frac)
+
+
+def test_participation_seed_accepted_at_full_participation():
+    jparams, params_np = _init_np()
+    jw, _ = _federation(JData, j_split, j_loaders, j_cfgs, JWorker, j_lag)
+    tw, _ = _federation(TData, t_split, t_loaders, t_cfgs, TWorker, t_lag)
+    jres = JSim(jw, jparams).run_fedpc(rounds=2, participation=1.0,
+                                       participation_seed=7)
+    tres = TSim(tw, params_from_numpy(params_np, device="cpu"),
+                device="cpu").run_fedpc(rounds=2, participation=1.0,
+                                        participation_seed=7)
+    assert tres.pilot_history == jres.pilot_history
+    assert tres.bytes_per_round == list(jres.bytes_per_round)
