@@ -57,6 +57,20 @@ result:
    with round 1's bytes through ``ternary_encode_round1`` == the Eq. (4)
    uplink's. Then the ``ops`` functions on the MLP's own leaves and on
    sizes that are not multiples of 4 or 512, card against CPU, bitwise.
+   scan slice — the same MLP and N with 1,024 samples a worker in equal
+   contiguous shards (every shard uniform, so local training runs
+   ``Worker.scan_train``, one CUDA graph replay a batch): (a)
+   ``run_fedpc`` and ``run_fedpc_scan`` on two fresh, equal federations
+   for 3 rounds, pilots, costs, bytes and every leaf bitwise, each run
+   launching the uplink and the master once a round and nothing else,
+   the scan driver's whole round loop (``rounds.scan_rounds``) under
+   sync-debug "error"; (b) the same with ``participation=0.6``
+   (seed 0) on the plain wire and for 2 rounds on the masked wire
+   (16-bit, DP epsilon 2), bytes per round of the 6 sampled workers;
+   (c) one worker's graph replay against the same step called eagerly,
+   bitwise; (d) local training per round through the graph and through
+   the eager per-batch loop on the same shards, and each driver's round
+   wall time, beside the card's name and power limit.
 5. masked slice — the same federation with
    ``FedPCConfig(privacy=PrivacySpec(dp_epsilon=2.0, enforce=False))``:
    16-bit words, pairwise masks and randomized response on; masked
@@ -132,6 +146,9 @@ FP32_OPS_PER_S = 67e12            # H100 SXM, float32 outside tensor cores
 # pipe takes integer multiply-adds at the same rate beside it).
 INT32_OPS_PER_S = 132 * 64 * 1.98e9
 DP_EPSILON = 2.0                  # the masked slice's per-round epsilon
+SCAN_SHARD = 1024                 # samples a worker (equal in the scan slice)
+SCAN_PARTICIPATION = 0.6          # its partial-participation runs
+SCAN_MASKED_ROUNDS = 2
 # Device-memory rate by card name (NVIDIA data sheets), first match wins.
 MEM_RATES = (("H200", 4.8e12), ("H100 PCIe", 2.0e12), ("H100", 3.35e12))
 
@@ -596,7 +613,12 @@ def phase_check_tree(torch, dev) -> dict:
     return errs
 
 
-def _federation(n_workers, n_samples, n_features, n_classes, seed):
+def _federation(n_workers, n_samples, n_features, n_classes, seed,
+                uniform: bool = False):
+    """Workers on synthetic data: the paper's random shares, or with
+    ``uniform`` equal contiguous shards."""
+    import numpy as np
+
     from repro_torch.data.pipeline import federated_loaders
     from repro_torch.data.synthetic import (SyntheticClassification,
                                             random_share_split)
@@ -606,7 +628,10 @@ def _federation(n_workers, n_samples, n_features, n_classes, seed):
                                    n_features=n_features,
                                    n_classes=n_classes,
                                    seed=seed).generate()
-    splits = random_share_split(y, n_workers=n_workers, seed=seed + 1)
+    per = n_samples // n_workers
+    splits = ([np.arange(k * per, (k + 1) * per) for k in range(n_workers)]
+              if uniform else
+              random_share_split(y, n_workers=n_workers, seed=seed + 1))
     loaders = federated_loaders((x, y), splits, seed=seed + 2)
     cfgs = make_worker_configs(n_workers, [len(s) for s in splits],
                                seed=seed + 3)
@@ -615,8 +640,8 @@ def _federation(n_workers, n_samples, n_features, n_classes, seed):
             for k in range(n_workers)]
 
 
-def _drive(torch, sim, rounds: int, capture: list | None = None):
-    """``sim.run_fedpc(rounds)`` with every launch counter set to 0 just
+def _drive(torch, sim, rounds: int, capture: list | None = None, **kw):
+    """``sim.run_fedpc(rounds, **kw)`` with every launch counter set to 0 just
     before and read just after, ``round_step`` under sync-debug "error"
     (any host sync inside it raises) and timed between syncs, as is each
     worker's local training. With ``capture`` a list, each round's
@@ -659,7 +684,7 @@ def _drive(torch, sim, rounds: int, capture: list | None = None):
         _zero_counts()
         torch.cuda.synchronize()
         t0 = time.perf_counter()
-        res = sim.run_fedpc(rounds=rounds)
+        res = sim.run_fedpc(rounds=rounds, **kw)
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
         launches = _read_counts()
@@ -671,7 +696,9 @@ def _drive(torch, sim, rounds: int, capture: list | None = None):
 
 
 def _check_run(torch, res, launches: dict, on_path: dict,
-               want_bytes: list, workers, label: str) -> dict:
+               want_bytes: list, workers, label: str, rounds: int = ROUNDS,
+               driver: str = "run_fedpc",
+               synced: str = "round_step") -> dict:
     """The checks common to every slice: each kernel of ``on_path`` (kind
     → launches in the run) launched that often and every other kernel
     never. Returns the launch counts of the path's own kernels."""
@@ -680,7 +707,7 @@ def _check_run(torch, res, launches: dict, on_path: dict,
     from repro_torch.utils import tree_leaves
     for k, v in launches.items():
         want = on_path.get(k, 0)
-        check(v == want, f"{label}: {k} launched {v} times in {ROUNDS} "
+        check(v == want, f"{label}: {k} launched {v} times in {rounds} "
               f"rounds, expected {want}")
     check(all(np.isfinite(res.costs)), f"{label}: costs not finite: "
           f"{res.costs}")
@@ -689,12 +716,12 @@ def _check_run(torch, res, launches: dict, on_path: dict,
     check(all(0 <= k < N_WORKERS for k in res.pilot_history), "bad pilot")
     check(all(bool(torch.isfinite(p).all()) for p in tree_leaves(res.params)),
           f"{label}: global model not finite")
-    check(int(res.round_state.round) == ROUNDS + 1, "round counter")
-    print(f"{label}: run_fedpc {N_PARAMS:,} params x {N_WORKERS} workers, "
+    check(int(res.round_state.round) == rounds + 1, "round counter")
+    print(f"{label}: {driver} {N_PARAMS:,} params x {N_WORKERS} workers, "
           f"rows {ROWS}, sizes {[w.loader.n for w in workers]}; costs "
           f"{[round(c, 5) for c in res.costs]}; pilots {res.pilot_history}; "
           f"bytes/round {[round(b) for b in want_bytes]}; launches "
-          f"{launches}; round_step under sync-debug 'error' with no sync",
+          f"{launches}; {synced} under sync-debug 'error' with no sync",
           flush=True)
     return {k: launches[k] for k in on_path}
 
@@ -733,12 +760,12 @@ def _small_agrees(torch, dev, cfg, label: str) -> None:
           flush=True)
 
 
-def _full_width(torch, dev):
+def _full_width(torch, dev, uniform: bool = False):
     from repro_torch.core import flat as fl
     from repro_torch.models.mlp import init_mlp_classifier
     from repro_torch.utils import tree_size
-    workers = _federation(N_WORKERS, N_WORKERS * 1024, N_FEATURES,
-                          N_CLASSES, SEED)
+    workers = _federation(N_WORKERS, N_WORKERS * SCAN_SHARD, N_FEATURES,
+                          N_CLASSES, SEED, uniform)
     params = init_mlp_classifier(torch.Generator().manual_seed(SEED),
                                  N_FEATURES, N_CLASSES, HIDDEN, device=dev)
     check(tree_size(params) == N_PARAMS, f"{tree_size(params)} params")
@@ -764,6 +791,218 @@ def phase_slice(torch, dev, capture: list) -> dict:
                      [want] * ROUNDS, workers, "slice")
     _print_round("round", step_s, train_s, wall, workers)
     _small_agrees(torch, dev, None, "small")
+    return own
+
+
+def _smi() -> str:
+    """The card's name and power limit, as ``nvidia-smi`` prints them."""
+    smi = subprocess.run(
+        ["nvidia-smi", "-i", "0", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        timeout=60)
+    check(smi.returncode == 0, f"nvidia-smi failed: {smi.stderr.strip()}")
+    return smi.stdout.strip()
+
+
+def _drive_scan(torch, sim, rounds: int, **kw):
+    """``sim.run_fedpc_scan(rounds, **kw)`` with every launch counter set
+    to 0 just before and read just after, and the whole round loop
+    (``rounds.scan_rounds``: local training and ``round_step``, every
+    round) under sync-debug "error" and timed between syncs. Returns
+    (result, launches, loop_s, wall_s)."""
+    from repro_torch.fed import rounds as rd
+    inner = rd.scan_rounds
+    loop_s: list[float] = []
+
+    def guarded(*args, **kwargs):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            out = inner(*args, **kwargs)
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+        torch.cuda.synchronize()
+        loop_s.append(time.perf_counter() - t0)
+        return out
+
+    rd.scan_rounds = guarded
+    try:
+        _zero_counts()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        res = sim.run_fedpc_scan(rounds, **kw)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = _read_counts()
+    finally:
+        rd.scan_rounds = inner
+    check(len(loop_s) == 1, f"scan_rounds ran {len(loop_s)} times")
+    return res, launches, loop_s[0], wall
+
+
+def _same_runs(torch, a, b, label: str) -> None:
+    """Two drivers' results: pilots, costs, bytes and every leaf equal."""
+    from repro_torch.utils import tree_leaves
+    check(a.pilot_history == b.pilot_history,
+          f"{label}: pilots {a.pilot_history} != {b.pilot_history}")
+    check(a.costs == b.costs, f"{label}: costs {a.costs} != {b.costs}")
+    check(a.bytes_per_round == b.bytes_per_round, f"{label}: bytes")
+    for x, y in zip(tree_leaves(a.params), tree_leaves(b.params)):
+        check(torch.equal(x, y), f"{label}: a leaf differs")
+
+
+def _graph_equals_eager(torch, worker, params, dev) -> int:
+    """One worker's captured step replayed against the same step called
+    eagerly, from the same inputs, over one round of its batches:
+    params, optimizer state, step and loss sum bitwise. Returns the
+    round's steps."""
+    from repro_torch.utils import tree_leaves, tree_map
+    idx = torch.from_numpy(worker.round_indices()).to(dev)
+    batches = worker.gather(idx)
+    opt0 = tree_map(torch.clone, worker.opt_state)
+    step0 = torch.tensor(worker.step, dtype=torch.int32, device=dev)
+    ts = worker.train_step(params, opt0, batches)
+    check(ts.graph is not None, "the worker's step was not captured")
+    outs = []
+    for replay in (True, False):
+        ts.load(params, opt0, step0, batches)
+        for _ in range(idx.shape[0]):
+            if replay:
+                ts.graph.replay()
+            else:
+                ts()
+        outs.append([x.clone() for x in tree_leaves(
+            (ts.params, ts.opt_state, ts.step, ts.total))])
+    torch.cuda.synchronize()
+    for a, b in zip(*outs):
+        check(torch.equal(a, b), "graph replay != eager step")
+    return idx.shape[0]
+
+
+def _release(torch) -> None:
+    """Free a dropped federation's graphs and buffers before the next."""
+    import gc
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+def phase_scan_slice(torch, dev) -> dict:
+    """The scan driver and the graphed local training at full width.
+
+    (a) ``run_fedpc`` and ``run_fedpc_scan`` on two fresh, equal
+    federations (equal contiguous shards, every one uniform): pilots,
+    costs, bytes and every leaf bitwise; each run launches
+    ``uplink_stacked`` and ``master`` once a round and nothing else; the
+    scan driver's whole round loop under sync-debug "error". (b) the same
+    with ``participation=0.6`` on the plain wire and, for two rounds, on
+    the masked wire (16-bit, DP epsilon 2), with Eq. (8) bytes of the
+    sampled count. (c) one worker's graphed step against the same step
+    called eagerly. (d) local training per round through the graph and
+    through the eager per-batch loop (``train_round_eager``, called
+    directly) on the same shards, and each driver's round wall time.
+    Returns the launch counts of all the phase's runs."""
+    from repro_torch import prng
+    from repro_torch.core import protocol as proto
+    from repro_torch.core.fedpc import FedPCConfig
+    from repro_torch.fed import rounds as rd
+    from repro_torch.fed.simulator import FedSimulator
+    from repro_torch.privacy.spec import PrivacySpec
+    own: dict = {}
+
+    def add(launches: dict) -> None:
+        for k, v in launches.items():
+            if v:
+                own[k] = own.get(k, 0) + v
+
+    plain = {"uplink_stacked": ROUNDS, "master": ROUNDS}
+    card = _smi()
+    # (a), the Python driver, with (c) and (d) on its workers
+    workers, params = _full_width(torch, dev, uniform=True)
+    check(all(w.uniform_batches for w in workers), "a ragged shard")
+    mb = proto.model_size_bytes(params)
+    want = [proto.fedpc_bytes_per_round(mb, N_WORKERS)] * ROUNDS
+    sim = FedSimulator(workers, params, device=dev)
+    res_py, launches, step_s, train_s, wall_py = _drive(torch, sim, ROUNDS)
+    add(_check_run(torch, res_py, launches, plain, want, workers,
+                   "scan slice"))
+    steps = _graph_equals_eager(torch, workers[0], res_py.params, dev)
+    print(f"scan slice (c): worker 0's graphed step == its eager step, "
+          f"bitwise, over {steps} steps (params, optimizer state, step, "
+          f"loss sum)", flush=True)
+    eager_s = []
+    for w in workers:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        w.train_round_eager(res_py.params)
+        torch.cuda.synchronize()
+        eager_s.append(time.perf_counter() - t0)
+    per_round = [sum(train_s[i * N_WORKERS:(i + 1) * N_WORKERS]) * 1e3
+                 for i in range(ROUNDS)]
+    del sim, workers
+    _release(torch)
+    # (a), the scan driver
+    workers, params = _full_width(torch, dev, uniform=True)
+    sim = FedSimulator(workers, params, device=dev)
+    res_scan, launches, loop_s, wall_scan = _drive_scan(torch, sim, ROUNDS)
+    add(_check_run(torch, res_scan, launches, plain, want, workers,
+                   "scan slice", driver="run_fedpc_scan",
+                   synced="the whole round loop"))
+    _same_runs(torch, res_py, res_scan, "scan slice (a)")
+    print(f"scan slice (a): run_fedpc == run_fedpc_scan bitwise (pilots, "
+          f"costs, bytes, all {N_PARAMS:,} params)", flush=True)
+    print(f"scan slice (d) on {card}: local training per round, "
+          f"{N_WORKERS} workers x {SCAN_SHARD} samples, graphed "
+          f"{[round(x, 1) for x in per_round]} ms (round 1 captures each "
+          f"worker's graph), eager per-batch loop on the same shards "
+          f"{sum(eager_s) * 1e3:.1f} ms; round wall time run_fedpc "
+          f"{wall_py / ROUNDS * 1e3:.1f} ms, run_fedpc_scan "
+          f"{wall_scan / ROUNDS * 1e3:.1f} ms (its round loop "
+          f"{loop_s / ROUNDS * 1e3:.1f} ms, set-up and capture "
+          f"{(wall_scan - loop_s) * 1e3:.1f} ms)", flush=True)
+    del sim, workers, res_py, res_scan
+    _release(torch)
+    # (b) partial participation, plain and masked
+    spec = PrivacySpec(dp_epsilon=DP_EPSILON, enforce=False)
+    n_part = max(1, round(SCAN_PARTICIPATION * N_WORKERS))
+    kw = dict(participation=SCAN_PARTICIPATION, participation_seed=SEED)
+    for label, cfg, rounds, wire_bytes, on_path in (
+            ("plain", None, ROUNDS, proto.fedpc_bytes_per_round(mb, n_part),
+             plain),
+            ("masked", FedPCConfig(n_workers=N_WORKERS, privacy=spec),
+             SCAN_MASKED_ROUNDS,
+             proto.fedpc_masked_bytes_per_round(mb, n_part, word_bits=16),
+             {"uplink_masked": SCAN_MASKED_ROUNDS,
+              "master_masked": SCAN_MASKED_ROUNDS})):
+        masks = rd.participation_masks(prng.PRNGKey(SEED), rounds,
+                                       N_WORKERS, SCAN_PARTICIPATION).numpy()
+        out = {}
+        for driver in ("run_fedpc", "run_fedpc_scan"):
+            workers, params = _full_width(torch, dev, uniform=True)
+            sim = FedSimulator(workers, params, cfg, device=dev)
+            if driver == "run_fedpc":
+                res, launches, _, _, wall = _drive(torch, sim, rounds, **kw)
+                synced = "round_step"
+            else:
+                res, launches, _, wall = _drive_scan(torch, sim, rounds,
+                                                     **kw)
+                synced = "the whole round loop"
+            add(_check_run(torch, res, launches, on_path,
+                           [wire_bytes] * rounds, workers,
+                           f"scan slice (b) {label}, participation "
+                           f"{SCAN_PARTICIPATION}", rounds=rounds,
+                           driver=driver, synced=synced))
+            check(all(masks[i][k] > 0
+                      for i, k in enumerate(res.pilot_history)),
+                  "a pilot that was not sampled")
+            out[driver] = res
+            del sim, workers
+            _release(torch)
+        _same_runs(torch, out["run_fedpc"], out["run_fedpc_scan"],
+                   f"scan slice (b) {label}")
+        print(f"scan slice (b) {label}: run_fedpc == run_fedpc_scan bitwise "
+              f"with {n_part} of {N_WORKERS} workers sampled a round "
+              f"(masks {masks.astype(int).tolist()})", flush=True)
     return own
 
 
@@ -2159,7 +2398,10 @@ def main() -> int:
         launches = phase_slice(torch, dev, captured)
         worker_rounds = phase_worker_rounds(torch, dev, captured)
         del captured
+        scan = phase_scan_slice(torch, dev)
         launches.update(phase_masked_slice(torch, dev))
+        for kind, n in scan.items():
+            launches[kind] += n
         phase_masked_wire(torch, dev)
         tree = phase_tree_slice(torch, dev)
         masked_tree = phase_masked_tree_slice(torch, dev)

@@ -18,6 +18,7 @@ class BatchIterator:
     arrays: tuple            # tuple of arrays sharing dim 0
     batch_size: int
     seed: int = 0
+    drop_remainder: bool = False
 
     def __post_init__(self):
         self._rng = np.random.default_rng(self.seed)
@@ -26,9 +27,12 @@ class BatchIterator:
             raise ValueError("arrays must share their first dimension")
 
     def epoch_indices(self) -> Iterator[np.ndarray]:
-        """One epoch's batch index arrays (the rng draw of :meth:`epoch`)."""
+        """One epoch's batch index arrays (the rng draw of :meth:`epoch`);
+        with ``drop_remainder`` the ragged last batch is left out."""
         order = self._rng.permutation(self.n)
-        for s in range(0, max(self.n, 1), self.batch_size):
+        end = ((self.n // self.batch_size) * self.batch_size
+               if self.drop_remainder else self.n)
+        for s in range(0, max(end, 1), self.batch_size):
             sel = order[s: s + self.batch_size]
             if len(sel) == 0:
                 break
@@ -37,6 +41,11 @@ class BatchIterator:
     def epoch(self) -> Iterator[tuple]:
         for sel in self.epoch_indices():
             yield tuple(a[sel] for a in self.arrays)
+
+    def steps_per_epoch(self) -> int:
+        if self.drop_remainder:
+            return max(self.n // self.batch_size, 1)
+        return -(-self.n // self.batch_size)
 
 
 BATCH_MENU = (128, 64, 32)          # paper §5.1 (CIFAR-10)

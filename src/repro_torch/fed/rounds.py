@@ -25,6 +25,12 @@ launch.
   round branches are ``torch.where`` on a device round, the master kernel
   reads the pilot's buffer in place at the device index, and nothing
   syncs with the host.
+* :func:`scan_rounds` drives many rounds as one device-resident loop
+  over ``round_step``, local training included, with no host sync; the
+  pilot history and per-round costs come back stacked for one fetch.
+  :func:`participation_masks` draws the C-fraction participation
+  schedule with the JAX package's bits (``repro_torch.prng``), and
+  ``scan_rounds`` can draw each row inside the loop from the device round.
 * :class:`RoundEngine` is the thin stateful wrapper that carries the
   history for per-round drivers.
 """
@@ -32,10 +38,11 @@ from __future__ import annotations
 
 import functools
 from dataclasses import dataclass
-from typing import Any, NamedTuple
+from typing import Any, Callable, NamedTuple
 
 import torch
 
+from repro_torch import prng
 from repro_torch.core import flat as fl
 from repro_torch.core.goodness import select_pilot
 from repro_torch.core.ternary import ternarize, ternarize_round1
@@ -106,6 +113,30 @@ def init_round_state(init_params: PyTree, n_workers: int,
         accountant=(PrivacyAccountant.zero(dev)
                     if privacy is not None and privacy.dp_on else None),
     )
+
+
+def participation_mask(key: torch.Tensor, n_workers: int,
+                       fraction: float) -> torch.Tensor:
+    """One round's FedAvg-style C-fraction mask: an (N,) float32 0/1
+    vector on the key's device with ``max(1, round(C·N))`` workers drawn
+    by ``prng.permutation``, the JAX package's draw from the same key."""
+    m = max(1, int(round(fraction * n_workers)))
+    return (prng.permutation(key, n_workers) < m).to(torch.float32)
+
+
+def participation_masks(key: torch.Tensor, n_rounds: int, n_workers: int,
+                        fraction: float, start_round: int = 1
+                        ) -> torch.Tensor:
+    """(n_rounds, N) masks, the schedule both drivers consume. Row ``i``
+    is keyed by its absolute round ``start_round + i``, so a run resumed
+    at round t draws the rows an uninterrupted run would have used."""
+    if n_rounds == 0:
+        return torch.zeros((0, n_workers), dtype=torch.float32,
+                           device=key.device)
+    return torch.stack([
+        participation_mask(prng.fold_in(key, start_round + i), n_workers,
+                           fraction)
+        for i in range(n_rounds)])
 
 
 @functools.lru_cache(maxsize=16)
@@ -551,6 +582,64 @@ class WirePath:
         if av is not None:
             info["alive"] = av
         return new_state, new_buf, info
+
+
+WorkerFn = Callable[[Any, torch.Tensor, torch.Tensor],
+                    tuple[Any, torch.Tensor, torch.Tensor]]
+
+
+def scan_rounds(wire: WirePath, state: RoundState, worker_fn: WorkerFn,
+                worker_carry: Any, n_rounds: int, sizes: torch.Tensor, *,
+                betas=None, masks=None, participation: float | None = None,
+                participation_key: torch.Tensor | None = None
+                ) -> tuple[RoundState, Any, dict]:
+    """Many rounds of Algorithm 1 as one device-resident loop over
+    ``round_step``.
+
+    ``worker_fn(worker_carry, global_buf, t) -> (worker_carry, bufs_q,
+    costs)`` produces a round's local models from the global buffer and
+    the device round ``t``; private worker state rides ``worker_carry``.
+    ``masks`` is an optional (n_rounds, N) participation schedule
+    (:func:`participation_masks`), ``betas`` an optional (N,) beta_k.
+    Instead of ``masks``, ``participation`` (the C fraction) with a
+    ``participation_key`` draws each round's mask inside the loop as
+    ``participation_mask(fold_in(key, t), N, C)`` from the device round
+    ``t``: the precomputed schedule's bits, and a resumed run draws the
+    rows an uninterrupted one would. Nothing inside the loop syncs with
+    the host. Returns ``(state, worker_carry, infos)``, ``infos`` the
+    rounds' ``k_star``/``goodness``/``costs`` (and ``mask``, ``alive``
+    where the round has them) stacked for one fetch.
+    """
+    sizes = torch.as_tensor(sizes, dtype=torch.float32)
+    n_workers = sizes.shape[0]
+    if participation is not None:
+        if masks is not None:
+            raise ValueError("pass a precomputed mask schedule OR in-scan "
+                             "participation sampling, not both")
+        if participation_key is None:
+            raise ValueError("in-scan participation sampling needs a "
+                             "participation_key")
+        if not 0.0 < participation <= 1.0:
+            raise ValueError(
+                f"participation must be in (0, 1], got {participation}")
+    if masks is not None:
+        masks = torch.as_tensor(masks, dtype=torch.float32,
+                                device=sizes.device)
+    infos: list[dict] = []
+    for i in range(n_rounds):
+        mask = None if masks is None else masks[i]
+        if participation is not None:
+            mask = participation_mask(
+                prng.fold_in(participation_key, state.round), n_workers,
+                participation)
+        worker_carry, bufs_q, costs = worker_fn(worker_carry, state.buf_p1,
+                                                state.round)
+        state, _new_buf, info = wire.round_step(state, bufs_q, costs, sizes,
+                                                betas=betas, mask=mask)
+        infos.append(info)
+    stacked = ({k: torch.stack([inf[k] for inf in infos]) for k in infos[0]}
+               if infos else {})
+    return state, worker_carry, stacked
 
 
 class RoundEngine:

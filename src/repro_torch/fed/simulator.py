@@ -2,26 +2,36 @@
 
 Drives FedPC over N in-process workers with private data shards and
 private hyper-parameters, with Eq. (8) byte accounting and the §4.2
-information-flow ledger.
+information-flow ledger. Each round is one :meth:`WirePath.round_step`
+(pilot selection, one uplink launch, one master launch, on the plain wire
+or, with ``FedPCConfig.privacy``, the masked one; one partial-sum launch
+more a level of a ``FedPCConfig.tree``, and one repair launch a masked
+round under a ``FedPCConfig.faults`` plan). Two drivers share it:
 
-:meth:`FedSimulator.run_fedpc` steps rounds in a Python loop (workers are
-stateful Python objects), but the protocol stays on the device: each round
-is one :meth:`WirePath.round_step` (pilot selection, one uplink launch,
-one master launch, on the plain wire or, with ``FedPCConfig.privacy``,
-the masked one; one partial-sum launch more a level of a
-``FedPCConfig.tree``, and one repair launch a masked round under a
-``FedPCConfig.faults`` plan), worker costs stay device scalars, and the
-ledger and pilot history are filled from one fetch after the last round.
-The only host syncs inside the loop are ``eval_every``'s.
+* :meth:`FedSimulator.run_fedpc` steps rounds in a Python loop over
+  stateful workers; worker costs stay device scalars, and the ledger and
+  pilot history are filled from one fetch after the last round. The only
+  host syncs inside the loop are ``eval_every``'s.
+* :meth:`FedSimulator.run_fedpc_scan` stages every worker's shard and its
+  batch schedule on the device first, then runs all rounds through
+  ``rounds.scan_rounds`` with no host sync and no host copy inside.
+
+Both run the same local-training recurrence (``Worker.scan_train``) and
+give the same bits. Both take the round core's two scenario axes:
+C-fraction partial participation (``participation=``, drawn from
+``participation_seed=`` with the JAX package's bits, the same schedule in
+both drivers) and per-worker beta_k on the wire.
 """
 from __future__ import annotations
 
+import itertools
 from dataclasses import dataclass, field
 from typing import Callable, Optional
 
 import numpy as np
 import torch
 
+from repro_torch import prng
 from repro_torch.core import fedpc as fp
 from repro_torch.core import flat as fl
 from repro_torch.core import protocol as proto
@@ -52,6 +62,18 @@ def _not_ported(what: str, item: str):
         f"{what} is not ported to repro_torch yet (ROADMAP queue 1, {item})")
 
 
+def _stack_locals(locals_: list[PyTree], layout: fl.FlatLayout
+                  ) -> torch.Tensor:
+    """N worker trees → the (N, rows, 128) uplink input."""
+    stacked = tree_map(lambda *xs: torch.stack(xs), *locals_)
+    return fl.flatten_stacked(stacked, layout)
+
+
+def _stacked(xs: list, shape: tuple, dtype: torch.dtype) -> torch.Tensor:
+    """``torch.stack(xs)``, or an empty (0, *shape) stack of no rounds."""
+    return torch.stack(xs) if xs else torch.zeros((0, *shape), dtype=dtype)
+
+
 class FedSimulator:
     """In-process federation. ``device=None`` means CUDA (and raises where
     there is none); the initial params are moved to ``device``."""
@@ -70,10 +92,9 @@ class FedSimulator:
         self.ledger = LeakageLedger()
         self.evade_streak = evade_streak  # 0 = defence off
 
-    def _check_plain(self, participation) -> None:
-        """Refuse a participation fraction outside (0, 1] as the JAX
-        simulator does, then the branches of the round that later slices
-        port."""
+    def _fraction(self, participation) -> float:
+        """The run's participation fraction, refused outside (0, 1] as the
+        JAX simulator does; then the branches later slices port."""
         cfg = self.fed_cfg
         frac = cfg.participation if participation is None else participation
         if not 0.0 < frac <= 1.0:
@@ -81,13 +102,25 @@ class FedSimulator:
         if cfg.privacy is not None and cfg.privacy.enforce:
             raise _not_ported(
                 "the traced-program audit that PrivacySpec(enforce=True) "
-                "asks for (privacy/audit.py)", "item 8")
-        if frac < 1.0:
-            raise _not_ported("partial participation",
-                              "item 4, participation_mask(s)")
+                "asks for (privacy/audit.py)", "item 6")
         if self.evade_streak:
             raise _not_ported("the evasion defence (evade_streak)",
-                              "item 5, simulator")
+                              "item 3, simulator")
+        return frac
+
+    def _resolve_scenario(self, frac: float, betas, rounds: int, seed: int,
+                          t0: int) -> tuple[np.ndarray | None,
+                                            torch.Tensor | None]:
+        """(host (R, N) float32 masks or None, device (N,) betas or None).
+        The masks are the JAX simulator's: ``participation_masks`` from
+        ``PRNGKey(seed)``, each row keyed by its absolute round (``t0``
+        on), so a resumed run draws the rows an uninterrupted run would."""
+        masks = None
+        if frac < 1.0:
+            masks = rd.participation_masks(prng.PRNGKey(seed), rounds,
+                                           self.n, frac,
+                                           start_round=t0).numpy()
+        return masks, self._betas(betas)
 
     def _betas(self, betas) -> torch.Tensor | None:
         """(N,) device beta_k, or None for the shared ``cfg.beta``."""
@@ -105,6 +138,22 @@ class FedSimulator:
         return torch.tensor([cfg.beta if b is None else b for b in wb],
                             dtype=torch.float32, device=self.device)
 
+    def _setup(self, state: rd.RoundState | None
+               ) -> tuple[rd.WirePath, fl.FlatLayout, rd.RoundState, int]:
+        """The round's WirePath, the flat layout, the starting state (fresh
+        at round 1 unless given) and its round, read once."""
+        cfg = self.fed_cfg
+        wire = rd.WirePath(rd.WireConfig.from_fedpc(cfg),
+                           privacy=cfg.privacy,
+                           renorm_shares=cfg.renorm_shares, tree=cfg.tree,
+                           faults=cfg.faults)
+        layout = fl.layout_of(self.init_params)
+        if state is None:
+            state = rd.init_round_state(self.init_params, self.n, layout,
+                                        privacy=cfg.privacy,
+                                        device=self.device)
+        return wire, layout, state, int(state.round)   # one setup sync
+
     def _fault_codes(self, t0: int, n_rounds: int) -> np.ndarray | None:
         """(R, N) host copy of the fault schedule, or None without an
         active plan. The plan is a function of (seed, round, worker), so
@@ -115,15 +164,15 @@ class FedSimulator:
         return np.stack([plan.codes(t0 + i, self.n, device="cpu").numpy()
                          for i in range(n_rounds)])
 
-    def _fault_split(self, codes: np.ndarray
+    def _fault_split(self, row: np.ndarray, codes: np.ndarray
                      ) -> tuple[np.ndarray, np.ndarray]:
-        """(used, recoverable) boolean views of one masked round's fault
-        codes under the viability rule of ``recovery.effective_masks``:
-        the survivors in viable sibling groups, whose reports the master
-        used, and the dead whose seeds are reconstructed."""
+        """(used, recoverable) boolean views of one masked round under the
+        viability rule of ``recovery.effective_masks``: the sampled
+        survivors in viable sibling groups, whose reports the master used,
+        and the sampled dead whose seeds are reconstructed."""
         cfg = self.fed_cfg
         alive_eff, dead_eff = pvr.effective_masks(
-            None, torch.from_numpy(codes == ft.FAULT_NONE),
+            torch.from_numpy(row), torch.from_numpy(codes == ft.FAULT_NONE),
             cfg.privacy.recovery_threshold,
             cfg.tree.fanout if cfg.tree is not None else None, self.n)
         return alive_eff.numpy() > 0, dead_eff.numpy() > 0
@@ -138,24 +187,28 @@ class FedSimulator:
                 and spec.recovery_threshold is not None)
 
     def _backfill_ledger(self, t0: int, pilots: np.ndarray,
+                         rows: np.ndarray,
                          codes_mat: np.ndarray | None) -> None:
         """Record each round's uplink events from the one post-run fetch of
-        the pilot history: the recovery dealing and reconstructions, then
-        the cost of every worker that sent, the pilot's params, and every
-        other sender's upload (packed codes, or masked words on the secure
-        wire, where no plaintext code crosses). A pre-uplink death sends
-        nothing; later deaths and stragglers already sent."""
+        the pilot history: the recovery dealing (every sampled worker) and
+        reconstructions, then the cost of every sampled worker that sent,
+        the pilot's params, and every other sender's upload (packed codes,
+        or masked words on the secure wire, where no plaintext code
+        crosses). A pre-uplink death sends nothing; later deaths and
+        stragglers already sent."""
         spec = self.fed_cfg.privacy
         code_kind = ("masked_words" if spec is not None and spec.active
                      else "packed_ternary")
         for i, k_star in enumerate(pilots):
             t = t0 + i
-            sent = (np.ones(self.n, bool) if codes_mat is None
-                    else codes_mat[i] != ft.DROP_BEFORE)
+            row = rows[i]
+            sent = row > 0
+            if codes_mat is not None:
+                sent = sent & (codes_mat[i] != ft.DROP_BEFORE)
             if self._recovery_on():
-                _, recoverable = self._fault_split(codes_mat[i])
-                for k in range(self.n):   # dealing precedes the faults
-                    self.ledger.record(k, t, "seed_shares", False)
+                _, recoverable = self._fault_split(row, codes_mat[i])
+                for k in np.flatnonzero(row > 0):   # dealing precedes faults
+                    self.ledger.record(int(k), t, "seed_shares", False)
                 for k in np.flatnonzero(recoverable):
                     self.ledger.record(int(k), t, "mask_recovery", False)
             for k in range(self.n):
@@ -166,109 +219,67 @@ class FedSimulator:
                 if sent[k] and k != int(k_star):
                     self.ledger.record(k, t, code_kind, False)
 
-    def _round_bytes(self, model_bytes: int, codes: np.ndarray | None
-                     ) -> tuple[float, float]:
+    def _round_bytes(self, model_bytes: int, row: np.ndarray,
+                     codes: np.ndarray | None) -> tuple[float, float]:
         """(wire bytes, recovery bytes) of one round: Eq. (8) for the
-        round's wire and tree, less the leaf uplinks that pre-uplink
-        deaths never sent; the recovery dealing and reconstructions."""
+        round's wire and tree over its sampled workers, less the leaf
+        uplinks that sampled pre-uplink deaths never sent; the recovery
+        dealing and reconstructions."""
         cfg = self.fed_cfg
         spec = cfg.privacy
         masked = spec is not None and spec.active
+        n_part = int(np.sum(row > 0))
         if cfg.tree is not None:
             wire_bytes = proto.fedpc_tree_bytes_per_round(
-                model_bytes, self.n, cfg.tree.fanout, levels=cfg.tree.levels,
+                model_bytes, n_part, cfg.tree.fanout, levels=cfg.tree.levels,
                 word_bits=spec.modulus_bits if masked else None)
         elif masked:
             wire_bytes = proto.fedpc_masked_bytes_per_round(
-                model_bytes, self.n, word_bits=spec.modulus_bits)
+                model_bytes, n_part, word_bits=spec.modulus_bits)
         else:
-            wire_bytes = proto.fedpc_bytes_per_round(model_bytes, self.n)
+            wire_bytes = proto.fedpc_bytes_per_round(model_bytes, n_part)
         if codes is None:
             return wire_bytes, 0.0
-        n_pre = int(np.sum(codes == ft.DROP_BEFORE))
+        n_pre = int(np.sum((row > 0) & (codes == ft.DROP_BEFORE)))
         leaf_bits = float(spec.modulus_bits) if masked else 2.0
         wire_bytes -= model_bytes * n_pre * leaf_bits / 32.0
         rec_bytes = 0.0
         if self._recovery_on():
             g = cfg.tree.fanout if cfg.tree is not None else None
-            _, recoverable = self._fault_split(codes)
+            _, recoverable = self._fault_split(row, codes)
             rec_bytes = (proto.recovery_dealing_bytes_per_round(self.n, g)
                          + proto.recovery_reconstruction_bytes(
                              int(recoverable.sum()),
                              spec.recovery_threshold, g, n_workers=self.n))
         return wire_bytes, rec_bytes
 
-    def run_fedpc(self, rounds: int, eval_every: int = 0, *,
-                  participation: Optional[float] = None, betas=None,
-                  participation_seed: int = 0,
-                  state: Optional[rd.RoundState] = None) -> SimResult:
-        """Run ``rounds`` rounds of the FedPC wire (resuming from ``state``
-        if given): the plain wire, or the masked one when
-        ``FedPCConfig.privacy`` is active, through ``FedPCConfig.tree``
-        when set and under ``FedPCConfig.faults`` when set. ``betas`` is an
-        optional (N,) per-worker beta_k. ``participation`` must lie in
-        (0, 1]; below 1 it is not ported yet, so ``participation_seed``
-        (the JAX simulator's keyword for its mask schedule) is accepted
-        and unused.
-
-        Per round: workers train locally (device costs), then one
-        ``round_step`` selects the pilot and runs the two wire kernels.
-        """
-        self._check_plain(participation)
-        cfg = self.fed_cfg
-        wire = rd.WirePath(rd.WireConfig.from_fedpc(cfg),
-                           privacy=cfg.privacy,
-                           renorm_shares=cfg.renorm_shares, tree=cfg.tree,
-                           faults=cfg.faults)
-        layout = fl.layout_of(self.init_params)
-        if state is None:
-            state = rd.init_round_state(self.init_params, self.n, layout,
-                                        privacy=cfg.privacy,
-                                        device=self.device)
-        t0 = int(state.round)                 # one setup-time sync
-        betas_dev = self._betas(betas)
-        model_bytes = proto.model_size_bytes(self.init_params)
-        params = fl.unflatten_tree(state.buf_p1, layout)
-        res = SimResult("fedpc", params)
-        sizes = torch.as_tensor(self.sizes, device=self.device)
-        k_stars: list = []
-        raw_costs: list = []
-
-        for i in range(rounds):
-            t = t0 + i
-            locals_, costs = [], []
-            for w in self.workers:      # parallel in the real system
-                q, c = w.train_round_device(params)
-                locals_.append(q)
-                costs.append(c)
-            stacked = tree_map(lambda *xs: torch.stack(xs), *locals_)
-            bufs_q = fl.flatten_stacked(stacked, layout)
-            costs_arr = torch.stack(costs)
-            state, new_buf, info = wire.round_step(state, bufs_q, costs_arr,
-                                                   sizes, betas=betas_dev)
-            params = fl.unflatten_tree(new_buf, layout)
-            k_stars.append(info["k_star"])
-            raw_costs.append(costs_arr)
-            if eval_every and self.eval_fn and (t - t0 + 1) % eval_every == 0:
-                res.eval_history.append((t, self.eval_fn(params)))
-
-        # The one post-run device→host fetch.
-        pilots = torch.stack(k_stars).cpu().numpy() if k_stars else \
-            np.zeros((0,), np.int64)
-        costs_mat = (torch.stack(raw_costs).cpu().numpy() if raw_costs
-                     else np.zeros((0, self.n), np.float32))
+    def _finish_fedpc(self, res: SimResult, state: rd.RoundState,
+                      layout: fl.FlatLayout, t0: int, k_stars: torch.Tensor,
+                      raw_costs: torch.Tensor, masks: np.ndarray | None,
+                      model_bytes: int) -> SimResult:
+        """The one post-run device→host fetch of the (R,) pilots and the
+        (R, N) costs; the ledger, the round costs and the byte accounting
+        are host work, from the host's own participation and fault
+        schedules."""
+        pilots = k_stars.cpu().numpy()
+        costs_mat = raw_costs.cpu().numpy()
+        rows = (np.ones((len(pilots), self.n), np.float32) if masks is None
+                else masks)
         codes_mat = self._fault_codes(t0, len(pilots))
-        self._backfill_ledger(t0, pilots, codes_mat)
+        self._backfill_ledger(t0, pilots, rows, codes_mat)
         for i in range(len(pilots)):
-            # The round's cost averages the reports the master used: not
-            # faulted and, on the masked wire, in a viable sibling group.
+            # The round's cost averages the reports the master used:
+            # sampled, not faulted and, on the masked wire, in a viable
+            # sibling group. (The drivers' costs of the others differ, the
+            # Python driver's 0 against the scan's, so both are left out.)
+            row = rows[i]
             if codes_mat is None:
-                used = np.ones(self.n, bool)
-            elif wire.masked:
-                used = self._fault_split(codes_mat[i])[0]
+                eff = row
+            elif self.fed_cfg.privacy is not None and \
+                    self.fed_cfg.privacy.active:
+                eff = row * self._fault_split(row, codes_mat[i])[0]
             else:
-                used = codes_mat[i] == ft.FAULT_NONE
-            eff = used.astype(np.float64)
+                eff = row * (codes_mat[i] == ft.FAULT_NONE)
             if np.sum(eff) == 0:   # every report lost: the cost carries
                 res.costs.append(res.costs[-1] if res.costs
                                  else float("inf"))
@@ -278,9 +289,156 @@ class FedSimulator:
                     vals, weights=self.sizes * eff)))
             res.pilot_history.append(int(pilots[i]))
             wire_bytes, rec_bytes = self._round_bytes(
-                model_bytes, None if codes_mat is None else codes_mat[i])
+                model_bytes, row, None if codes_mat is None else codes_mat[i])
             res.bytes_per_round.append(wire_bytes)
             res.recovery_bytes_per_round.append(rec_bytes)
         res.params = fl.unflatten_tree(state.buf_p1, layout)
         res.round_state = state
         return res
+
+    def run_fedpc(self, rounds: int, eval_every: int = 0, *,
+                  participation: Optional[float] = None, betas=None,
+                  participation_seed: int = 0,
+                  state: Optional[rd.RoundState] = None) -> SimResult:
+        """Run ``rounds`` rounds of the FedPC wire (resuming from ``state``
+        if given): the plain wire, or the masked one when
+        ``FedPCConfig.privacy`` is active, through ``FedPCConfig.tree``
+        when set and under ``FedPCConfig.faults`` when set. ``betas`` is an
+        optional (N,) per-worker beta_k. ``participation`` in (0, 1]
+        samples that fraction of the workers each round from
+        ``participation_seed``; a worker left out trains nothing and
+        uploads nothing.
+
+        Per round: workers train locally (device costs), then one
+        ``round_step`` selects the pilot and runs the wire's kernels.
+        """
+        frac = self._fraction(participation)
+        wire, layout, state, t0 = self._setup(state)
+        masks, betas_dev = self._resolve_scenario(
+            frac, betas, rounds, participation_seed, t0)
+        masks_dev = (None if masks is None
+                     else torch.as_tensor(masks, device=self.device))
+        model_bytes = proto.model_size_bytes(self.init_params)
+        params = fl.unflatten_tree(state.buf_p1, layout)
+        res = SimResult("fedpc", params)
+        sizes = torch.as_tensor(self.sizes, device=self.device)
+        no_cost = torch.zeros((), dtype=torch.float32, device=self.device)
+        k_stars: list = []
+        raw_costs: list = []
+
+        for i in range(rounds):
+            t = t0 + i
+            row = None if masks is None else masks[i]
+            locals_, costs = [], []
+            for k, w in enumerate(self.workers):   # parallel in reality
+                if row is None or row[k]:
+                    q, c = w.train_round_device(params)
+                else:       # not sampled: nothing trains, nothing uploads
+                    q, c = params, no_cost
+                locals_.append(q)
+                costs.append(c)
+            costs_arr = torch.stack(costs)
+            state, new_buf, info = wire.round_step(
+                state, _stack_locals(locals_, layout), costs_arr, sizes,
+                betas=betas_dev,
+                mask=None if masks_dev is None else masks_dev[i])
+            params = fl.unflatten_tree(new_buf, layout)
+            k_stars.append(info["k_star"])
+            raw_costs.append(costs_arr)
+            if eval_every and self.eval_fn and (t - t0 + 1) % eval_every == 0:
+                res.eval_history.append((t, self.eval_fn(params)))
+
+        return self._finish_fedpc(
+            res, state, layout, t0, _stacked(k_stars, (), torch.int64),
+            _stacked(raw_costs, (self.n,), torch.float32), masks,
+            model_bytes)
+
+    def run_fedpc_scan(self, rounds: int, *,
+                       participation: Optional[float] = None, betas=None,
+                       participation_seed: int = 0,
+                       state: Optional[rd.RoundState] = None) -> SimResult:
+        """The device-resident multi-round driver, bitwise equal to
+        :meth:`run_fedpc` from the same simulator state.
+
+        First every worker's shard and its ``(rounds, steps, batch)``
+        index schedule are staged on the device, drawn from its loader as
+        the Python driver would draw them (a round it is not sampled in
+        draws nothing), its local-training step is made (on CUDA captured
+        into a CUDA graph) and the participation masks are staged. Then
+        ``rounds.scan_rounds`` runs every round with no host sync and no
+        host copy: each sampled worker gathers its batches on the device
+        and runs ``Worker.scan_train``; a worker left out of a round is
+        not trained, and its optimizer state and step stay as they were.
+        Needs every shard to be a multiple of its batch size; the evasion
+        defence (a host behaviour each round) is not available here.
+        """
+        if self.evade_streak:
+            raise ValueError("evade_streak requires the Python-loop driver "
+                             "(per-round host behaviour)")
+        frac = self._fraction(participation)
+        wire, layout, state, t0 = self._setup(state)
+        masks, betas_dev = self._resolve_scenario(
+            frac, betas, rounds, participation_seed, t0)
+        model_bytes = proto.model_size_bytes(self.init_params)
+        params0 = fl.unflatten_tree(state.buf_p1, layout)
+        res = SimResult("fedpc", params0)
+
+        schedules, steps_per_round, carry = [], [], []
+        for k, w in enumerate(self.workers):
+            if not w.uniform_batches:
+                raise ValueError(
+                    f"worker {k}: scan driver needs batch_size "
+                    f"({w.loader.batch_size}) to divide the shard size "
+                    f"({w.loader.n}) — no ragged last batch under scan")
+            steps = w.cfg.local_epochs * w.loader.steps_per_epoch()
+            rows = [w.round_indices() if masks is None or masks[i, k]
+                    else np.zeros((steps, w.loader.batch_size), np.int64)
+                    for i in range(rounds)]
+            sched = torch.from_numpy(
+                np.stack(rows) if rows
+                else np.zeros((0, steps, w.loader.batch_size), np.int64)
+            ).to(self.device)
+            if w.opt_state is None:
+                w.opt_state = w.opt.init(params0)
+            if rounds:      # made (and captured) here, not in the loop
+                w.train_step(params0, w.opt_state, w.gather(sched[0]))
+            schedules.append(sched)
+            steps_per_round.append(steps)
+            carry.append((w.opt_state, torch.tensor(
+                w.step, dtype=torch.int32, device=self.device)))
+        masks_dev = (None if masks is None
+                     else torch.as_tensor(masks, device=self.device))
+        sizes = torch.as_tensor(self.sizes, device=self.device)
+        no_cost = torch.zeros((), dtype=torch.float32, device=self.device)
+        round_of = itertools.count()      # the host's row into the schedules
+
+        def worker_fn(wc, buf, _t):
+            i = next(round_of)
+            params = fl.unflatten_tree(buf, layout)
+            new_wc, locals_, costs = [], [], []
+            for k, w in enumerate(self.workers):
+                opt_state, step = wc[k]
+                if masks is None or masks[i, k]:
+                    q, opt_state, step, c = w.scan_train(
+                        params, opt_state, step, w.gather(schedules[k][i]))
+                else:       # not sampled: nothing trains, nothing uploads
+                    q, c = params, no_cost
+                new_wc.append((opt_state, step))
+                locals_.append(q)
+                costs.append(c)
+            return (tuple(new_wc), _stack_locals(locals_, layout),
+                    torch.stack(costs))
+
+        state, carry, infos = rd.scan_rounds(
+            wire, state, worker_fn, tuple(carry), rounds, sizes,
+            betas=betas_dev, masks=masks_dev)
+
+        for k, w in enumerate(self.workers):   # host bookkeeping, once
+            w.opt_state = carry[k][0]
+            part = rounds if masks is None else int(np.sum(masks[:, k] > 0))
+            w.step += steps_per_round[k] * part
+        return self._finish_fedpc(
+            res, state, layout, t0,
+            infos.get("k_star", torch.zeros((0,), dtype=torch.int64)),
+            infos.get("costs", torch.zeros((0, self.n))), masks,
+            model_bytes)

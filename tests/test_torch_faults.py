@@ -489,15 +489,26 @@ def test_quickstart_federation_with_faults_matches(spec_kw, fanout):
 
 
 def test_partial_participation_and_enforce_still_refused():
+    # Partial participation on the faulty plain tree now runs: the JAX
+    # simulator's pilots, bytes and ledger from the same schedule. The
+    # audit of enforce=True is still refused.
     n = 4
+    jparams = j_init(jax.random.PRNGKey(0), 24, 6)
     tw = _federation(TData, t_split, t_loaders, t_cfgs, TWorker, t_lag, n)
+    jw = _federation(JData, j_split, j_loaders, j_cfgs, JWorker, j_lag, n)
     params = params_from_numpy(jax.tree_util.tree_map(
-        np.asarray, j_init(jax.random.PRNGKey(0), 24, 6)), device="cpu")
-    cfg = TCfg(n_workers=n, tree=TTree(2),
-               faults=tft.FaultPlan(drop_after_uplink=0.2))
-    with pytest.raises(NotImplementedError, match="partial participation"):
-        TSim(tw, params, cfg, device="cpu").run_fedpc(rounds=1,
-                                                      participation=0.5)
+        np.asarray, jparams), device="cpu")
+    plan = dict(seed=1, drop_before_uplink=0.2, drop_after_uplink=0.2)
+    cfg = TCfg(n_workers=n, tree=TTree(2), faults=tft.FaultPlan(**plan))
+    jsim = JSim(jw, jparams, JCfg(n_workers=n, tree=JTree(2),
+                                  faults=JPlan(**plan)))
+    jres = jsim.run_fedpc(rounds=3, participation=0.5, participation_seed=2)
+    tsim = TSim(tw, params, cfg, device="cpu")
+    tres = tsim.run_fedpc(rounds=3, participation=0.5, participation_seed=2)
+    assert tres.pilot_history == jres.pilot_history
+    assert tres.bytes_per_round == list(jres.bytes_per_round)
+    assert tsim.ledger.events == jsim.ledger.events
+    np.testing.assert_allclose(tres.costs, jres.costs, rtol=1e-3)
     cfg = TCfg(n_workers=n, tree=TTree(2), privacy=TSpec(
         recovery_threshold=2))
     with pytest.raises(NotImplementedError, match="audit"):

@@ -26,7 +26,8 @@ def test_no_module_imports_jax_or_the_jax_package():
     assert "repro_torch.privacy.masking" in names
     for name in ("kernels.partial_sum", "fed.faults", "privacy.recovery",
                  "privacy.audit", "core.tree", "kernels.ternary_encode",
-                 "kernels.pack2bit", "kernels.master_update", "core.update"):
+                 "kernels.pack2bit", "kernels.master_update", "core.update",
+                 "prng", "optim.schedules", "fed.worker", "data.pipeline"):
         assert f"repro_torch.{name}" in names
     script = (
         "import importlib, sys\n"

@@ -605,3 +605,82 @@ def test_arbitrary_shape_ops_on_card_match_cpu(cuda, shape):
     for a, b in zip(outs["cpu"], outs[cuda]):
         assert _same(a.to(cuda), b)
     assert torch.equal(outs[cuda][2], outs[cuda][4])   # fused == composed
+
+
+# -- local training and the scan driver -------------------------------------
+
+def _uniform_federation(n: int, per: int, seed: int = 0):
+    from repro_torch.data.pipeline import federated_loaders
+    from repro_torch.data.synthetic import SyntheticClassification
+    from repro_torch.fed.worker import Worker, make_worker_configs
+    from repro_torch.models.mlp import mlp_loss_and_grad
+    x, y = SyntheticClassification(n_samples=n * per, n_features=16,
+                                   n_classes=5, seed=seed).generate()
+    splits = [np.arange(i * per, (i + 1) * per) for i in range(n)]
+    loaders = federated_loaders((x, y), splits, seed=seed)
+    cfgs = make_worker_configs(n, [per] * n, seed=seed)
+    return [Worker(cfg=cfgs[k], loader=loaders[k],
+                   loss_and_grad=mlp_loss_and_grad) for k in range(n)]
+
+
+def _mlp(dev):
+    from repro_torch.models.mlp import init_mlp_classifier
+    return init_mlp_classifier(torch.Generator().manual_seed(0), 16, 5,
+                               hidden=(32,), device=dev)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("optimizer", ["momentum", "adam", "sgd"])
+def test_graphed_train_step_equals_eager_step_on_card(cuda, optimizer):
+    from repro_torch.utils import tree_leaves
+    w = _uniform_federation(1, 256)[0]
+    w.cfg.optimizer = optimizer
+    w.__post_init__()
+    params = _mlp(cuda)
+    opt_state = w.opt.init(params)
+    idx = torch.from_numpy(w.round_indices()).to(cuda)
+    batches = w.gather(idx)
+    step = torch.tensor(7, dtype=torch.int32, device=cuda)
+    ts = w.train_step(params, opt_state, batches)
+    assert ts.graph is not None
+    outs = []
+    for replay in (True, False):
+        ts.load(params, opt_state, step, batches)
+        for _ in range(idx.shape[0]):
+            ts.graph.replay() if replay else ts()
+        outs.append([x.clone() for x in tree_leaves(
+            (ts.params, ts.opt_state, ts.step, ts.total))])
+    torch.cuda.synchronize()
+    for a, b in zip(*outs):
+        assert torch.equal(a, b)
+    assert int(outs[0][-2]) == 7 + idx.shape[0]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("participation", [None, 0.5])
+def test_drivers_bitwise_on_card(cuda, participation):
+    from repro_torch.fed import simulator as sim_mod
+    from repro_torch.utils import tree_leaves
+    res = []
+    for driver in ("run_fedpc", "run_fedpc_scan"):
+        sim = sim_mod.FedSimulator(_uniform_federation(4, 256), _mlp(cuda),
+                                   device=cuda)
+        inner = rd.scan_rounds
+
+        def guarded(*args, **kwargs):
+            torch.cuda.set_sync_debug_mode("error")
+            try:
+                return inner(*args, **kwargs)
+            finally:
+                torch.cuda.set_sync_debug_mode(0)
+        rd.scan_rounds = guarded
+        try:
+            res.append(getattr(sim, driver)(4, participation=participation,
+                                            participation_seed=1))
+        finally:
+            rd.scan_rounds = inner
+    assert res[0].pilot_history == res[1].pilot_history
+    assert res[0].costs == res[1].costs
+    assert np.isfinite(res[0].costs).all()
+    for a, b in zip(tree_leaves(res[0].params), tree_leaves(res[1].params)):
+        assert torch.equal(a, b)

@@ -122,13 +122,24 @@ def test_train_round_device_matches(optimizer):
 
 
 def test_unported_branches_raise():
+    # Partial participation is ported: it runs, as in the JAX simulator,
+    # and books the sampled workers only. The audit of enforce=True and
+    # the evasion defence still raise, naming their ROADMAP items.
+    jparams, params_np = _init_np()
+    jw, _ = _federation(JData, j_split, j_loaders, j_cfgs, JWorker, j_lag)
     tw, _ = _federation(TData, t_split, t_loaders, t_cfgs, TWorker, t_lag)
-    sim = TSim(tw, params_from_numpy(_init_np()[1], device="cpu"),
-               device="cpu")
-    with pytest.raises(NotImplementedError, match="partial participation"):
-        sim.run_fedpc(rounds=1, participation=0.5)
+    jres = JSim(jw, jparams).run_fedpc(rounds=2, participation=0.5,
+                                       participation_seed=4)
+    sim = TSim(tw, params_from_numpy(params_np, device="cpu"), device="cpu")
+    tres = sim.run_fedpc(rounds=2, participation=0.5, participation_seed=4)
+    assert tres.pilot_history == jres.pilot_history
+    assert tres.bytes_per_round == list(jres.bytes_per_round)
+    sim.fed_cfg = TCfg(n_workers=3, privacy=TSpec())     # enforce=True
+    with pytest.raises(NotImplementedError, match="audit.*item 6"):
+        sim.run_fedpc(rounds=1)
+    sim.fed_cfg = TCfg(n_workers=3)
     sim.evade_streak = 2
-    with pytest.raises(NotImplementedError, match="evasion"):
+    with pytest.raises(NotImplementedError, match="evasion.*item 3"):
         sim.run_fedpc(rounds=1)
 
 
