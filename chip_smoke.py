@@ -71,6 +71,18 @@ result:
    bitwise; (d) local training per round through the graph and through
    the eager per-batch loop on the same shards, and each driver's round
    wall time, beside the card's name and power limit.
+   baselines slice — the scan slice's federation: (a) ``run_fedpc`` with
+   ``evade_streak=2`` for 6 rounds, one uplink and one master launch a
+   round, Eq. (8) bytes, the ledger's pilot uploads == the pilot history,
+   no pilot streak over 4, and a quickstart-size run with the defence on
+   the card and on the CPU; (b) ``run_fedavg`` and ``run_phong`` for 2
+   rounds and ``run_centralized`` for 2 on the union of the shards, no
+   launch, 2VN and 0 bytes, quickstart-size FedAvg and Phong on the card
+   and on the CPU; (c) FedAvg's aggregate of round 1 on the card == on
+   the CPU, bitwise, and its sum timed beside its bound; (d)
+   ``core.fedpc.master_round`` over every round of (a) as trees against
+   ``round_step``; (e) each algorithm's round split into local training
+   and aggregation, beside the card's name and power limit.
 5. masked slice — the same federation with
    ``FedPCConfig(privacy=PrivacySpec(dp_epsilon=2.0, enforce=False))``:
    16-bit words, pairwise masks and randomized response on; masked
@@ -126,6 +138,7 @@ import sys
 import time
 from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
+from typing import NamedTuple
 
 ROOT = Path(__file__).resolve().parent
 SRC = ROOT / "src"
@@ -149,6 +162,10 @@ DP_EPSILON = 2.0                  # the masked slice's per-round epsilon
 SCAN_SHARD = 1024                 # samples a worker (equal in the scan slice)
 SCAN_PARTICIPATION = 0.6          # its partial-participation runs
 SCAN_MASKED_ROUNDS = 2
+EVADE_STREAK = 2                  # the baselines slice's evasion defence
+EVADE_ROUNDS = 6
+BASELINE_ROUNDS = 2               # FedAvg, Phong and the centralized bound
+CENTRAL_BATCH = 64
 # Device-memory rate by card name (NVIDIA data sheets), first match wins.
 MEM_RATES = (("H200", 4.8e12), ("H100 PCIe", 2.0e12), ("H100", 3.35e12))
 
@@ -640,34 +657,56 @@ def _federation(n_workers, n_samples, n_features, n_classes, seed,
             for k in range(n_workers)]
 
 
-def _drive(torch, sim, rounds: int, capture: list | None = None, **kw):
-    """``sim.run_fedpc(rounds, **kw)`` with every launch counter set to 0 just
-    before and read just after, ``round_step`` under sync-debug "error"
-    (any host sync inside it raises) and timed between syncs, as is each
-    worker's local training. With ``capture`` a list, each round's
-    ``(P^{t-1}, P^{t-2}, worker buffers, sizes, k_star)`` is appended to it.
-    Returns (result, launches, step_s, train_s, wall_s)."""
+class Drive(NamedTuple):
+    """What ``_drive`` measured of one run."""
+    res: object                   # the simulator's SimResult
+    launches: dict                # kernel kind -> launches in the run
+    agg_s: list                   # each aggregation call's seconds
+    train_s: list                 # each worker's local training's seconds
+    wall: float                   # the whole call's seconds
+    round_s: list                 # each round's seconds (``marks`` only)
+    allocs: tuple                 # (device allocations, retries) in the run
+
+
+def _drive(torch, sim, rounds: int, *args, method: str = "run_fedpc",
+           capture: list | None = None, marks: bool = False,
+           **kw) -> Drive:
+    """``sim.<method>(rounds, *args, **kw)`` with every launch counter set
+    to 0 just before and read just after. Each worker's local training is
+    timed between syncs, as is each round's aggregation: ``round_step``
+    for ``run_fedpc``, under sync-debug "error" (any host sync inside it
+    raises), and ``fedavg_aggregate`` for ``run_fedavg``. With ``capture``
+    a list, each aggregation's inputs and output are appended to it:
+    ``(state, worker buffers, costs, sizes, new buffer, info)`` for
+    ``round_step``, ``(local models, sizes, new model)`` for FedAvg. With
+    ``marks`` the rounds run with ``eval_every=1``, each clocked at its
+    end, synchronized, through ``eval_fn``."""
+    from repro_torch.core import baselines as bl
     from repro_torch.fed import rounds as rd
     from repro_torch.fed.worker import Worker
-    step_s: list[float] = []
+    agg_s: list[float] = []
     train_s: list[float] = []
-    inner_step = rd.WirePath.round_step
+    ends: list[float] = []
+    owner, name = {"run_fedpc": (rd.WirePath, "round_step"),
+                   "run_fedavg": (bl, "fedavg_aggregate")}.get(
+                       method, (None, None))
+    inner_agg = getattr(owner, name) if owner is not None else None
     inner_train = Worker.train_round_device
+    wire = owner is rd.WirePath
 
-    def guarded(self, *args, **kwargs):
+    def aggregate(*a, **k):
         torch.cuda.synchronize()
         t0 = time.perf_counter()
-        torch.cuda.set_sync_debug_mode("error")
+        if wire:
+            torch.cuda.set_sync_debug_mode("error")
         try:
-            out = inner_step(self, *args, **kwargs)
+            out = inner_agg(*a, **k)
         finally:
             torch.cuda.set_sync_debug_mode(0)
         torch.cuda.synchronize()
-        step_s.append(time.perf_counter() - t0)
+        agg_s.append(time.perf_counter() - t0)
         if capture is not None:
-            state, bufs_q, _costs, sizes = args[:4]
-            capture.append((state.buf_p1, state.buf_p2, bufs_q, sizes,
-                            out[2]["k_star"]))
+            capture.append((*a[1:5], out[1], out[2]) if wire else (*a, out))
         return out
 
     def timed_train(self, params):
@@ -678,21 +717,45 @@ def _drive(torch, sim, rounds: int, capture: list | None = None, **kw):
         train_s.append(time.perf_counter() - t0)
         return out
 
-    rd.WirePath.round_step = guarded
+    def end(_params):
+        torch.cuda.synchronize()
+        ends.append(time.perf_counter())
+
+    if marks:
+        kw["eval_every"] = 1
+        sim.eval_fn = end
+    if owner is not None:
+        setattr(owner, name, aggregate)
     Worker.train_round_device = timed_train
+    before = _allocs(torch)
     try:
         _zero_counts()
         torch.cuda.synchronize()
         t0 = time.perf_counter()
-        res = sim.run_fedpc(rounds=rounds, **kw)
+        res = getattr(sim, method)(rounds, *args, **kw)
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
         launches = _read_counts()
     finally:
-        rd.WirePath.round_step = inner_step
+        if owner is not None:
+            setattr(owner, name, inner_agg)
         Worker.train_round_device = inner_train
-    check(len(step_s) == rounds, f"round_step ran {len(step_s)} times")
-    return res, launches, step_s, train_s, wall
+    allocs = tuple(b - a for a, b in zip(before, _allocs(torch)))
+    if owner is not None:
+        check(len(agg_s) == rounds, f"{name} ran {len(agg_s)} times")
+    if marks:
+        check(len(ends) == rounds, f"{len(ends)} rounds marked")
+    round_s = [b - a for a, b in zip([t0, *ends], ends)]
+    return Drive(res, launches, agg_s, train_s, wall, round_s, allocs)
+
+
+def _allocs(torch) -> tuple[int, int]:
+    """The caching allocator's device allocations (``cudaMalloc`` calls)
+    and its retries after a failed one (each frees the cache first) so
+    far."""
+    stats = torch.cuda.memory_stats()
+    return stats.get("num_device_alloc", -1), stats.get("num_alloc_retries",
+                                                         -1)
 
 
 def _check_run(torch, res, launches: dict, on_path: dict,
@@ -738,9 +801,12 @@ def _print_round(label: str, step_s, train_s, wall: float, workers) -> None:
           f"{[round(x * 1e3, 3) for x in step_s]} ms", flush=True)
 
 
-def _small_agrees(torch, dev, cfg, label: str) -> None:
+def _small_agrees(torch, dev, cfg, label: str, method: str = "run_fedpc",
+                  **sim_kw) -> None:
     """A quickstart-size federation on the card and on the CPU (plain
-    versions) must agree: same pilots, costs within float32 drift."""
+    versions) must agree: same pilots, costs within float32 drift.
+    ``method`` is the simulator's driver, ``sim_kw`` more arguments of
+    the simulator (``evade_streak``)."""
     import numpy as np
 
     from repro_torch.fed.simulator import FedSimulator
@@ -750,7 +816,8 @@ def _small_agrees(torch, dev, cfg, label: str) -> None:
         ws = _federation(3, 1500, 24, 6, SEED)
         p = init_mlp_classifier(torch.Generator().manual_seed(SEED), 24, 6,
                                 device=d)
-        runs.append(FedSimulator(ws, p, cfg, device=d).run_fedpc(rounds=5))
+        sim = FedSimulator(ws, p, cfg, device=d, **sim_kw)
+        runs.append(getattr(sim, method)(rounds=5))
     check(runs[0].pilot_history == runs[1].pilot_history,
           f"{label}: pilots card {runs[0].pilot_history} cpu "
           f"{runs[1].pilot_history}")
@@ -781,8 +848,8 @@ def phase_slice(torch, dev, capture: list) -> dict:
     from repro_torch.fed.simulator import FedSimulator
     workers, params = _full_width(torch, dev)
     sim = FedSimulator(workers, params, device=dev)
-    res, launches, step_s, train_s, wall = _drive(torch, sim, ROUNDS,
-                                                  capture)
+    res, launches, step_s, train_s, wall, *_ = _drive(
+        torch, sim, ROUNDS, capture=capture)
     capture.append(fl.layout_of(params))
     want = proto.fedpc_bytes_per_round(proto.model_size_bytes(params),
                                        N_WORKERS)
@@ -923,7 +990,8 @@ def phase_scan_slice(torch, dev) -> dict:
     mb = proto.model_size_bytes(params)
     want = [proto.fedpc_bytes_per_round(mb, N_WORKERS)] * ROUNDS
     sim = FedSimulator(workers, params, device=dev)
-    res_py, launches, step_s, train_s, wall_py = _drive(torch, sim, ROUNDS)
+    res_py, launches, step_s, train_s, wall_py, *_ = _drive(
+        torch, sim, ROUNDS)
     add(_check_run(torch, res_py, launches, plain, want, workers,
                    "scan slice"))
     steps = _graph_equals_eager(torch, workers[0], res_py.params, dev)
@@ -981,7 +1049,8 @@ def phase_scan_slice(torch, dev) -> dict:
             workers, params = _full_width(torch, dev, uniform=True)
             sim = FedSimulator(workers, params, cfg, device=dev)
             if driver == "run_fedpc":
-                res, launches, _, _, wall = _drive(torch, sim, rounds, **kw)
+                res, launches, _, _, wall, *_ = _drive(torch, sim, rounds,
+                                                       **kw)
                 synced = "round_step"
             else:
                 res, launches, _, wall = _drive_scan(torch, sim, rounds,
@@ -1006,6 +1075,237 @@ def phase_scan_slice(torch, dev) -> dict:
     return own
 
 
+def _ms(xs) -> list:
+    return [round(x * 1e3, 1) for x in xs]
+
+
+def _per_round(xs: list, n: int) -> list:
+    """Times of one call a worker, summed a round."""
+    return [sum(xs[i:i + n]) for i in range(0, len(xs), n)]
+
+
+def _second_oracle(torch, kept: tuple, layout) -> tuple[int, float]:
+    """``core.fedpc.master_round`` over a captured round's ten local
+    models as trees against ``WirePath.round_step``'s new buffer (kernels
+    #1 and #2): the same pilot; each new parameter within 2 ulps of its
+    own magnitude (rtol 2^-22) and 1e-8: the kernel rounds ``q −
+    coeff·mult`` once, as an FMA, the trees twice, and the two sum
+    ``Σ p_k·beta·T_k`` in their own orders. Returns (t, max abs diff)."""
+    from repro_torch.core import fedpc as cfp
+    from repro_torch.core import flat as fl
+    from repro_torch.utils import tree_leaves, tree_map
+    state, bufs_q, costs, sizes, new_buf, info = kept
+    n = bufs_q.shape[0]
+    stacked = tree_map(lambda *xs: torch.stack(xs),
+                       *[fl.unflatten_tree(bufs_q[k], layout)
+                         for k in range(n)])
+    ref_state = cfp.FedPCState(
+        params=fl.unflatten_tree(state.buf_p1, layout),
+        params_prev=fl.unflatten_tree(state.buf_p2, layout),
+        prev_costs=state.prev_costs, round=state.round)
+    new_state, aux = cfp.master_round(cfp.FedPCConfig(n_workers=n),
+                                      ref_state, stacked, costs, sizes)
+    t = int(state.round)
+    check(int(aux["k_star"]) == int(info["k_star"]),
+          f"round {t}: master_round's pilot {int(aux['k_star'])} != "
+          f"round_step's {int(info['k_star'])}")
+    worst = 0.0
+    for got, want in zip(tree_leaves(fl.unflatten_tree(new_buf, layout)),
+                         tree_leaves(new_state.params)):
+        diff = (got - want).abs()
+        check(bool((diff <= want.abs() * 2.0 ** -22 + 1e-8).all()),
+              f"round {t}: the kernels' new params differ from "
+              f"master_round's by up to {float(diff.max()):.3e}")
+        worst = max(worst, float(diff.max()))
+    return t, worst
+
+
+def phase_baselines_slice(torch, dev, rate: float) -> dict:
+    """The paper's comparison path at full width, on the scan slice's
+    federation (equal 1,024-sample shards, graphed local training).
+
+    (a) ``run_fedpc`` with ``evade_streak`` 2 for 6 rounds: one uplink
+    and one master launch a round and nothing else, ``round_step`` under
+    sync-debug "error", Eq. (8) bytes, the ledger's pilot uploads == the
+    pilot history, no pilot streak over 4; a quickstart-size run with the
+    defence picks the same pilots on the card and on the CPU. (b)
+    ``run_fedavg`` and ``run_phong`` for 2 rounds, ``run_centralized`` for
+    2 on the union of the shards (batch 64): no kernel launches, finite
+    costs, 2VN and 0 bytes; quickstart-size FedAvg and Phong agree on the
+    card and on the CPU. (c) ``fedavg_aggregate`` of the ten local models
+    of FedAvg's first round on the card == on the CPU, bitwise. (d)
+    ``core.fedpc.master_round`` over every round of (a) as trees ==
+    ``round_step`` (``_second_oracle``). (e) each algorithm's round wall
+    time, local training and aggregation, beside the card's name and
+    power limit. Returns (a)'s launch counts."""
+    import numpy as np
+
+    from repro_torch.core import baselines as bl
+    from repro_torch.core import flat as fl
+    from repro_torch.core import protocol as proto
+    from repro_torch.data.pipeline import BatchIterator
+    from repro_torch.data.synthetic import SyntheticClassification
+    from repro_torch.fed.simulator import FedSimulator
+    from repro_torch.fed.worker import Worker, WorkerConfig
+    from repro_torch.models.mlp import init_mlp_classifier, mlp_loss_and_grad
+    from repro_torch.utils import tree_leaves, tree_map, tree_weighted_sum
+    card = _smi()
+    # (a) the evasion defence, every round kept for (d)
+    workers, params = _full_width(torch, dev, uniform=True)
+    layout = fl.layout_of(params)
+    mb = proto.model_size_bytes(params)
+    sim = FedSimulator(workers, params, evade_streak=EVADE_STREAK,
+                       device=dev)
+    kept: list = []
+    res, launches, step_s, train_s, _, round_s, allocs = _drive(
+        torch, sim, EVADE_ROUNDS, capture=kept, marks=True)
+    want = proto.fedpc_bytes_per_round(mb, N_WORKERS)
+    own = _check_run(torch, res, launches,
+                     {"uplink_stacked": EVADE_ROUNDS,
+                      "master": EVADE_ROUNDS},
+                     [want] * EVADE_ROUNDS, workers,
+                     "baselines slice (a) evade_streak 2",
+                     rounds=EVADE_ROUNDS)
+    pilots = [(r, w) for (r, w, k, _) in sim.ledger.events
+              if k == "pilot_params"]
+    check(pilots == list(enumerate(res.pilot_history, start=1)),
+          f"ledger pilots {pilots} != history {res.pilot_history}")
+    longest = cur = 1
+    for a, b in zip(res.pilot_history, res.pilot_history[1:]):
+        cur = cur + 1 if a == b else 1
+        longest = max(longest, cur)
+    check(longest <= 4, f"a pilot streak of {longest} rounds")
+    evaders = [k for k in range(N_WORKERS)
+               if sim.ledger.consecutive_pilot_streak(k) >= EVADE_STREAK]
+    print(f"baselines slice (a): {want:,} bytes a round (Eq. (8)); ledger "
+          f"pilot uploads == pilot history; longest streak {longest}; "
+          f"workers evading after the run {evaders}", flush=True)
+    _small_agrees(torch, dev, None, "baselines slice (a) small, evasion",
+                  evade_streak=EVADE_STREAK)
+    oracle = [_second_oracle(torch, k, layout) for k in kept]
+    print(f"baselines slice (d): core.fedpc.master_round over the ten "
+          f"local models as trees == round_step's kernels #1/#2: the same "
+          f"pilot, new params within 2 ulps + 1e-8, max abs diff "
+          f"{', '.join(f'round {t} {d:.3e}' for t, d in oracle)}",
+          flush=True)
+    times = {"FedPC with evasion": (round_s, _per_round(train_s, N_WORKERS),
+                                    "round_step", step_s, allocs)}
+    del sim, workers, kept, oracle, res
+    _release(torch)
+    # (b) FedAvg and Phong, with (c) on FedAvg's first round
+    fedavg = proto.fedavg_bytes_per_round(mb, N_WORKERS)
+    check(proto.phong_bytes_per_round(mb, N_WORKERS) == fedavg, "2VN")
+    for method in ("run_fedavg", "run_phong"):
+        workers, params = _full_width(torch, dev, uniform=True)
+        sim = FedSimulator(workers, params, device=dev)
+        kept = []
+        res, launches, agg_s, train_s, _, round_s, allocs = _drive(
+            torch, sim, BASELINE_ROUNDS, method=method, capture=kept,
+            marks=True)
+        check(not any(launches.values()), f"{method} launched {launches}")
+        check(all(np.isfinite(res.costs)), f"{method}: costs {res.costs}")
+        check(res.bytes_per_round == [fedavg] * BASELINE_ROUNDS,
+              f"{method}: bytes {res.bytes_per_round}")
+        check(all(bool(torch.isfinite(p).all())
+                  for p in tree_leaves(res.params)), f"{method}: params")
+        training = _per_round(train_s, N_WORKERS)
+        if method == "run_fedavg":
+            local, sizes, out = kept[0]
+            cpu = bl.fedavg_aggregate(
+                [tree_map(lambda x: x.cpu(), q) for q in local], sizes)
+            for a, b in zip(tree_leaves(out), tree_leaves(cpu)):
+                check(torch.equal(a.cpu(), b),
+                      "fedavg_aggregate: card != CPU")
+            # The call copies the host's sizes to the card, which waits
+            # for the stream: the device time is the sum's alone, one call
+            # (114 launches) at a time, since ten would fill the card's
+            # launch queue behind the sleep and block the host.
+            shares = torch.as_tensor(sizes, device=dev)
+            weights = list(shares / shares.sum())
+            dev_ms = _median_ms(
+                torch, lambda: tree_weighted_sum(local, weights),
+                queued=True, calls=1)
+            call_ms = _median_ms(torch,
+                                 lambda: bl.fedavg_aggregate(local, sizes))
+            print(f"baselines slice (c): fedavg_aggregate of the ten "
+                  f"{N_PARAMS:,}-param local models of round 1 on the "
+                  f"card == on the CPU, bitwise; its sum {dev_ms:.4f} ms on "
+                  f"the device (queued, L2 scrubbed), {call_ms:.4f} ms a "
+                  f"call (the weights copied from the host included); "
+                  f"bound {11 * mb / rate * 1e3:.4f} ms by bytes "
+                  f"({11 * mb / 1e9:.3f} GB: read the {N_WORKERS} models "
+                  f"of {mb:,} B, write 1, 11 V), "
+                  f"{11 * mb / rate / (dev_ms * 1e-3):.1%} of it; the eager "
+                  f"op sequence moves 47 V ({47 * mb / 1e9:.3f} GB, 10 "
+                  f"products and 9 sums each written and read back), "
+                  f"{47 * mb / rate * 1e3:.4f} ms at the same rate",
+                  flush=True)
+            times["FedAvg"] = (round_s, training, "weighted sum", agg_s,
+                               allocs)
+            del local, sizes, out, cpu
+        else:
+            times["Phong"] = (round_s, training, None, None, allocs)
+        print(f"baselines slice (b) {method}: {N_PARAMS:,} params x "
+              f"{N_WORKERS} workers; costs "
+              f"{[round(c, 5) for c in res.costs]}; bytes/round "
+              f"{[round(b) for b in res.bytes_per_round]}; launches 0",
+              flush=True)
+        del sim, workers, res, kept
+        _release(torch)
+    # (b) the centralized bound on the union of the shards
+    x, y = SyntheticClassification(n_samples=N_WORKERS * SCAN_SHARD,
+                                   n_features=N_FEATURES,
+                                   n_classes=N_CLASSES,
+                                   seed=SEED).generate()
+    steps = len(x) // CENTRAL_BATCH
+    central = Worker(
+        cfg=WorkerConfig(worker_id=0, batch_size=CENTRAL_BATCH,
+                         lr_decay_every=10 * steps, seed=SEED),
+        loader=BatchIterator((x, y), CENTRAL_BATCH, seed=SEED),
+        loss_and_grad=mlp_loss_and_grad)
+    params = init_mlp_classifier(torch.Generator().manual_seed(SEED),
+                                 N_FEATURES, N_CLASSES, HIDDEN, device=dev)
+    sim = FedSimulator([central], params, device=dev)
+    res, launches, _, train_s, _, round_s, allocs = _drive(
+        torch, sim, BASELINE_ROUNDS, central, method="run_centralized",
+        marks=True)
+    check(not any(launches.values()), f"centralized launched {launches}")
+    check(all(np.isfinite(res.costs)), f"centralized: costs {res.costs}")
+    check(res.bytes_per_round == [0.0] * BASELINE_ROUNDS, "centralized bytes")
+    check(central.step == BASELINE_ROUNDS * steps, "centralized steps")
+    times["centralized, 1 worker"] = (round_s, train_s, None, None, allocs)
+    print(f"baselines slice (b) run_centralized: {len(x):,} samples, batch "
+          f"{CENTRAL_BATCH} ({steps} steps a round); costs "
+          f"{[round(c, 5) for c in res.costs]}; bytes/round 0; launches 0",
+          flush=True)
+    del sim, central, res, x, y
+    _release(torch)
+    red = proto.reduction_vs_fedavg(mb, N_WORKERS)
+    check(red == 0.421875, f"reduction_vs_fedavg {red}")
+    print(f"baselines slice (b): FedPC {want:,} bytes a round against "
+          f"FedAvg/Phong {fedavg:,}: reduction_vs_fedavg(V, {N_WORKERS}) = "
+          f"{red} (the paper: 42.20%)", flush=True)
+    _small_agrees(torch, dev, None, "baselines slice (b) small, FedAvg",
+                  method="run_fedavg")
+    _small_agrees(torch, dev, None, "baselines slice (b) small, Phong",
+                  method="run_phong")
+    # (e) the rest: FedPC's stack/flatten/unflatten and the ledger's
+    # host work, FedAvg's the same around its sum, Phong's the hand-off
+    for name, (round_s, training, part, agg, allocs) in times.items():
+        rest = [r - tr - (agg[i] if agg else 0.0)
+                for i, (r, tr) in enumerate(zip(round_s, training))]
+        print(f"baselines slice (e) on {card}: {name}, {N_PARAMS:,} "
+              f"params, rounds 1..{len(round_s)} (round 1 captures the "
+              f"graphs): round wall time {_ms(round_s)} ms = local "
+              f"training {_ms(training)} ms"
+              + (f" + {part} {[round(a * 1e3, 3) for a in agg]} ms"
+                 if agg else "")
+              + f" + {'the hand-off' if name == 'Phong' else 'the rest'} "
+              f"{_ms(rest)} ms; {allocs[0]} device allocations and "
+              f"{allocs[1]} allocation retries in the run", flush=True)
+    return own
+
+
 def phase_masked_slice(torch, dev) -> dict:
     """The masked round (16-bit words, masks and RR on) at full width;
     returns its launch counts."""
@@ -1018,7 +1318,7 @@ def phase_masked_slice(torch, dev) -> dict:
     sim = FedSimulator(workers, params,
                        FedPCConfig(n_workers=N_WORKERS, privacy=spec),
                        device=dev)
-    res, launches, step_s, train_s, wall = _drive(torch, sim, ROUNDS)
+    res, launches, step_s, train_s, wall, *_ = _drive(torch, sim, ROUNDS)
     want = proto.fedpc_masked_bytes_per_round(
         proto.model_size_bytes(params), N_WORKERS, word_bits=16)
     own = _check_run(torch, res, launches,
@@ -1098,7 +1398,7 @@ def phase_tree_slice(torch, dev) -> dict:
     sim = FedSimulator(workers, params,
                        FedPCConfig(n_workers=N_WORKERS, tree=tree),
                        device=dev)
-    res, launches, step_s, train_s, wall = _drive(torch, sim, ROUNDS)
+    res, launches, step_s, train_s, wall, *_ = _drive(torch, sim, ROUNDS)
     levels = tree.n_levels(N_WORKERS)
     want = proto.fedpc_tree_bytes_per_round(
         proto.model_size_bytes(params), N_WORKERS, TREE_FANOUT)
@@ -1136,7 +1436,7 @@ def phase_masked_tree_slice(torch, dev) -> dict:
                       faults=plan)
     workers, params = _full_width(torch, dev)
     sim = FedSimulator(workers, params, cfg, device=dev)
-    res, launches, step_s, train_s, wall = _drive(torch, sim, ROUNDS)
+    res, launches, step_s, train_s, wall, *_ = _drive(torch, sim, ROUNDS)
     # The JAX simulator's byte rules, from the schedule on the host: a
     # pre-uplink death sends no leaf words; each round deals every
     # worker's within-group seeds and reconstructs each recoverable dead
@@ -1421,8 +1721,8 @@ def _leaf_checks(torch, dev, leaves: dict, n_workers: int) -> None:
 
 def phase_worker_rounds(torch, dev, captured: list) -> dict:
     """At full width, on each round's own inputs from the plain slice
-    (``captured``: per round P^{t-1}, P^{t-2}, the ten trained models'
-    buffers, sizes, k_star; the flat layout last), bitwise:
+    (``captured``: per round ``_drive``'s capture of ``round_step``, the
+    flat layout last), bitwise:
 
     - the per-worker static round: ten ``WirePath.uplink`` launches (#5 at
       t = 1, #4 after), stacked, then ``WirePath.master`` (#2) == the
@@ -1471,7 +1771,9 @@ def phase_worker_rounds(torch, dev, captured: list) -> dict:
         check(_bitwise(torch, a, b)[0], what)
 
     r1_gap = 0.0
-    for t, (p1, p2, bufs, sizes, k) in enumerate(captured[:-1], start=1):
+    for t, (state, bufs, _, sizes, _, info) in enumerate(captured[:-1],
+                                                         start=1):
+        p1, p2, k = state.buf_p1, state.buf_p2, info["k_star"]
         tt = torch.tensor(t, dtype=torch.int32, device=dev)
         shares = sizes.float() / sizes.float().sum()
         w = wire.weights(shares, k, tt)
@@ -1559,7 +1861,8 @@ def phase_worker_rounds(torch, dev, captured: list) -> dict:
 
     # The ops functions on the MLP's own leaves (round 2's models), and on
     # sizes with n % 4 != 0 and n % 512 != 0.
-    p1, p2, bufs = captured[1][:3]
+    state, bufs = captured[1][:2]
+    p1, p2 = state.buf_p1, state.buf_p2
     trees = [fl.unflatten_tree(b, layout) for b in (*bufs[:3], p1, p2)]
     leaves = {}
     for name in ("layer0.w", "layer2.w", "layer2.b"):
@@ -1580,10 +1883,11 @@ def phase_worker_rounds(torch, dev, captured: list) -> dict:
 _queue: dict = {}       # the sleep's rate, its length and the L2 scrub's time
 
 
-def _median_ms(torch, fn, queued: bool = False) -> float:
+def _median_ms(torch, fn, queued: bool = False,
+               calls: int = QUEUED) -> float:
     """Median over REPEATS of one call's time in CUDA events. By default
     one call from an idle card: the wrapper's host time up to its launch
-    counts. ``queued``: QUEUED calls enqueued behind a ``torch.cuda._sleep``
+    counts. ``queued``: ``calls`` calls enqueued behind a ``torch.cuda._sleep``
     that keeps the card busy meanwhile, so the events time the device
     alone, each call after a read of SCRUB_BYTES that leaves none of its
     operands in the 50 MB L2 cache; the scrub's own time is taken off.
@@ -1602,7 +1906,7 @@ def _median_ms(torch, fn, queued: bool = False) -> float:
     fn()
     torch.cuda.synchronize()
     times = []
-    calls = QUEUED if queued else 1
+    calls = calls if queued else 1
     for _ in range(REPEATS):
         for doubling in range(SLEEP_DOUBLINGS + 1):
             a = torch.cuda.Event(enable_timing=True)
@@ -2399,8 +2703,9 @@ def main() -> int:
         worker_rounds = phase_worker_rounds(torch, dev, captured)
         del captured
         scan = phase_scan_slice(torch, dev)
+        baselines = phase_baselines_slice(torch, dev, rate)
         launches.update(phase_masked_slice(torch, dev))
-        for kind, n in scan.items():
+        for kind, n in (*scan.items(), *baselines.items()):
             launches[kind] += n
         phase_masked_wire(torch, dev)
         tree = phase_tree_slice(torch, dev)

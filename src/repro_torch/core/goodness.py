@@ -36,3 +36,14 @@ def select_pilot(costs: torch.Tensor, prev_costs: torch.Tensor,
     """Returns (k_star, scores); ties go to the lowest index."""
     scores = goodness(costs, prev_costs, sizes, t, mask)
     return torch.argmax(scores), scores
+
+
+def rotation_entropy(pilot_history: torch.Tensor,
+                     n_workers: int) -> torch.Tensor:
+    """Empirical entropy (nats) of the pilot choice over a window, a §4.2
+    diagnostic: high means the master cannot keep polling one worker;
+    near 0 is when the worker-side evasion rules should trigger."""
+    counts = torch.bincount(pilot_history,
+                            minlength=n_workers)[:n_workers].float()
+    p = counts / torch.clamp_min(counts.sum(), 1.0)
+    return -torch.where(p > 0, p * torch.log(p), 0.0).sum()

@@ -8,11 +8,18 @@ width.
 """
 from __future__ import annotations
 
+import math
+
 import torch
 
-from repro_torch.utils import round_up
+from repro_torch.utils import PyTree, round_up, tree_flatten, tree_unflatten
 
 PACK_FACTOR = 4  # ternary codes per byte
+
+
+def packed_size(n: int) -> int:
+    """Bytes needed for n ternary codes."""
+    return round_up(n, PACK_FACTOR) // PACK_FACTOR
 
 
 def _shifts(device) -> torch.Tensor:
@@ -36,3 +43,27 @@ def unpack2bit(packed: torch.Tensor, n: int) -> torch.Tensor:
     b = packed.reshape(-1, 1).to(torch.int32)
     fields = (b >> _shifts(packed.device)) & 3
     return (fields.reshape(-1) - 1).to(torch.int8)[:n]
+
+
+def pack_tree(t: PyTree) -> tuple[torch.Tensor, tuple]:
+    """Pack a whole tree of ternary codes into one uint8 buffer.
+
+    Returns (buffer, layout); the layout, (structure, leaf shapes), is the
+    public architecture the receiver already has, so it unpacks with
+    nothing else.
+    """
+    leaves, treedef = tree_flatten(t)
+    flat = torch.cat([l.reshape(-1) for l in leaves]).to(torch.int8)
+    return pack2bit(flat), (treedef, [tuple(l.shape) for l in leaves])
+
+
+def unpack_tree(packed: torch.Tensor, layout: tuple) -> PyTree:
+    """Inverse of :func:`pack_tree`."""
+    treedef, shapes = layout
+    sizes = [math.prod(s) for s in shapes]
+    flat = unpack2bit(packed, sum(sizes))
+    leaves, off = [], 0
+    for s, size in zip(shapes, sizes):
+        leaves.append(flat[off:off + size].reshape(s))
+        off += size
+    return tree_unflatten(treedef, leaves)

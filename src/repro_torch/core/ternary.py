@@ -15,6 +15,8 @@ from __future__ import annotations
 
 import torch
 
+from repro_torch.utils import PyTree, tree_map
+
 TERNARY_DTYPE = torch.int8
 
 
@@ -35,3 +37,19 @@ def ternarize(q: torch.Tensor, p_prev: torch.Tensor, p_prev2: torch.Tensor,
     significant = delta.abs() >= beta * step.abs()
     return torch.where(significant, torch.sign(delta * step),
                        0.0).to(TERNARY_DTYPE)
+
+
+def ternarize_tree_round1(q: PyTree, p0: PyTree, alpha: float) -> PyTree:
+    return tree_map(lambda a, b: ternarize_round1(a, b, alpha), q, p0)
+
+
+def ternarize_tree(q: PyTree, p_prev: PyTree, p_prev2: PyTree,
+                   beta) -> PyTree:
+    return tree_map(lambda a, b, c: ternarize(a, b, c, beta), q, p_prev,
+                    p_prev2)
+
+
+def ternary_density(t: torch.Tensor) -> torch.Tensor:
+    """Fraction of non-zero codes: how much signal a worker contributes
+    (all-zero codes are the §4.2 evasion behaviour)."""
+    return t.float().abs().mean()

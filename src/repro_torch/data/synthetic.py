@@ -7,6 +7,7 @@ plain round uses: the same seeds give the same draws.
   in for CIFAR-10: class-balanced, learnable.
 * ``random_share_split`` — the paper's IID protocol: random shares
   (bounded away from extremes), class-stratified per worker (Fig. 2).
+* ``dirichlet_split`` — the non-IID split of Table 4 (Fig. 5).
 """
 from __future__ import annotations
 
@@ -60,3 +61,31 @@ def random_share_split(y: np.ndarray, n_workers: int,
             worker_idx[k].extend(idx[prev:b].tolist())
             prev = b
     return [np.asarray(sorted(w), dtype=np.int64) for w in worker_idx]
+
+
+def dirichlet_split(y: np.ndarray, n_workers: int, alpha: float = 0.5,
+                    seed: int = 0,
+                    min_per_worker: int = 2) -> list[np.ndarray]:
+    """Non-IID split of Table 4 (Fig. 5): per-class Dirichlet(alpha)
+    shares; a worker left with fewer than ``min_per_worker`` samples takes
+    them from the largest."""
+    rng = np.random.default_rng(seed)
+    worker_idx: list[list[int]] = [[] for _ in range(n_workers)]
+    for c in np.unique(y):
+        idx = np.flatnonzero(y == c)
+        rng.shuffle(idx)
+        p = rng.dirichlet([alpha] * n_workers)
+        bounds = np.floor(np.cumsum(p) * len(idx)).astype(int)
+        prev = 0
+        for k, b in enumerate(bounds):
+            worker_idx[k].extend(idx[prev:b].tolist())
+            prev = b
+    out = []
+    for w in worker_idx:
+        if len(w) < min_per_worker:  # keep every worker trainable
+            donor = int(np.argmax([len(v) for v in worker_idx]))
+            need = min_per_worker - len(w)
+            w = w + worker_idx[donor][:need]
+            worker_idx[donor] = worker_idx[donor][need:]
+        out.append(np.asarray(sorted(w), dtype=np.int64))
+    return out

@@ -1,17 +1,21 @@
 """Single-process federated simulator — the paper's experimental testbed.
 
-Drives FedPC over N in-process workers with private data shards and
-private hyper-parameters, with Eq. (8) byte accounting and the §4.2
-information-flow ledger. Each round is one :meth:`WirePath.round_step`
-(pilot selection, one uplink launch, one master launch, on the plain wire
-or, with ``FedPCConfig.privacy``, the masked one; one partial-sum launch
-more a level of a ``FedPCConfig.tree``, and one repair launch a masked
-round under a ``FedPCConfig.faults`` plan). Two drivers share it:
+Drives FedPC, FedAvg, Phong et al. and the centralized bound over N
+in-process workers with private data shards and private hyper-parameters,
+with Eq. (8) byte accounting and the §4.2 information-flow ledger. Each
+FedPC round is one :meth:`WirePath.round_step` (pilot selection, one
+uplink launch, one master launch, on the plain wire or, with
+``FedPCConfig.privacy``, the masked one; one partial-sum launch more a
+level of a ``FedPCConfig.tree``, and one repair launch a masked round
+under a ``FedPCConfig.faults`` plan). Two drivers share it:
 
 * :meth:`FedSimulator.run_fedpc` steps rounds in a Python loop over
   stateful workers; worker costs stay device scalars, and the ledger and
   pilot history are filled from one fetch after the last round. The only
-  host syncs inside the loop are ``eval_every``'s.
+  host syncs inside the loop are ``eval_every``'s and the worker-side
+  evasion defence's (``evade_streak``): each worker reads its own pilot
+  history to decide what to report, so that path fetches ``k_star`` once
+  a round and fills the ledger as it goes.
 * :meth:`FedSimulator.run_fedpc_scan` stages every worker's shard and its
   batch schedule on the device first, then runs all rounds through
   ``rounds.scan_rounds`` with no host sync and no host copy inside.
@@ -21,6 +25,11 @@ give the same bits. Both take the round core's two scenario axes:
 C-fraction partial participation (``participation=``, drawn from
 ``participation_seed=`` with the JAX package's bits, the same schedule in
 both drivers) and per-worker beta_k on the wire.
+
+The baselines (:meth:`run_fedavg`, :meth:`run_phong`,
+:meth:`run_centralized`) run the same local training and aggregate in
+plain tensor ops (``core.baselines``); their costs too come back in one
+fetch after the last round.
 """
 from __future__ import annotations
 
@@ -32,10 +41,11 @@ import numpy as np
 import torch
 
 from repro_torch import prng
+from repro_torch.core import baselines as bl
 from repro_torch.core import fedpc as fp
 from repro_torch.core import flat as fl
 from repro_torch.core import protocol as proto
-from repro_torch.core.privacy import LeakageLedger
+from repro_torch.core.privacy import LeakageLedger, should_evade
 from repro_torch.fed import faults as ft
 from repro_torch.fed import rounds as rd
 from repro_torch.fed.worker import Worker
@@ -56,6 +66,11 @@ class SimResult:
     # reconstruction), booked apart from the wire's.
     recovery_bytes_per_round: list = field(default_factory=list)
 
+    @property
+    def total_bytes(self) -> float:
+        return float(np.sum(self.bytes_per_round)
+                     + np.sum(self.recovery_bytes_per_round))
+
 
 def _not_ported(what: str, item: str):
     return NotImplementedError(
@@ -72,6 +87,13 @@ def _stack_locals(locals_: list[PyTree], layout: fl.FlatLayout
 def _stacked(xs: list, shape: tuple, dtype: torch.dtype) -> torch.Tensor:
     """``torch.stack(xs)``, or an empty (0, *shape) stack of no rounds."""
     return torch.stack(xs) if xs else torch.zeros((0, *shape), dtype=dtype)
+
+
+def _host_costs(costs: list, n: int) -> np.ndarray:
+    """(R, n) float64 host copy of a run's per-round device costs, in one
+    fetch (float32 values, widened as the host's floats are)."""
+    return _stacked(costs, (n,), torch.float32).cpu().numpy().astype(
+        np.float64)
 
 
 class FedSimulator:
@@ -103,9 +125,6 @@ class FedSimulator:
             raise _not_ported(
                 "the traced-program audit that PrivacySpec(enforce=True) "
                 "asks for (privacy/audit.py)", "item 6")
-        if self.evade_streak:
-            raise _not_ported("the evasion defence (evade_streak)",
-                              "item 3, simulator")
         return frac
 
     def _resolve_scenario(self, frac: float, betas, rounds: int, seed: int,
@@ -256,17 +275,19 @@ class FedSimulator:
     def _finish_fedpc(self, res: SimResult, state: rd.RoundState,
                       layout: fl.FlatLayout, t0: int, k_stars: torch.Tensor,
                       raw_costs: torch.Tensor, masks: np.ndarray | None,
-                      model_bytes: int) -> SimResult:
+                      model_bytes: int,
+                      ledger_done: bool = False) -> SimResult:
         """The one post-run device→host fetch of the (R,) pilots and the
-        (R, N) costs; the ledger, the round costs and the byte accounting
-        are host work, from the host's own participation and fault
-        schedules."""
+        (R, N) costs; the ledger (unless the run filled it as it went),
+        the round costs and the byte accounting are host work, from the
+        host's own participation and fault schedules."""
         pilots = k_stars.cpu().numpy()
         costs_mat = raw_costs.cpu().numpy()
         rows = (np.ones((len(pilots), self.n), np.float32) if masks is None
                 else masks)
         codes_mat = self._fault_codes(t0, len(pilots))
-        self._backfill_ledger(t0, pilots, rows, codes_mat)
+        if not ledger_done:
+            self._backfill_ledger(t0, pilots, rows, codes_mat)
         for i in range(len(pilots)):
             # The round's cost averages the reports the master used:
             # sampled, not faulted and, on the masked wire, in a viable
@@ -311,11 +332,20 @@ class FedSimulator:
 
         Per round: workers train locally (device costs), then one
         ``round_step`` selects the pilot and runs the wire's kernels.
+
+        With ``evade_streak`` set, a worker whose longest pilot streak in
+        the ledger has reached it reports its previous reported cost, so
+        its goodness is 0 (§4.2): ``round_step`` gets the reported costs,
+        ``res.costs`` averages the measured ones. That needs the pilot on
+        the host each round; it is refused with partial participation.
         """
         frac = self._fraction(participation)
         wire, layout, state, t0 = self._setup(state)
         masks, betas_dev = self._resolve_scenario(
             frac, betas, rounds, participation_seed, t0)
+        if self.evade_streak and masks is not None:
+            raise ValueError("evasion defence + partial participation is "
+                             "not supported in one run")
         masks_dev = (None if masks is None
                      else torch.as_tensor(masks, device=self.device))
         model_bytes = proto.model_size_bytes(self.init_params)
@@ -325,6 +355,9 @@ class FedSimulator:
         no_cost = torch.zeros((), dtype=torch.float32, device=self.device)
         k_stars: list = []
         raw_costs: list = []
+        # The defence's reported-cost memory: on resume state.prev_costs
+        # holds the last reported costs; a fresh state holds +inf.
+        prev_reported = state.prev_costs
 
         for i in range(rounds):
             t = t0 + i
@@ -338,20 +371,33 @@ class FedSimulator:
                 locals_.append(q)
                 costs.append(c)
             costs_arr = torch.stack(costs)
+            reported = costs_arr
+            if self.evade_streak:
+                evade = torch.tensor(
+                    [should_evade(self.ledger.consecutive_pilot_streak(k),
+                                  self.evade_streak)
+                     for k in range(self.n)], device=self.device)
+                reported = torch.where(evade, prev_reported, costs_arr)
             state, new_buf, info = wire.round_step(
-                state, _stack_locals(locals_, layout), costs_arr, sizes,
+                state, _stack_locals(locals_, layout), reported, sizes,
                 betas=betas_dev,
                 mask=None if masks_dev is None else masks_dev[i])
             params = fl.unflatten_tree(new_buf, layout)
             k_stars.append(info["k_star"])
-            raw_costs.append(costs_arr)
+            raw_costs.append(costs_arr)      # measured, not reported
+            prev_reported = reported
+            if self.evade_streak:   # the defence reads the ledger each round
+                self._backfill_ledger(
+                    t, info["k_star"].cpu().numpy().reshape(1),
+                    np.ones((1, self.n), np.float32),
+                    self._fault_codes(t, 1))
             if eval_every and self.eval_fn and (t - t0 + 1) % eval_every == 0:
                 res.eval_history.append((t, self.eval_fn(params)))
 
         return self._finish_fedpc(
             res, state, layout, t0, _stacked(k_stars, (), torch.int64),
             _stacked(raw_costs, (self.n,), torch.float32), masks,
-            model_bytes)
+            model_bytes, ledger_done=bool(self.evade_streak))
 
     def run_fedpc_scan(self, rounds: int, *,
                        participation: Optional[float] = None, betas=None,
@@ -442,3 +488,67 @@ class FedSimulator:
             infos.get("k_star", torch.zeros((0,), dtype=torch.int64)),
             infos.get("costs", torch.zeros((0, self.n))), masks,
             model_bytes)
+
+    def run_fedavg(self, rounds: int, eval_every: int = 0) -> SimResult:
+        """FedAvg: each round every worker trains from the global model
+        and uploads it, and the master takes the data-share weighted
+        average (``core.baselines.fedavg_aggregate``). Bytes 2VN a round."""
+        params = self.init_params
+        model_bytes = proto.model_size_bytes(self.init_params)
+        res = SimResult("fedavg", params)
+        costs: list = []
+        for t in range(1, rounds + 1):
+            locals_, cs = [], []
+            for w in self.workers:
+                q, c = w.train_round_device(params)
+                locals_.append(q)
+                cs.append(c)
+            params = bl.fedavg_aggregate(locals_, self.sizes)
+            costs.append(torch.stack(cs))
+            res.bytes_per_round.append(proto.fedavg_bytes_per_round(
+                model_bytes, self.n))
+            if eval_every and self.eval_fn and t % eval_every == 0:
+                res.eval_history.append((t, self.eval_fn(params)))
+        res.costs = [float(np.average(row, weights=self.sizes))
+                     for row in _host_costs(costs, self.n)]
+        res.params = params
+        return res
+
+    def run_phong(self, rounds: int, eval_every: int = 0) -> SimResult:
+        """Phong et al.'s sequential weight transmission: each round the
+        model visits the workers in order, each training it further
+        (``core.baselines.phong_sequential_round``); each worker's
+        optimizer state persists across rounds. Bytes 2VN a round."""
+        params = self.init_params
+        model_bytes = proto.model_size_bytes(self.init_params)
+        res = SimResult("phong", params)
+        costs: list = []
+        for t in range(1, rounds + 1):
+            params, cs = bl.phong_sequential_round(
+                params, [w.train_round_device for w in self.workers])
+            costs.append(torch.stack(cs))
+            res.bytes_per_round.append(proto.phong_bytes_per_round(
+                model_bytes, self.n))
+            if eval_every and self.eval_fn and t % eval_every == 0:
+                res.eval_history.append((t, self.eval_fn(params)))
+        res.costs = [float(np.mean(row))
+                     for row in _host_costs(costs, self.n)]
+        res.params = params
+        return res
+
+    def run_centralized(self, rounds: int, central_worker: Worker,
+                        eval_every: int = 0) -> SimResult:
+        """The centralized bound (Table 1): one worker trains on all the
+        data, a round being its ``local_epochs``; no bytes cross."""
+        params = self.init_params
+        res = SimResult("centralized", params)
+        costs: list = []
+        for t in range(1, rounds + 1):
+            params, c = central_worker.train_round_device(params)
+            costs.append(c.reshape(1))
+            res.bytes_per_round.append(0.0)
+            if eval_every and self.eval_fn and t % eval_every == 0:
+                res.eval_history.append((t, self.eval_fn(params)))
+        res.costs = [float(c) for c in _host_costs(costs, 1)[:, 0]]
+        res.params = params
+        return res

@@ -87,3 +87,26 @@ def tree_map(fn: Callable, tree: PyTree, *rest: PyTree) -> PyTree:
 def tree_size(tree: PyTree) -> int:
     """Total number of scalar parameters in a tree."""
     return sum(math.prod(x.shape) for x in tree_leaves(tree))
+
+
+def tree_zeros_like(tree: PyTree) -> PyTree:
+    return tree_map(torch.zeros_like, tree)
+
+
+def tree_add(a: PyTree, b: PyTree) -> PyTree:
+    return tree_map(lambda x, y: x + y, a, b)
+
+
+def tree_scale(a: PyTree, s) -> PyTree:
+    return tree_map(lambda x: x * s, a)
+
+
+def tree_weighted_sum(trees, weights) -> PyTree:
+    """``w_0·t_0 + w_1·t_1 + …``, an op at a time in that order (FedAvg):
+    each product and each sum rounded on its own, as the JAX package's
+    eager ops round them, so the result does not depend on the device."""
+    trees = list(trees)
+    out = tree_scale(trees[0], weights[0])
+    for t, w in zip(trees[1:], weights[1:]):
+        out = tree_add(out, tree_scale(t, w))
+    return out

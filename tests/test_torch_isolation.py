@@ -27,7 +27,8 @@ def test_no_module_imports_jax_or_the_jax_package():
     for name in ("kernels.partial_sum", "fed.faults", "privacy.recovery",
                  "privacy.audit", "core.tree", "kernels.ternary_encode",
                  "kernels.pack2bit", "kernels.master_update", "core.update",
-                 "prng", "optim.schedules", "fed.worker", "data.pipeline"):
+                 "prng", "optim.schedules", "fed.worker", "data.pipeline",
+                 "core.baselines", "core.convergence"):
         assert f"repro_torch.{name}" in names
     script = (
         "import importlib, sys\n"
@@ -67,3 +68,18 @@ def test_entry_points_default_to_cuda():
         RoundEngine(params)
     with pytest.raises(RuntimeError, match="CUDA"):
         init_round_state(params, 2)
+
+
+def test_torch_examples_import_neither_jax_nor_the_jax_package():
+    examples = sorted((ROOT / "examples").glob("*_torch.py"))
+    assert [p.name for p in examples] == [
+        "communication_comparison_torch.py", "quickstart_torch.py"]
+    for path in examples:
+        names = []
+        for node in ast.walk(ast.parse(path.read_text())):
+            if isinstance(node, ast.Import):
+                names += [a.name for a in node.names]
+            elif isinstance(node, ast.ImportFrom):
+                names.append(node.module or "")
+        assert any(n.startswith("repro_torch") for n in names), path.name
+        assert [n for n in names if n.split(".")[0] in FORBIDDEN] == []

@@ -684,3 +684,57 @@ def test_drivers_bitwise_on_card(cuda, participation):
     assert np.isfinite(res[0].costs).all()
     for a, b in zip(tree_leaves(res[0].params), tree_leaves(res[1].params)):
         assert torch.equal(a, b)
+
+
+# -- the baselines and the evasion defence ----------------------------------
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("n", [1, 3, 10])
+def test_fedavg_aggregate_card_equals_cpu(cuda, n):
+    # A product and a sum a launch, each rounded on its own: the card's
+    # bits are the CPU's.
+    from repro_torch.core import baselines as bl
+    from repro_torch.utils import tree_leaves
+    rng = np.random.default_rng(n)
+    trees = [{"w": rng.standard_normal((300, 77), dtype=np.float32),
+              "b": rng.standard_normal((77,), dtype=np.float32)}
+             for _ in range(n)]
+    sizes = rng.integers(10, 2000, n).astype(np.float32)
+    out = {}
+    for d in ("cpu", cuda):
+        local = [{k: torch.from_numpy(v).to(d) for k, v in t.items()}
+                 for t in trees]
+        out[d] = (bl.fedavg_aggregate(local, sizes),
+                  bl.fedavg_aggregate_stacked(
+                      {k: torch.stack([t[k] for t in local])
+                       for k in ("w", "b")}, sizes))
+    for a, b in zip(tree_leaves(out["cpu"]), tree_leaves(out[cuda])):
+        assert torch.equal(a.to(cuda), b)
+
+
+@pytest.mark.gpu
+def test_evasion_picks_the_same_pilots_on_card_and_cpu(cuda):
+    from repro_torch.data.pipeline import federated_loaders
+    from repro_torch.data.synthetic import (SyntheticClassification,
+                                            random_share_split)
+    from repro_torch.fed.simulator import FedSimulator
+    from repro_torch.fed.worker import Worker, make_worker_configs
+    from repro_torch.models.mlp import (init_mlp_classifier,
+                                        mlp_loss_and_grad)
+    runs = []
+    for d in (cuda, torch.device("cpu")):
+        x, y = SyntheticClassification(n_samples=1500, n_features=24,
+                                       n_classes=6, seed=0).generate()
+        splits = random_share_split(y, n_workers=3, seed=1)
+        loaders = federated_loaders((x, y), splits, seed=2)
+        cfgs = make_worker_configs(3, [len(s) for s in splits], seed=3)
+        workers = [Worker(cfg=cfgs[k], loader=loaders[k],
+                          loss_and_grad=mlp_loss_and_grad) for k in range(3)]
+        params = init_mlp_classifier(torch.Generator().manual_seed(0), 24,
+                                     6, device=d)
+        sim = FedSimulator(workers, params, evade_streak=2, device=d)
+        runs.append((sim.run_fedpc(rounds=8), sim.ledger.events))
+    (card, card_events), (cpu, cpu_events) = runs
+    assert card.pilot_history == cpu.pilot_history
+    assert card_events == cpu_events
+    np.testing.assert_allclose(card.costs, cpu.costs, rtol=1e-3)

@@ -122,14 +122,15 @@ def test_train_round_device_matches(optimizer):
 
 
 def test_unported_branches_raise():
-    # Partial participation is ported: it runs, as in the JAX simulator,
-    # and books the sampled workers only. The audit of enforce=True and
-    # the evasion defence still raise, naming their ROADMAP items.
+    # Partial participation and the evasion defence are ported: they run
+    # as in the JAX simulator (participation books the sampled workers
+    # only). The audit of enforce=True still raises, naming its ROADMAP
+    # item.
     jparams, params_np = _init_np()
     jw, _ = _federation(JData, j_split, j_loaders, j_cfgs, JWorker, j_lag)
     tw, _ = _federation(TData, t_split, t_loaders, t_cfgs, TWorker, t_lag)
-    jres = JSim(jw, jparams).run_fedpc(rounds=2, participation=0.5,
-                                       participation_seed=4)
+    jsim = JSim(jw, jparams)
+    jres = jsim.run_fedpc(rounds=2, participation=0.5, participation_seed=4)
     sim = TSim(tw, params_from_numpy(params_np, device="cpu"), device="cpu")
     tres = sim.run_fedpc(rounds=2, participation=0.5, participation_seed=4)
     assert tres.pilot_history == jres.pilot_history
@@ -138,9 +139,12 @@ def test_unported_branches_raise():
     with pytest.raises(NotImplementedError, match="audit.*item 6"):
         sim.run_fedpc(rounds=1)
     sim.fed_cfg = TCfg(n_workers=3)
-    sim.evade_streak = 2
-    with pytest.raises(NotImplementedError, match="evasion.*item 3"):
-        sim.run_fedpc(rounds=1)
+    jsim.evade_streak = sim.evade_streak = 2
+    jres = jsim.run_fedpc(rounds=3)
+    tres = sim.run_fedpc(rounds=3)
+    assert tres.pilot_history == jres.pilot_history
+    assert tres.bytes_per_round == list(jres.bytes_per_round)
+    assert sim.ledger.events == jsim.ledger.events
 
 
 @pytest.mark.parametrize("frac", [1.5, 0.0, -1.0])
