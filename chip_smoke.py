@@ -105,6 +105,22 @@ result:
    the masked tree == the flat masked round, and each repaired round ==
    the survivors-only round, on the masked tree and on the flat masked
    wire.
+   telemetry slice — every run of every slice above builds its trace
+   and cross-checks it (a ``TelemetryMismatch`` fails the run). On the
+   masked tree with faults, at full width, on equal 1,024-sample shards:
+   (a) ``run_fedpc`` and ``run_fedpc_scan`` for 3 rounds, their traces
+   equal one for one, the summed counts and the edge level widths
+   printed, the bytes the slice's own rules; (b) 2 rounds,
+   ``save_round_state`` (about 168 MB) into a temporary directory,
+   ``load_round_state`` onto the card, 1 more round == (a)'s
+   ``run_fedpc`` bitwise (buffers, costs, round, accountant, carry,
+   pilots, params, trace), save and load timed; (c) ``round_step`` at
+   rounds 2–3 on the plain and the masked wire with the telemetry carry
+   and without, in turns, and the ops the record adds under
+   ``torch.profiler``; (d) a plain and a masked-tree round under
+   ``telemetry.profile_session``: one ``wire/<kind>/r<rows>n<N>/cuda``
+   range a launch, the ``LAUNCHES`` counter read inside each, and each
+   launch call inside its range where the profiler records CUDA activity.
 8. times  — each kernel and its plain version with CUDA events at the
    main-path shape (median of 25), beside its bound: device-memory bytes,
    or integer operations for the stream-generating kernels; the plain
@@ -767,6 +783,7 @@ def _check_run(torch, res, launches: dict, on_path: dict,
     never. Returns the launch counts of the path's own kernels."""
     import numpy as np
 
+    from repro_torch.telemetry import trace as tmt
     from repro_torch.utils import tree_leaves
     for k, v in launches.items():
         want = on_path.get(k, 0)
@@ -780,12 +797,18 @@ def _check_run(torch, res, launches: dict, on_path: dict,
     check(all(bool(torch.isfinite(p).all()) for p in tree_leaves(res.params)),
           f"{label}: global model not finite")
     check(int(res.round_state.round) == rounds + 1, "round counter")
+    # The bytes above are the trace's: build_trace held the device's
+    # counts to the host's ledger; summarize derives them once more.
+    check(res.telemetry is not None and len(res.telemetry.rounds) == rounds
+          and int(res.round_state.telemetry.rounds) == rounds,
+          f"{label}: no telemetry trace of every round")
+    tmt.summarize(res.telemetry.events())
     print(f"{label}: {driver} {N_PARAMS:,} params x {N_WORKERS} workers, "
           f"rows {ROWS}, sizes {[w.loader.n for w in workers]}; costs "
           f"{[round(c, 5) for c in res.costs]}; pilots {res.pilot_history}; "
-          f"bytes/round {[round(b) for b in want_bytes]}; launches "
-          f"{launches}; {synced} under sync-debug 'error' with no sync",
-          flush=True)
+          f"bytes/round {[round(b) for b in want_bytes]} (the trace's, "
+          f"cross-checked); launches {launches}; {synced} under sync-debug "
+          f"'error' with no sync", flush=True)
     return {k: launches[k] for k in on_path}
 
 
@@ -1417,33 +1440,34 @@ def phase_tree_slice(torch, dev) -> dict:
     return own
 
 
-def phase_masked_tree_slice(torch, dev) -> dict:
-    """The masked round (16-bit words, masks and RR on) through a tree of
-    fanout 4 under the fault plan ``FAULTS`` at full width; returns its
-    launch counts."""
-    from repro_torch.core import protocol as proto
+def _masked_tree_cfg():
+    """The masked tree slice's configuration: 16-bit words, masks and RR,
+    fanout 4, recovery threshold 2, under ``FAULTS``."""
     from repro_torch.core.fedpc import FedPCConfig
     from repro_torch.core.tree import TreeSpec
     from repro_torch.fed import faults as ft
-    from repro_torch.fed.simulator import FedSimulator
-    from repro_torch.privacy import recovery as pvr
     from repro_torch.privacy.spec import PrivacySpec
-    spec = PrivacySpec(dp_epsilon=DP_EPSILON, recovery_threshold=2,
-                       enforce=False)
-    tree = TreeSpec(fanout=MASKED_TREE_FANOUT)
-    plan = ft.FaultPlan(**FAULTS)
-    cfg = FedPCConfig(n_workers=N_WORKERS, privacy=spec, tree=tree,
-                      faults=plan)
-    workers, params = _full_width(torch, dev)
-    sim = FedSimulator(workers, params, cfg, device=dev)
-    res, launches, step_s, train_s, wall, *_ = _drive(torch, sim, ROUNDS)
-    # The JAX simulator's byte rules, from the schedule on the host: a
-    # pre-uplink death sends no leaf words; each round deals every
-    # worker's within-group seeds and reconstructs each recoverable dead
-    # worker's (dead in a group that kept >= threshold survivors).
-    model_bytes = proto.model_size_bytes(params)
+    return FedPCConfig(n_workers=N_WORKERS,
+                       privacy=PrivacySpec(dp_epsilon=DP_EPSILON,
+                                           recovery_threshold=2,
+                                           enforce=False),
+                       tree=TreeSpec(fanout=MASKED_TREE_FANOUT),
+                       faults=ft.FaultPlan(**FAULTS))
+
+
+def _fault_bytes(model_bytes: int, spec, tree, plan, rounds: int = ROUNDS
+                 ) -> tuple[list, list, list, int]:
+    """The JAX simulator's byte rules for the masked tree under ``plan``,
+    from the schedule on the host: a pre-uplink death sends no leaf words;
+    each round deals every worker's within-group seeds and reconstructs
+    each recoverable dead worker's (dead in a group that kept >= threshold
+    survivors). Returns (bytes, recovery bytes, fault codes by round,
+    recoverable deaths)."""
+    from repro_torch.core import protocol as proto
+    from repro_torch.fed import faults as ft
+    from repro_torch.privacy import recovery as pvr
     want, want_rec, schedule, recovered = [], [], [], 0
-    for t in range(1, ROUNDS + 1):
+    for t in range(1, rounds + 1):
         codes = plan.codes(t, N_WORKERS, device="cpu")
         alive = (codes == ft.FAULT_NONE).float()
         _, dead = pvr.effective_masks(None, alive, spec.recovery_threshold,
@@ -1459,6 +1483,23 @@ def phase_masked_tree_slice(torch, dev) -> dict:
                 n_workers=N_WORKERS))
         recovered += int(dead.sum())
         schedule.append(codes.tolist())
+    return want, want_rec, schedule, recovered
+
+
+def phase_masked_tree_slice(torch, dev) -> dict:
+    """The masked round (16-bit words, masks and RR on) through a tree of
+    fanout 4 under the fault plan ``FAULTS`` at full width; returns its
+    launch counts."""
+    from repro_torch.core import protocol as proto
+    from repro_torch.core.fedpc import FedPCConfig
+    from repro_torch.fed.simulator import FedSimulator
+    cfg = _masked_tree_cfg()
+    spec, tree, plan = cfg.privacy, cfg.tree, cfg.faults
+    workers, params = _full_width(torch, dev)
+    sim = FedSimulator(workers, params, cfg, device=dev)
+    res, launches, step_s, train_s, wall, *_ = _drive(torch, sim, ROUNDS)
+    want, want_rec, schedule, recovered = _fault_bytes(
+        proto.model_size_bytes(params), spec, tree, plan)
     check(recovered >= 1, "no post-uplink death in a viable group")
     own = _check_run(torch, res, launches,
                      {"uplink_masked": ROUNDS,
@@ -1573,6 +1614,334 @@ def phase_tree_wire(torch, dev) -> None:
           f"== survivors-only rounds on the masked tree ({repaired['tree']} "
           f"deaths repaired) and on the flat masked wire "
           f"({repaired['flat']}), all bitwise", flush=True)
+
+
+TELEMETRY_REPEATS = 15            # round_step calls a form and round in (c)
+# The runtime and driver calls that launch a kernel, as CUPTI names them.
+LAUNCH_CALLS = ("cudaLaunchKernel", "cudaLaunchKernelExC", "cuLaunchKernel",
+                "cuLaunchKernelEx")
+
+
+def _leaves_same(torch, a, b, label: str) -> None:
+    """Two trees of tensors (None fields included), bitwise."""
+    from repro_torch.utils import tree_leaves
+    la, lb = tree_leaves(a), tree_leaves(b)
+    check(len(la) == len(lb), f"{label}: the trees differ in shape")
+    for x, y in zip(la, lb):
+        check((x is None and y is None) or (
+            x.dtype == y.dtype and x.device == y.device
+            and torch.equal(x, y)), f"{label}: a leaf differs")
+
+
+def _telemetry_inputs(torch, dev):
+    """A full-width round's operands: ten worker buffers near a shared
+    history, costs and sizes."""
+    gen = torch.Generator(device=dev).manual_seed(SEED + 7)
+    q, p1, p2, *_ = _inputs(torch, N_WORKERS, ROWS // 4, gen, dev)
+    costs = torch.rand((N_WORKERS,), generator=gen, device=dev) + 0.5
+    sizes = torch.full((N_WORKERS,), float(SCAN_SHARD), device=dev)
+    return (q.view(N_WORKERS, ROWS, 128), p1.view(ROWS, 128),
+            p2.view(ROWS, 128), costs, sizes)
+
+
+def _state_at(torch, wire, t: int, telemetry: bool, p1, p2, costs):
+    """A round state at round ``t`` over the given history."""
+    from repro_torch.fed import rounds as rd
+    from repro_torch.privacy.accountant import PrivacyAccountant
+    from repro_torch.telemetry.record import TelemetryCarry
+    dev = p1.device
+    dp = wire.masked and wire.privacy.dp_on
+    return rd.RoundState(
+        p1, p2, costs * 1.01,
+        torch.full((), t, dtype=torch.int32, device=dev),
+        accountant=PrivacyAccountant.zero(dev) if dp else None,
+        telemetry=TelemetryCarry.zero(dev) if telemetry else None)
+
+
+def _op_counts(prof) -> tuple[int, int, int]:
+    """(top-level ATen ops, kernel-launch calls, device kernels) in a
+    profile."""
+    from torch.autograd import DeviceType
+    events = prof.events()
+    ops = sum(1 for e in events if e.name.startswith("aten::")
+              and e.device_type == DeviceType.CPU
+              and not (e.cpu_parent is not None
+                       and e.cpu_parent.name.startswith("aten::")))
+    calls = sum(1 for e in events if e.name in LAUNCH_CALLS)
+    kernels = sum(1 for e in events if e.device_type == DeviceType.CUDA
+                  and not e.name.startswith("wire/"))
+    return ops, calls, kernels
+
+
+def phase_telemetry_slice(torch, dev) -> dict:
+    """The telemetry layer and the checkpoint at full width, on the masked
+    tree with faults (``_masked_tree_cfg``) and equal 1,024-sample shards.
+
+    (a) ``run_fedpc`` and ``run_fedpc_scan`` for 3 rounds on two fresh,
+    equal federations: their traces equal one for one, bytes and recovery
+    bytes the slice's own rules (``_fault_bytes``); the summed counts and
+    the edge events' level widths printed. (b) the same federation for 2
+    rounds, ``save_round_state`` into a temporary directory,
+    ``load_round_state`` onto the card, 1 more round: == (a)'s
+    ``run_fedpc`` bitwise (buffers, costs, round, accountant, carry,
+    pilots, params and trace); save and load timed. (c) ``round_step`` at
+    rounds 2 and 3 on the plain and the masked wire, with the telemetry
+    carry and without, in turns (median of ``TELEMETRY_REPEATS``), and the
+    ops the record adds to a round under ``torch.profiler``. (d) one plain
+    round and one masked-tree round with a repair under
+    ``profile_session``: one ``wire/<kind>/r<rows>n<N>/cuda`` range a
+    launch, each holding its kernel's launch (the ``LAUNCHES`` counter
+    read inside the scope, and the launch call's CUDA activity where the
+    profiler gives it). Returns the launch counts of (a) and (b)."""
+    import contextlib
+    import tempfile
+
+    from repro_torch.core import protocol as proto
+    from repro_torch.fed import rounds as rd
+    from repro_torch.fed.simulator import FedSimulator
+    from repro_torch.privacy.spec import PrivacySpec
+    from repro_torch.telemetry import profile as tprof
+    cfg = _masked_tree_cfg()
+    spec, tree, plan = cfg.privacy, cfg.tree, cfg.faults
+    levels = tree.n_levels(N_WORKERS)
+    own: dict = {}
+    card = _smi()
+
+    def path(rounds: int) -> dict:
+        return {"uplink_masked": rounds, "masked_partial_sum": rounds * levels,
+                "mask_repair": rounds, "master_masked": rounds}
+
+    def add(launches: dict) -> None:
+        for k, v in launches.items():
+            if v:
+                own[k] = own.get(k, 0) + v
+
+    # (a) both drivers, one trace
+    runs = {}
+    for driver in ("run_fedpc", "run_fedpc_scan"):
+        workers, params = _full_width(torch, dev, uniform=True)
+        sim = FedSimulator(workers, params, cfg, device=dev)
+        if driver == "run_fedpc":
+            res, launches, *_ = _drive(torch, sim, ROUNDS)
+            synced = "round_step"
+        else:
+            res, launches, _, _ = _drive_scan(torch, sim, ROUNDS)
+            synced = "the whole round loop"
+        want, want_rec, _, recovered = _fault_bytes(
+            proto.model_size_bytes(params), spec, tree, plan)
+        add(_check_run(torch, res, launches, path(ROUNDS), want, workers,
+                       "telemetry slice (a)", driver=driver, synced=synced))
+        check(res.recovery_bytes_per_round == want_rec,
+              f"telemetry slice (a): recovery bytes "
+              f"{res.recovery_bytes_per_round} != {want_rec}")
+        runs[driver] = res
+        del sim, workers
+        _release(torch)
+    full, scan = runs["run_fedpc"].telemetry, runs["run_fedpc_scan"].telemetry
+    for kind in ("rounds", "workers", "edges"):
+        check(getattr(full, kind) == getattr(scan, kind),
+              f"telemetry slice (a): the traces' {kind} events differ")
+    check({**full.meta, "driver": ""} == {**scan.meta, "driver": ""},
+          "telemetry slice (a): the traces' meta events differ")
+    names = ("n_sampled", "n_used", "n_dead", "n_pre_uplink", "n_recovered",
+             "n_degraded")
+    totals = {k: sum(r[k] for r in full.rounds) for k in names}
+    check(totals["n_recovered"] == recovered,
+          f"telemetry slice (a): {totals['n_recovered']} recovered in the "
+          f"trace, {recovered} by the schedule")
+    carry = runs["run_fedpc"].round_state.telemetry
+    check([int(x) for x in carry[1:7]] == [totals[k] for k in names],
+          "telemetry slice (a): the carry's totals are not the trace's")
+    widths = sorted({(e["level"], e["width"]) for e in full.edges})
+    print(f"telemetry slice (a): run_fedpc and run_fedpc_scan traces equal "
+          f"one for one ({len(full.events())} events); over {ROUNDS} rounds "
+          f"sampled {totals['n_sampled']}, used {totals['n_used']}, dead "
+          f"{totals['n_dead']}, pre-uplink {totals['n_pre_uplink']}, "
+          f"recovered {totals['n_recovered']}, degraded "
+          f"{totals['n_degraded']} (by round: "
+          f"{[[r[k] for k in names] for r in full.rounds]}); edge level "
+          f"widths {widths}; bytes/round {full.bytes_per_round} and "
+          f"recovery {full.recovery_bytes_per_round} == the slice's rules",
+          flush=True)
+    # (b) resume at full width
+    workers, params = _full_width(torch, dev, uniform=True)
+    sim = FedSimulator(workers, params, cfg, device=dev)
+    first, launches, *_ = _drive(torch, sim, ROUNDS - 1)
+    check({k: v for k, v in launches.items() if v} == path(ROUNDS - 1),
+          f"telemetry slice (b): launches {launches}")
+    add(launches)
+    with tempfile.TemporaryDirectory() as tmp:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        npz = rd.save_round_state(tmp, first.round_state)
+        save_s = time.perf_counter() - t0
+        size = sum(p.stat().st_size for p in Path(tmp).iterdir())
+        like = rd.init_round_state(params, N_WORKERS, privacy=spec,
+                                   device=dev)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        loaded, manifest = rd.load_round_state(tmp, like)
+        torch.cuda.synchronize()
+        load_s = time.perf_counter() - t0
+    check(manifest["step"] == ROUNDS and Path(npz).name
+          == f"ckpt_{ROUNDS:08d}.npz", f"checkpoint step {manifest['step']}")
+    _leaves_same(torch, loaded, first.round_state,
+                 "telemetry slice (b): the loaded state")
+    rest, launches, *_ = _drive(torch, sim, 1, state=loaded)
+    check({k: v for k, v in launches.items() if v} == path(1),
+          f"telemetry slice (b): launches {launches}")
+    add(launches)
+    one = runs["run_fedpc"]
+    check(first.pilot_history + rest.pilot_history == one.pilot_history,
+          "telemetry slice (b): pilots")
+    check(first.costs + rest.costs == one.costs, "telemetry slice (b): costs")
+    for kind in ("rounds", "workers", "edges"):
+        check(getattr(first.telemetry, kind) + getattr(rest.telemetry, kind)
+              == getattr(one.telemetry, kind),
+              f"telemetry slice (b): the resumed trace's {kind} events")
+    _leaves_same(torch, rest.round_state, one.round_state,
+                 "telemetry slice (b): the resumed state")
+    _leaves_same(torch, rest.params, one.params,
+                 "telemetry slice (b): the resumed model")
+    print(f"telemetry slice (b) on {card}: 2 rounds, saved "
+          f"({size / 1e6:.1f} MB in {save_s * 1e3:.1f} ms), loaded onto "
+          f"the card ({load_s * 1e3:.1f} ms), 1 more round == the 3-round "
+          f"run bitwise (buffers, costs, round, accountant, carry, pilots "
+          f"{one.pilot_history}, {N_PARAMS:,} params, trace)", flush=True)
+    del sim, workers, runs, first, rest, one, loaded, like
+    _release(torch)
+    # (c) the record's cost
+    bufs, p1, p2, costs, sizes = _telemetry_inputs(torch, dev)
+    wires = {"plain": rd.WirePath(),
+             "masked": rd.WirePath(privacy=PrivacySpec(
+                 dp_epsilon=DP_EPSILON, enforce=False))}
+    saved = _read_counts()
+
+    def step(wire, t: int, on: bool) -> float:
+        st = _state_at(torch, wire, t, on, p1, p2, costs)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            wire.round_step(st, bufs, costs, sizes)
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+        torch.cuda.synchronize()
+        return time.perf_counter() - t0
+
+    times: dict = {}
+    for name, wire in wires.items():
+        for on in (True, False):
+            step(wire, 2, on)                       # warm up
+            times[name, on] = []
+    for rep in range(TELEMETRY_REPEATS):
+        for name, wire in wires.items():
+            for on in ((True, False) if rep % 2 == 0 else (False, True)):
+                for t in (2, 3):
+                    times[name, on].append(step(wire, t, on))
+    added = {}
+    for name, wire in wires.items():
+        counts = {}
+        for on in (True, False):
+            st = _state_at(torch, wire, 2, on, p1, p2, costs)
+            with tprof.profile_session() as prof:
+                wire.round_step(st, bufs, costs, sizes)
+                torch.cuda.synchronize()
+            counts[on] = _op_counts(prof)
+        added[name] = [a - b for a, b in zip(counts[True], counts[False])]
+        check(added[name][0] > 0, f"{name}: the record added no op")
+    _restore_counts(saved)
+    med = {k: statistics.median(v) * 1e3 for k, v in times.items()}
+    iqr = {k: "–".join(f"{q * 1e3:.4f}" for q in statistics.quantiles(
+        v, n=4)[::2]) for k, v in times.items()}
+    print(f"telemetry slice (c) on {card}: round_step at rounds 2-3, median "
+          f"of {2 * TELEMETRY_REPEATS} calls in turns (host clock between "
+          f"syncs, sync-debug 'error'; quartiles in brackets): "
+          + "; ".join(f"{name} wire {med[name, True]:.4f} ms "
+                      f"[{iqr[name, True]}] with the record and carry, "
+                      f"{med[name, False]:.4f} [{iqr[name, False]}] without "
+                      f"(+{med[name, True] - med[name, False]:.4f} ms); the "
+                      f"record adds {added[name][0]} top-level ATen ops, "
+                      f"{added[name][1]} kernel-launch calls and "
+                      f"{added[name][2]} device kernels to a round"
+                      for name in wires), flush=True)
+    # (d) profiler scopes
+    inner = tprof.kernel_scope
+    seen: list = []
+
+    @contextlib.contextmanager
+    def counted(kind, rows, n=1, device=None):
+        before = sum(_read_counts().values())
+        with inner(kind, rows, n, device):
+            yield
+            seen.append((tprof.scope_name(kind, rows, n, device),
+                         sum(_read_counts().values()) - before))
+
+    r = ROWS // 4
+    w_top = tree.level_widths(N_WORKERS)[-1]
+    tree_wire = rd.WirePath(privacy=spec, tree=tree, faults=plan)
+    forms = (
+        ("plain", rd.WirePath(), 2,
+         [f"wire/uplink_stacked/r{r}n{N_WORKERS}/cuda",
+          f"wire/master/r{r}n{N_WORKERS}/cuda"]),
+        ("masked tree, round 1 of FAULTS", tree_wire, 1,
+         [f"wire/uplink_masked16/r{r}n{N_WORKERS}/cuda"]
+         + [f"wire/partial_sum_masked16/r{r}n{MASKED_TREE_FANOUT}/cuda"]
+         * levels + [f"wire/mask_repair16/r{r}n1/cuda",
+                     f"wire/master_masked16/r{r}n{w_top}/cuda"]))
+    from torch.autograd import DeviceType
+    notes = []
+    tprof.kernel_scope = counted
+    try:
+        for label, wire, t, want in forms:
+            st = _state_at(torch, wire, t, True, p1, p2, costs)
+            saved = _read_counts()
+            _zero_counts()
+            seen.clear()
+            with tprof.profile_session() as prof:
+                wire.round_step(st, bufs, costs, sizes)
+                torch.cuda.synchronize()
+            total = sum(_read_counts().values())
+            _restore_counts(saved)
+            events = prof.events()
+            scopes = [e for e in events if e.name.startswith("wire/")
+                      and e.device_type == DeviceType.CPU]
+            check(total == len(want), f"(d) {label}: {total} launches")
+            check(sorted(e.name for e in scopes) == sorted(want),
+                  f"(d) {label}: scopes {[e.name for e in scopes]}")
+            check(sorted(n for n, _ in seen) == sorted(want)
+                  and all(d == 1 for _, d in seen),
+                  f"(d) {label}: launches read inside the scopes {seen}")
+            calls = [e for e in events if e.name in LAUNCH_CALLS]
+            kernels = [e for e in events if e.device_type == DeviceType.CUDA
+                       and not e.name.startswith("wire/")]
+            gpu_ranges = [e for e in events if e.name.startswith("wire/")
+                          and e.device_type == DeviceType.CUDA]
+            check(not gpu_ranges or sorted(e.name for e in gpu_ranges)
+                  == sorted(want), f"(d) {label}: device-side ranges "
+                  f"{[e.name for e in gpu_ranges]}")
+            if calls:
+                # Each scope holds exactly one launch call (the kernel's).
+                inside = [sum(1 for c in calls
+                              if s.time_range.start <= c.time_range.start
+                              and c.time_range.end <= s.time_range.end)
+                          for s in scopes]
+                check(inside == [1] * len(scopes),
+                      f"(d) {label}: launch calls a scope {inside}")
+                how = (f"CUDA activity: {len(calls)} launch calls in the "
+                       f"round, one inside each scope; {len(kernels)} device "
+                       f"kernels; {len(gpu_ranges)} device-side ranges, "
+                       f"the scopes' names")
+            else:
+                how = (f"no launch call in the profile ({len(kernels)} "
+                       f"device kernels): each scope held to the LAUNCHES "
+                       f"counter read inside it")
+            notes.append(f"{label}: {len(scopes)} scopes == {total} "
+                         f"launches ({', '.join(sorted(set(want)))}); {how}")
+    finally:
+        tprof.kernel_scope = inner
+    print("telemetry slice (d): " + "; ".join(notes), flush=True)
+    return own
 
 
 def _bitwise(torch, a, b) -> tuple[bool, float]:
@@ -2711,12 +3080,17 @@ def main() -> int:
         tree = phase_tree_slice(torch, dev)
         masked_tree = phase_masked_tree_slice(torch, dev)
         phase_tree_wire(torch, dev)
+        telemetry = phase_telemetry_slice(torch, dev)
+        for kind in ("uplink_masked", "master_masked"):
+            launches[kind] += telemetry[kind]
         rows = phase_times(torch, dev, rate, launches, errs)
         rows += phase_times_masked(torch, dev, rate, launches, errs)
         rows += phase_times_tree(torch, dev, rate, {
             "partial_sum": tree["partial_sum"],
-            "masked_partial_sum": masked_tree["masked_partial_sum"],
-            "mask_repair": masked_tree["mask_repair"],
+            "masked_partial_sum": masked_tree["masked_partial_sum"]
+            + telemetry["masked_partial_sum"],
+            "mask_repair": masked_tree["mask_repair"]
+            + telemetry["mask_repair"],
             "masked_partial_sum_off": tree["masked_partial_sum"]}, errs)
         rows += phase_times_unfused(torch, dev, rate, worker_rounds, errs)
         rows.sort(key=lambda row: row["row"])

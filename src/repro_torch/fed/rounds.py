@@ -18,13 +18,16 @@ launch.
   ``uplink``/``uplink_traced``, from which a round can be built a worker
   at a time with the same bits as the batched uplink.
 * :class:`RoundState` is the whole public state between rounds: the
-  history P^{t-1}/P^{t-2}, last-round costs, the round counter and, on
-  the DP wire, the privacy accountant.
+  history P^{t-1}/P^{t-2}, last-round costs, the round counter, on the DP
+  wire the privacy accountant, and the telemetry carry. It checkpoints
+  through ``repro_torch.checkpoint`` in the JAX package's format
+  (:func:`save_round_state` / :func:`load_round_state`).
 * :meth:`WirePath.round_step` is the recurrence itself. The round index,
   the pilot ``k_star`` and the Eq. (3) weights stay device tensors: the
   round branches are ``torch.where`` on a device round, the master kernel
   reads the pilot's buffer in place at the device index, and nothing
-  syncs with the host.
+  syncs with the host. The round's telemetry record
+  (``telemetry.record``) rides its info, and its totals the state.
 * :func:`scan_rounds` drives many rounds as one device-resident loop
   over ``round_step``, local training included, with no host sync; the
   pilot history and per-round costs come back stacked for one fetch.
@@ -43,6 +46,7 @@ from typing import Any, Callable, NamedTuple
 import torch
 
 from repro_torch import prng
+from repro_torch.checkpoint import load_checkpoint, save_checkpoint
 from repro_torch.core import flat as fl
 from repro_torch.core.goodness import select_pilot
 from repro_torch.core.ternary import ternarize, ternarize_round1
@@ -55,6 +59,7 @@ from repro_torch.privacy import masking as pvm
 from repro_torch.privacy import recovery as pvr
 from repro_torch.privacy.accountant import PrivacyAccountant
 from repro_torch.privacy.spec import PrivacySpec
+from repro_torch.telemetry import record as tmr
 from repro_torch.utils import PyTree, resolve_device, tree_map
 
 #: The plain (no-privacy) tree rides the integer wire, so float
@@ -83,8 +88,10 @@ class RoundState(NamedTuple):
     """Device-resident state between rounds.
 
     ``accountant`` is a :class:`PrivacyAccountant` when the wire runs the
-    DP mechanism, else ``None``; ``telemetry`` keeps its place for the
-    telemetry slice and is always ``None``.
+    DP mechanism, else ``None``; ``telemetry`` is the
+    :class:`~repro_torch.telemetry.record.TelemetryCarry` of running
+    round counters (``init_round_state(telemetry=False)`` leaves it
+    ``None``, and then ``round_step`` builds no record).
     """
     buf_p1: torch.Tensor      # (rows, 128) — P^{t-1}
     buf_p2: torch.Tensor      # (rows, 128) — P^{t-2}
@@ -97,10 +104,12 @@ class RoundState(NamedTuple):
 def init_round_state(init_params: PyTree, n_workers: int,
                      layout: fl.FlatLayout | None = None, *,
                      privacy: PrivacySpec | None = None,
-                     device=None) -> RoundState:
+                     telemetry: bool = True, device=None) -> RoundState:
     """Fresh :class:`RoundState` at round 1 (P^{t-2} = 0, costs = +inf) on
     ``device`` (``None`` means CUDA, and raises without it); with a
-    DP-enabled ``privacy`` spec it carries a zero accountant."""
+    DP-enabled ``privacy`` spec it carries a zero accountant, and with
+    ``telemetry`` (the default) a zero telemetry carry, so the round
+    counters checkpoint and resume with the federation."""
     dev = resolve_device(device)
     layout = layout or fl.layout_of(init_params)
     buf_p1 = fl.flatten_tree(init_params, layout).to(dev)
@@ -112,7 +121,29 @@ def init_round_state(init_params: PyTree, n_workers: int,
         round=torch.ones((), dtype=torch.int32, device=dev),
         accountant=(PrivacyAccountant.zero(dev)
                     if privacy is not None and privacy.dp_on else None),
+        telemetry=tmr.TelemetryCarry.zero(dev) if telemetry else None,
     )
+
+
+def save_round_state(directory: str, state: RoundState,
+                     metadata: dict | None = None) -> str:
+    """Write a :class:`RoundState` through ``repro_torch.checkpoint``, in
+    the JAX package's format; returns the ``.npz`` path. Reading
+    ``state.round`` for the step is the one host sync, at an I/O barrier
+    anyway."""
+    meta = {"kind": "fedpc_round_state", **(metadata or {})}
+    return save_checkpoint(directory, state._asdict(), int(state.round),
+                           metadata=meta)
+
+
+def load_round_state(directory: str, like: RoundState,
+                     step: int | None = None) -> tuple[RoundState, dict]:
+    """Restore a :class:`RoundState` written by :func:`save_round_state`
+    (or by the JAX package's). ``like`` (e.g. ``init_round_state(params,
+    n)``) gives the structure, shapes, dtypes and device, checked strictly.
+    Returns ``(state, manifest)``."""
+    tree, manifest = load_checkpoint(directory, like._asdict(), step)
+    return RoundState(**tree), manifest
 
 
 def participation_mask(key: torch.Tensor, n_workers: int,
@@ -531,8 +562,15 @@ class WirePath:
         (on the masked wire through the repair of ``round_from_stacked``).
         Returns ``(state', new_global_buf, info)`` with ``info`` holding
         the round's device records (``k_star``, ``goodness``, ``costs``,
-        ``mask`` when given, ``alive`` under faults) for one fetch after
-        the run.
+        ``mask`` when given, ``alive`` under faults and, when the state
+        carries telemetry, the round's
+        :class:`~repro_torch.telemetry.record.RoundTelemetry` under
+        ``telemetry``) for one fetch after the run. The record is plain
+        tensor math on operands the round has (no kernel launch, no host
+        sync), folded into ``state'.telemetry``. The JAX package emits it
+        whatever the state carries, since XLA fuses it into the round; in
+        eager PyTorch each of its ops is a launch, so a state without a
+        carry turns the record off too.
         """
         t = state.round
         sizes = sizes.float()
@@ -541,9 +579,10 @@ class WirePath:
         if mask is not None:
             mask = torch.as_tensor(mask, dtype=torch.float32,
                                    device=costs.device)
-        av = viable = None
+        av = viable = codes = None
         if self.faults is not None and self.faults.active:
-            av = (self.faults.codes(t, n) == FAULT_NONE).to(torch.float32)
+            codes = self.faults.codes(t, n)
+            av = (codes == FAULT_NONE).to(torch.float32)
         if av is None:
             sel_mask = mask
         elif self.masked:
@@ -568,6 +607,16 @@ class WirePath:
         new_buf, _wire = self.round_from_stacked(
             bufs_q, k_star, w, state.buf_p1, state.buf_p2, t=t, betas=betas,
             pmask=mask, alive=av if self.masked else None, viable=viable)
+        rec = telemetry = None
+        if state.telemetry is not None:
+            rec = tmr.build_round_record(
+                t=t, k_star=k_star, n=n, costs=costs, sizes=sizes,
+                mask=mask, codes=codes, sel_mask=sel_mask,
+                dead_eff=None if viable is None else viable[1],
+                modulus_bits=self.privacy.modulus_bits if self.masked else 0,
+                fanout=self.tree.fanout if self.tree is not None else 0,
+                levels=self.tree.n_levels(n) if self.tree is not None else 0)
+            telemetry = state.telemetry.add(rec)
         if sel_mask is not None:     # left-out workers reported no cost
             costs = torch.where(sel_mask > 0, costs, state.prev_costs)
         accountant = state.accountant
@@ -575,8 +624,10 @@ class WirePath:
             accountant = accountant.add(self.privacy.eps_round)
         new_state = RoundState(buf_p1=new_buf, buf_p2=state.buf_p1,
                                prev_costs=costs, round=t + 1,
-                               accountant=accountant)
+                               accountant=accountant, telemetry=telemetry)
         info = {"k_star": k_star, "goodness": scores, "costs": costs}
+        if rec is not None:
+            info["telemetry"] = rec
         if mask is not None:
             info["mask"] = mask
         if av is not None:
@@ -607,8 +658,9 @@ def scan_rounds(wire: WirePath, state: RoundState, worker_fn: WorkerFn,
     ``t``: the precomputed schedule's bits, and a resumed run draws the
     rows an uninterrupted one would. Nothing inside the loop syncs with
     the host. Returns ``(state, worker_carry, infos)``, ``infos`` the
-    rounds' ``k_star``/``goodness``/``costs`` (and ``mask``, ``alive``
-    where the round has them) stacked for one fetch.
+    rounds' ``k_star``/``goodness``/``costs`` (and ``mask``, ``alive`` and
+    the ``telemetry`` record where the round has them) stacked for one
+    fetch, a record field by field.
     """
     sizes = torch.as_tensor(sizes, dtype=torch.float32)
     n_workers = sizes.shape[0]
@@ -637,8 +689,11 @@ def scan_rounds(wire: WirePath, state: RoundState, worker_fn: WorkerFn,
         state, _new_buf, info = wire.round_step(state, bufs_q, costs, sizes,
                                                 betas=betas, mask=mask)
         infos.append(info)
-    stacked = ({k: torch.stack([inf[k] for inf in infos]) for k in infos[0]}
-               if infos else {})
+    stacked = {}
+    for k in (infos[0] if infos else ()):
+        rows = [inf[k] for inf in infos]
+        stacked[k] = (tmr.stack(rows) if k == "telemetry"
+                      else torch.stack(rows))
     return state, worker_carry, stacked
 
 

@@ -21,7 +21,13 @@ under a ``FedPCConfig.faults`` plan). Two drivers share it:
   ``rounds.scan_rounds`` with no host sync and no host copy inside.
 
 Both run the same local-training recurrence (``Worker.scan_train``) and
-give the same bits. Both take the round core's two scenario axes:
+give the same bits, and both return the run's telemetry: the rounds'
+device records, fetched once after the last round and cross-checked
+against the host's own ledger math (``telemetry.trace.build_trace``), a
+:class:`~repro_torch.telemetry.trace.TraceSummary` in
+``SimResult.telemetry`` of which ``bytes_per_round`` and
+``recovery_bytes_per_round`` are views. Both take the round core's two
+scenario axes:
 C-fraction partial participation (``participation=``, drawn from
 ``participation_seed=`` with the JAX package's bits, the same schedule in
 both drivers) and per-worker beta_k on the wire.
@@ -29,7 +35,8 @@ both drivers) and per-worker beta_k on the wire.
 The baselines (:meth:`run_fedavg`, :meth:`run_phong`,
 :meth:`run_centralized`) run the same local training and aggregate in
 plain tensor ops (``core.baselines``); their costs too come back in one
-fetch after the last round.
+fetch after the last round, and their bytes are booked straight into
+``SimResult``'s lists.
 """
 from __future__ import annotations
 
@@ -50,6 +57,8 @@ from repro_torch.fed import faults as ft
 from repro_torch.fed import rounds as rd
 from repro_torch.fed.worker import Worker
 from repro_torch.privacy import recovery as pvr
+from repro_torch.telemetry import record as tmr
+from repro_torch.telemetry import trace as tmt
 from repro_torch.utils import PyTree, resolve_device, tree_map
 
 
@@ -61,10 +70,29 @@ class SimResult:
     pilot_history: list = field(default_factory=list)
     eval_history: list = field(default_factory=list)
     round_state: Optional[rd.RoundState] = None        # resume handle
-    bytes_per_round: list = field(default_factory=list)  # Eq. (8)
-    # Dropout-recovery control-plane bytes (share dealing and
-    # reconstruction), booked apart from the wire's.
-    recovery_bytes_per_round: list = field(default_factory=list)
+    # The FedPC drivers' byte accounting is the telemetry trace (the
+    # device's counts through core.protocol, cross-checked in
+    # build_trace); bytes_per_round / recovery_bytes_per_round are views
+    # of it. The baselines, and a FedPC run from a state without a
+    # telemetry carry, book into the lists behind the views.
+    telemetry: Optional[tmt.TraceSummary] = None
+    _bytes: list = field(default_factory=list)
+    _recovery_bytes: list = field(default_factory=list)
+
+    @property
+    def bytes_per_round(self) -> list:
+        """Eq. (8) wire bytes, a round at a time."""
+        if self.telemetry is not None:
+            return self.telemetry.bytes_per_round
+        return self._bytes
+
+    @property
+    def recovery_bytes_per_round(self) -> list:
+        """Dropout-recovery control-plane bytes (share dealing and
+        reconstruction), booked apart from the wire's."""
+        if self.telemetry is not None:
+            return self.telemetry.recovery_bytes_per_round
+        return self._recovery_bytes
 
     @property
     def total_bytes(self) -> float:
@@ -275,32 +303,50 @@ class FedSimulator:
     def _finish_fedpc(self, res: SimResult, state: rd.RoundState,
                       layout: fl.FlatLayout, t0: int, k_stars: torch.Tensor,
                       raw_costs: torch.Tensor, masks: np.ndarray | None,
-                      model_bytes: int,
-                      ledger_done: bool = False) -> SimResult:
-        """The one post-run device→host fetch of the (R,) pilots and the
-        (R, N) costs; the ledger (unless the run filled it as it went),
-        the round costs and the byte accounting are host work, from the
-        host's own participation and fault schedules."""
+                      model_bytes: int, ledger_done: bool = False,
+                      records: tmr.RoundTelemetry | None = None,
+                      driver: str = "run_fedpc",
+                      check_costs: bool = True) -> SimResult:
+        """The one post-run device→host fetch of the (R,) pilots, the
+        (R, N) costs and the stacked telemetry ``records``; the ledger
+        (unless the run filled it as it went), the round costs, the byte
+        accounting and the trace are host work.
+
+        The host works out every round's participation, fault and byte
+        model from its own schedules, and ``telemetry.trace.build_trace``
+        holds the device's counts and the bytes derived from them to it:
+        a divergence raises ``TelemetryMismatch`` instead of returning a
+        wrong ledger. ``check_costs=False`` skips the cost check (the
+        evasion defence: the device averaged the reported costs, the host
+        the measured ones). Without ``records`` (a state without a
+        telemetry carry) the host's bytes go into the lists.
+        """
         pilots = k_stars.cpu().numpy()
         costs_mat = raw_costs.cpu().numpy()
         rows = (np.ones((len(pilots), self.n), np.float32) if masks is None
                 else masks)
         codes_mat = self._fault_codes(t0, len(pilots))
+        masked = (self.fed_cfg.privacy is not None
+                  and self.fed_cfg.privacy.active)
         if not ledger_done:
             self._backfill_ledger(t0, pilots, rows, codes_mat)
+        host_rounds: list[dict] = []
         for i in range(len(pilots)):
             # The round's cost averages the reports the master used:
             # sampled, not faulted and, on the masked wire, in a viable
             # sibling group. (The drivers' costs of the others differ, the
             # Python driver's 0 against the scan's, so both are left out.)
             row = rows[i]
-            if codes_mat is None:
+            codes = None if codes_mat is None else codes_mat[i]
+            n_recoverable = 0
+            if codes is None:
                 eff = row
-            elif self.fed_cfg.privacy is not None and \
-                    self.fed_cfg.privacy.active:
-                eff = row * self._fault_split(row, codes_mat[i])[0]
+            elif masked:
+                used, recoverable = self._fault_split(row, codes)
+                eff = row * used
+                n_recoverable = int(recoverable.sum())
             else:
-                eff = row * (codes_mat[i] == ft.FAULT_NONE)
+                eff = row * (codes == ft.FAULT_NONE)
             if np.sum(eff) == 0:   # every report lost: the cost carries
                 res.costs.append(res.costs[-1] if res.costs
                                  else float("inf"))
@@ -309,10 +355,32 @@ class FedSimulator:
                 res.costs.append(float(np.average(
                     vals, weights=self.sizes * eff)))
             res.pilot_history.append(int(pilots[i]))
-            wire_bytes, rec_bytes = self._round_bytes(
-                model_bytes, row, None if codes_mat is None else codes_mat[i])
-            res.bytes_per_round.append(wire_bytes)
-            res.recovery_bytes_per_round.append(rec_bytes)
+            wire_bytes, rec_bytes = self._round_bytes(model_bytes, row, codes)
+            host_rounds.append({
+                "row": row > 0, "codes": codes, "used": eff > 0,
+                "n_recoverable": n_recoverable, "pilot": int(pilots[i]),
+                "cost": res.costs[-1], "wire_bytes": wire_bytes,
+                "recovery_bytes": rec_bytes})
+        if records is not None:
+            spec, tree = self.fed_cfg.privacy, self.fed_cfg.tree
+            meta = tmt.trace_meta(
+                source="fed_simulator", algorithm="fedpc", driver=driver,
+                n_workers=self.n, t0=t0, rounds=len(pilots),
+                model_bytes=model_bytes,
+                wire="masked" if masked else "plain",
+                masking=bool(spec is not None and spec.masking_on),
+                modulus_bits=spec.modulus_bits if masked else 0,
+                fanout=tree.fanout if tree is not None else 0,
+                levels=(tree.levels or 0) if tree is not None else 0,
+                recovery_threshold=((spec.recovery_threshold or 0)
+                                    if spec is not None else 0),
+                faults_active=codes_mat is not None)
+            res.telemetry = tmt.build_trace(meta, records, host_rounds,
+                                            check_costs=check_costs)
+        else:
+            for h in host_rounds:
+                res._bytes.append(h["wire_bytes"])
+                res._recovery_bytes.append(h["recovery_bytes"])
         res.params = fl.unflatten_tree(state.buf_p1, layout)
         res.round_state = state
         return res
@@ -355,6 +423,7 @@ class FedSimulator:
         no_cost = torch.zeros((), dtype=torch.float32, device=self.device)
         k_stars: list = []
         raw_costs: list = []
+        recs: list = []
         # The defence's reported-cost memory: on resume state.prev_costs
         # holds the last reported costs; a fresh state holds +inf.
         prev_reported = state.prev_costs
@@ -385,6 +454,8 @@ class FedSimulator:
             params = fl.unflatten_tree(new_buf, layout)
             k_stars.append(info["k_star"])
             raw_costs.append(costs_arr)      # measured, not reported
+            if "telemetry" in info:          # device tensors, no sync
+                recs.append(info["telemetry"])
             prev_reported = reported
             if self.evade_streak:   # the defence reads the ledger each round
                 self._backfill_ledger(
@@ -394,10 +465,16 @@ class FedSimulator:
             if eval_every and self.eval_fn and (t - t0 + 1) % eval_every == 0:
                 res.eval_history.append((t, self.eval_fn(params)))
 
+        # Stacked as the scan driver stacks them: the trace does not depend
+        # on the driver. Under the evasion defence the device averaged the
+        # reported costs and res.costs the measured ones, so the cost check
+        # does not apply.
         return self._finish_fedpc(
             res, state, layout, t0, _stacked(k_stars, (), torch.int64),
             _stacked(raw_costs, (self.n,), torch.float32), masks,
-            model_bytes, ledger_done=bool(self.evade_streak))
+            model_bytes, ledger_done=bool(self.evade_streak),
+            records=tmr.stack(recs) if recs else None, driver="run_fedpc",
+            check_costs=not self.evade_streak)
 
     def run_fedpc_scan(self, rounds: int, *,
                        participation: Optional[float] = None, betas=None,
@@ -487,7 +564,8 @@ class FedSimulator:
             res, state, layout, t0,
             infos.get("k_star", torch.zeros((0,), dtype=torch.int64)),
             infos.get("costs", torch.zeros((0, self.n))), masks,
-            model_bytes)
+            model_bytes, records=infos.get("telemetry"),
+            driver="run_fedpc_scan")
 
     def run_fedavg(self, rounds: int, eval_every: int = 0) -> SimResult:
         """FedAvg: each round every worker trains from the global model
@@ -505,8 +583,8 @@ class FedSimulator:
                 cs.append(c)
             params = bl.fedavg_aggregate(locals_, self.sizes)
             costs.append(torch.stack(cs))
-            res.bytes_per_round.append(proto.fedavg_bytes_per_round(
-                model_bytes, self.n))
+            res._bytes.append(proto.fedavg_bytes_per_round(model_bytes,
+                                                          self.n))
             if eval_every and self.eval_fn and t % eval_every == 0:
                 res.eval_history.append((t, self.eval_fn(params)))
         res.costs = [float(np.average(row, weights=self.sizes))
@@ -527,8 +605,8 @@ class FedSimulator:
             params, cs = bl.phong_sequential_round(
                 params, [w.train_round_device for w in self.workers])
             costs.append(torch.stack(cs))
-            res.bytes_per_round.append(proto.phong_bytes_per_round(
-                model_bytes, self.n))
+            res._bytes.append(proto.phong_bytes_per_round(model_bytes,
+                                                         self.n))
             if eval_every and self.eval_fn and t % eval_every == 0:
                 res.eval_history.append((t, self.eval_fn(params)))
         res.costs = [float(np.mean(row))
@@ -546,7 +624,7 @@ class FedSimulator:
         for t in range(1, rounds + 1):
             params, c = central_worker.train_round_device(params)
             costs.append(c.reshape(1))
-            res.bytes_per_round.append(0.0)
+            res._bytes.append(0.0)
             if eval_every and self.eval_fn and t % eval_every == 0:
                 res.eval_history.append((t, self.eval_fn(params)))
         res.costs = [float(c) for c in _host_costs(costs, 1)[:, 0]]

@@ -11,7 +11,8 @@ Each wrapper checks device, dtype, shape, contiguity and (for the
 operands read as float4) 16-byte alignment, and raises on what its kernel does not take. A CUDA tensor launches the kernel
 on the current stream and bumps ``LAUNCHES``; a CPU tensor takes the plain
 PyTorch version beside it. Nothing falls back: a kernel that fails to build
-or launch raises.
+or launch raises. Either path runs inside a profiler scope named after the
+launch site's tune key (``telemetry.profile.kernel_scope``).
 
 The plain versions repeat the kernels' arithmetic: the codes from
 ``core.ternary``, the pack and decode in int32 (CPU torch has no shifts
@@ -31,6 +32,7 @@ from repro_torch.kernels import build
 from repro_torch.kernels.ref import (packed_master_accum_ref,
                                      ternary_pack_ref,
                                      ternary_pack_round1_ref)
+from repro_torch.telemetry import profile as tprof
 
 LANES = 128
 PACK = 4
@@ -97,6 +99,14 @@ def _launch(kind: str, fn, *args) -> None:
     LAUNCHES[kind] += 1
 
 
+def scope_kind(kind: str, word_bits: int) -> str:
+    """The tune-table kind of a word kernel: ``kind`` at 32 bits,
+    ``kind + "16"`` at 16 (``uplink_masked16``, ``master_masked16``,
+    ``mask_repair16``, ``partial_sum_masked16``), as the JAX package keys
+    its launch sites."""
+    return kind + "16" if word_bits == 16 else kind
+
+
 def device_of(x: torch.Tensor) -> torch.device:
     if x.device.type not in ("cuda", "cpu"):
         raise ValueError(f"no wire kernel for device {x.device}")
@@ -133,14 +143,15 @@ def ternary_pack_stacked(q: torch.Tensor, p1: torch.Tensor, p2: torch.Tensor,
     check_operand("beta", beta, torch.float32, (n,), dev)
     if n < 1:
         raise ValueError("need at least one worker")
-    if dev.type == "cpu":
-        return ternary_pack_stacked_plain(q, p1, p2, t, beta, alpha1)
-    out = torch.empty((n, r, LANES), dtype=torch.uint8, device=dev)
-    _launch("uplink_stacked", _lib().fw_ternary_pack_stacked,
-            q.data_ptr(), p1.data_ptr(), p2.data_ptr(), beta.data_ptr(),
-            t.data_ptr(), float(alpha1), out.data_ptr(), n, r * LANES,
-            dev.index, torch.cuda.current_stream(dev).cuda_stream)
-    return out
+    with tprof.kernel_scope("uplink_stacked", r, n, dev):
+        if dev.type == "cpu":
+            return ternary_pack_stacked_plain(q, p1, p2, t, beta, alpha1)
+        out = torch.empty((n, r, LANES), dtype=torch.uint8, device=dev)
+        _launch("uplink_stacked", _lib().fw_ternary_pack_stacked,
+                q.data_ptr(), p1.data_ptr(), p2.data_ptr(), beta.data_ptr(),
+                t.data_ptr(), float(alpha1), out.data_ptr(), n, r * LANES,
+                dev.index, torch.cuda.current_stream(dev).cuda_stream)
+        return out
 
 
 # -- one-worker uplinks: Eq. (5), Eq. (4), or either by a device round ----
@@ -176,23 +187,25 @@ def _pack_one(kind: str, q, p1, p2, t, beta, alpha1) -> torch.Tensor:
         check_operand("t", t, torch.int32, (), dev)
         check_operand("beta", beta, torch.float32, (), dev)
         check_operand("alpha1", alpha1, torch.float32, (), dev)
-    if dev.type == "cpu":
+    with tprof.kernel_scope("uplink", r, 1, dev):
+        if dev.type == "cpu":
+            if traced:
+                return ternary_pack_any_plain(q, p1, p2, t, beta, alpha1)
+            if p2 is None:
+                return ternary_pack_round1_plain(q, p1, alpha1)
+            return ternary_pack_plain(q, p1, p2, beta)
         if traced:
-            return ternary_pack_any_plain(q, p1, p2, t, beta, alpha1)
-        if p2 is None:
-            return ternary_pack_round1_plain(q, p1, alpha1)
-        return ternary_pack_plain(q, p1, p2, beta)
-    if traced:
-        at, by_value = (t.data_ptr(), beta.data_ptr(), alpha1.data_ptr()), (
-            0.0, 0.0)
-    else:
-        at, by_value = (None, None, None), (float(beta), float(alpha1))
-    out = torch.empty((r, LANES), dtype=torch.uint8, device=dev)
-    _launch(kind, _lib().fw_ternary_pack, _RULES[kind], q.data_ptr(),
-            p1.data_ptr(), None if p2 is None else p2.data_ptr(), *at,
-            *by_value, out.data_ptr(), r * LANES, dev.index,
-            torch.cuda.current_stream(dev).cuda_stream)
-    return out
+            at = (t.data_ptr(), beta.data_ptr(), alpha1.data_ptr())
+            by_value = (0.0, 0.0)
+        else:
+            at = (None, None, None)
+            by_value = (float(beta), float(alpha1))
+        out = torch.empty((r, LANES), dtype=torch.uint8, device=dev)
+        _launch(kind, _lib().fw_ternary_pack, _RULES[kind], q.data_ptr(),
+                p1.data_ptr(), None if p2 is None else p2.data_ptr(), *at,
+                *by_value, out.data_ptr(), r * LANES, dev.index,
+                torch.cuda.current_stream(dev).cuda_stream)
+        return out
 
 
 def ternary_pack(q: torch.Tensor, p1: torch.Tensor, p2: torch.Tensor,
@@ -260,13 +273,14 @@ def packed_master_update(q: torch.Tensor, k_star: torch.Tensor,
     check_operand("p1", p1, torch.float32, (r, WIDE), dev, align=16)
     check_operand("p2", p2, torch.float32, (r, WIDE), dev, align=16)
     check_operand("t", t, torch.int32, (), dev)
-    if dev.type == "cpu":
-        return packed_master_update_plain(q, k_star, packed, w, p1, p2, t,
-                                          alpha0)
-    out = torch.empty((r, WIDE), dtype=torch.float32, device=dev)
-    _launch("master", _lib().fw_packed_master_update,
-            q.data_ptr(), k_star.data_ptr(), packed.data_ptr(), w.data_ptr(),
-            p1.data_ptr(), p2.data_ptr(), t.data_ptr(), float(alpha0),
-            out.data_ptr(), n, r * LANES, dev.index,
-            torch.cuda.current_stream(dev).cuda_stream)
-    return out
+    with tprof.kernel_scope("master", r, n, dev):
+        if dev.type == "cpu":
+            return packed_master_update_plain(q, k_star, packed, w, p1, p2,
+                                              t, alpha0)
+        out = torch.empty((r, WIDE), dtype=torch.float32, device=dev)
+        _launch("master", _lib().fw_packed_master_update,
+                q.data_ptr(), k_star.data_ptr(), packed.data_ptr(),
+                w.data_ptr(), p1.data_ptr(), p2.data_ptr(), t.data_ptr(),
+                float(alpha0), out.data_ptr(), n, r * LANES, dev.index,
+                torch.cuda.current_stream(dev).cuda_stream)
+        return out

@@ -16,7 +16,9 @@ raises on what its kernel does not take. A CUDA tensor launches the
 kernel on the current stream and bumps ``LAUNCHES``; a CPU tensor takes
 the plain PyTorch version beside it (``privacy.ref`` arithmetic over
 streams expanded by ``privacy.masking``/``privacy.dp``). Nothing falls
-back: a kernel that fails to build or launch raises.
+back: a kernel that fails to build or launch raises. Either path runs
+inside a profiler scope named after the launch site's tune key
+(``telemetry.profile.kernel_scope``).
 """
 from __future__ import annotations
 
@@ -25,11 +27,13 @@ import ctypes
 import torch
 
 from repro_torch.kernels import build
-from repro_torch.kernels.fused_wire import WIDE, check_operand, device_of
+from repro_torch.kernels.fused_wire import (WIDE, check_operand, device_of,
+                                            scope_kind)
 from repro_torch.privacy import ref as pref
 from repro_torch.privacy.dp import rr_bits64
 from repro_torch.privacy.masking import net_words64, to_words, word_bits_of
 from repro_torch.privacy.recovery import mask_repair_ref
+from repro_torch.telemetry import profile as tprof
 
 #: Kernel launches per wrapper; only a launch on the card counts.
 LAUNCHES = {"uplink_masked": 0, "master_masked": 0, "mask_repair": 0}
@@ -173,22 +177,24 @@ def _pack_masked(q, p1, p2, t, beta, alpha1, wq, keys, signs, rr_keys,
     if 8 * n * cohort > MAX_STAGED_BYTES:
         raise ValueError(f"a ({n}, {cohort}) key matrix does not fit in "
                          f"one block's shared memory")
-    if dev.type == "cpu":
-        return ternary_pack_masked_plain(
-            q, p1, p2, t, beta, alpha1, wq, keys, signs, rr_keys,
-            rr_threshold=rr_threshold, word_bits=word_bits,
-            use_masks=use_masks)
-    pairs = not row_fold and uses_pair_kernel(n, cohort)
-    out = torch.empty((n, r, WIDE), dtype=_WORD_DTYPES[word_bits],
-                      device=dev)
-    _launch("uplink_masked", _lib().mw_ternary_pack_masked,
-            q.data_ptr(), p1.data_ptr(), p2.data_ptr(), beta.data_ptr(),
-            wq.data_ptr(), keys.data_ptr(), signs.data_ptr(),
-            rr_keys.data_ptr(), t.data_ptr(), float(alpha1),
-            int(rr_threshold), word_bits, int(bool(use_masks)), int(pairs),
-            out.data_ptr(), n, cohort, r * WIDE // 4, dev.index,
-            torch.cuda.current_stream(dev).cuda_stream)
-    return out
+    with tprof.kernel_scope(scope_kind("uplink_masked", word_bits), r, n,
+                             dev):
+        if dev.type == "cpu":
+            return ternary_pack_masked_plain(
+                q, p1, p2, t, beta, alpha1, wq, keys, signs, rr_keys,
+                rr_threshold=rr_threshold, word_bits=word_bits,
+                use_masks=use_masks)
+        pairs = not row_fold and uses_pair_kernel(n, cohort)
+        out = torch.empty((n, r, WIDE), dtype=_WORD_DTYPES[word_bits],
+                          device=dev)
+        _launch("uplink_masked", _lib().mw_ternary_pack_masked,
+                q.data_ptr(), p1.data_ptr(), p2.data_ptr(), beta.data_ptr(),
+                wq.data_ptr(), keys.data_ptr(), signs.data_ptr(),
+                rr_keys.data_ptr(), t.data_ptr(), float(alpha1),
+                int(rr_threshold), word_bits, int(bool(use_masks)), int(pairs),
+                out.data_ptr(), n, cohort, r * WIDE // 4, dev.index,
+                torch.cuda.current_stream(dev).cuda_stream)
+        return out
 
 
 # -- sum-then-unmask master ---------------------------------------------------
@@ -231,17 +237,18 @@ def masked_master_update(q: torch.Tensor, k_star: torch.Tensor,
     check_operand("p1", p1, torch.float32, (r, WIDE), dev, align=16)
     check_operand("p2", p2, torch.float32, (r, WIDE), dev, align=16)
     check_operand("t", t, torch.int32, (), dev)
-    if dev.type == "cpu":
-        return masked_master_update_plain(q, k_star, masked, sum_wq, p1, p2,
-                                          t, alpha0, scale_mult)
-    out = torch.empty((r, WIDE), dtype=torch.float32, device=dev)
-    _launch("master_masked", _lib().mw_masked_master_update,
-            q.data_ptr(), k_star.data_ptr(), masked.data_ptr(),
-            sum_wq.data_ptr(), p1.data_ptr(), p2.data_ptr(), t.data_ptr(),
-            float(alpha0), float(scale_mult), bits, out.data_ptr(), n, c,
-            r * WIDE // 4, dev.index,
-            torch.cuda.current_stream(dev).cuda_stream)
-    return out
+    with tprof.kernel_scope(scope_kind("master_masked", bits), r, c, dev):
+        if dev.type == "cpu":
+            return masked_master_update_plain(q, k_star, masked, sum_wq, p1,
+                                              p2, t, alpha0, scale_mult)
+        out = torch.empty((r, WIDE), dtype=torch.float32, device=dev)
+        _launch("master_masked", _lib().mw_masked_master_update,
+                q.data_ptr(), k_star.data_ptr(), masked.data_ptr(),
+                sum_wq.data_ptr(), p1.data_ptr(), p2.data_ptr(), t.data_ptr(),
+                float(alpha0), float(scale_mult), bits, out.data_ptr(), n, c,
+                r * WIDE // 4, dev.index,
+                torch.cuda.current_stream(dev).cuda_stream)
+        return out
 
 
 # -- dropout repair -----------------------------------------------------------
@@ -297,12 +304,15 @@ def mask_repair(y: torch.Tensor | None, keys: torch.Tensor,
                          f"shared memory")
     if p == 0 and out is None:
         return y
-    if dev.type == "cpu" or p == 0:
+    if p == 0 and dev.type == "cuda":      # a copy or a fill: no launch
         return mask_repair_plain(y, keys, coeff, out=out)
-    if out is None:
-        out = torch.empty_like(y)
-    _launch("mask_repair", _lib().mw_mask_repair,
-            None if y is None else y.data_ptr(), keys.data_ptr(),
-            coeff.data_ptr(), bits, out.data_ptr(), p, r, dev.index,
-            torch.cuda.current_stream(dev).cuda_stream)
-    return out
+    with tprof.kernel_scope(scope_kind("mask_repair", bits), r, 1, dev):
+        if dev.type == "cpu":
+            return mask_repair_plain(y, keys, coeff, out=out)
+        if out is None:
+            out = torch.empty_like(y)
+        _launch("mask_repair", _lib().mw_mask_repair,
+                None if y is None else y.data_ptr(), keys.data_ptr(),
+                coeff.data_ptr(), bits, out.data_ptr(), p, r, dev.index,
+                torch.cuda.current_stream(dev).cuda_stream)
+        return out

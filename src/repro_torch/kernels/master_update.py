@@ -16,7 +16,8 @@ raises on what the kernel does not take. A CUDA tensor launches the kernel
 on the current stream and bumps ``LAUNCHES``; a CPU tensor takes the plain
 PyTorch version, which rounds the same operations in the same order
 (``kernels.ref.fma_f32`` for the combine). Nothing falls back: a kernel
-that fails to build or launch raises.
+that fails to build or launch raises. Either path runs inside a profiler
+scope (``telemetry.profile.kernel_scope``).
 """
 from __future__ import annotations
 
@@ -27,6 +28,7 @@ import torch
 from repro_torch.kernels import build
 from repro_torch.kernels.fused_wire import LANES, check_operand, device_of
 from repro_torch.kernels.ref import fma_f32
+from repro_torch.telemetry import profile as tprof
 
 #: Kernel launches per wrapper; only a launch on the card counts.
 LAUNCHES = {"master_update": 0}
@@ -73,16 +75,17 @@ def master_update(q: torch.Tensor, tern: torch.Tensor, w: torch.Tensor,
     check_operand("p2", p2, torch.float32, (r, LANES), dev, align=16)
     if n < 1:
         raise ValueError("need at least one worker")
-    if dev.type == "cpu":
-        return master_update_plain(q, tern, w, p1, p2)
-    out = torch.empty((r, LANES), dtype=torch.float32, device=dev)
-    lib = _lib()
-    err = lib.mu_master_update(
-        q.data_ptr(), tern.data_ptr(), w.data_ptr(), p1.data_ptr(),
-        p2.data_ptr(), out.data_ptr(), n, r * LANES // 4, dev.index,
-        torch.cuda.current_stream(dev).cuda_stream)
-    if err != 0:
-        raise RuntimeError(f"master_update kernel launch failed: "
-                           f"{lib.mu_error_string(err).decode()}")
-    LAUNCHES["master_update"] += 1
-    return out
+    with tprof.kernel_scope("master_update", r, n, dev):
+        if dev.type == "cpu":
+            return master_update_plain(q, tern, w, p1, p2)
+        out = torch.empty((r, LANES), dtype=torch.float32, device=dev)
+        lib = _lib()
+        err = lib.mu_master_update(
+            q.data_ptr(), tern.data_ptr(), w.data_ptr(), p1.data_ptr(),
+            p2.data_ptr(), out.data_ptr(), n, r * LANES // 4, dev.index,
+            torch.cuda.current_stream(dev).cuda_stream)
+        if err != 0:
+            raise RuntimeError(f"master_update kernel launch failed: "
+                               f"{lib.mu_error_string(err).decode()}")
+        LAUNCHES["master_update"] += 1
+        return out

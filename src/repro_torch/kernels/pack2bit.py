@@ -15,6 +15,8 @@ its kernel does not take. A CUDA tensor launches the kernel on the current
 stream and bumps ``LAUNCHES``; a CPU tensor takes the plain PyTorch
 version, in int32 (CPU torch has no shifts for every unsigned width).
 Nothing falls back: a kernel that fails to build or launch raises.
+Either path runs inside a profiler scope
+(``telemetry.profile.kernel_scope``).
 """
 from __future__ import annotations
 
@@ -26,6 +28,7 @@ from repro_torch.core import packing
 from repro_torch.kernels import build
 from repro_torch.kernels.fused_wire import (LANES, PACK, WIDE, check_operand,
                                             device_of)
+from repro_torch.telemetry import profile as tprof
 
 #: Kernel launches per wrapper; only a launch on the card counts.
 LAUNCHES = {"pack": 0, "unpack": 0}
@@ -75,11 +78,12 @@ def pack2bit(codes: torch.Tensor) -> torch.Tensor:
     dev = device_of(codes)
     r = codes.shape[0]
     check_operand("codes", codes, torch.int8, (r, WIDE), dev, align=16)
-    if dev.type == "cpu":
-        return pack2bit_plain(codes)
-    out = torch.empty((r, LANES), dtype=torch.uint8, device=dev)
-    _launch("pack", _lib().pk_pack2bit, codes, out)
-    return out
+    with tprof.kernel_scope("pack", r, 1, dev):
+        if dev.type == "cpu":
+            return pack2bit_plain(codes)
+        out = torch.empty((r, LANES), dtype=torch.uint8, device=dev)
+        _launch("pack", _lib().pk_pack2bit, codes, out)
+        return out
 
 
 def unpack2bit(packed: torch.Tensor) -> torch.Tensor:
@@ -87,8 +91,9 @@ def unpack2bit(packed: torch.Tensor) -> torch.Tensor:
     dev = device_of(packed)
     r = packed.shape[0]
     check_operand("packed", packed, torch.uint8, (r, LANES), dev, align=4)
-    if dev.type == "cpu":
-        return unpack2bit_plain(packed)
-    out = torch.empty((r, WIDE), dtype=torch.int8, device=dev)
-    _launch("unpack", _lib().pk_unpack2bit, packed, out)
-    return out
+    with tprof.kernel_scope("unpack", r, 1, dev):
+        if dev.type == "cpu":
+            return unpack2bit_plain(packed)
+        out = torch.empty((r, WIDE), dtype=torch.int8, device=dev)
+        _launch("unpack", _lib().pk_unpack2bit, packed, out)
+        return out

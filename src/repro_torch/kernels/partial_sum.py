@@ -15,7 +15,8 @@ raises on what its kernel does not take. A CUDA tensor launches the
 kernel on the current stream and bumps ``LAUNCHES``; a CPU tensor takes
 the plain PyTorch version beside it (int64 arithmetic, streams expanded
 by ``privacy.masking``). Nothing falls back: a kernel that fails to build
-or launch raises.
+or launch raises. Either path runs inside a profiler scope named after
+the launch site's tune key (``telemetry.profile.kernel_scope``).
 """
 from __future__ import annotations
 
@@ -25,9 +26,10 @@ import torch
 
 from repro_torch.kernels import build
 from repro_torch.kernels.fused_wire import (LANES, PACK, WIDE, check_operand,
-                                            device_of)
+                                            device_of, scope_kind)
 from repro_torch.privacy.masking import (as_u64, net_words64, to_words,
                                          word_bits_of)
+from repro_torch.telemetry import profile as tprof
 
 #: Kernel launches per wrapper; only a launch on the card counts.
 LAUNCHES = {"partial_sum": 0, "masked_partial_sum": 0}
@@ -117,16 +119,17 @@ def partial_sum(packed: torch.Tensor, wq: torch.Tensor, *, fanout: int,
     g = _groups(c, fanout)
     if r * WIDE > 1 << 32:
         raise ValueError("flat element indices must fit in 32 bits")
-    if dev.type == "cpu":
-        return partial_sum_plain(packed, wq, fanout=fanout,
-                                 word_bits=word_bits)
-    out = torch.empty((g, r, WIDE), dtype=_WORD_DTYPES[word_bits],
-                      device=dev)
-    _launch("partial_sum", _lib().ps_partial_sum,
-            packed.data_ptr(), wq.data_ptr(), word_bits, out.data_ptr(), c,
-            fanout, r * LANES, dev.index,
-            torch.cuda.current_stream(dev).cuda_stream)
-    return out
+    with tprof.kernel_scope("partial_sum", r, fanout, dev):
+        if dev.type == "cpu":
+            return partial_sum_plain(packed, wq, fanout=fanout,
+                                     word_bits=word_bits)
+        out = torch.empty((g, r, WIDE), dtype=_WORD_DTYPES[word_bits],
+                          device=dev)
+        _launch("partial_sum", _lib().ps_partial_sum,
+                packed.data_ptr(), wq.data_ptr(), word_bits, out.data_ptr(), c,
+                fanout, r * LANES, dev.index,
+                torch.cuda.current_stream(dev).cuda_stream)
+        return out
 
 
 # -- interior level: word children → (masked) word partials -------------------
@@ -177,12 +180,16 @@ def masked_partial_sum(words: torch.Tensor, keys: torch.Tensor,
     if 8 * sibling > MAX_STAGED_BYTES:
         raise ValueError(f"a sibling group of {sibling} does not fit in one "
                          f"block's shared memory")
-    if dev.type == "cpu":
-        return masked_partial_sum_plain(words, keys, signs, fanout=fanout,
-                                        sibling=sibling, use_masks=use_masks)
-    out = torch.empty((g, r, WIDE), dtype=words.dtype, device=dev)
-    _launch("masked_partial_sum", _lib().ps_masked_partial_sum,
-            words.data_ptr(), keys.data_ptr(), signs.data_ptr(), bits,
-            int(bool(use_masks)), out.data_ptr(), c, fanout, sibling,
-            r * LANES, dev.index, torch.cuda.current_stream(dev).cuda_stream)
-    return out
+    with tprof.kernel_scope(scope_kind("partial_sum_masked", bits), r,
+                             fanout, dev):
+        if dev.type == "cpu":
+            return masked_partial_sum_plain(words, keys, signs,
+                                            fanout=fanout, sibling=sibling,
+                                            use_masks=use_masks)
+        out = torch.empty((g, r, WIDE), dtype=words.dtype, device=dev)
+        _launch("masked_partial_sum", _lib().ps_masked_partial_sum,
+                words.data_ptr(), keys.data_ptr(), signs.data_ptr(), bits,
+                int(bool(use_masks)), out.data_ptr(), c, fanout, sibling,
+                r * LANES, dev.index,
+                torch.cuda.current_stream(dev).cuda_stream)
+        return out

@@ -12,7 +12,8 @@ Each wrapper checks device, dtype, shape, contiguity and 16-byte alignment
 and raises on what its kernel does not take. A CUDA tensor launches the
 kernel on the current stream and bumps ``LAUNCHES``; a CPU tensor takes the
 plain PyTorch version (``core.ternary``). Nothing falls back: a kernel
-that fails to build or launch raises.
+that fails to build or launch raises. Either path runs inside a profiler
+scope (``telemetry.profile.kernel_scope``).
 """
 from __future__ import annotations
 
@@ -23,6 +24,7 @@ import torch
 from repro_torch.core.ternary import ternarize, ternarize_round1
 from repro_torch.kernels import build
 from repro_torch.kernels.fused_wire import LANES, check_operand, device_of
+from repro_torch.telemetry import profile as tprof
 
 #: Kernel launches per wrapper; only a launch on the card counts.
 LAUNCHES = {"encode": 0, "encode_round1": 0}
@@ -54,21 +56,22 @@ def _encode(kind: str, q, p1, p2, beta: float, alpha: float
     check_operand("p1", p1, torch.float32, (r, LANES), dev, align=16)
     if p2 is not None:
         check_operand("p2", p2, torch.float32, (r, LANES), dev, align=16)
-    if dev.type == "cpu":
-        return (ternarize_round1(q, p1, alpha) if p2 is None
-                else ternarize(q, p1, p2, beta))
-    out = torch.empty((r, LANES), dtype=torch.int8, device=dev)
-    lib = _lib()
-    err = lib.te_ternary_encode(
-        int(p2 is None), q.data_ptr(), p1.data_ptr(),
-        None if p2 is None else p2.data_ptr(), float(beta), float(alpha),
-        out.data_ptr(), r * LANES // 4, dev.index,
-        torch.cuda.current_stream(dev).cuda_stream)
-    if err != 0:
-        raise RuntimeError(f"{kind} kernel launch failed: "
-                           f"{lib.te_error_string(err).decode()}")
-    LAUNCHES[kind] += 1
-    return out
+    with tprof.kernel_scope(kind, r, 1, dev):
+        if dev.type == "cpu":
+            return (ternarize_round1(q, p1, alpha) if p2 is None
+                    else ternarize(q, p1, p2, beta))
+        out = torch.empty((r, LANES), dtype=torch.int8, device=dev)
+        lib = _lib()
+        err = lib.te_ternary_encode(
+            int(p2 is None), q.data_ptr(), p1.data_ptr(),
+            None if p2 is None else p2.data_ptr(), float(beta), float(alpha),
+            out.data_ptr(), r * LANES // 4, dev.index,
+            torch.cuda.current_stream(dev).cuda_stream)
+        if err != 0:
+            raise RuntimeError(f"{kind} kernel launch failed: "
+                               f"{lib.te_error_string(err).decode()}")
+        LAUNCHES[kind] += 1
+        return out
 
 
 def ternary_encode(q: torch.Tensor, p1: torch.Tensor, p2: torch.Tensor,

@@ -28,7 +28,10 @@ def test_no_module_imports_jax_or_the_jax_package():
                  "privacy.audit", "core.tree", "kernels.ternary_encode",
                  "kernels.pack2bit", "kernels.master_update", "core.update",
                  "prng", "optim.schedules", "fed.worker", "data.pipeline",
-                 "core.baselines", "core.convergence"):
+                 "core.baselines", "core.convergence",
+                 "checkpoint.checkpoint", "telemetry.record",
+                 "telemetry.trace", "telemetry.profile", "telemetry.report",
+                 "telemetry.smoke"):
         assert f"repro_torch.{name}" in names
     script = (
         "import importlib, sys\n"

@@ -738,3 +738,122 @@ def test_evasion_picks_the_same_pilots_on_card_and_cpu(cuda):
     assert card.pilot_history == cpu.pilot_history
     assert card_events == cpu_events
     np.testing.assert_allclose(card.costs, cpu.costs, rtol=1e-3)
+
+
+# -- the telemetry layer and the checkpoint on the card -----------------------
+
+def _telemetry_wire(kind: str):
+    if kind == "plain":
+        return rd.WirePath(rd.WireConfig()), {"uplink_stacked": 1,
+                                              "master": 1}
+    spec = PrivacySpec(modulus_bits=16, dp_epsilon=2.0,
+                       recovery_threshold=2, enforce=False)
+    wire = rd.WirePath(rd.WireConfig(), privacy=spec, tree=TreeSpec(4),
+                       faults=FaultPlan(seed=0, drop_before_uplink=0.05,
+                                        drop_after_uplink=0.15,
+                                        straggler=0.05))
+    return wire, {"uplink_masked": 1, "masked_partial_sum": 1,
+                  "mask_repair": 1, "master_masked": 1}
+
+
+def _launch_counts() -> dict:
+    return {**tfw.LAUNCHES, **tmw.LAUNCHES, **tps.LAUNCHES}
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("kind", ["plain", "masked_tree_faults"])
+def test_round_step_with_telemetry_on_card(cuda, kind):
+    # The record and the carry add no host sync and no launch of the
+    # wire's kernels; the card's record is the CPU's, bit for bit.
+    wire, per_round = _telemetry_wire(kind)
+    rng = np.random.default_rng(5)
+    n, rows = 10, 96
+    p0 = rng.standard_normal((rows, 128), dtype=np.float32) * 0.1
+    sizes = rng.integers(100, 900, n).astype(np.float32)
+    states = {(d, on): rd.init_round_state(
+        {"w": torch.from_numpy(p0)}, n, privacy=wire.privacy, telemetry=on,
+        device=d) for d in ("cpu", cuda) for on in (True, False)}
+    for _ in range(3):
+        bufs = (states["cpu", True].buf_p1.numpy()[None]
+                + rng.standard_normal((n, rows, 128), dtype=np.float32) * .01)
+        costs = rng.random(n, dtype=np.float32) + 0.5
+        recs = {}
+        for (d, on), st in states.items():
+            args = (torch.from_numpy(bufs).to(d),
+                    torch.from_numpy(costs).to(d),
+                    torch.from_numpy(sizes).to(d))
+            before = _launch_counts()
+            if d != "cpu":
+                torch.cuda.set_sync_debug_mode("error")
+            try:
+                states[d, on], _, info = wire.round_step(st, *args)
+            finally:
+                torch.cuda.set_sync_debug_mode(0)
+            launched = {k: v - before[k] for k, v in _launch_counts().items()
+                        if v != before[k]}
+            assert launched == ({} if d == "cpu" else per_round)
+            assert ("telemetry" in info) == on
+            recs[d, on] = info.get("telemetry")
+        for a, b in zip(recs["cpu", True], recs[cuda, True]):
+            assert b.device.type == "cuda"
+            assert _same(a, b.cpu())
+    for a, b in zip(states["cpu", True].telemetry,
+                    states[cuda, True].telemetry):
+        assert _same(a, b.cpu())
+    for a, b in zip(states[cuda, True][:4], states[cuda, False][:4]):
+        assert _same(a, b)
+    assert int(states[cuda, True].telemetry.rounds) == 3
+
+
+@pytest.mark.gpu
+def test_round_state_checkpoint_round_trips_on_card(cuda, tmp_path):
+    spec = PrivacySpec(dp_epsilon=2.0, enforce=False)
+    wire = rd.WirePath(rd.WireConfig(), privacy=spec)
+    n, rows = 4, 64
+    p0 = torch.linspace(-1.0, 1.0, rows * 128, device=cuda)
+    st = rd.init_round_state({"w": p0}, n, privacy=spec, device=cuda)
+    st, _, _ = wire.round_step(st, st.buf_p1[None] + torch.linspace(
+        -0.02, 0.02, n * rows * 128, device=cuda).view(n, rows, 128),
+        torch.arange(1.0, n + 1.0, device=cuda),
+        torch.full((n,), 50.0, device=cuda))
+    rd.save_round_state(str(tmp_path), st)
+    like = rd.init_round_state({"w": p0}, n, privacy=spec, device=cuda)
+    back, manifest = rd.load_round_state(str(tmp_path), like)
+    assert manifest["step"] == 2
+    from repro_torch.checkpoint.checkpoint import _flatten_with_path
+    got, want = _flatten_with_path(back), _flatten_with_path(st)
+    assert [k for k, _ in got] == [k for k, _ in want]
+    for (_, a), (_, b) in zip(got, want):
+        assert a.device.type == "cuda" and a.dtype == b.dtype
+        assert _same(a, b)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("kind", ["plain", "masked_tree_faults"])
+def test_profile_session_holds_a_scope_a_launch(cuda, kind):
+    from repro_torch.telemetry import profile as tprof
+    wire, per_round = _telemetry_wire(kind)
+    n, rows = 10, 96
+    st = rd.init_round_state({"w": torch.zeros(rows * 128)}, n,
+                             privacy=wire.privacy, device=cuda)
+    bufs = torch.linspace(-0.1, 0.1, n * rows * 128,
+                          device=cuda).view(n, rows, 128)
+    costs = torch.arange(1.0, n + 1.0, device=cuda)
+    sizes = torch.full((n,), 50.0, device=cuda)
+    before = _launch_counts()
+    with tprof.profile_session() as prof:
+        wire.round_step(st, bufs, costs, sizes)
+        torch.cuda.synchronize()
+    from torch.autograd import DeviceType
+    launched = sum(v - before[k] for k, v in _launch_counts().items())
+    assert launched == sum(per_round.values())
+    ranges = {d: sorted(e.name for e in prof.events()
+                        if e.name.startswith("wire/") and e.device_type == d)
+              for d in (DeviceType.CPU, DeviceType.CUDA)}
+    scopes = ranges[DeviceType.CPU]
+    assert len(scopes) == launched
+    assert all(s.endswith("/cuda") and f"/r{rows // 4}n" in s
+               for s in scopes)
+    # Where the profiler records CUDA activity, each range's kernels run
+    # inside its device-side twin.
+    assert ranges[DeviceType.CUDA] in ([], scopes)

@@ -290,10 +290,12 @@ def test_scan_rounds_in_loop_sampling_matches_schedule():
     assert carry_a == carry_b == 6
     _assert_same_state(st_a, st_b)
     assert set(inf_a) == set(inf_b) == {"k_star", "goodness", "costs",
-                                        "mask"}
+                                        "mask", "telemetry"}
     for k in inf_a:
-        assert inf_a[k].shape[0] == 6
-        assert torch.equal(inf_a[k], inf_b[k])
+        a, b = ((inf_a[k], inf_b[k]) if k != "telemetry"
+                else (torch.stack(inf_a[k]), torch.stack(inf_b[k])))
+        assert a.shape[-1 if k == "telemetry" else 0] == 6
+        assert torch.equal(a, b)
     assert torch.equal(inf_b["mask"], masks)
     # Keyed by the absolute round: 3 + 3 resumed rounds == 6.
     st_h, _, inf_h = trd.scan_rounds(wire, state, worker_fn, 0, 3, sizes,
