@@ -121,6 +121,20 @@ result:
    ``telemetry.profile_session``: one ``wire/<kind>/r<rows>n<N>/cuda``
    range a launch, the ``LAUNCHES`` counter read inside each, and each
    launch call inside its range where the profiler records CUDA activity.
+   privacy slice — §4.2 enforcement with ``PrivacySpec(enforce=True)``,
+   the default, on equal 1,024-sample shards, 2 rounds a run: (a) the
+   shipped ``secure-agg`` and ``secure-agg-ldp`` scenarios (C = 0.5,
+   eps 4) through ``run_fedpc`` and ``run_fedpc_scan``: each driver
+   records exactly one audit (masked, 2 launches), the drivers agree
+   bitwise, and ``run_fedpc`` with ``enforce=False`` launches the same
+   kernels as often and gives the same bits; (b) the masked tree under
+   the masked tree slice's fault plan, enforced (an audit of levels + 3
+   launches); (c) at the main-path shapes the audit refuses the plaintext
+   wire under the masked policy and a leaky master launched through the
+   public seam (``kernels.seam.run_plain``); (d) the pilot slot: #2 and
+   #7, kernel and plain, at the main-path shape, give the same bits with
+   every non-pilot row of the worker stack NaN, -inf and garbage; (e)
+   each audit's set-up time, beside the card's name and power limit.
 8. times  — each kernel and its plain version with CUDA events at the
    main-path shape (median of 25), beside its bound: device-memory bytes,
    or integer operations for the stream-generating kernels; the plain
@@ -711,6 +725,8 @@ def _drive(torch, sim, rounds: int, *args, method: str = "run_fedpc",
     wire = owner is rd.WirePath
 
     def aggregate(*a, **k):
+        if wire and a[2].device.type == "meta":    # the set-up audit's run
+            return inner_agg(*a, **k)
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         if wire:
@@ -1944,6 +1960,239 @@ def phase_telemetry_slice(torch, dev) -> dict:
     return own
 
 
+PRIVACY_ROUNDS = 2                # rounds a run in the privacy slice
+PRIVACY_SCENARIOS = ("secure-agg", "secure-agg-ldp")
+
+
+def _poisoned_stack(torch, q, k: int, gen):
+    """``q`` with every worker row but the pilot's ``k`` replaced by
+    garbage of magnitude 1e30 with NaN and -inf sprinkled in."""
+    junk = torch.randn(q.shape, generator=gen, device=q.device) * 1e30
+    junk.view(-1)[::3] = float("nan")
+    junk.view(-1)[1::7] = float("-inf")
+    keep = torch.arange(q.shape[0], device=q.device) == k
+    return torch.where(keep[:, None, None], q, junk)
+
+
+def _pilot_poison_check(torch, dev) -> str:
+    """#2 and #7, kernel and plain, at the main-path shape: the stack's
+    non-pilot rows poisoned change no bit of the output (the masters read
+    their declared pilot slot only at ``k_star``)."""
+    from repro_torch.kernels import fused_wire as fw
+    from repro_torch.kernels import masked_wire as mw
+    from repro_torch.privacy import masking as pvm
+    gen = torch.Generator(device=dev).manual_seed(SEED + 9)
+    n, r = N_WORKERS, ROWS // 4
+    q, p1, p2, beta, w, _ = _inputs(torch, n, r, gen, dev)
+    packed = torch.randint(0, 256, (n, r, 128), generator=gen, device=dev,
+                           dtype=torch.uint8)
+    words = _rand_words(torch, (n, r, 512), 16, gen, dev)
+    sum_wq = pvm.to_words(torch.tensor(16411, device=dev), 32)
+    saved = _read_counts()
+    cases = 0
+    for k in (0, N_WORKERS - 1):
+        ks = torch.tensor(k, device=dev)
+        bad = _poisoned_stack(torch, q, k, gen)
+        for t in (1, 2):
+            tt = torch.tensor(t, dtype=torch.int32, device=dev)
+            for label, fn, args in (
+                    ("#2", fw.packed_master_update, (packed, w, p1, p2, tt,
+                                                     0.01)),
+                    ("#2 plain", fw.packed_master_update_plain,
+                     (packed, w, p1, p2, tt, 0.01)),
+                    ("#7", mw.masked_master_update, (words, sum_wq, p1, p2,
+                                                     tt, 0.01, 2.0 ** -14)),
+                    ("#7 plain", mw.masked_master_update_plain,
+                     (words, sum_wq, p1, p2, tt, 0.01, 2.0 ** -14))):
+                clean = fn(q, ks, *args)
+                poisoned = fn(bad, ks, *args)
+                same, diff = _bitwise(torch, clean, poisoned)
+                check(bool(torch.isfinite(clean).all()) and same,
+                      f"privacy slice: {label} read a poisoned row (pilot "
+                      f"{k}, t {t}, max diff {diff})")
+                cases += 1
+        del bad
+    _restore_counts(saved)
+    return (f"{cases} cases: #2 and #7, kernel and plain, pilot 0 and "
+            f"{N_WORKERS - 1}, t 1 and 2, at ({n}, {r}, 512)")
+
+
+def _negative_audits(torch, dev) -> str:
+    """At the main-path shapes the audit refuses the plaintext wire under
+    the masked policy and a leaky master launch through the public seam."""
+    from repro_torch.core.privacy import LeakageError
+    from repro_torch.fed import rounds as rd
+    from repro_torch.kernels import seam
+    from repro_torch.privacy.audit import check_round_program
+    from repro_torch.privacy.spec import PrivacySpec
+    params = {"w": torch.zeros(ROWS * 128, device=dev)}
+    state = rd.init_round_state(params, N_WORKERS, device=dev)
+    bufs = torch.empty((N_WORKERS, ROWS, 128), device="meta")
+    costs = torch.empty((N_WORKERS,), device="meta")
+    sizes = torch.full((N_WORKERS,), float(SCAN_SHARD), device=dev)
+    masked = rd.WirePath(privacy=PrivacySpec())
+
+    def leaky(state, bufs, costs, sizes):
+        new_state, new_buf, info = masked.round_step(state, bufs, costs,
+                                                     sizes)
+        out = seam.run_plain("leaky_master", lambda q, p: p + q.mean(0),
+                             bufs, new_buf)
+        return new_state, out, info
+
+    said = []
+    for label, fn, kw in (
+            ("the plaintext wire under the masked policy",
+             rd.WirePath().round_step, {"masked": True}),
+            ("a leaky master through the seam", leaky, {"masked": True})):
+        try:
+            check_round_program(fn, state, bufs, costs, sizes,
+                                n_workers=N_WORKERS, **kw)
+        except LeakageError as exc:
+            said.append(f"{label}: refused ({str(exc).split(':')[0]})")
+            continue
+        check(False, f"privacy slice: the audit passed {label}")
+    return "; ".join(said)
+
+
+def phase_privacy_slice(torch, dev) -> dict:
+    """§4.2 enforcement at full width, with ``PrivacySpec(enforce=True)``.
+
+    (a) the shipped ``secure-agg`` and ``secure-agg-ldp`` scenarios
+    (``configs.get_scenario``; C = 0.5 and eps 4 for the second) through
+    ``run_fedpc`` and ``run_fedpc_scan`` on equal 1,024-sample shards,
+    ``PRIVACY_ROUNDS`` rounds each: each driver records exactly one audit
+    (masked, 2 launches), the two drivers bitwise equal, and the same
+    ``run_fedpc`` with ``enforce=False`` launches the same kernels as often
+    and gives the same bits; (b) the masked tree under
+    ``_masked_tree_cfg()``'s fault plan with enforcement on (one audit of
+    levels + 3 launches); (c) the audit refuses, at the main-path shapes,
+    the plaintext wire under the masked policy and a leaky master through
+    the public seam; (d) the pilot poison check of #2 and #7; (e) each
+    audit's set-up time, beside the card's name and power limit. Returns
+    the launch counts of (a) and (b)."""
+    import dataclasses
+
+    from repro_torch.configs import get_scenario
+    from repro_torch.core import protocol as proto
+    from repro_torch.core.fedpc import FedPCConfig
+    from repro_torch.fed.simulator import FedSimulator
+    own: dict = {}
+    audit_ms: list = []
+    inner = FedSimulator._enforce_privacy
+
+    def timed(self, *args, **kwargs):
+        t0 = time.perf_counter()
+        inner(self, *args, **kwargs)
+        if self.fed_cfg.privacy.enforce:
+            audit_ms.append(((time.perf_counter() - t0) * 1e3,
+                             args[0], len(self.ledger.audits)))
+
+    def add(launches: dict) -> None:
+        for k, v in launches.items():
+            if v:
+                own[k] = own.get(k, 0) + v
+
+    def run(cfg, driver: str, want: list, label: str, on_path: dict,
+            **kw):
+        workers, params = _full_width(torch, dev, uniform=True)
+        sim = FedSimulator(workers, params, cfg, device=dev)
+        if driver == "run_fedpc":
+            res, launches, *_ = _drive(torch, sim, PRIVACY_ROUNDS, **kw)
+            synced = "round_step"
+        else:
+            res, launches, *_ = _drive_scan(torch, sim, PRIVACY_ROUNDS,
+                                            **kw)
+            synced = "the whole round loop"
+        add(_check_run(torch, res, launches, on_path, want, workers, label,
+                       rounds=PRIVACY_ROUNDS, driver=driver, synced=synced))
+        audits = sim.ledger.audits
+        del sim, workers
+        _release(torch)
+        return res, launches, audits
+
+    rounds = PRIVACY_ROUNDS
+    mb = N_PARAMS * 4                 # float32 weights on the wire (§5.2)
+    flat = {"uplink_masked": rounds, "master_masked": rounds}
+    lines = []
+    FedSimulator._enforce_privacy = timed
+    try:
+        for name in PRIVACY_SCENARIOS:
+            scen = get_scenario(name)
+            check(scen.privacy.enforce, f"{name}: enforcement is off")
+            cfg = FedPCConfig(n_workers=N_WORKERS, privacy=scen.privacy)
+            n_part = max(1, round(scen.participation * N_WORKERS))
+            want = [proto.fedpc_masked_bytes_per_round(
+                mb, n_part, word_bits=scen.privacy.modulus_bits)] * rounds
+            kw = ({} if scen.participation == 1.0
+                  else {"participation": scen.participation,
+                        "participation_seed": SEED})
+            out = {}
+            for driver in ("run_fedpc", "run_fedpc_scan"):
+                res, launches, audits = run(
+                    cfg, driver, want, f"privacy slice (a) {name}", flat,
+                    **kw)
+                check(audits == [{"runtime": driver,
+                                  "boundary": "round-step",
+                                  "n_launches": 2, "masked": True}],
+                      f"privacy slice: {name} {driver} audits {audits}")
+                out[driver] = (res, launches)
+            _same_runs(torch, out["run_fedpc"][0], out["run_fedpc_scan"][0],
+                       f"privacy slice (a) {name}")
+            off = FedPCConfig(n_workers=N_WORKERS, privacy=dataclasses.replace(
+                scen.privacy, enforce=False))
+            res, launches, audits = run(off, "run_fedpc", want,
+                                        f"privacy slice (a) {name} "
+                                        f"enforce=False", flat, **kw)
+            check(audits == [], "an audit with enforcement off")
+            check(launches == out["run_fedpc"][1],
+                  f"privacy slice: {name} launches {launches} with "
+                  f"enforcement off, {out['run_fedpc'][1]} on")
+            _same_runs(torch, out["run_fedpc"][0], res,
+                       f"privacy slice (a) {name} enforce on/off")
+            lines.append(f"{name} (participation {scen.participation}, "
+                         f"eps {scen.privacy.dp_epsilon}): run_fedpc == "
+                         f"run_fedpc_scan == run_fedpc with enforce=False, "
+                         f"bitwise; launches "
+                         f"{ {k: v for k, v in launches.items() if v} } "
+                         f"either way")
+        # (b) the masked tree under faults, enforced
+        cfg = _masked_tree_cfg()
+        cfg = dataclasses.replace(cfg, privacy=dataclasses.replace(
+            cfg.privacy, enforce=True))
+        spec, tree, plan = cfg.privacy, cfg.tree, cfg.faults
+        levels = tree.n_levels(N_WORKERS)
+        want, want_rec, _, _ = _fault_bytes(mb, spec, tree, plan, rounds)
+        res, launches, audits = run(
+            cfg, "run_fedpc", want, "privacy slice (b) masked tree",
+            {"uplink_masked": rounds, "masked_partial_sum": rounds * levels,
+             "mask_repair": rounds, "master_masked": rounds})
+        check(res.recovery_bytes_per_round == want_rec,
+              "privacy slice (b): recovery bytes")
+        check(audits == [{"runtime": "run_fedpc", "boundary": "round-step",
+                          "n_launches": tree.launches(N_WORKERS) + 1,
+                          "masked": True}],
+              f"privacy slice (b): audits {audits}")
+        lines.append(f"masked tree (fanout {tree.fanout}, threshold "
+                     f"{spec.recovery_threshold}, faults {FAULTS}): audit "
+                     f"{audits[0]['n_launches']} launches, launches "
+                     f"{ {k: v for k, v in launches.items() if v} }")
+    finally:
+        FedSimulator._enforce_privacy = inner
+    print("privacy slice (a, b): " + "; ".join(lines), flush=True)
+    print(f"privacy slice (c): {_negative_audits(torch, dev)}", flush=True)
+    print(f"privacy slice (d): pilot slot poison check bitwise, "
+          f"{_pilot_poison_check(torch, dev)}", flush=True)
+    _release(torch)
+    print(f"privacy slice (e) on {_smi()}: audit set-up time per driver "
+          f"run, host only, {N_PARAMS:,} params x {N_WORKERS} workers: "
+          + ", ".join(f"{d} {ms:.1f} ms" for ms, d, _ in audit_ms)
+          + " (secure-agg, secure-agg-ldp, the masked tree); no launch and "
+          "no sync on the card", flush=True)
+    check(len(audit_ms) == 2 * len(PRIVACY_SCENARIOS) + 1
+          and all(n == 1 for *_, n in audit_ms), "an audit per driver run")
+    return own
+
+
 def _bitwise(torch, a, b) -> tuple[bool, float]:
     """(bitwise equal, largest absolute difference): floats compared as
     their int32 bits, integers as values."""
@@ -3081,16 +3330,18 @@ def main() -> int:
         masked_tree = phase_masked_tree_slice(torch, dev)
         phase_tree_wire(torch, dev)
         telemetry = phase_telemetry_slice(torch, dev)
+        privacy = phase_privacy_slice(torch, dev)
         for kind in ("uplink_masked", "master_masked"):
-            launches[kind] += telemetry[kind]
+            launches[kind] += telemetry[kind] + privacy[kind]
         rows = phase_times(torch, dev, rate, launches, errs)
         rows += phase_times_masked(torch, dev, rate, launches, errs)
         rows += phase_times_tree(torch, dev, rate, {
             "partial_sum": tree["partial_sum"],
             "masked_partial_sum": masked_tree["masked_partial_sum"]
-            + telemetry["masked_partial_sum"],
+            + telemetry["masked_partial_sum"]
+            + privacy["masked_partial_sum"],
             "mask_repair": masked_tree["mask_repair"]
-            + telemetry["mask_repair"],
+            + telemetry["mask_repair"] + privacy["mask_repair"],
             "masked_partial_sum_off": tree["masked_partial_sum"]}, errs)
         rows += phase_times_unfused(torch, dev, rate, worker_rounds, errs)
         rows.sort(key=lambda row: row["row"])

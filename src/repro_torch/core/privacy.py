@@ -33,8 +33,20 @@ class LeakageError(RuntimeError):
 
 @dataclass
 class LeakageLedger:
-    """Records worker→master events; raises on a disallowed one."""
+    """Records worker→master events; raises on a disallowed one.
+
+    ``audits`` records the round-program audits (``repro_torch.privacy
+    .audit``): both FedPC drivers audit their round program at set-up when
+    the :class:`~repro_torch.privacy.spec.PrivacySpec` has ``enforce=True``
+    — a violation raises :class:`LeakageError` before any round runs, and
+    the passed audit is logged here, so tests (and operators) can see that
+    enforcement happened."""
     events: list = field(default_factory=list)
+    audits: list = field(default_factory=list)
+
+    def record_audit(self, runtime: str, report: dict) -> None:
+        """Log a passed round-program audit under the driver's name."""
+        self.audits.append({"runtime": runtime, **report})
 
     def record(self, worker_id: int, round_: int, kind: str,
                is_pilot: bool) -> None:

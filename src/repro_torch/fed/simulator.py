@@ -30,7 +30,11 @@ against the host's own ledger math (``telemetry.trace.build_trace``), a
 scenario axes:
 C-fraction partial participation (``participation=``, drawn from
 ``participation_seed=`` with the JAX package's bits, the same schedule in
-both drivers) and per-worker beta_k on the wire.
+both drivers) and per-worker beta_k on the wire. Under a
+``PrivacySpec(enforce=True)`` (the default) both audit the round program
+once before round 1 (``privacy.audit.check_round_program``, a run on
+``meta`` tensors on the host: no launch, no op and no sync on the card)
+and record the passed audit in ``ledger.audits``.
 
 The baselines (:meth:`run_fedavg`, :meth:`run_phong`,
 :meth:`run_centralized`) run the same local training and aggregate in
@@ -56,6 +60,7 @@ from repro_torch.core.privacy import LeakageLedger, should_evade
 from repro_torch.fed import faults as ft
 from repro_torch.fed import rounds as rd
 from repro_torch.fed.worker import Worker
+from repro_torch.privacy import audit as pv_audit
 from repro_torch.privacy import recovery as pvr
 from repro_torch.telemetry import record as tmr
 from repro_torch.telemetry import trace as tmt
@@ -100,11 +105,6 @@ class SimResult:
                      + np.sum(self.recovery_bytes_per_round))
 
 
-def _not_ported(what: str, item: str):
-    return NotImplementedError(
-        f"{what} is not ported to repro_torch yet (ROADMAP queue 1, {item})")
-
-
 def _stack_locals(locals_: list[PyTree], layout: fl.FlatLayout
                   ) -> torch.Tensor:
     """N worker trees → the (N, rows, 128) uplink input."""
@@ -144,15 +144,11 @@ class FedSimulator:
 
     def _fraction(self, participation) -> float:
         """The run's participation fraction, refused outside (0, 1] as the
-        JAX simulator does; then the branches later slices port."""
+        JAX simulator does."""
         cfg = self.fed_cfg
         frac = cfg.participation if participation is None else participation
         if not 0.0 < frac <= 1.0:
             raise ValueError(f"participation must be in (0, 1], got {frac}")
-        if cfg.privacy is not None and cfg.privacy.enforce:
-            raise _not_ported(
-                "the traced-program audit that PrivacySpec(enforce=True) "
-                "asks for (privacy/audit.py)", "item 6")
         return frac
 
     def _resolve_scenario(self, frac: float, betas, rounds: int, seed: int,
@@ -200,6 +196,33 @@ class FedSimulator:
                                         privacy=cfg.privacy,
                                         device=self.device)
         return wire, layout, state, int(state.round)   # one setup sync
+
+    def _enforce_privacy(self, runtime: str, wire: rd.WirePath,
+                         state: rd.RoundState, betas: torch.Tensor | None,
+                         has_mask: bool) -> None:
+        """§4.2 enforcement hook: with ``PrivacySpec(enforce=True)``, audit
+        the round program once, on ``meta`` tensors (shapes and dtypes, no
+        data, no launch on the card), before any round runs. A policy
+        violation raises ``LeakageError`` here; the passed audit is
+        recorded in the ledger under ``runtime``, the driver's name."""
+        spec = self.fed_cfg.privacy
+        if spec is None or not spec.enforce:
+            return
+        meta = torch.device("meta")
+        bufs = torch.empty((self.n, *state.buf_p1.shape),
+                           dtype=torch.float32, device=meta)
+        costs = torch.empty((self.n,), dtype=torch.float32, device=meta)
+        # The betas and the mask ride check_round_program's kwargs, which
+        # it turns into meta specs with the rest; baked into the partial
+        # they would stay on the run's device.
+        kw = {"betas": betas} if betas is not None else {}
+        if has_mask:
+            kw["mask"] = torch.empty((self.n,), dtype=torch.float32,
+                                     device=meta)
+        report = pv_audit.check_round_program(
+            wire.round_step, state, bufs, costs, torch.from_numpy(self.sizes),
+            n_workers=self.n, masked=spec.active, **kw)
+        self.ledger.record_audit(runtime, report)
 
     def _fault_codes(self, t0: int, n_rounds: int) -> np.ndarray | None:
         """(R, N) host copy of the fault schedule, or None without an
@@ -414,6 +437,8 @@ class FedSimulator:
         if self.evade_streak and masks is not None:
             raise ValueError("evasion defence + partial participation is "
                              "not supported in one run")
+        self._enforce_privacy("run_fedpc", wire, state, betas_dev,
+                              has_mask=masks is not None)
         masks_dev = (None if masks is None
                      else torch.as_tensor(masks, device=self.device))
         model_bytes = proto.model_size_bytes(self.init_params)
@@ -502,6 +527,8 @@ class FedSimulator:
         wire, layout, state, t0 = self._setup(state)
         masks, betas_dev = self._resolve_scenario(
             frac, betas, rounds, participation_seed, t0)
+        self._enforce_privacy("run_fedpc_scan", wire, state, betas_dev,
+                              has_mask=masks is not None)
         model_bytes = proto.model_size_bytes(self.init_params)
         params0 = fl.unflatten_tree(state.buf_p1, layout)
         res = SimResult("fedpc", params0)

@@ -10,7 +10,10 @@ views. ``repro_torch.kernels.ops`` makes the views.
 Each wrapper checks device, dtype, shape, contiguity and (for the
 operands read as float4) 16-byte alignment, and raises on what its kernel does not take. A CUDA tensor launches the kernel
 on the current stream and bumps ``LAUNCHES``; a CPU tensor takes the plain
-PyTorch version beside it. Nothing falls back: a kernel that fails to build
+PyTorch version beside it, through the launch seam (``kernels.seam``),
+where an audit's ``meta`` run records the launch. The masters declare
+their pilot slot there: the worker stack they read the pilot from in
+place at ``k_star``. Nothing falls back: a kernel that fails to build
 or launch raises. Either path runs inside a profiler scope named after the
 launch site's tune key (``telemetry.profile.kernel_scope``).
 
@@ -32,6 +35,7 @@ from repro_torch.kernels import build
 from repro_torch.kernels.ref import (packed_master_accum_ref,
                                      ternary_pack_ref,
                                      ternary_pack_round1_ref)
+from repro_torch.kernels.seam import device_of, run_plain
 from repro_torch.telemetry import profile as tprof
 
 LANES = 128
@@ -107,12 +111,6 @@ def scope_kind(kind: str, word_bits: int) -> str:
     return kind + "16" if word_bits == 16 else kind
 
 
-def device_of(x: torch.Tensor) -> torch.device:
-    if x.device.type not in ("cuda", "cpu"):
-        raise ValueError(f"no wire kernel for device {x.device}")
-    return x.device
-
-
 # -- batched uplink: Eq. (4)/(5) + §3.3 pack for all N workers -------------
 
 def ternary_pack_stacked_plain(q, p1, p2, t, beta, alpha1: float
@@ -144,8 +142,9 @@ def ternary_pack_stacked(q: torch.Tensor, p1: torch.Tensor, p2: torch.Tensor,
     if n < 1:
         raise ValueError("need at least one worker")
     with tprof.kernel_scope("uplink_stacked", r, n, dev):
-        if dev.type == "cpu":
-            return ternary_pack_stacked_plain(q, p1, p2, t, beta, alpha1)
+        if dev.type != "cuda":
+            return run_plain("uplink_stacked", ternary_pack_stacked_plain, q,
+                             p1, p2, t, beta, alpha1)
         out = torch.empty((n, r, LANES), dtype=torch.uint8, device=dev)
         _launch("uplink_stacked", _lib().fw_ternary_pack_stacked,
                 q.data_ptr(), p1.data_ptr(), p2.data_ptr(), beta.data_ptr(),
@@ -188,12 +187,14 @@ def _pack_one(kind: str, q, p1, p2, t, beta, alpha1) -> torch.Tensor:
         check_operand("beta", beta, torch.float32, (), dev)
         check_operand("alpha1", alpha1, torch.float32, (), dev)
     with tprof.kernel_scope("uplink", r, 1, dev):
-        if dev.type == "cpu":
+        if dev.type != "cuda":
             if traced:
-                return ternary_pack_any_plain(q, p1, p2, t, beta, alpha1)
+                return run_plain(kind, ternary_pack_any_plain, q, p1, p2, t,
+                                 beta, alpha1)
             if p2 is None:
-                return ternary_pack_round1_plain(q, p1, alpha1)
-            return ternary_pack_plain(q, p1, p2, beta)
+                return run_plain(kind, ternary_pack_round1_plain, q, p1,
+                                 alpha1)
+            return run_plain(kind, ternary_pack_plain, q, p1, p2, beta)
         if traced:
             at = (t.data_ptr(), beta.data_ptr(), alpha1.data_ptr())
             by_value = (0.0, 0.0)
@@ -274,9 +275,9 @@ def packed_master_update(q: torch.Tensor, k_star: torch.Tensor,
     check_operand("p2", p2, torch.float32, (r, WIDE), dev, align=16)
     check_operand("t", t, torch.int32, (), dev)
     with tprof.kernel_scope("master", r, n, dev):
-        if dev.type == "cpu":
-            return packed_master_update_plain(q, k_star, packed, w, p1, p2,
-                                              t, alpha0)
+        if dev.type != "cuda":
+            return run_plain("master", packed_master_update_plain, q, k_star,
+                             packed, w, p1, p2, t, alpha0, pilot=(0, 1))
         out = torch.empty((r, WIDE), dtype=torch.float32, device=dev)
         _launch("master", _lib().fw_packed_master_update,
                 q.data_ptr(), k_star.data_ptr(), packed.data_ptr(),

@@ -15,9 +15,10 @@ Each wrapper checks device, dtype, shape, contiguity and alignment and
 raises on what its kernel does not take. A CUDA tensor launches the
 kernel on the current stream and bumps ``LAUNCHES``; a CPU tensor takes
 the plain PyTorch version beside it (``privacy.ref`` arithmetic over
-streams expanded by ``privacy.masking``/``privacy.dp``). Nothing falls
-back: a kernel that fails to build or launch raises. Either path runs
-inside a profiler scope named after the launch site's tune key
+streams expanded by ``privacy.masking``/``privacy.dp``), through the
+launch seam (``kernels.seam``), where the master declares its pilot slot.
+Nothing falls back: a kernel that fails to build or launch raises. Either
+path runs inside a profiler scope named after the launch site's tune key
 (``telemetry.profile.kernel_scope``).
 """
 from __future__ import annotations
@@ -27,8 +28,8 @@ import ctypes
 import torch
 
 from repro_torch.kernels import build
-from repro_torch.kernels.fused_wire import (WIDE, check_operand, device_of,
-                                            scope_kind)
+from repro_torch.kernels.fused_wire import WIDE, check_operand, scope_kind
+from repro_torch.kernels.seam import device_of, run_plain
 from repro_torch.privacy import ref as pref
 from repro_torch.privacy.dp import rr_bits64
 from repro_torch.privacy.masking import net_words64, to_words, word_bits_of
@@ -179,8 +180,9 @@ def _pack_masked(q, p1, p2, t, beta, alpha1, wq, keys, signs, rr_keys,
                          f"one block's shared memory")
     with tprof.kernel_scope(scope_kind("uplink_masked", word_bits), r, n,
                              dev):
-        if dev.type == "cpu":
-            return ternary_pack_masked_plain(
+        if dev.type != "cuda":
+            return run_plain(
+                "uplink_masked", ternary_pack_masked_plain,
                 q, p1, p2, t, beta, alpha1, wq, keys, signs, rr_keys,
                 rr_threshold=rr_threshold, word_bits=word_bits,
                 use_masks=use_masks)
@@ -238,9 +240,10 @@ def masked_master_update(q: torch.Tensor, k_star: torch.Tensor,
     check_operand("p2", p2, torch.float32, (r, WIDE), dev, align=16)
     check_operand("t", t, torch.int32, (), dev)
     with tprof.kernel_scope(scope_kind("master_masked", bits), r, c, dev):
-        if dev.type == "cpu":
-            return masked_master_update_plain(q, k_star, masked, sum_wq, p1,
-                                              p2, t, alpha0, scale_mult)
+        if dev.type != "cuda":
+            return run_plain("master_masked", masked_master_update_plain, q,
+                             k_star, masked, sum_wq, p1, p2, t, alpha0,
+                             scale_mult, pilot=(0, 1))
         out = torch.empty((r, WIDE), dtype=torch.float32, device=dev)
         _launch("master_masked", _lib().mw_masked_master_update,
                 q.data_ptr(), k_star.data_ptr(), masked.data_ptr(),
@@ -304,11 +307,12 @@ def mask_repair(y: torch.Tensor | None, keys: torch.Tensor,
                          f"shared memory")
     if p == 0 and out is None:
         return y
-    if p == 0 and dev.type == "cuda":      # a copy or a fill: no launch
+    if p == 0 and dev.type != "cpu":      # a copy or a fill: no launch
         return mask_repair_plain(y, keys, coeff, out=out)
     with tprof.kernel_scope(scope_kind("mask_repair", bits), r, 1, dev):
-        if dev.type == "cpu":
-            return mask_repair_plain(y, keys, coeff, out=out)
+        if dev.type != "cuda":
+            return run_plain("mask_repair", mask_repair_plain, y, keys,
+                             coeff, out=out)
         if out is None:
             out = torch.empty_like(y)
         _launch("mask_repair", _lib().mw_mask_repair,

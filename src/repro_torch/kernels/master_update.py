@@ -26,7 +26,8 @@ import ctypes
 import torch
 
 from repro_torch.kernels import build
-from repro_torch.kernels.fused_wire import LANES, check_operand, device_of
+from repro_torch.kernels.fused_wire import LANES, check_operand
+from repro_torch.kernels.seam import device_of, run_plain
 from repro_torch.kernels.ref import fma_f32
 from repro_torch.telemetry import profile as tprof
 
@@ -76,8 +77,9 @@ def master_update(q: torch.Tensor, tern: torch.Tensor, w: torch.Tensor,
     if n < 1:
         raise ValueError("need at least one worker")
     with tprof.kernel_scope("master_update", r, n, dev):
-        if dev.type == "cpu":
-            return master_update_plain(q, tern, w, p1, p2)
+        if dev.type != "cuda":
+            return run_plain("master_update", master_update_plain, q, tern,
+                             w, p1, p2)
         out = torch.empty((r, LANES), dtype=torch.float32, device=dev)
         lib = _lib()
         err = lib.mu_master_update(

@@ -26,8 +26,8 @@ import torch
 
 from repro_torch.core import packing
 from repro_torch.kernels import build
-from repro_torch.kernels.fused_wire import (LANES, PACK, WIDE, check_operand,
-                                            device_of)
+from repro_torch.kernels.fused_wire import LANES, PACK, WIDE, check_operand
+from repro_torch.kernels.seam import device_of, run_plain
 from repro_torch.telemetry import profile as tprof
 
 #: Kernel launches per wrapper; only a launch on the card counts.
@@ -79,8 +79,8 @@ def pack2bit(codes: torch.Tensor) -> torch.Tensor:
     r = codes.shape[0]
     check_operand("codes", codes, torch.int8, (r, WIDE), dev, align=16)
     with tprof.kernel_scope("pack", r, 1, dev):
-        if dev.type == "cpu":
-            return pack2bit_plain(codes)
+        if dev.type != "cuda":
+            return run_plain("pack", pack2bit_plain, codes)
         out = torch.empty((r, LANES), dtype=torch.uint8, device=dev)
         _launch("pack", _lib().pk_pack2bit, codes, out)
         return out
@@ -92,8 +92,8 @@ def unpack2bit(packed: torch.Tensor) -> torch.Tensor:
     r = packed.shape[0]
     check_operand("packed", packed, torch.uint8, (r, LANES), dev, align=4)
     with tprof.kernel_scope("unpack", r, 1, dev):
-        if dev.type == "cpu":
-            return unpack2bit_plain(packed)
+        if dev.type != "cuda":
+            return run_plain("unpack", unpack2bit_plain, packed)
         out = torch.empty((r, WIDE), dtype=torch.int8, device=dev)
         _launch("unpack", _lib().pk_unpack2bit, packed, out)
         return out

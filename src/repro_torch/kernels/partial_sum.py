@@ -26,7 +26,8 @@ import torch
 
 from repro_torch.kernels import build
 from repro_torch.kernels.fused_wire import (LANES, PACK, WIDE, check_operand,
-                                            device_of, scope_kind)
+                                            scope_kind)
+from repro_torch.kernels.seam import device_of, run_plain
 from repro_torch.privacy.masking import (as_u64, net_words64, to_words,
                                          word_bits_of)
 from repro_torch.telemetry import profile as tprof
@@ -120,9 +121,9 @@ def partial_sum(packed: torch.Tensor, wq: torch.Tensor, *, fanout: int,
     if r * WIDE > 1 << 32:
         raise ValueError("flat element indices must fit in 32 bits")
     with tprof.kernel_scope("partial_sum", r, fanout, dev):
-        if dev.type == "cpu":
-            return partial_sum_plain(packed, wq, fanout=fanout,
-                                     word_bits=word_bits)
+        if dev.type != "cuda":
+            return run_plain("partial_sum", partial_sum_plain, packed, wq,
+                             fanout=fanout, word_bits=word_bits)
         out = torch.empty((g, r, WIDE), dtype=_WORD_DTYPES[word_bits],
                           device=dev)
         _launch("partial_sum", _lib().ps_partial_sum,
@@ -182,10 +183,10 @@ def masked_partial_sum(words: torch.Tensor, keys: torch.Tensor,
                          f"block's shared memory")
     with tprof.kernel_scope(scope_kind("partial_sum_masked", bits), r,
                              fanout, dev):
-        if dev.type == "cpu":
-            return masked_partial_sum_plain(words, keys, signs,
-                                            fanout=fanout, sibling=sibling,
-                                            use_masks=use_masks)
+        if dev.type != "cuda":
+            return run_plain("masked_partial_sum", masked_partial_sum_plain,
+                             words, keys, signs, fanout=fanout,
+                             sibling=sibling, use_masks=use_masks)
         out = torch.empty((g, r, WIDE), dtype=words.dtype, device=dev)
         _launch("masked_partial_sum", _lib().ps_masked_partial_sum,
                 words.data_ptr(), keys.data_ptr(), signs.data_ptr(), bits,

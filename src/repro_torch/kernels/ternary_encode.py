@@ -23,7 +23,8 @@ import torch
 
 from repro_torch.core.ternary import ternarize, ternarize_round1
 from repro_torch.kernels import build
-from repro_torch.kernels.fused_wire import LANES, check_operand, device_of
+from repro_torch.kernels.fused_wire import LANES, check_operand
+from repro_torch.kernels.seam import device_of, run_plain
 from repro_torch.telemetry import profile as tprof
 
 #: Kernel launches per wrapper; only a launch on the card counts.
@@ -57,9 +58,10 @@ def _encode(kind: str, q, p1, p2, beta: float, alpha: float
     if p2 is not None:
         check_operand("p2", p2, torch.float32, (r, LANES), dev, align=16)
     with tprof.kernel_scope(kind, r, 1, dev):
-        if dev.type == "cpu":
-            return (ternarize_round1(q, p1, alpha) if p2 is None
-                    else ternarize(q, p1, p2, beta))
+        if dev.type != "cuda":
+            if p2 is None:
+                return run_plain(kind, ternarize_round1, q, p1, alpha)
+            return run_plain(kind, ternarize, q, p1, p2, beta)
         out = torch.empty((r, LANES), dtype=torch.int8, device=dev)
         lib = _lib()
         err = lib.te_ternary_encode(

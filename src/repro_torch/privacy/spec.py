@@ -11,9 +11,10 @@
   {-1, 0, +1}; the master divides by ``1 - flip_prob`` so the expected
   update is the noiseless one.
 * **Accounting / enforcement**: ``delta`` sets the advanced-composition
-  read-out of ``PrivacyAccountant``; ``enforce`` asks the runtime to audit
-  its round program, which this package does not port yet (its simulator
-  refuses ``enforce=True``).
+  read-out of ``PrivacyAccountant``; ``enforce`` (the default) has both
+  FedPC drivers audit their round program once, on ``meta`` tensors,
+  before round 1 (``privacy.audit.check_round_program``); a violation
+  raises ``LeakageError`` before any round runs.
 
 Fixed point: worker ``k`` scales its fields by ``W_k = round(w_k
 2**fixpoint_bits)`` and the master multiplies the de-biased integer sum by

@@ -1,4 +1,5 @@
-"""Small shared utilities: nested-dict pytrees, shape math, device choice.
+"""Small shared utilities: nested-dict pytrees, shape math, device choice,
+and op accounting of a program (:func:`program_op_counts`).
 
 A "tree" here is a nested ``dict`` / ``list`` / ``tuple`` whose leaves are
 tensors (or anything else that is not one of those containers). Dict keys
@@ -110,3 +111,35 @@ def tree_weighted_sum(trees, weights) -> PyTree:
     for t, w in zip(trees[1:], weights[1:]):
         out = tree_add(out, tree_scale(t, w))
     return out
+
+
+# -- op accounting (structural asserts in tests and the chip smoke) --------
+
+#: The name a recording gives a copy from the device to the CPU
+#: (``aten::_to_copy`` or ``aten::copy_`` onto the CPU).
+TO_HOST = "to_host"
+
+#: ATen ops that make the host wait for the device:
+#: ``aten::_local_scalar_dense`` (``.item()``, ``int()``, ``float()``,
+#: ``bool()`` of a tensor), ``aten::equal`` (a Python bool),
+#: ``aten::nonzero`` and ``aten::masked_select`` (a result whose shape
+#: depends on the data), and :data:`TO_HOST`, a copy to the CPU. A
+#: device-resident round contains none of them.
+HOST_SYNC_OPS = frozenset({
+    "aten::_local_scalar_dense", "aten::equal", "aten::nonzero",
+    "aten::masked_select", TO_HOST,
+})
+
+
+def program_op_counts(fn: Callable, *args, **kwargs) -> dict:
+    """``{op or launch: count}`` over one run of ``fn`` on the ``meta``
+    specs of its tensor arguments (``kernels.seam.record``): each ATen op
+    outside a kernel under its name (``aten::add``), each kernel launch
+    under ``"launch:<kind>"`` (the wrapper's ``LAUNCHES`` key), and each
+    host sync under its :data:`HOST_SYNC_OPS` name; a meta tensor has no
+    value, so a host sync is counted and answered with a placeholder, not
+    run. The counterpart of the JAX package's ``jaxpr_primitive_counts``,
+    but an eager run: a loop counts once an iteration, and of a branch
+    only the side taken."""
+    from repro_torch.kernels import seam
+    return seam.record(fn, *args, **kwargs)[0].counts()

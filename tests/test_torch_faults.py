@@ -489,9 +489,11 @@ def test_quickstart_federation_with_faults_matches(spec_kw, fanout):
 
 
 def test_partial_participation_and_enforce_still_refused():
-    # Partial participation on the faulty plain tree now runs: the JAX
-    # simulator's pilots, bytes and ledger from the same schedule. The
-    # audit of enforce=True is still refused.
+    # Partial participation on the faulty plain tree runs: the JAX
+    # simulator's pilots, bytes and ledger from the same schedule. So does
+    # the enforced masked tree under the same faults (enforce=True, the
+    # default): the round program is audited once before round 1, and the
+    # ledger records the JAX simulator's audit.
     n = 4
     jparams = j_init(jax.random.PRNGKey(0), 24, 6)
     tw = _federation(TData, t_split, t_loaders, t_cfgs, TWorker, t_lag, n)
@@ -509,7 +511,20 @@ def test_partial_participation_and_enforce_still_refused():
     assert tres.bytes_per_round == list(jres.bytes_per_round)
     assert tsim.ledger.events == jsim.ledger.events
     np.testing.assert_allclose(tres.costs, jres.costs, rtol=1e-3)
-    cfg = TCfg(n_workers=n, tree=TTree(2), privacy=TSpec(
-        recovery_threshold=2))
-    with pytest.raises(NotImplementedError, match="audit"):
-        TSim(tw, params, cfg, device="cpu").run_fedpc(rounds=1)
+    tw = _federation(TData, t_split, t_loaders, t_cfgs, TWorker, t_lag, n)
+    jw = _federation(JData, j_split, j_loaders, j_cfgs, JWorker, j_lag, n)
+    jsim = JSim(jw, jparams, JCfg(n_workers=n, tree=JTree(2),
+                                  faults=JPlan(**plan),
+                                  privacy=JSpec(recovery_threshold=2)))
+    jres = jsim.run_fedpc(rounds=3, participation=0.5, participation_seed=2,
+                          wire_block_workers=1)
+    tsim = TSim(tw, params, TCfg(
+        n_workers=n, tree=TTree(2), faults=tft.FaultPlan(**plan),
+        privacy=TSpec(recovery_threshold=2)), device="cpu")
+    tres = tsim.run_fedpc(rounds=3, participation=0.5, participation_seed=2)
+    assert tsim.ledger.audits == jsim.ledger.audits == [
+        {"runtime": "run_fedpc", "boundary": "round-step",
+         "n_launches": TTree(2).launches(n) + 1, "masked": True}]
+    assert tres.pilot_history == jres.pilot_history
+    assert tres.bytes_per_round == list(jres.bytes_per_round)
+    assert tsim.ledger.events == jsim.ledger.events

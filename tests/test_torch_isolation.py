@@ -31,7 +31,7 @@ def test_no_module_imports_jax_or_the_jax_package():
                  "core.baselines", "core.convergence",
                  "checkpoint.checkpoint", "telemetry.record",
                  "telemetry.trace", "telemetry.profile", "telemetry.report",
-                 "telemetry.smoke"):
+                 "telemetry.smoke", "kernels.seam", "configs.federation"):
         assert f"repro_torch.{name}" in names
     script = (
         "import importlib, sys\n"
@@ -76,7 +76,8 @@ def test_entry_points_default_to_cuda():
 def test_torch_examples_import_neither_jax_nor_the_jax_package():
     examples = sorted((ROOT / "examples").glob("*_torch.py"))
     assert [p.name for p in examples] == [
-        "communication_comparison_torch.py", "quickstart_torch.py"]
+        "communication_comparison_torch.py", "privacy_probes_torch.py",
+        "quickstart_torch.py"]
     for path in examples:
         names = []
         for node in ast.walk(ast.parse(path.read_text())):

@@ -857,3 +857,69 @@ def test_profile_session_holds_a_scope_a_launch(cuda, kind):
     # Where the profiler records CUDA activity, each range's kernels run
     # inside its device-side twin.
     assert ranges[DeviceType.CUDA] in ([], scopes)
+
+
+# -- the §4.2 audit: the pilot slot and the enforced round -------------------
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("bits", [16, 32])
+@pytest.mark.parametrize("t", [1, 2])
+def test_masters_ignore_poisoned_stack_rows_on_card(cuda, t, bits):
+    # The masters declare the (N, R, 512) stack their pilot slot: they read
+    # the pilot's row in place at k_star and nothing else of it, so NaN,
+    # inf and garbage in every other row change no bit, kernel or plain.
+    rng = np.random.default_rng(t + bits)
+    n, r = 10, 64
+    q, p1, p2 = _history(rng, n, r)
+    dq, dp1, dp2 = (torch.from_numpy(a).to(cuda) for a in (q, p1, p2))
+    dt = torch.tensor(t, dtype=torch.int32, device=cuda)
+    packed = torch.from_numpy(rng.integers(0, 256, (n, r, 128),
+                                           dtype=np.uint8)).to(cuda)
+    w = torch.from_numpy(rng.random(n, dtype=np.float32) / n).to(cuda)
+    words = pvm.to_words(torch.from_numpy(rng.integers(
+        0, 1 << bits, (3, r, 512))).to(cuda), bits)
+    sum_wq = pvm.to_words(torch.tensor(12345, device=cuda), 32)
+    for k in (0, 7):
+        ks = torch.tensor(k, device=cuda)
+        junk = torch.from_numpy(rng.standard_normal(
+            (n, r, 512), dtype=np.float32) * 1e30).to(cuda)
+        junk.view(-1)[::3] = float("nan")
+        junk.view(-1)[1::7] = float("-inf")
+        keep = torch.arange(n, device=cuda) == k
+        bad = torch.where(keep[:, None, None], dq, junk)
+        for fn in (tfw.packed_master_update, tfw.packed_master_update_plain):
+            a = fn(dq, ks, packed, w, dp1, dp2, dt, ALPHA0)
+            b = fn(bad, ks, packed, w, dp1, dp2, dt, ALPHA0)
+            assert bool(torch.isfinite(a).all()) and _same(a, b)
+        for fn in (tmw.masked_master_update, tmw.masked_master_update_plain):
+            a = fn(dq, ks, words, sum_wq, dp1, dp2, dt, ALPHA0, 2.0 ** -14)
+            b = fn(bad, ks, words, sum_wq, dp1, dp2, dt, ALPHA0, 2.0 ** -14)
+            assert bool(torch.isfinite(a).all()) and _same(a, b)
+
+
+@pytest.mark.gpu
+def test_enforced_masked_run_on_card(cuda):
+    # PrivacySpec() enforces (the default): the audit runs once on meta
+    # tensors before round 1 and launches nothing on the card; the rounds
+    # launch and give what the unenforced run does, bit for bit.
+    from repro_torch.core.fedpc import FedPCConfig
+    from repro_torch.fed import simulator as sim_mod
+    from repro_torch.utils import tree_leaves
+    runs, launched = [], []
+    for enforce in (True, False):
+        sim = sim_mod.FedSimulator(
+            _uniform_federation(4, 256), _mlp(cuda),
+            FedPCConfig(n_workers=4, privacy=PrivacySpec(
+                dp_epsilon=2.0, enforce=enforce)), device=cuda)
+        before = _launch_counts()
+        runs.append(sim.run_fedpc(3))
+        torch.cuda.synchronize()
+        launched.append({k: v - before[k]
+                         for k, v in _launch_counts().items()})
+        assert len(sim.ledger.audits) == int(enforce)
+    assert launched[0] == launched[1]
+    assert launched[0]["uplink_masked"] == launched[0]["master_masked"] == 3
+    assert runs[0].pilot_history == runs[1].pilot_history
+    assert runs[0].costs == runs[1].costs
+    for a, b in zip(tree_leaves(runs[0].params), tree_leaves(runs[1].params)):
+        assert torch.equal(a, b)

@@ -31,6 +31,7 @@ from repro.privacy.spec import PrivacySpec as JSpec
 from repro_torch.convert import params_from_numpy
 from repro_torch.core import protocol as proto
 from repro_torch.core.fedpc import FedPCConfig as TCfg
+from repro_torch.core.privacy import LeakageError
 from repro_torch.data.pipeline import federated_loaders as t_loaders
 from repro_torch.data.synthetic import SyntheticClassification as TData
 from repro_torch.data.synthetic import random_share_split as t_split
@@ -200,10 +201,30 @@ def test_quickstart_federation_with_privacy_matches():
                                    atol=1e-5)
 
 
-def test_enforce_is_refused():
-    tw = _federation(TData, t_split, t_loaders, t_cfgs, TWorker, t_lag)
+def test_enforce_is_refused(monkeypatch):
+    # Under enforce=True (the default) a round program that leaks is
+    # refused by the set-up audit before any round runs, in both drivers;
+    # with enforce=False the same program runs.
     params = params_from_numpy(jax.tree_util.tree_map(
         np.asarray, j_init(jax.random.PRNGKey(0), 24, 6)), device="cpu")
-    sim = TSim(tw, params, TCfg(n_workers=3, privacy=TSpec()), device="cpu")
-    with pytest.raises(NotImplementedError, match="audit"):
-        sim.run_fedpc(rounds=1)
+    round_step = trd.WirePath.round_step
+
+    def leaky(self, state, bufs_q, costs, sizes, **kw):
+        new_state, new_buf, info = round_step(self, state, bufs_q, costs,
+                                              sizes, **kw)
+        return new_state, new_buf, {**info, "trace_payload": bufs_q}
+
+    monkeypatch.setattr(trd.WirePath, "round_step", leaky)
+    for driver in ("run_fedpc", "run_fedpc_scan"):
+        tw = _federation(TData, t_split, t_loaders, t_cfgs, TWorker, t_lag)
+        sim = TSim(tw, params, TCfg(n_workers=3, privacy=TSpec()),
+                   device="cpu")
+        with pytest.raises(LeakageError, match="per-worker float payload"):
+            getattr(sim, driver)(rounds=1)
+        assert sim.ledger.events == sim.ledger.audits == []
+        assert [w.step for w in tw] == [0, 0, 0]
+    tw = _federation(TData, t_split, t_loaders, t_cfgs, TWorker, t_lag)
+    sim = TSim(tw, params, TCfg(n_workers=3, privacy=TSpec(enforce=False)),
+               device="cpu")
+    res = sim.run_fedpc(rounds=1)
+    assert len(res.pilot_history) == 1 and sim.ledger.audits == []

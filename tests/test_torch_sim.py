@@ -13,6 +13,7 @@ import jax
 import numpy as np
 import pytest
 
+from repro.core.fedpc import FedPCConfig as JCfg
 from repro.data.pipeline import BatchIterator as JBatchIterator
 from repro.data.pipeline import federated_loaders as j_loaders
 from repro.data.synthetic import SyntheticClassification as JData
@@ -23,6 +24,7 @@ from repro.fed.worker import WorkerConfig as JWorkerConfig
 from repro.fed.worker import make_worker_configs as j_cfgs
 from repro.models.mlp import init_mlp_classifier as j_init
 from repro.models.mlp import mlp_loss_and_grad as j_lag
+from repro.privacy.spec import PrivacySpec as JSpec
 from repro_torch.convert import params_from_numpy
 from repro_torch.core.fedpc import FedPCConfig as TCfg
 from repro_torch.data.pipeline import BatchIterator
@@ -122,10 +124,10 @@ def test_train_round_device_matches(optimizer):
 
 
 def test_unported_branches_raise():
-    # Partial participation and the evasion defence are ported: they run
-    # as in the JAX simulator (participation books the sampled workers
-    # only). The audit of enforce=True still raises, naming its ROADMAP
-    # item.
+    # Partial participation, the audit of enforce=True and the evasion
+    # defence are ported: they run as in the JAX simulator (participation
+    # books the sampled workers only; the enforced masked round records
+    # the JAX simulator's audit before its first round).
     jparams, params_np = _init_np()
     jw, _ = _federation(JData, j_split, j_loaders, j_cfgs, JWorker, j_lag)
     tw, _ = _federation(TData, t_split, t_loaders, t_cfgs, TWorker, t_lag)
@@ -136,9 +138,15 @@ def test_unported_branches_raise():
     assert tres.pilot_history == jres.pilot_history
     assert tres.bytes_per_round == list(jres.bytes_per_round)
     sim.fed_cfg = TCfg(n_workers=3, privacy=TSpec())     # enforce=True
-    with pytest.raises(NotImplementedError, match="audit.*item 6"):
-        sim.run_fedpc(rounds=1)
+    jsim.fed_cfg = JCfg(n_workers=3, privacy=JSpec())
+    jres = jsim.run_fedpc(rounds=1, wire_block_workers=1)
+    tres = sim.run_fedpc(rounds=1)
+    assert tres.pilot_history == jres.pilot_history
+    assert sim.ledger.audits == jsim.ledger.audits == [
+        {"runtime": "run_fedpc", "boundary": "round-step", "n_launches": 2,
+         "masked": True}]
     sim.fed_cfg = TCfg(n_workers=3)
+    jsim.fed_cfg = JCfg(n_workers=3)
     jsim.evade_streak = sim.evade_streak = 2
     jres = jsim.run_fedpc(rounds=3)
     tres = sim.run_fedpc(rounds=3)
@@ -150,7 +158,7 @@ def test_unported_branches_raise():
 @pytest.mark.parametrize("frac", [1.5, 0.0, -1.0])
 def test_participation_out_of_range_raises_as_reference(frac):
     # Refused before anything runs, with the JAX simulator's message, and
-    # before the refusal of the not-ported audit (enforce=True).
+    # before the audit of enforce=True.
     jparams, params_np = _init_np()
     jw, _ = _federation(JData, j_split, j_loaders, j_cfgs, JWorker, j_lag)
     tw, _ = _federation(TData, t_split, t_loaders, t_cfgs, TWorker, t_lag)
