@@ -135,6 +135,29 @@ result:
    #7, kernel and plain, at the main-path shape, give the same bits with
    every non-pilot row of the worker stack NaN, -inf and garbage; (e)
    each audit's set-up time, beside the card's name and power limit.
+   model serving — the model zoo's ``qwen3-14b`` at full width and depth
+   (40 layers, d_model 5120, 40 heads over 8 KV heads, d_ff 17408, vocab
+   151936, qk-norm; 14,768,307,200 params) in bfloat16, random weights
+   drawn on the card from a seed: prefill 4 x 1,024 random tokens (the
+   512-key blocked attention), then 32 greedy decode steps with ``pos`` a
+   device tensor under sync-debug "error"; logits finite; the blocked
+   prefill's last logits against ``forward``'s materialized full
+   sequence, and a 64-token prefill then one decode step against
+   ``prefill_sequential`` then the same step, each a relative L2
+   distance within 0.08 in bfloat16; prefill and decode times beside
+   their bounds (2 x params x tokens at the dense bf16 peak; the weights
+   at the memory rate) and ``max_memory_allocated``. Then the same widths
+   at 4 layers in float32 (2,877,077,504 params), the same checks within
+   1e-4.
+   federated LM — ``launch/train.py simulate``'s setup through the port:
+   the reduced ``qwen3-14b`` (1,443,328 params), 4 workers on 192
+   SyntheticLM sequences of 64 tokens (``sequence_split``, batch sizes
+   from (16, 8)), 3 rounds of ``run_fedpc``, twice: #1 and #2 launched 3
+   times a run and nothing else, ``round_step`` under sync-debug "error",
+   Eq. (8) bytes, the two runs bitwise equal, the CPU's run (plain
+   versions) picking the same pilots; an LM worker's captured training
+   step (the token gather and its backward) replayed against the same
+   step called eagerly, bitwise.
 8. times  — each kernel and its plain version with CUDA events at the
    main-path shape (median of 25), beside its bound: device-memory bytes,
    or integer operations for the stream-generating kernels; the plain
@@ -799,8 +822,9 @@ def _check_run(torch, res, launches: dict, on_path: dict,
     never. Returns the launch counts of the path's own kernels."""
     import numpy as np
 
+    from repro_torch.core import flat as fl
     from repro_torch.telemetry import trace as tmt
-    from repro_torch.utils import tree_leaves
+    from repro_torch.utils import tree_leaves, tree_size
     for k, v in launches.items():
         want = on_path.get(k, 0)
         check(v == want, f"{label}: {k} launched {v} times in {rounds} "
@@ -809,7 +833,8 @@ def _check_run(torch, res, launches: dict, on_path: dict,
           f"{res.costs}")
     check(res.bytes_per_round == want_bytes,
           f"{label}: bytes per round {res.bytes_per_round} != {want_bytes}")
-    check(all(0 <= k < N_WORKERS for k in res.pilot_history), "bad pilot")
+    check(all(0 <= k < len(workers) for k in res.pilot_history),
+          "bad pilot")
     check(all(bool(torch.isfinite(p).all()) for p in tree_leaves(res.params)),
           f"{label}: global model not finite")
     check(int(res.round_state.round) == rounds + 1, "round counter")
@@ -819,8 +844,9 @@ def _check_run(torch, res, launches: dict, on_path: dict,
           and int(res.round_state.telemetry.rounds) == rounds,
           f"{label}: no telemetry trace of every round")
     tmt.summarize(res.telemetry.events())
-    print(f"{label}: {driver} {N_PARAMS:,} params x {N_WORKERS} workers, "
-          f"rows {ROWS}, sizes {[w.loader.n for w in workers]}; costs "
+    print(f"{label}: {driver} {tree_size(res.params):,} params x "
+          f"{len(workers)} workers, rows {fl.layout_of(res.params).rows}, "
+          f"sizes {[w.loader.n for w in workers]}; costs "
           f"{[round(c, 5) for c in res.costs]}; pilots {res.pilot_history}; "
           f"bytes/round {[round(b) for b in want_bytes]} (the trace's, "
           f"cross-checked); launches {launches}; {synced} under sync-debug "
@@ -1124,8 +1150,8 @@ def _per_round(xs: list, n: int) -> list:
 
 
 def _second_oracle(torch, kept: tuple, layout) -> tuple[int, float]:
-    """``core.fedpc.master_round`` over a captured round's ten local
-    models as trees against ``WirePath.round_step``'s new buffer (kernels
+    """``core.fedpc.master_round`` over a captured round's local models
+    as trees against ``WirePath.round_step``'s new buffer (kernels
     #1 and #2): the same pilot; each new parameter within 2 ulps of its
     own magnitude (rtol 2^-22) and 1e-8: the kernel rounds ``q −
     coeff·mult`` once, as an FMA, the trees twice, and the two sum
@@ -2190,6 +2216,363 @@ def phase_privacy_slice(torch, dev) -> dict:
           "no sync on the card", flush=True)
     check(len(audit_ms) == 2 * len(PRIVACY_SCENARIOS) + 1
           and all(n == 1 for *_, n in audit_ms), "an audit per driver run")
+    return own
+
+
+SERVE_ARCH = "qwen3-14b"          # the model zoo's serving phase
+SERVE_PARAMS = 14_768_307_200
+SERVE_BATCH = 4
+SERVE_PROMPT = 1024               # a multiple of the 512-key prefill block
+SERVE_NEW = 32                    # greedy tokens decoded
+SERVE_SHORT = 64                  # prompt of the prefill_sequential check
+SERVE_PROFILED = 4                # decode steps profiled (positions again)
+SERVE_F32_LAYERS = 4              # depth of the float32 consistency model
+BF16_PEAK = 989e12                # H100 SXM dense bf16 tensor-core FLOP/s
+# Relative L2 distance allowed between two computations of the same
+# logits. bfloat16 keeps 8 significant bits and the two paths round at
+# other places (blocked attention rounds exp(s - m) before it is
+# normalized, a decode step's products run at other GEMM shapes); at 40
+# layers the distance of a bfloat16 forward to its float32 twin measured
+# 0.019 on the CPU at reduced width, so 0.08 is four times that. Float32
+# with TF32 off differs only in summation order.
+SERVE_TOL = {"bfloat16": 0.08, "float32": 1e-4}
+LM_WORKERS = 4                    # the federated LM, launch/train.py's
+LM_SEQUENCES = 192
+LM_SEQ_LEN = 64
+
+
+def _rel_l2(torch, a, b) -> float:
+    a, b = a.float(), b.float()
+    return float((a - b).norm() / b.norm())
+
+
+class Busy(NamedTuple):
+    """Device activity of a profiled call, per call."""
+    kernels: float                # device kernels (and copies) a call
+    busy_ms: float                # their summed time a call
+    top: str                      # the largest by summed time, with ms
+
+
+def _device_busy(torch, fn, calls: int = 1) -> list:
+    """``fn()`` once under ``torch.profiler`` (CPU and CUDA activity):
+    the device's kernels and copies (one stream: their times add), a call.
+    Returns ``[Busy]``, a list so two profiles concatenate."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]
+                 ) as prof:
+        fn()
+        torch.cuda.synchronize()
+    by_name: dict[str, float] = {}
+    n = 0
+    for e in prof.events():
+        if e.device_type == DeviceType.CUDA:
+            n += 1
+            by_name[e.name] = by_name.get(e.name, 0.0) + \
+                e.time_range.elapsed_us() / 1e3
+    check(n > 0, "the profiler recorded no device activity")
+    top = sorted(by_name.items(), key=lambda kv: -kv[1])[:4]
+    return [Busy(n / calls, sum(by_name.values()) / calls,
+                 "; ".join(f"{k[:60]} {v / calls:.2f} ms" for k, v in top))]
+
+
+def _serve_checks(torch, m, params, prompt, dev) -> dict:
+    """The consistency checks of one served model, each a relative L2
+    distance held to ``SERVE_TOL``: the blocked prefill's last logits
+    against ``forward``'s materialized full sequence, and a short prefill
+    then one decode step against ``prefill_sequential`` then the same
+    step (logits and caches). Returns {check: distance}."""
+    from repro_torch.utils import tree_leaves
+    tol = SERVE_TOL[m.cfg.param_dtype]
+    b, s = prompt.shape
+    out = {}
+    state = m.init_decode_state(b, s + SERVE_NEW, device=dev)
+    last, state = m.prefill(params, {"tokens": prompt}, state)
+    full, _ = m.forward(params, {"tokens": prompt})
+    check(bool(torch.isfinite(full).all()), "forward logits not finite")
+    out["blocked prefill vs materialized"] = _rel_l2(torch, last,
+                                                     full[:, -1:])
+    del state, full
+    short = prompt[:, :SERVE_SHORT]
+    runs = []
+    for fn in (m.prefill, m.prefill_sequential):
+        st = m.init_decode_state(b, SERVE_SHORT + 1, device=dev)
+        logits, st = fn(params, {"tokens": short}, st)
+        runs.append((logits, st))
+    tok = runs[0][0].argmax(-1)
+    steps = [m.decode_step(params, st, {"token": tok, "pos": SERVE_SHORT})
+             for _, st in runs]
+    out["prefill vs prefill_sequential"] = _rel_l2(torch, runs[0][0],
+                                                   runs[1][0])
+    out["decode step after each"] = _rel_l2(torch, steps[0][0],
+                                            steps[1][0])
+    out["caches after each"] = max(
+        _rel_l2(torch, x, y) for x, y in zip(tree_leaves(steps[0][1]),
+                                            tree_leaves(steps[1][1])))
+    for k, v in out.items():
+        check(v <= tol, f"{m.cfg.name} {m.cfg.param_dtype}: {k} at "
+              f"relative L2 {v:.3g} > {tol}")
+    return out
+
+
+def _serve_model(torch, cfg, dev, rate: float | None) -> None:
+    """Init ``cfg`` from a seeded generator on the card, prefill
+    SERVE_BATCH x SERVE_PROMPT random tokens, greedy-decode SERVE_NEW
+    tokens (``pos`` a device tensor, every step under sync-debug "error"),
+    check the logits finite and the consistency checks; with a memory
+    ``rate`` print prefill and decode times beside their bounds."""
+    from repro_torch.models import build_model
+    from repro_torch.models.layers import CHUNK
+    from repro_torch.utils import tree_leaves, tree_size
+    m = build_model(cfg)
+    resident = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    gen = torch.Generator(dev).manual_seed(SEED)
+    t0 = time.perf_counter()
+    params = m.init(gen, device=dev)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    n = tree_size(params)
+    nbytes = sum(x.numel() * x.element_size() for x in tree_leaves(params))
+    init_peak = torch.cuda.max_memory_allocated()
+    # A stacked leaf is allocated once and filled a unit at a time, each
+    # draw in chunks of CHUNK values: init holds the weights, one unit's
+    # draw and a few chunks' float64 temporaries (1 GiB allows 8).
+    unit_bytes = sum(x[0].numel() * x.element_size()
+                     for x in tree_leaves(params["units"]))
+    init_cap = nbytes + unit_bytes + 8 * CHUNK * 8
+    check(init_peak - resident <= init_cap,
+          f"init peaked at {(init_peak - resident) / 1e9:.2f} GB over the "
+          f"{resident / 1e9:.2f} GB held before it, above the weights plus "
+          f"one unit's draw plus 1 GiB ({init_cap / 1e9:.2f} GB)")
+    prompt = torch.randint(0, cfg.vocab, (SERVE_BATCH, SERVE_PROMPT),
+                           generator=gen, device=dev)
+    with torch.no_grad():
+        state = m.init_decode_state(SERVE_BATCH, SERVE_PROMPT + SERVE_NEW,
+                                    device=dev)
+        cache_bytes = sum(x.numel() * x.element_size()
+                          for x in tree_leaves(state))
+        prefill_ms = []
+        for _ in range(2):                 # the first call warms cuBLAS up
+            a = torch.cuda.Event(enable_timing=True)
+            b = torch.cuda.Event(enable_timing=True)
+            a.record()
+            logits, state = m.prefill(params, {"tokens": prompt}, state)
+            b.record()
+            b.synchronize()
+            prefill_ms.append(a.elapsed_time(b))
+        check(bool(torch.isfinite(logits).all()), "prefill logits not finite")
+        tok = logits.argmax(-1)
+        pos = torch.full((), SERVE_PROMPT, dtype=torch.int32, device=dev)
+        ends = [torch.cuda.Event(enable_timing=True)
+                for _ in range(SERVE_NEW + 1)]
+        toks, finite = [tok], []
+        ends[0].record()
+        issued = [time.perf_counter()]     # the host's clock, no sync
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            for i in range(SERVE_NEW):
+                logits, state = m.decode_step(params, state,
+                                              {"token": tok, "pos": pos})
+                ends[i + 1].record()
+                issued.append(time.perf_counter())
+                finite.append(torch.isfinite(logits).all())
+                tok = logits.argmax(-1)
+                toks.append(tok)
+                pos = pos + 1
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+        torch.cuda.synchronize()
+        check(bool(torch.stack(finite).all()), "decode logits not finite")
+        step_ms = [a.elapsed_time(b) for a, b in zip(ends, ends[1:])]
+        host_ms = [(b - a) * 1e3 for a, b in zip(issued, issued[1:])]
+        busy = None
+        if rate is not None:
+            busy = _device_busy(torch, lambda: m.prefill(
+                params, {"tokens": prompt}, state))
+            steps = [SERVE_PROMPT + i for i in range(SERVE_PROFILED)]
+            busy += _device_busy(torch, lambda: [m.decode_step(
+                params, state, {"token": toks[i], "pos": torch.full(
+                    (), p, dtype=torch.int32, device=dev)})
+                for i, p in enumerate(steps)], len(steps))
+        logits_bytes = logits.numel() * logits.element_size()
+        del state, logits
+        errs = _serve_checks(torch, m, params, prompt, dev)
+    peak = torch.cuda.max_memory_allocated()
+    label = f"serve {cfg.name} {cfg.param_dtype} {cfg.n_layers} layers"
+    print(f"{label}: {n:,} params ({nbytes / 1e9:.2f} GB) drawn on the card "
+          f"in {init_s:.1f} s, peak {init_peak / 1e9:.2f} GB after init "
+          f"({resident / 1e9:.2f} GB held by earlier phases); "
+          f"KV cache {cache_bytes / 1e9:.3f} GB (B = {SERVE_BATCH}, max_len "
+          f"{SERVE_PROMPT + SERVE_NEW}); max_memory_allocated "
+          f"{peak / 1e9:.2f} GB; continuation of request 0 "
+          f"{[int(t[0, 0]) for t in toks[:12]]}", flush=True)
+    print(f"{label}: consistency (relative L2, limit "
+          f"{SERVE_TOL[cfg.param_dtype]}): "
+          + ", ".join(f"{k} {v:.3g}" for k, v in errs.items()), flush=True)
+    if cfg.name == SERVE_ARCH and cfg.param_dtype == "bfloat16":
+        check(n == SERVE_PARAMS, f"{n:,} params, expected {SERVE_PARAMS:,}")
+    if rate is not None:
+        pre, dec = busy
+        tokens = SERVE_BATCH * SERVE_PROMPT
+        # Prefill's products: every unit matrix for every prompt token,
+        # the LM head at the last position only (the embedding is a
+        # gather), and the causal attention's QK^T and PV, S(S+1)/2 pairs
+        # each. Decode moves the weights but the embedding (B rows of it),
+        # the KV cache's filled part at the median timed step, and the
+        # logits.
+        mats = sum(x.numel() for x in tree_leaves(params["units"])
+                   if x.dim() == 3)
+        head = params.get("lm_head", params["embed"]).numel()
+        attn_ops = (4 * cfg.n_layers * SERVE_BATCH * cfg.n_heads
+                    * cfg.resolved_head_dim
+                    * SERVE_PROMPT * (SERVE_PROMPT + 1) // 2)
+        pre_ops = 2 * mats * tokens + 2 * head * SERVE_BATCH + attn_ops
+        pre_bound = pre_ops / BF16_PEAK * 1e3
+        embed_bytes = params["embed"].numel() * params["embed"].element_size()
+        filled = SERVE_PROMPT + SERVE_NEW // 2 + 1
+        kv_read = cache_bytes * filled / (SERVE_PROMPT + SERVE_NEW)
+        row_bytes = cfg.d_model * params["embed"].element_size()
+        dec_bytes = (nbytes - embed_bytes + SERVE_BATCH * row_bytes + kv_read
+                     + logits_bytes)
+        dec_bound = dec_bytes / rate * 1e3
+        rest = statistics.median(step_ms[1:])
+        host = statistics.median(host_ms[1:])
+        print(f"{label} on {_smi()}: prefill {SERVE_BATCH} x "
+              f"{SERVE_PROMPT} tokens {prefill_ms[1]:.1f} ms (first call "
+              f"{prefill_ms[0]:.1f}) against {pre_bound:.1f} ms = "
+              f"({2 * mats * tokens / 1e12:.2f} T for 2 x {mats:,} unit "
+              f"matrix params x {tokens} tokens + "
+              f"{2 * head * SERVE_BATCH / 1e12:.4f} T for the LM head at "
+              f"{SERVE_BATCH} last positions + {attn_ops / 1e12:.2f} T of "
+              f"causal attention products) at {BF16_PEAK / 1e12:.0f} "
+              f"TFLOP/s (2 x all {n:,} params x tokens: "
+              f"{2 * n * tokens / BF16_PEAK * 1e3:.1f} ms); decode "
+              f"{rest:.2f} ms a token, median of steps 2-{SERVE_NEW} "
+              f"(step 1 {step_ms[0]:.2f}; min {min(step_ms[1:]):.2f}, max "
+              f"{max(step_ms[1:]):.2f}), against {dec_bound:.2f} ms = "
+              f"({(nbytes - embed_bytes) / 1e9:.2f} GB of weights but the "
+              f"embedding + {SERVE_BATCH} embedding rows + "
+              f"{kv_read / 1e9:.3f} GB of KV cache at {filled} positions + "
+              f"the logits) at {rate / 1e12:.2f} TB/s (all the weights: "
+              f"{nbytes / rate * 1e3:.2f} ms); under sync-debug 'error' "
+              f"with no sync", flush=True)
+        print(f"{label}: decode on the host's clock, no sync: "
+              f"{host:.2f} ms a token to issue, median of steps 2-"
+              f"{SERVE_NEW} (min {min(host_ms[1:]):.2f}, max "
+              f"{max(host_ms[1:]):.2f}) for {dec.kernels:.0f} device "
+              f"kernels a token: {host / dec.kernels * 1e3:.2f} us of host "
+              f"time a launch; the card's step {rest:.2f} ms, its kernels "
+              f"busy {dec.busy_ms:.2f} ms", flush=True)
+        print(f"{label} under torch.profiler: prefill {pre.kernels} "
+              f"kernels, device busy {pre.busy_ms:.1f} ms (idle "
+              f"{1 - pre.busy_ms / prefill_ms[1]:.1%} of the timed "
+              f"{prefill_ms[1]:.1f} ms), by kernel {pre.top}; decode "
+              f"{dec.kernels} kernels a token, device busy "
+              f"{dec.busy_ms:.2f} ms a token (idle "
+              f"{1 - dec.busy_ms / rest:.1%} of the timed {rest:.2f} ms), "
+              f"by kernel {dec.top}", flush=True)
+    del params, prompt, m
+    _release(torch)
+
+
+def phase_model_serving(torch, dev, rate: float) -> None:
+    """The model zoo served on the card: ``qwen3-14b`` at full width and
+    depth in bfloat16, timed, then at full width and SERVE_F32_LAYERS
+    layers in float32 for the tight consistency checks."""
+    from repro_torch.configs import get_config
+    _release(torch)
+    cfg = get_config(SERVE_ARCH)
+    _serve_model(torch, cfg.replace(param_dtype="bfloat16"), dev, rate)
+    _serve_model(torch, cfg.replace(n_layers=SERVE_F32_LAYERS), dev, None)
+
+
+def _lm_federation(torch, dev, seed: int = SEED):
+    """``launch/train.py simulate``'s federation through the port: the
+    reduced ``qwen3-14b``, LM_WORKERS workers on SyntheticLM sequences
+    split by ``sequence_split``, batch sizes from (16, 8); the weights
+    drawn on the CPU from ``seed`` and placed on ``dev``."""
+    from repro_torch.configs import get_config
+    from repro_torch.data.pipeline import BatchIterator
+    from repro_torch.data.synthetic import SyntheticLM, sequence_split
+    from repro_torch.fed.worker import Worker, make_worker_configs
+    from repro_torch.models import build_model
+    m = build_model(get_config(SERVE_ARCH).reduced())
+    toks = SyntheticLM(n_sequences=LM_SEQUENCES, seq_len=LM_SEQ_LEN,
+                       vocab=m.cfg.vocab, seed=seed).generate()
+    splits = sequence_split(len(toks), LM_WORKERS, seed=seed)
+    cfgs = make_worker_configs(LM_WORKERS, [len(s) for s in splits],
+                               seed=seed, batch_menu=(16, 8))
+    workers = [Worker(cfg=cfgs[k],
+                      loader=BatchIterator((toks[splits[k]],),
+                                           cfgs[k].batch_size, seed=k),
+                      loss_and_grad=m.loss_and_grad)
+               for k in range(LM_WORKERS)]
+    params = m.init(torch.Generator().manual_seed(seed), device=dev)
+    return m, toks, workers, params
+
+
+def phase_fed_lm(torch, dev) -> dict:
+    """A transformer federated through ``run_fedpc``: the wire kernels #1
+    and #2 on the model zoo's tree. Two runs on the card (bitwise equal),
+    the first's rounds each held to ``core.fedpc.master_round`` over its
+    own local models as trees (``_second_oracle``: #1 and #2 at this
+    path's shapes), one on the CPU (the plain versions: same pilots); a
+    captured training step of an LM worker replayed against the same
+    step called eagerly."""
+    import numpy as np
+
+    from repro_torch.core import flat as fl
+    from repro_torch.core import protocol as proto
+    from repro_torch.data.pipeline import BatchIterator
+    from repro_torch.fed.simulator import FedSimulator
+    from repro_torch.fed.worker import Worker
+    from repro_torch.utils import tree_size
+    runs, own = [], {"uplink_stacked": 0, "master": 0}
+    kept: list = []
+    for run in range(2):
+        m, toks, workers, params = _lm_federation(torch, dev)
+        if not run:
+            layout = fl.layout_of(params)
+        d = _drive(torch, FedSimulator(workers, params, device=dev), ROUNDS,
+                   capture=None if run else kept)
+        want = proto.fedpc_bytes_per_round(proto.model_size_bytes(params),
+                                           LM_WORKERS)
+        for k, n in _check_run(torch, d.res, d.launches,
+                               {k: ROUNDS for k in own}, [want] * ROUNDS,
+                               workers, "federated LM").items():
+            own[k] += n
+        runs.append(d.res)
+    _same_runs(torch, *runs, "federated LM card run twice")
+    oracle = [_second_oracle(torch, k, layout) for k in kept]
+    _, _, cworkers, cparams = _lm_federation(torch, torch.device("cpu"))
+    cres = FedSimulator(cworkers, cparams, device="cpu").run_fedpc(ROUNDS)
+    check(cres.pilot_history == runs[0].pilot_history,
+          f"federated LM: pilots card {runs[0].pilot_history} cpu "
+          f"{cres.pilot_history}")
+    check(np.allclose(runs[0].costs, cres.costs, rtol=1e-3),
+          f"federated LM: costs card {runs[0].costs} cpu {cres.costs}")
+    # A uniform LM worker (64 sequences at batch 16): its captured step.
+    cfg = workers[1].cfg
+    w = Worker(cfg=cfg, loader=BatchIterator((toks[:64],), 16, seed=0),
+               loss_and_grad=m.loss_and_grad)
+    w.opt_state = w.opt.init(params)
+    steps = _graph_equals_eager(torch, w, params, dev)
+    print(f"federated LM: {m.cfg.name} reduced, {tree_size(params):,} "
+          f"params, {LM_WORKERS} workers, {LM_SEQUENCES} x {LM_SEQ_LEN} "
+          f"tokens; two card runs bitwise equal; card and CPU agree, pilots "
+          f"{cres.pilot_history}, costs card "
+          f"{[round(c, 5) for c in runs[0].costs]} cpu "
+          f"{[round(c, 5) for c in cres.costs]}; core.fedpc.master_round "
+          f"over each round's {LM_WORKERS} local models as trees == "
+          f"round_step's kernels #1/#2 (rows {layout.rows:,}): the same "
+          f"pilot, new params within 2 ulps + 1e-8, max abs diff "
+          f"{', '.join(f'round {t} {e:.3e}' for t, e in oracle)}; an LM "
+          f"worker's graph replay == its eager step over {steps} steps, "
+          f"bitwise", flush=True)
+    del kept, oracle
+    _release(torch)
     return own
 
 
@@ -3333,6 +3716,9 @@ def main() -> int:
         privacy = phase_privacy_slice(torch, dev)
         for kind in ("uplink_masked", "master_masked"):
             launches[kind] += telemetry[kind] + privacy[kind]
+        phase_model_serving(torch, dev, rate)
+        for kind, n in phase_fed_lm(torch, dev).items():
+            launches[kind] += n
         rows = phase_times(torch, dev, rate, launches, errs)
         rows += phase_times_masked(torch, dev, rate, launches, errs)
         rows += phase_times_tree(torch, dev, rate, {

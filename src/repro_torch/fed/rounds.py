@@ -723,10 +723,11 @@ class RoundEngine:
         return fl.flatten_stacked(stacked, self.layout)
 
     def run_round(self, bufs_q: torch.Tensor, k_star, p_shares: torch.Tensor,
-                  t, *, betas=None) -> PyTree:
+                  t, *, betas=None, mask=None) -> PyTree:
         """Alg. 1 lines 5-8 for one round; returns the new global tree and
-        advances the history. ``k_star`` may be a device tensor."""
-        w = self.wire.weights(p_shares, k_star, t, betas=betas)
+        advances the history. ``k_star`` may be a device tensor; an (N,)
+        participation ``mask`` zeroes the weights of workers outside it."""
+        w = self.wire.weights(p_shares, k_star, t, betas=betas, mask=mask)
         new_buf, _packed = self.wire.round_from_stacked(
             bufs_q, k_star, w, self.buf_p1, self.buf_p2, t=t, betas=betas)
         self.buf_p1, self.buf_p2 = new_buf, self.buf_p1

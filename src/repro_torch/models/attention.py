@@ -1,0 +1,282 @@
+"""Attention: GQA, optional qk-norm, sliding window, KV caches, cross-attn.
+
+The counterpart of the JAX package's ``models/attention.py``, with its
+math, not ``F.scaled_dot_product_attention``'s. Three entry points:
+  * ``attn_train``   — full-sequence causal (or bidirectional) attention;
+  * ``attn_decode``  — one-token step against a (possibly ring) KV cache;
+  * ``cross_attn``   — decoder→encoder attention with precomputed K/V.
+
+Caches are plain dicts of tensors:
+  self-attn cache: {'k': (B, S_cache, Hk, dh), 'v': ...}
+For sliding-window archs S_cache == window and writes wrap (ring buffer);
+RoPE is applied to keys at insert time so ring eviction is safe. Where the
+reference returns a new cache, ``attn_prefill`` and ``attn_decode`` write
+into the one they are given and return it: a serving step then moves no
+more than the slots it fills.
+
+Where the reference asks ``preferred_element_type=float32`` of a product
+of bf16 operands, the operands are cast to float32 first: a product of
+two bf16 values is exact in float32, so the result is the reference's
+(float32 sums of exact products), and it stays float32.
+"""
+from __future__ import annotations
+
+from typing import Optional
+
+import numpy as np
+import torch
+
+from repro_torch.configs.base import ArchConfig
+from repro_torch.models.layers import apply_rope, dense_init, dtype_of, rms_norm
+from repro_torch.sharding import activations as act
+
+NEG_INF = -1e30
+
+
+def init_attention(cfg: ArchConfig, generator: torch.Generator,
+                   cross: bool = False) -> dict:
+    dh = cfg.resolved_head_dim
+    D = cfg.d_model
+    dt = dtype_of(cfg.param_dtype)
+    p = {
+        "wq": dense_init(generator, D, cfg.n_heads * dh, dt),
+        "wk": dense_init(generator, D, cfg.n_kv_heads * dh, dt),
+        "wv": dense_init(generator, D, cfg.n_kv_heads * dh, dt),
+        "wo": dense_init(generator, cfg.n_heads * dh, D, dt),
+    }
+    if cfg.qk_norm and not cross:
+        p["q_norm"] = torch.ones((dh,), dtype=dt, device=generator.device)
+        p["k_norm"] = torch.ones((dh,), dtype=dt, device=generator.device)
+    return p
+
+
+def _split_heads(x, n, dh):
+    return x.reshape(x.shape[:-1] + (n, dh))
+
+
+def _scale(dh: int) -> float:
+    """``1 / sqrt(dh)`` rounded as the reference rounds it, in float32."""
+    return float(np.float32(1.0) / np.sqrt(np.float32(dh)))
+
+
+def _qkv(p, cfg: ArchConfig, x, cos, sin):
+    dh = cfg.resolved_head_dim
+    q = _split_heads(x @ p["wq"], cfg.n_heads, dh)
+    k = _split_heads(x @ p["wk"], cfg.n_kv_heads, dh)
+    v = _split_heads(x @ p["wv"], cfg.n_kv_heads, dh)
+    if cfg.qk_norm:
+        q = rms_norm(q, p["q_norm"], cfg.norm_eps)
+        k = rms_norm(k, p["k_norm"], cfg.norm_eps)
+    if cos is not None:
+        q = apply_rope(q, cos, sin)
+        k = apply_rope(k, cos, sin)
+    return act.heads(q), act.heads(k), act.heads(v)
+
+
+def _sdpa(q, k, v, mask, dh):
+    """GQA attention. q (B,Sq,H,dh); k/v (B,Sk,Hk,dh) UN-repeated.
+
+    The reference's grouped branch (one card: ``model_size() == 1``): the
+    H query heads form Hk groups of G = H/Hk, KV-major (head h reads KV
+    head h // G, as ``jnp.repeat`` along the head axis orders them).
+    Scores and the weighted sum are float32. mask: (B|1, 1, Sq, Sk) bool
+    keep.
+    """
+    b, sq, h, _ = q.shape
+    hk = k.shape[2]
+    g = h // hk
+    qg = q.reshape(b, sq, hk, g, dh)
+    logits = torch.einsum("bqkgd,bskd->bkgqs", qg.float(),
+                          k.float()) * _scale(dh)
+    if mask is not None:
+        logits = torch.where(mask[:, :, None], logits, NEG_INF)
+    w = torch.softmax(logits, dim=-1)
+    out = torch.einsum("bkgqs,bskd->bqkgd", w.to(v.dtype).float(), v.float())
+    return act.heads(out.to(v.dtype).reshape(b, sq, h, dh))
+
+
+# Blocked (flash-style) attention for inference prefill, in 512-key
+# blocks; the gradient path materializes its scores, as in the reference.
+ATTN_BLOCK_PREFILL = 512
+
+
+def _sdpa_blocked(q, k, v, dh, causal: bool, window: Optional[int],
+                  block: int):
+    """Two-level blocked online-softmax attention (flash-style).
+
+    An outer loop over QUERY tiles, an inner loop over KEY blocks with a
+    running max, normalizer and (…, q_tile, dh) float32 accumulator; every
+    block is visited (a fully masked one adds exp(-1e30 - m) = 0).
+    """
+    b, sq, h, _ = q.shape
+    sk, hk = k.shape[1], k.shape[2]
+    g = h // hk
+    scale = _scale(dh)
+    dev = q.device
+    qg = q.reshape(b, sq, hk, g, dh)
+    kf, vf = k.float(), v.float()
+    qt = min(block, sq)
+    if sq % qt:
+        qt = sq
+    outs = []
+    for iq in range(sq // qt):
+        q_tile = qg[:, iq * qt:(iq + 1) * qt].float()
+        q_idx = iq * qt + torch.arange(qt, device=dev)
+        m_run = torch.full((b, hk, g, qt), -torch.inf, device=dev)
+        l_run = torch.zeros((b, hk, g, qt), device=dev)
+        acc = torch.zeros((b, hk, g, qt, dh), device=dev)
+        for ib in range(sk // block):
+            k_blk = kf[:, ib * block:(ib + 1) * block]
+            v_blk = vf[:, ib * block:(ib + 1) * block]
+            logits = torch.einsum("bqkgd,bskd->bkgqs", q_tile, k_blk) * scale
+            if causal:
+                k_idx = ib * block + torch.arange(block, device=dev)
+                keep = k_idx[None, :] <= q_idx[:, None]
+                if window is not None:
+                    keep &= (q_idx[:, None] - k_idx[None, :]) < window
+                logits = torch.where(keep, logits, NEG_INF)
+            m_new = torch.maximum(m_run, logits.amax(-1))   # (b,hk,g,qt)
+            p = torch.exp(logits - m_new[..., None])
+            corr = torch.exp(m_run - m_new)
+            l_run = l_run * corr + p.sum(-1)
+            pv = torch.einsum("bkgqs,bskd->bkgqd", p.to(v.dtype).float(),
+                              v_blk)
+            acc = acc * corr[..., None] + pv
+            m_run = m_new
+        outs.append((acc / torch.clamp_min(l_run, 1e-30)[..., None]
+                     ).to(v.dtype))                         # (b,hk,g,qt,dh)
+    out = torch.stack(outs, 3).reshape(b, hk, g, sq, dh)
+    return act.heads(out.permute(0, 3, 1, 2, 4).reshape(b, sq, h, dh))
+
+
+def _sdpa_full_seq(q, k, v, dh, causal: bool, window: Optional[int],
+                   grad_path: bool = True):
+    """Full-sequence attention dispatcher: off the gradient path, blocked
+    when the key length is a multiple of ``ATTN_BLOCK_PREFILL`` above one
+    block; else the materialized-score baseline."""
+    s = k.shape[1]
+    blk = ATTN_BLOCK_PREFILL
+    if not grad_path and s % blk == 0 and s > blk:
+        return _sdpa_blocked(q, k, v, dh, causal, window, blk)
+    mask = causal_mask(s, window, q.device) if causal else None
+    return _sdpa(q, k, v, mask, dh)
+
+
+def causal_mask(s: int, window: Optional[int] = None,
+                device=None) -> torch.Tensor:
+    """(1, 1, S, S) keep-mask: causal, optionally sliding-window."""
+    qi = torch.arange(s, device=device)[:, None]
+    ki = torch.arange(s, device=device)[None, :]
+    keep = ki <= qi
+    if window is not None:
+        keep &= (qi - ki) < window
+    return keep[None, None]
+
+
+def attn_train(p, cfg: ArchConfig, x, cos, sin,
+               causal: bool = True) -> torch.Tensor:
+    """Full-sequence attention. x (B, S, D)."""
+    dh = cfg.resolved_head_dim
+    q, k, v = _qkv(p, cfg, x, cos, sin)
+    out = _sdpa_full_seq(q, k, v, dh, causal, cfg.sliding_window)
+    return out.reshape(x.shape[:-1] + (-1,)) @ p["wo"]
+
+
+def attn_prefill(p, cfg: ArchConfig, x, cos, sin, cache: dict
+                 ) -> tuple[torch.Tensor, dict]:
+    """Full-sequence causal attention that also fills the KV cache (in
+    place).
+
+    The cache ring layout matches :func:`attn_decode`: slot j holds position
+    p with p % S_cache == j, so for S <= S_cache this is a plain prefix
+    write; for SWA prompts longer than the window, the last `window`
+    positions land in their ring slots.
+    """
+    dh = cfg.resolved_head_dim
+    q, k, v = _qkv(p, cfg, x, cos, sin)
+    s = x.shape[1]
+    out = _sdpa_full_seq(q, k, v, dh, True, cfg.sliding_window,
+                         grad_path=False)
+    y = out.reshape(x.shape[:-1] + (-1,)) @ p["wo"]
+
+    s_cache = cache["k"].shape[1]
+    for name, new in (("k", k), ("v", v)):
+        c = cache[name]
+        if s <= s_cache:
+            c[:, :s] = new
+        else:
+            # keep the last window, placed at their ring slots
+            c.copy_(torch.roll(new[:, -s_cache:], s % s_cache, dims=1))
+    return y, cache
+
+
+# ---------------------------------------------------------------------------
+# KV-cache decode
+# ---------------------------------------------------------------------------
+
+def init_cache(cfg: ArchConfig, batch: int, max_len: int, dtype,
+               device=None, lead: tuple = ()) -> dict:
+    """Self-attention cache, with ``lead`` dims in front (the unit axis of
+    a stack); for sliding-window archs the cache is the ring of the last
+    `min(window, max_len)` positions."""
+    s_cache = max_len if cfg.sliding_window is None \
+        else min(cfg.sliding_window, max_len)
+    shape = (*lead, batch, s_cache, cfg.n_kv_heads, cfg.resolved_head_dim)
+    return {"k": torch.zeros(shape, dtype=dtype, device=device),
+            "v": torch.zeros(shape, dtype=dtype, device=device)}
+
+
+def attn_decode(p, cfg: ArchConfig, x, pos, cache: dict,
+                cos, sin) -> tuple[torch.Tensor, dict]:
+    """One-token decode. x (B, 1, D); pos an int or a 0-d device tensor
+    (uniform across the batch), read on the device; cos/sin (B|1, 1,
+    dh//2) at the absolute position.
+
+    Keys are stored post-RoPE, in place; the ring write index is
+    pos % S_cache.
+    """
+    dh = cfg.resolved_head_dim
+    q, k, v = _qkv(p, cfg, x, cos, sin)
+    s_cache = cache["k"].shape[1]
+    slot = pos % s_cache
+    for name, new in (("k", k), ("v", v)):
+        c = cache[name]
+        if isinstance(slot, torch.Tensor):
+            c.index_copy_(1, slot.reshape(1).long(), new.to(c.dtype))
+        else:
+            c[:, slot:slot + 1] = new
+
+    # keep-mask over cache slots: slot index valid iff it holds a position
+    # <= pos and (for SWA) within the window. With ring writes, a slot j
+    # holds position: the largest p' <= pos with p' % S == j.
+    ki = torch.arange(s_cache, device=x.device)
+    if isinstance(pos, torch.Tensor):
+        filled = ki <= torch.clamp_max(pos, s_cache - 1)
+    else:
+        filled = ki <= min(pos, s_cache - 1)   # before wrap: only <= pos
+    keep = filled | (pos >= s_cache)
+    mask = keep[None, None, None, :]             # (1,1,1,S_cache)
+
+    out = _sdpa(q, cache["k"], cache["v"], mask, dh)
+    y = out.reshape(x.shape[:-1] + (-1,)) @ p["wo"]
+    return y, cache
+
+
+# ---------------------------------------------------------------------------
+# Cross-attention (whisper decoder)
+# ---------------------------------------------------------------------------
+
+def cross_kv(p, cfg: ArchConfig, enc_out) -> dict:
+    """Precompute encoder K/V once per request (prefill)."""
+    dh = cfg.resolved_head_dim
+    k = _split_heads(enc_out @ p["wk"], cfg.n_kv_heads, dh)
+    v = _split_heads(enc_out @ p["wv"], cfg.n_kv_heads, dh)
+    return {"k": k, "v": v}
+
+
+def cross_attn(p, cfg: ArchConfig, x, kv: dict) -> torch.Tensor:
+    """x (B, Sq, D) attends over encoder memory (no mask, no rope)."""
+    dh = cfg.resolved_head_dim
+    q = _split_heads(x @ p["wq"], cfg.n_heads, dh)
+    out = _sdpa(q, kv["k"], kv["v"], None, dh)
+    return out.reshape(x.shape[:-1] + (-1,)) @ p["wo"]

@@ -12,7 +12,7 @@ from typing import Sequence
 import torch
 
 from repro_torch.models.layers import dense_init
-from repro_torch.utils import resolve_device, tree_flatten, tree_unflatten
+from repro_torch.utils import resolve_device, value_and_grad
 
 
 def init_mlp_classifier(generator: torch.Generator, n_features: int,
@@ -61,9 +61,4 @@ def mlp_accuracy(params: dict, x, y) -> float:
 def mlp_loss_and_grad(params: dict, batch: tuple
                       ) -> tuple[tuple[torch.Tensor, dict], dict]:
     """``((loss, aux), grads)`` with ``grads`` shaped like ``params``."""
-    leaves, treedef = tree_flatten(params)
-    leaves = [p.detach().requires_grad_(True) for p in leaves]
-    with torch.enable_grad():
-        loss, aux = mlp_loss(tree_unflatten(treedef, leaves), batch)
-        grads = torch.autograd.grad(loss, leaves)
-    return (loss.detach(), aux), tree_unflatten(treedef, list(grads))
+    return value_and_grad(mlp_loss, params, batch)

@@ -1,0 +1,305 @@
+"""Config-driven block stack: init + apply for train / prefill / decode.
+
+The counterpart of the JAX package's ``models/transformer.py`` for the
+attention mixers (``attn``, ``swa``) with MLP feed-forwards. Layers are
+grouped into repeating *units* (one period of ``cfg.pattern``); unit
+parameters are stacked along a leading axis, as in the reference's tree,
+and the stack is applied by a Python loop over that axis that indexes the
+stacked leaves (the reference's ``lax.scan``).
+
+Caches mirror the unit structure: ``cache['units']['b<j>']`` holds the
+per-unit-stacked KV rings for pattern position j, filled in place.
+
+The recurrent mixers (``mamba``, ``mlstm``, ``slstm``) and the MoE
+feed-forward are not ported yet (ROADMAP queue 1, item 7b): a block of
+one raises ``NotImplementedError``.
+"""
+from __future__ import annotations
+
+from typing import Any, Callable, Optional
+
+import torch
+
+from repro_torch.configs.base import ArchConfig
+from repro_torch.models import attention as attn
+from repro_torch.models import ffn as ffn_mod
+from repro_torch.models.layers import (dense_init, dtype_of, embed_init,
+                                       rms_norm, sinusoidal_positions)
+from repro_torch.sharding import activations as act
+from repro_torch.utils import tree_flatten, tree_map, tree_unflatten
+
+PyTree = Any
+
+ATTN_MIXERS = ("attn", "swa")
+FFNS = ("mlp", "none")
+
+
+def check_ported(mixer: str, ffn: str) -> None:
+    """Raise ``NotImplementedError`` for a block the port cannot build."""
+    if mixer not in ATTN_MIXERS:
+        raise NotImplementedError(
+            f"the {mixer!r} mixer is not ported yet (ROADMAP queue 1, item "
+            f"7b: models/ssm.py)")
+    if ffn not in FFNS:
+        raise NotImplementedError(
+            f"the {ffn!r} feed-forward is not ported yet (ROADMAP queue 1, "
+            f"item 7b: models/moe.py)")
+
+
+# ---------------------------------------------------------------------------
+# Init
+# ---------------------------------------------------------------------------
+
+def _init_block(cfg: ArchConfig, generator: torch.Generator, mixer: str,
+                ffn: str, cross: bool = False,
+                d_ff: Optional[int] = None) -> dict:
+    check_ported(mixer, ffn)
+    dt = dtype_of(cfg.param_dtype)
+    ones = lambda: torch.ones((cfg.d_model,), dtype=dt,          # noqa: E731
+                              device=generator.device)
+    p: dict = {"norm1": ones(), "mixer": attn.init_attention(cfg, generator)}
+    if cross:
+        p["norm_x"] = ones()
+        p["cross"] = attn.init_attention(cfg, generator, cross=True)
+    if ffn == "mlp":
+        p["norm2"] = ones()
+        p["ffn"] = ffn_mod.init_mlp(cfg, generator, d_ff=d_ff)
+    return p
+
+
+def _stack_init(fn: Callable[[], PyTree], n: int, device) -> PyTree:
+    """``n`` draws of ``fn()`` stacked into ``(n, ...)`` leaves on
+    ``device``: each stacked leaf is allocated once and filled a unit at a
+    time, so the peak holds the stack and one unit's draw."""
+    leaves, treedef = tree_flatten(fn())
+    stacked = [torch.empty((n, *x.shape), dtype=x.dtype, device=device)
+               for x in leaves]
+    for u in range(n):
+        if u:
+            leaves = tree_flatten(fn())[0]
+        for s, x in zip(stacked, leaves):
+            s[u].copy_(x)
+        del leaves
+    return tree_unflatten(treedef, stacked)
+
+
+def init_stack(cfg: ArchConfig, generator: torch.Generator,
+               device) -> PyTree:
+    """The reference's parameter tree (same keys, same stacked shapes),
+    drawn from ``generator`` on its device and placed on ``device``."""
+    dt = dtype_of(cfg.param_dtype)
+    ones = lambda: torch.ones((cfg.d_model,), dtype=dt,          # noqa: E731
+                              device=device)
+    params: dict = {
+        "embed": embed_init(generator, cfg.vocab, cfg.d_model, dt).to(device),
+        "norm_f": ones(),
+    }
+    if not cfg.tie_embeddings:
+        params["lm_head"] = dense_init(generator, cfg.d_model, cfg.vocab,
+                                       dt).to(device)
+
+    if cfg.first_k_dense:
+        d_ff = cfg.d_ff_dense or cfg.d_ff
+        params["dense_blocks"] = _stack_init(
+            lambda: _init_block(cfg, generator, "attn", "mlp", d_ff=d_ff),
+            cfg.first_k_dense, device)
+
+    params["units"] = {
+        f"b{j}": _stack_init(
+            lambda m=mixer, f_=f: _init_block(cfg, generator, m, f_,
+                                              cross=cfg.is_encdec),
+            cfg.n_units, device)
+        for j, (mixer, f) in enumerate(cfg.pattern)}
+
+    if cfg.is_encdec:
+        params["audio_proj"] = dense_init(generator, cfg.d_model,
+                                          cfg.d_model, dt).to(device)
+        params["encoder_blocks"] = _stack_init(
+            lambda: _init_block(cfg, generator, "attn", "mlp"),
+            cfg.n_encoder_layers, device)
+        params["enc_norm_f"] = ones()
+    if cfg.arch_type == "vlm":
+        params["patch_proj"] = dense_init(generator, cfg.d_model,
+                                          cfg.d_model, dt).to(device)
+    return params
+
+
+def _unit(stack: PyTree, u: int) -> PyTree:
+    """Unit ``u`` of a stacked tree: views of its leaves."""
+    return tree_map(lambda a: a[u], stack)
+
+
+def _n_stacked(stack: PyTree) -> int:
+    return tree_flatten(stack)[0][0].shape[0]
+
+
+# ---------------------------------------------------------------------------
+# Block application
+# ---------------------------------------------------------------------------
+
+def _ffn_residual(cfg: ArchConfig, bp: dict, x, cross_kv):
+    if cross_kv is not None:
+        h = rms_norm(x, bp["norm_x"], cfg.norm_eps)
+        x = x + attn.cross_attn(bp["cross"], cfg, h, cross_kv)
+    if "ffn" in bp:
+        h = rms_norm(x, bp["norm2"], cfg.norm_eps)
+        x = act.residual(x + ffn_mod.mlp(bp["ffn"], cfg, h))
+    return x
+
+
+def _apply_block_train(cfg: ArchConfig, bp: dict, mixer: str, f: str, x,
+                       cos, sin, cross_kv=None, causal=True):
+    check_ported(mixer, f)
+    h = rms_norm(x, bp["norm1"], cfg.norm_eps)
+    h = attn.attn_train(bp["mixer"], cfg, h, cos, sin, causal=causal)
+    x = act.residual(x + h)
+    return _ffn_residual(cfg, bp, x, cross_kv)
+
+
+def _apply_block_prefill(cfg: ArchConfig, bp: dict, mixer: str, f: str, x,
+                         cos, sin, cache, cross_kv=None):
+    """Full-sequence pass that also fills the decode cache entry."""
+    check_ported(mixer, f)
+    h = rms_norm(x, bp["norm1"], cfg.norm_eps)
+    h, _ = attn.attn_prefill(bp["mixer"], cfg, h, cos, sin, cache)
+    x = act.residual(x + h)
+    return _ffn_residual(cfg, bp, x, cross_kv)
+
+
+def _apply_block_decode(cfg: ArchConfig, bp: dict, mixer: str, f: str, x,
+                        pos, cache, cos, sin, cross_kv=None):
+    check_ported(mixer, f)
+    h = rms_norm(x, bp["norm1"], cfg.norm_eps)
+    h, _ = attn.attn_decode(bp["mixer"], cfg, h, pos, cache, cos, sin)
+    x = act.residual(x + h)
+    return _ffn_residual(cfg, bp, x, cross_kv)
+
+
+# ---------------------------------------------------------------------------
+# Stack application
+# ---------------------------------------------------------------------------
+
+def zero_aux(device) -> dict:
+    """The reference's MoE auxiliaries, all 0 for attention+MLP stacks."""
+    return {k: torch.zeros((), dtype=torch.float32, device=device)
+            for k in ("load_balance", "z_loss", "drop_frac")}
+
+
+def _unit_blocks(cfg: ArchConfig, params: PyTree, caches=None,
+                 cross_kvs=None):
+    """(block params, mixer, ffn, cache, cross K/V) a unit at a time, each
+    a view of unit u of its stack."""
+    for u in range(cfg.n_units):
+        for j, (mixer, f) in enumerate(cfg.pattern):
+            key = f"b{j}"
+            yield (_unit(params["units"][key], u), mixer, f,
+                   None if caches is None else _unit(caches[key], u),
+                   None if cross_kvs is None else _unit(cross_kvs[key], u))
+
+
+def apply_units_train(cfg: ArchConfig, params: PyTree, x, cos, sin,
+                      cross_kvs=None, causal=True):
+    """The unit stack in train (no cache) mode. Returns (x, aux)."""
+    for bp, mixer, f, _, ckv in _unit_blocks(cfg, params,
+                                             cross_kvs=cross_kvs):
+        x = _apply_block_train(cfg, bp, mixer, f, x, cos, sin,
+                               cross_kv=ckv, causal=causal)
+    return x, zero_aux(x.device)
+
+
+def apply_units_prefill(cfg: ArchConfig, params: PyTree, x, cos, sin,
+                        caches, cross_kvs=None):
+    """The unit stack in parallel-prefill mode: full-sequence compute plus
+    cache fill (in place). Returns (x, caches, aux)."""
+    for bp, mixer, f, c, ckv in _unit_blocks(cfg, params, caches, cross_kvs):
+        x = _apply_block_prefill(cfg, bp, mixer, f, x, cos, sin, c,
+                                 cross_kv=ckv)
+    return x, caches, zero_aux(x.device)
+
+
+def apply_units_decode(cfg: ArchConfig, params: PyTree, x, pos, caches,
+                       cos, sin, cross_kvs=None):
+    for bp, mixer, f, c, ckv in _unit_blocks(cfg, params, caches, cross_kvs):
+        x = _apply_block_decode(cfg, bp, mixer, f, x, pos, c, cos, sin,
+                                cross_kv=ckv)
+    return x, caches
+
+
+def init_unit_caches(cfg: ArchConfig, batch: int, max_len: int, dtype,
+                     device=None) -> PyTree:
+    """Stacked (n_units, ...) cache tree for the decode loop."""
+    caches = {}
+    for j, (mixer, f) in enumerate(cfg.pattern):
+        check_ported(mixer, f)
+        caches[f"b{j}"] = attn.init_cache(cfg, batch, max_len, dtype, device,
+                                          lead=(cfg.n_units,))
+    return caches
+
+
+# ---------------------------------------------------------------------------
+# Dense prefix (deepseek first_k_dense)
+# ---------------------------------------------------------------------------
+
+def apply_dense_prefix_train(cfg: ArchConfig, params: PyTree, x, cos, sin):
+    if "dense_blocks" not in params:
+        return x
+    for u in range(_n_stacked(params["dense_blocks"])):
+        x = _apply_block_train(cfg, _unit(params["dense_blocks"], u),
+                               "attn", "mlp", x, cos, sin)
+    return x
+
+
+def apply_dense_prefix_prefill(cfg: ArchConfig, params: PyTree, x, cos, sin,
+                               caches):
+    if "dense_blocks" not in params:
+        return x, caches
+    for u in range(_n_stacked(params["dense_blocks"])):
+        x = _apply_block_prefill(cfg, _unit(params["dense_blocks"], u),
+                                 "attn", "mlp", x, cos, sin,
+                                 _unit(caches, u))
+    return x, caches
+
+
+def apply_dense_prefix_decode(cfg: ArchConfig, params: PyTree, x, pos,
+                              caches, cos, sin):
+    if "dense_blocks" not in params:
+        return x, caches
+    for u in range(_n_stacked(params["dense_blocks"])):
+        x = _apply_block_decode(cfg, _unit(params["dense_blocks"], u),
+                                "attn", "mlp", x, pos, _unit(caches, u),
+                                cos, sin)
+    return x, caches
+
+
+def init_dense_prefix_caches(cfg: ArchConfig, batch: int, max_len: int,
+                             dtype, device=None):
+    if not cfg.first_k_dense:
+        return None
+    return attn.init_cache(cfg, batch, max_len, dtype, device,
+                           lead=(cfg.first_k_dense,))
+
+
+# ---------------------------------------------------------------------------
+# Whisper encoder
+# ---------------------------------------------------------------------------
+
+def apply_encoder(cfg: ArchConfig, params: PyTree, audio_embed):
+    """audio_embed (B, F, D) — stub frontend output → encoder hidden."""
+    x = audio_embed @ params["audio_proj"]
+    pe = torch.from_numpy(sinusoidal_positions(x.shape[1], cfg.d_model))
+    x = x + pe.to(device=x.device, dtype=x.dtype)
+    for u in range(_n_stacked(params["encoder_blocks"])):
+        x = _apply_block_train(cfg, _unit(params["encoder_blocks"], u),
+                               "attn", "mlp", x, None, None, causal=False)
+    return rms_norm(x, params["enc_norm_f"], cfg.norm_eps)
+
+
+def encoder_cross_kvs(cfg: ArchConfig, params: PyTree, enc_out):
+    """Per-unit, per-position cross K/V stacks (computed once per request)."""
+    def per_stacked(stack):
+        kvs = [attn.cross_kv(_unit(stack, u)["cross"], cfg, enc_out)
+               for u in range(cfg.n_units)]
+        return {k: torch.stack([kv[k] for kv in kvs]) for k in ("k", "v")}
+
+    return {f"b{j}": per_stacked(params["units"][f"b{j}"])
+            for j in range(len(cfg.pattern))}

@@ -4,8 +4,8 @@ The paper's workers use Momentum and Adam with private hyper-parameters;
 the simulator gives each worker one of these. The API is the JAX
 package's: ``init(params) -> state`` and ``update(grads, state, params,
 lr) -> (updates, state)``, with the updates *added* to the params. State
-accumulates in float32, and Adam's step ``count`` is a device int32, so
-an update never syncs with the host.
+accumulates in ``accum_dtype`` (float32 by default), and Adam's step
+``count`` is a device int32, so an update never syncs with the host.
 """
 from __future__ import annotations
 
@@ -34,8 +34,6 @@ class AdamState(NamedTuple):
     count: torch.Tensor
 
 
-def _zeros(p: torch.Tensor) -> torch.Tensor:
-    return torch.zeros(p.shape, dtype=torch.float32, device=p.device)
 
 
 def sgd() -> Optimizer:
@@ -48,37 +46,45 @@ def sgd() -> Optimizer:
     return Optimizer("sgd", init, update)
 
 
-def momentum(decay: float = 0.9) -> Optimizer:
+def _zeros_of(dtype: torch.dtype):
+    return lambda p: torch.zeros(p.shape, dtype=dtype, device=p.device)
+
+
+def momentum(decay: float = 0.9,
+             accum_dtype: torch.dtype = torch.float32) -> Optimizer:
     """Heavy-ball momentum (Qian 1999) — the paper's ResNet optimizer."""
 
     def init(params):
-        return MomentumState(velocity=tree_map(_zeros, params))
+        return MomentumState(velocity=tree_map(_zeros_of(accum_dtype),
+                                               params))
 
     def update(grads, state, params, lr):
-        vel = tree_map(lambda v, g: decay * v + g.float(), state.velocity,
-                       grads)
+        vel = tree_map(lambda v, g: decay * v + g.to(accum_dtype),
+                       state.velocity, grads)
         upd = tree_map(lambda v, p: (v * -lr).to(p.dtype), vel, params)
         return upd, MomentumState(velocity=vel)
 
     return Optimizer("momentum", init, update)
 
 
-def adam(b1: float = 0.9, b2: float = 0.999, eps: float = 1e-8) -> Optimizer:
+def adam(b1: float = 0.9, b2: float = 0.999, eps: float = 1e-8,
+         accum_dtype: torch.dtype = torch.float32) -> Optimizer:
     """Adam (Kingma & Ba 2015) — the paper's U-Net optimizer."""
 
     def init(params):
         dev = tree_leaves(params)[0].device
-        return AdamState(mu=tree_map(_zeros, params),
-                         nu=tree_map(_zeros, params),
+        return AdamState(mu=tree_map(_zeros_of(accum_dtype), params),
+                         nu=tree_map(_zeros_of(accum_dtype), params),
                          count=torch.zeros((), dtype=torch.int32, device=dev))
 
     def update(grads, state, params, lr):
         count = state.count + 1
-        mu = tree_map(lambda m, g: b1 * m + (1 - b1) * g.float(), state.mu,
-                      grads)
-        nu = tree_map(lambda n, g: b2 * n + (1 - b2) * g.float().square(),
-                      state.nu, grads)
-        c = count.float()
+        mu = tree_map(lambda m, g: b1 * m + (1 - b1) * g.to(accum_dtype),
+                      state.mu, grads)
+        nu = tree_map(
+            lambda n, g: b2 * n + (1 - b2) * g.to(accum_dtype).square(),
+            state.nu, grads)
+        c = count.to(accum_dtype)
         mu_hat_scale = 1.0 / (1 - b1 ** c)
         nu_hat_scale = 1.0 / (1 - b2 ** c)
         upd = tree_map(

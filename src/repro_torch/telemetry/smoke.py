@@ -49,9 +49,8 @@ def make_sim(seed: int = 0, device=None) -> FedSimulator:
                                  hidden=(32,), device=device)
     cfg = FedPCConfig(
         n_workers=N,
-        # enforce=False: the traced-program audit is not ported yet.
         privacy=PrivacySpec(mask_seed=5, modulus_bits=16,
-                            recovery_threshold=2, enforce=False),
+                            recovery_threshold=2),
         tree=TreeSpec(fanout=2),
         faults=FaultPlan(seed=5, drop_before_uplink=0.1,
                          drop_after_uplink=0.15, straggler=0.05))

@@ -41,41 +41,47 @@ def _is_node(x) -> bool:
     return isinstance(x, (dict, list, tuple))
 
 
+# The walks below are module-level functions, not nested closures: a
+# recursive closure is a reference cycle (the function holds the cell that
+# holds it), which would keep the leaves it sees alive until the cyclic
+# garbage collector runs.
+
+def _flatten(node, leaves: list):
+    if isinstance(node, dict):
+        keys = sorted(node)
+        return (dict, tuple(keys),
+                tuple(_flatten(node[k], leaves) for k in keys))
+    if isinstance(node, (list, tuple)):
+        return (type(node), len(node),
+                tuple(_flatten(c, leaves) for c in node))
+    leaves.append(node)
+    return None
+
+
 def tree_flatten(tree: PyTree) -> tuple[list, Any]:
     """Leaves in ``jax.tree_util`` order and a hashable structure."""
     leaves: list = []
-
-    def walk(node):
-        if isinstance(node, dict):
-            keys = sorted(node)
-            return (dict, tuple(keys), tuple(walk(node[k]) for k in keys))
-        if isinstance(node, (list, tuple)):
-            return (type(node), len(node), tuple(walk(c) for c in node))
-        leaves.append(node)
-        return None
-
-    return leaves, walk(tree)
+    return leaves, _flatten(tree, leaves)
 
 
 def tree_leaves(tree: PyTree) -> list:
     return tree_flatten(tree)[0]
 
 
+def _build(d, it):
+    if d is None:
+        return next(it)
+    kind, meta, children = d
+    built = [_build(c, it) for c in children]
+    if kind is dict:
+        return dict(zip(meta, built))
+    if kind in (list, tuple):
+        return kind(built)
+    return kind(*built)            # a NamedTuple
+
+
 def tree_unflatten(treedef, leaves) -> PyTree:
-    it = iter(leaves)
-
-    def build(d):
-        if d is None:
-            return next(it)
-        kind, meta, children = d
-        built = [build(c) for c in children]
-        if kind is dict:
-            return dict(zip(meta, built))
-        if kind in (list, tuple):
-            return kind(built)
-        return kind(*built)            # a NamedTuple
-
-    return build(treedef)
+    return _build(treedef, iter(leaves))
 
 
 def tree_map(fn: Callable, tree: PyTree, *rest: PyTree) -> PyTree:
@@ -83,6 +89,20 @@ def tree_map(fn: Callable, tree: PyTree, *rest: PyTree) -> PyTree:
     others = [tree_flatten(r)[0] for r in rest]
     return tree_unflatten(treedef,
                           [fn(*xs) for xs in zip(leaves, *others)])
+
+
+def value_and_grad(loss_fn: Callable, params: PyTree, batch
+                   ) -> tuple[tuple[torch.Tensor, Any], PyTree]:
+    """``((loss, aux), grads)`` of ``loss_fn(params, batch) -> (loss,
+    aux)``, with ``grads`` shaped like ``params`` (``torch.autograd.grad``
+    over detached copies of the leaves): the form a ``Worker`` trains
+    with."""
+    leaves, treedef = tree_flatten(params)
+    leaves = [p.detach().requires_grad_(True) for p in leaves]
+    with torch.enable_grad():
+        loss, aux = loss_fn(tree_unflatten(treedef, leaves), batch)
+        grads = torch.autograd.grad(loss, leaves)
+    return (loss.detach(), aux), tree_unflatten(treedef, list(grads))
 
 
 def tree_size(tree: PyTree) -> int:

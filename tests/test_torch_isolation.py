@@ -31,7 +31,11 @@ def test_no_module_imports_jax_or_the_jax_package():
                  "core.baselines", "core.convergence",
                  "checkpoint.checkpoint", "telemetry.record",
                  "telemetry.trace", "telemetry.profile", "telemetry.report",
-                 "telemetry.smoke", "kernels.seam", "configs.federation"):
+                 "telemetry.smoke", "kernels.seam", "configs.federation",
+                 "configs.base", "configs.qwen3_14b", "configs.xlstm_350m",
+                 "sharding.activations", "models.layers", "models.ffn",
+                 "models.attention", "models.transformer", "models.model",
+                 "data.synthetic", "convert"):
         assert f"repro_torch.{name}" in names
     script = (
         "import importlib, sys\n"
@@ -76,8 +80,9 @@ def test_entry_points_default_to_cuda():
 def test_torch_examples_import_neither_jax_nor_the_jax_package():
     examples = sorted((ROOT / "examples").glob("*_torch.py"))
     assert [p.name for p in examples] == [
-        "communication_comparison_torch.py", "privacy_probes_torch.py",
-        "quickstart_torch.py"]
+        "communication_comparison_torch.py",
+        "federated_llm_training_torch.py", "privacy_probes_torch.py",
+        "quickstart_torch.py", "serve_llm_torch.py"]
     for path in examples:
         names = []
         for node in ast.walk(ast.parse(path.read_text())):

@@ -135,6 +135,37 @@ def test_round_engine_matches():
         params_from_numpy(params, device="cpu")).rows
 
 
+@pytest.mark.parametrize("mask", [(1, 0, 1), (0, 1, 1)])
+def test_round_engine_run_round_with_mask_matches(mask):
+    # The reference's run_round(..., mask=) zeroes the weights of workers
+    # outside the participation mask; the port's takes the same argument.
+    rng = np.random.default_rng(5)
+    params = _params(rng)
+    je = jrd.RoundEngine(jax.tree_util.tree_map(jnp.asarray, params))
+    te = trd.RoundEngine(params_from_numpy(params, device="cpu"),
+                         device="cpu")
+    shares = np.array([0.25, 0.25, 0.5], np.float32)
+    m = np.asarray(mask, np.float32)
+    for t in (1, 2, 3):
+        locals_np = [jax.tree_util.tree_map(
+            lambda a: a + rng.standard_normal(a.shape, dtype=np.float32)
+            * 0.01, params) for _ in range(N)]
+        jb = je.flatten_locals([jax.tree_util.tree_map(jnp.asarray, p)
+                                for p in locals_np])
+        tb = te.flatten_locals([params_from_numpy(p, device="cpu")
+                                for p in locals_np])
+        k = int(np.flatnonzero(m)[t % 2])
+        jnew = je.run_round(jb, k, jnp.asarray(shares), t,
+                            mask=jnp.asarray(m))
+        tnew = te.run_round(tb, torch.tensor(k), torch.from_numpy(shares), t,
+                            mask=torch.from_numpy(m))
+        np.testing.assert_array_equal(_bits(te.buf_p1.numpy()),
+                                      _bits(je.buf_p1))
+        for a, b in zip(jax.tree_util.tree_leaves(tnew),
+                        jax.tree_util.tree_leaves(jnew)):
+            np.testing.assert_array_equal(_bits(a.numpy()), _bits(b))
+
+
 @pytest.mark.parametrize("t", [1, 3])
 def test_select_pilot_rules(t):
     # Ties go to the lowest index; a worker with no history (+inf) scores

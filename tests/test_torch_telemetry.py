@@ -46,6 +46,7 @@ from repro.models.mlp import mlp_loss_and_grad as j_lag
 from repro.privacy.spec import PrivacySpec as JSpec
 from repro.telemetry import profile as jprof
 from repro.telemetry import report as jreport
+from repro.telemetry import smoke as jsmoke
 from repro.telemetry import trace as jtrace
 from repro_torch.convert import params_from_numpy
 from repro_torch.core.fedpc import FedPCConfig as TCfg
@@ -62,6 +63,7 @@ from repro_torch.privacy.spec import PrivacySpec as TSpec
 from repro_torch.telemetry import profile as tprof
 from repro_torch.telemetry import record as tmr
 from repro_torch.telemetry import report as treport
+from repro_torch.telemetry import smoke as tsmoke
 from repro_torch.telemetry import trace as tmt
 
 ROOT = Path(__file__).resolve().parents[1]
@@ -471,3 +473,16 @@ def test_smoke_cli_exits_zero(tmp_path):
     assert proc.returncode == 0, proc.stderr
     assert "byte cross-check OK: 3 rounds" in proc.stdout
     assert jtrace.summarize(jtrace.read_trace(str(out))).rounds
+
+
+def test_smoke_federation_records_the_reference_audit():
+    # The smoke runs the masked tree under faults with the default
+    # PrivacySpec(enforce=True): the scan driver audits the round program
+    # once before round 1, as the JAX smoke's simulator does.
+    tsim, jsim = tsmoke.make_sim(device="cpu"), jsmoke.make_sim()
+    tsim.run_fedpc_scan(rounds=1)
+    jsim.run_fedpc_scan(rounds=1)
+    assert tsim.fed_cfg.privacy.enforce
+    assert tsim.ledger.audits == jsim.ledger.audits == [
+        {"runtime": "run_fedpc_scan", "boundary": "round-step",
+         "n_launches": 4, "masked": True}]
