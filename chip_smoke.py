@@ -158,6 +158,25 @@ result:
    versions) picking the same pilots; an LM worker's captured training
    step (the token gather and its backward) replayed against the same
    step called eagerly, bitwise.
+   MoE and recurrent serving — the same serving at full width and depth
+   for ``deepseek-moe-16b`` (28 layers, a dense first one, 64 routed
+   experts top-6 + 2 shared; 16,375,728,128 params) and ``xlstm-350m``
+   (24 alternating mLSTM / sLSTM blocks; 443,057,248 params), each then at
+   4 layers in float32; the MoE's prefill / ``prefill_sequential`` check
+   at a capacity where no assignment drops (the two see other token
+   counts); the bf16 xLSTM's checks within ``SERVE_TOL_LSTM_BF16``; prints the prefill's kept token-expert pairs (its
+   drop_frac) and the experts routed to a decode step; bounds counted a
+   block kind at a time: attention as above, a MoE block's router, shared
+   experts and dense prefix a token and its routed experts at the kept
+   pairs, the recurrent mixers' projections a token and their state
+   updates a step in float32; decode's bytes without the experts no token
+   was routed to, plus the recurrent state read and written. An LSTM's
+   prefill is profiled at 128 tokens. Then ``jamba-1.5-large-398b``'s
+   Mamba mixer alone at its width (d_model 8192, d_inner 16384):
+   ``mamba_prefill`` on 4 x 1,024, 8 ``mamba_decode`` steps under
+   sync-debug "error", held to float32 (0.08) and to every token decoded
+   one at a time (0.08 in bf16, 1e-4 in float32). Then the federated LM
+   on the reduced ``deepseek-moe-16b``: its launches join #1's and #2's.
 8. times  — each kernel and its plain version with CUDA events at the
    main-path shape (median of 25), beside its bound: device-memory bytes,
    or integer operations for the stream-generating kernels; the plain
@@ -2220,13 +2239,22 @@ def phase_privacy_slice(torch, dev) -> dict:
 
 
 SERVE_ARCH = "qwen3-14b"          # the model zoo's serving phase
-SERVE_PARAMS = 14_768_307_200
+# Full-size parameter counts of the served configs: the JAX package's, as
+# tests/test_torch_model_zoo.py derives them with jax.eval_shape.
+SERVE_PARAMS_OF = {"qwen3-14b": 14_768_307_200,
+                   "deepseek-moe-16b": 16_375_728_128,
+                   "xlstm-350m": 443_057_248}
 SERVE_BATCH = 4
 SERVE_PROMPT = 1024               # a multiple of the 512-key prefill block
 SERVE_NEW = 32                    # greedy tokens decoded
 SERVE_SHORT = 64                  # prompt of the prefill_sequential check
 SERVE_PROFILED = 4                # decode steps profiled (positions again)
 SERVE_F32_LAYERS = 4              # depth of the float32 consistency model
+SERVE_LSTM_PROFILED = 128         # prompt of an LSTM's profiled prefill
+MOE_ARCH = "deepseek-moe-16b"     # served and federated (7b)
+XLSTM_ARCH = "xlstm-350m"         # served (7b)
+MAMBA_ARCH = "jamba-1.5-large-398b"   # its Mamba mixer alone, at width
+MAMBA_NEW = 8                     # decode steps after the Mamba prefill
 BF16_PEAK = 989e12                # H100 SXM dense bf16 tensor-core FLOP/s
 # Relative L2 distance allowed between two computations of the same
 # logits. bfloat16 keeps 8 significant bits and the two paths round at
@@ -2236,6 +2264,13 @@ BF16_PEAK = 989e12                # H100 SXM dense bf16 tensor-core FLOP/s
 # 0.019 on the CPU at reduced width, so 0.08 is four times that. Float32
 # with TF32 off differs only in summation order.
 SERVE_TOL = {"bfloat16": 0.08, "float32": 1e-4}
+# A bfloat16 LSTM stack feeds each step's rounding into the next through
+# its exponential gates: at 24 layers the JAX package's own bfloat16
+# prefill and prefill_sequential differ by 0.167 (reduced-width
+# xlstm-350m, 64 tokens, on the CPU;
+# tests/test_torch_lstm_bf16.py::test_bfloat16_lstm_limit_of_the_chip_smoke),
+# so such a stack's paths are held to 0.25, that distance with a margin.
+SERVE_TOL_LSTM_BF16 = 0.25
 LM_WORKERS = 4                    # the federated LM, launch/train.py's
 LM_SEQUENCES = 192
 LM_SEQ_LEN = 64
@@ -2282,9 +2317,20 @@ def _serve_checks(torch, m, params, prompt, dev) -> dict:
     distance held to ``SERVE_TOL``: the blocked prefill's last logits
     against ``forward``'s materialized full sequence, and a short prefill
     then one decode step against ``prefill_sequential`` then the same
-    step (logits and caches). Returns {check: distance}."""
+    step (logits and caches). A MoE model's short prefill routes B x
+    SERVE_SHORT tokens at once and its sequential twin B at a time, so
+    the capacity each sees differs; that check runs the same weights with
+    a capacity of T·K slots an expert (``capacity_factor = E``), where no
+    assignment drops and both compute one function. A bfloat16 LSTM
+    stack is held to ``SERVE_TOL_LSTM_BF16`` instead. A cache leaf that
+    is all zero after the sequential path must be all zero after the
+    blocked one too. Returns {check: distance}."""
+    from repro_torch.models import build_model
     from repro_torch.utils import tree_leaves
     tol = SERVE_TOL[m.cfg.param_dtype]
+    if m.cfg.param_dtype == "bfloat16" and any(
+            mx in ("mlstm", "slstm") for mx, _ in m.cfg.pattern):
+        tol = SERVE_TOL_LSTM_BF16
     b, s = prompt.shape
     out = {}
     state = m.init_decode_state(b, s + SERVE_NEW, device=dev)
@@ -2294,6 +2340,9 @@ def _serve_checks(torch, m, params, prompt, dev) -> dict:
     out["blocked prefill vs materialized"] = _rel_l2(torch, last,
                                                      full[:, -1:])
     del state, full
+    if m.cfg.n_experts:
+        m = build_model(m.cfg.replace(
+            capacity_factor=float(m.cfg.n_experts)))
     short = prompt[:, :SERVE_SHORT]
     runs = []
     for fn in (m.prefill, m.prefill_sequential):
@@ -2307,13 +2356,124 @@ def _serve_checks(torch, m, params, prompt, dev) -> dict:
                                                    runs[1][0])
     out["decode step after each"] = _rel_l2(torch, steps[0][0],
                                             steps[1][0])
-    out["caches after each"] = max(
-        _rel_l2(torch, x, y) for x, y in zip(tree_leaves(steps[0][1]),
-                                            tree_leaves(steps[1][1])))
+    dists, zero = [], []
+    for x, y in zip(tree_leaves(steps[0][1]), tree_leaves(steps[1][1])):
+        if y.norm() > 0:
+            dists.append(_rel_l2(torch, x, y))
+            continue
+        zero.append(tuple(y.shape))
+        check(torch.equal(x, y), f"{m.cfg.name}: a cache leaf of shape "
+              f"{tuple(y.shape)} is all zero after prefill_sequential but "
+              f"not after prefill")
+    if zero:
+        print(f"{m.cfg.name} {m.cfg.param_dtype}: cache leaves all zero "
+              f"after both paths (held equal): {zero}", flush=True)
+    out["caches after each"] = max(dists)
     for k, v in out.items():
         check(v <= tol, f"{m.cfg.name} {m.cfg.param_dtype}: {k} at "
-              f"relative L2 {v:.3g} > {tol}")
+              f"relative L2 {v:.3g} > {tol:.3g}")
+    out["limit"] = tol
     return out
+
+
+class _Routes:
+    """Records each MoE block's routing (``models.moe.route``'s e_idx and
+    keep) while it is entered; the device work is unchanged."""
+
+    def __init__(self):
+        self.calls: list = []
+
+    def __enter__(self):
+        from repro_torch.models import moe
+        self._route = route = moe.route
+
+        def recorded(p, cfg, xf):
+            out = route(p, cfg, xf)
+            self.calls.append((out[3], out[5]))
+            return out
+
+        moe.route = recorded
+        return self
+
+    def __exit__(self, *exc):
+        from repro_torch.models import moe
+        moe.route = self._route
+
+
+def _kind_ops(cfg, bp, mixer: str, ffn: str, tokens: int, B: int,
+              keys: int) -> tuple[float, float]:
+    """(matmul ops in the params' dtype, float32 ops outside the tensor
+    cores) of one block of the stacked tree ``bp`` (leaves (n, ...)) over
+    ``tokens`` tokens, 2 a multiply-add; causal attention over ``keys``
+    keys a query on average. The routed experts are counted apart, by the
+    kept assignments."""
+    def mats(tree, *names):
+        return sum(tree[k][0].numel() for k in names if k in tree)
+
+    mx = bp["mixer"]
+    mm = f32 = 0.0
+    if mixer in ("attn", "swa"):
+        mm += 2 * tokens * mats(mx, "wq", "wk", "wv", "wo")
+        mm += 4 * tokens * cfg.n_heads * cfg.resolved_head_dim * keys
+    elif mixer == "mamba":
+        mm += 2 * tokens * mats(mx, "in_proj", "x_proj", "dt_proj",
+                                "out_proj")
+        # the scan a token and channel: exp(dt A), dt x B, a h + b, h . C;
+        # the depthwise conv
+        f32 += tokens * (8 * cfg.d_inner * cfg.d_state
+                         + 2 * cfg.d_conv * cfg.d_inner)
+    elif mixer == "mlstm":
+        mm += 2 * tokens * mats(mx, "in_proj", "wq", "wk", "wv", "out_proj")
+        dh = mx["wq"].shape[-1] // cfg.n_heads
+        # gates (float32 weights); the state a token and head: f C,
+        # i v k^T (two products) and their sum, then C q
+        f32 += 2 * tokens * mats(mx, "gates_w")
+        f32 += tokens * cfg.n_heads * 6 * dh * dh
+    elif mixer == "slstm":
+        mm += 2 * tokens * mats(mx, "out_proj")
+        f32 += 2 * tokens * mats(mx, "gates_w", "r_gates_w")
+    if ffn == "mlp":
+        mm += 2 * tokens * mats(bp["ffn"], "w_gate", "w_up", "w_down")
+    elif ffn == "moe":
+        f32 += 2 * tokens * mats(bp["ffn"], "router")
+        if "shared" in bp["ffn"]:
+            mm += 2 * tokens * mats(bp["ffn"]["shared"], "w_gate", "w_up",
+                                    "w_down")
+    return mm, f32
+
+
+def _model_ops(cfg, params, tokens: int, B: int, keys: int,
+               kept: float) -> tuple[float, float]:
+    """(matmul ops, float32 ops) of the whole stack over ``tokens``
+    tokens, the LM head at B positions, and the routed experts' SwiGLU at
+    ``kept`` token-expert pairs (summed over the MoE blocks)."""
+    mm = f32 = 0.0
+    blocks = [(params["units"][f"b{j}"], mixer, f, cfg.n_units)
+              for j, (mixer, f) in enumerate(cfg.pattern)]
+    if "dense_blocks" in params:
+        blocks.append((params["dense_blocks"], "attn", "mlp",
+                       cfg.first_k_dense))
+    for bp, mixer, f, n in blocks:
+        a, b = _kind_ops(cfg, bp, mixer, f, tokens, B, keys)
+        mm, f32 = mm + n * a, f32 + n * b
+    mm += 2 * B * params.get("lm_head", params["embed"]).numel()
+    mm += 2 * kept * 3 * cfg.d_model * cfg.d_expert_ff
+    return mm, f32
+
+
+def _split_state(state: dict) -> tuple[int, int]:
+    """(KV cache bytes, recurrent state bytes) of a decode state."""
+    from repro_torch.utils import tree_leaves
+    kv = rec = 0
+    for key, tree in (*state["units"].items(),
+                      ("dense", state.get("dense", {}))):
+        for x in tree_leaves(tree):
+            n = x.numel() * x.element_size()
+            if isinstance(tree, dict) and set(tree) == {"k", "v"}:
+                kv += n
+            else:
+                rec += n
+    return kv, rec
 
 
 def _serve_model(torch, cfg, dev, rate: float | None) -> None:
@@ -2321,8 +2481,11 @@ def _serve_model(torch, cfg, dev, rate: float | None) -> None:
     SERVE_BATCH x SERVE_PROMPT random tokens, greedy-decode SERVE_NEW
     tokens (``pos`` a device tensor, every step under sync-debug "error"),
     check the logits finite and the consistency checks; with a memory
-    ``rate`` print prefill and decode times beside their bounds."""
-    from repro_torch.models import build_model
+    ``rate`` print prefill and decode times beside their bounds, counted
+    a block kind at a time (``_model_ops``): a MoE block's routed experts
+    at the prefill's kept assignments, and decode's bytes without the
+    experts no token was routed to."""
+    from repro_torch.models import build_model, moe
     from repro_torch.models.layers import CHUNK
     from repro_torch.utils import tree_leaves, tree_size
     m = build_model(cfg)
@@ -2348,13 +2511,15 @@ def _serve_model(torch, cfg, dev, rate: float | None) -> None:
           f"one unit's draw plus 1 GiB ({init_cap / 1e9:.2f} GB)")
     prompt = torch.randint(0, cfg.vocab, (SERVE_BATCH, SERVE_PROMPT),
                            generator=gen, device=dev)
+    lstm = any(mx in ("mlstm", "slstm") for mx, _ in cfg.pattern)
     with torch.no_grad():
         state = m.init_decode_state(SERVE_BATCH, SERVE_PROMPT + SERVE_NEW,
                                     device=dev)
-        cache_bytes = sum(x.numel() * x.element_size()
-                          for x in tree_leaves(state))
+        kv_bytes, rec_bytes = _split_state(state)
         prefill_ms = []
-        for _ in range(2):                 # the first call warms cuBLAS up
+        # The first call warms cuBLAS up; an LSTM's host-paced prefill
+        # (seconds) is timed once, its GEMMs warmed by the earlier phases.
+        for _ in range(1 if lstm else 2):
             a = torch.cuda.Event(enable_timing=True)
             b = torch.cuda.Event(enable_timing=True)
             a.record()
@@ -2389,13 +2554,32 @@ def _serve_model(torch, cfg, dev, rate: float | None) -> None:
         host_ms = [(b - a) * 1e3 for a, b in zip(issued, issued[1:])]
         busy = None
         if rate is not None:
-            busy = _device_busy(torch, lambda: m.prefill(
-                params, {"tokens": prompt}, state))
+            # An LSTM's prefill is a loop of ~20 launches a layer and
+            # token; the profiler records a SERVE_LSTM_PROFILED-token one
+            # (timed alone too), not the 1,024-token one.
+            short = prompt[:, :SERVE_LSTM_PROFILED] if lstm else prompt
+            prof_ms = prefill_ms[-1]
+            if lstm:
+                st = m.init_decode_state(SERVE_BATCH, short.shape[1],
+                                         device=dev)
+                a = torch.cuda.Event(enable_timing=True)
+                b = torch.cuda.Event(enable_timing=True)
+                a.record()
+                m.prefill(params, {"tokens": short}, st)
+                b.record()
+                b.synchronize()
+                prof_ms = a.elapsed_time(b)
+                del st
+            with _Routes() as pre_routes:
+                busy = _device_busy(torch, lambda: m.prefill(
+                    params, {"tokens": short}, m.init_decode_state(
+                        SERVE_BATCH, short.shape[1], device=dev)))
             steps = [SERVE_PROMPT + i for i in range(SERVE_PROFILED)]
-            busy += _device_busy(torch, lambda: [m.decode_step(
-                params, state, {"token": toks[i], "pos": torch.full(
-                    (), p, dtype=torch.int32, device=dev)})
-                for i, p in enumerate(steps)], len(steps))
+            with _Routes() as dec_routes:
+                busy += _device_busy(torch, lambda: [m.decode_step(
+                    params, state, {"token": toks[i], "pos": torch.full(
+                        (), p, dtype=torch.int32, device=dev)})
+                    for i, p in enumerate(steps)], len(steps))
         logits_bytes = logits.numel() * logits.element_size()
         del state, logits
         errs = _serve_checks(torch, m, params, prompt, dev)
@@ -2404,101 +2588,280 @@ def _serve_model(torch, cfg, dev, rate: float | None) -> None:
     print(f"{label}: {n:,} params ({nbytes / 1e9:.2f} GB) drawn on the card "
           f"in {init_s:.1f} s, peak {init_peak / 1e9:.2f} GB after init "
           f"({resident / 1e9:.2f} GB held by earlier phases); "
-          f"KV cache {cache_bytes / 1e9:.3f} GB (B = {SERVE_BATCH}, max_len "
+          f"KV cache {kv_bytes / 1e9:.3f} GB and recurrent state "
+          f"{rec_bytes / 1e6:.1f} MB (B = {SERVE_BATCH}, max_len "
           f"{SERVE_PROMPT + SERVE_NEW}); max_memory_allocated "
           f"{peak / 1e9:.2f} GB; continuation of request 0 "
           f"{[int(t[0, 0]) for t in toks[:12]]}", flush=True)
-    print(f"{label}: consistency (relative L2, limit "
-          f"{SERVE_TOL[cfg.param_dtype]}): "
+    tol = errs.pop("limit")
+    print(f"{label}: consistency (relative L2, limit {tol:.3g}): "
           + ", ".join(f"{k} {v:.3g}" for k, v in errs.items()), flush=True)
-    if cfg.name == SERVE_ARCH and cfg.param_dtype == "bfloat16":
-        check(n == SERVE_PARAMS, f"{n:,} params, expected {SERVE_PARAMS:,}")
-    if rate is not None:
-        pre, dec = busy
-        tokens = SERVE_BATCH * SERVE_PROMPT
-        # Prefill's products: every unit matrix for every prompt token,
-        # the LM head at the last position only (the embedding is a
-        # gather), and the causal attention's QK^T and PV, S(S+1)/2 pairs
-        # each. Decode moves the weights but the embedding (B rows of it),
-        # the KV cache's filled part at the median timed step, and the
-        # logits.
-        mats = sum(x.numel() for x in tree_leaves(params["units"])
-                   if x.dim() == 3)
-        head = params.get("lm_head", params["embed"]).numel()
-        attn_ops = (4 * cfg.n_layers * SERVE_BATCH * cfg.n_heads
-                    * cfg.resolved_head_dim
-                    * SERVE_PROMPT * (SERVE_PROMPT + 1) // 2)
-        pre_ops = 2 * mats * tokens + 2 * head * SERVE_BATCH + attn_ops
-        pre_bound = pre_ops / BF16_PEAK * 1e3
-        embed_bytes = params["embed"].numel() * params["embed"].element_size()
-        filled = SERVE_PROMPT + SERVE_NEW // 2 + 1
-        kv_read = cache_bytes * filled / (SERVE_PROMPT + SERVE_NEW)
-        row_bytes = cfg.d_model * params["embed"].element_size()
-        dec_bytes = (nbytes - embed_bytes + SERVE_BATCH * row_bytes + kv_read
-                     + logits_bytes)
-        dec_bound = dec_bytes / rate * 1e3
-        rest = statistics.median(step_ms[1:])
-        host = statistics.median(host_ms[1:])
-        print(f"{label} on {_smi()}: prefill {SERVE_BATCH} x "
-              f"{SERVE_PROMPT} tokens {prefill_ms[1]:.1f} ms (first call "
-              f"{prefill_ms[0]:.1f}) against {pre_bound:.1f} ms = "
-              f"({2 * mats * tokens / 1e12:.2f} T for 2 x {mats:,} unit "
-              f"matrix params x {tokens} tokens + "
-              f"{2 * head * SERVE_BATCH / 1e12:.4f} T for the LM head at "
-              f"{SERVE_BATCH} last positions + {attn_ops / 1e12:.2f} T of "
-              f"causal attention products) at {BF16_PEAK / 1e12:.0f} "
-              f"TFLOP/s (2 x all {n:,} params x tokens: "
-              f"{2 * n * tokens / BF16_PEAK * 1e3:.1f} ms); decode "
-              f"{rest:.2f} ms a token, median of steps 2-{SERVE_NEW} "
-              f"(step 1 {step_ms[0]:.2f}; min {min(step_ms[1:]):.2f}, max "
-              f"{max(step_ms[1:]):.2f}), against {dec_bound:.2f} ms = "
-              f"({(nbytes - embed_bytes) / 1e9:.2f} GB of weights but the "
-              f"embedding + {SERVE_BATCH} embedding rows + "
-              f"{kv_read / 1e9:.3f} GB of KV cache at {filled} positions + "
-              f"the logits) at {rate / 1e12:.2f} TB/s (all the weights: "
-              f"{nbytes / rate * 1e3:.2f} ms); under sync-debug 'error' "
-              f"with no sync", flush=True)
-        print(f"{label}: decode on the host's clock, no sync: "
-              f"{host:.2f} ms a token to issue, median of steps 2-"
-              f"{SERVE_NEW} (min {min(host_ms[1:]):.2f}, max "
-              f"{max(host_ms[1:]):.2f}) for {dec.kernels:.0f} device "
-              f"kernels a token: {host / dec.kernels * 1e3:.2f} us of host "
-              f"time a launch; the card's step {rest:.2f} ms, its kernels "
-              f"busy {dec.busy_ms:.2f} ms", flush=True)
-        print(f"{label} under torch.profiler: prefill {pre.kernels} "
-              f"kernels, device busy {pre.busy_ms:.1f} ms (idle "
-              f"{1 - pre.busy_ms / prefill_ms[1]:.1%} of the timed "
-              f"{prefill_ms[1]:.1f} ms), by kernel {pre.top}; decode "
-              f"{dec.kernels} kernels a token, device busy "
-              f"{dec.busy_ms:.2f} ms a token (idle "
-              f"{1 - dec.busy_ms / rest:.1%} of the timed {rest:.2f} ms), "
-              f"by kernel {dec.top}", flush=True)
+    if cfg.param_dtype == "bfloat16":
+        want = SERVE_PARAMS_OF[cfg.name]
+        check(n == want, f"{n:,} params, expected {want:,}")
+    if rate is None:
+        del params, prompt, m
+        _release(torch)
+        return
+    pre, dec = busy
+    B, S = SERVE_BATCH, SERVE_PROMPT
+    tokens = B * S
+    head = params.get("lm_head", params["embed"]).numel()
+    embed_bytes = params["embed"].numel() * params["embed"].element_size()
+    row_bytes = cfg.d_model * params["embed"].element_size()
+    expert_bytes = 0
+    kept = 0.0
+    routed = []
+    if cfg.n_experts:
+        e0 = params["units"][next(f"b{j}" for j, (_, f) in
+                                  enumerate(cfg.pattern) if f == "moe")]
+        expert_bytes = sum(e0["ffn"][k][0, 0].numel()
+                           * e0["ffn"][k].element_size()
+                           for k in ("experts_gate", "experts_up",
+                                     "experts_down"))
+        n_moe = sum(f == "moe" for _, f in cfg.pattern) * cfg.n_units
+        # routing of the profiled prefill (the timed one's tokens): the
+        # kept token-expert pairs over all MoE blocks
+        pre_tokens = tokens
+        kept = float(sum(int(k.sum()) for _, k in pre_routes.calls))
+        check(len(pre_routes.calls) == n_moe, "a MoE block went unrecorded")
+        drop = 1 - kept / (pre_tokens * cfg.top_k * n_moe)
+        # experts some token was routed to, a MoE block and decode step
+        routed = [int(torch.unique(e).numel()) for e, _ in dec_routes.calls]
+        check(len(routed) == n_moe * SERVE_PROFILED,
+              "a decode MoE block went unrecorded")
+        print(f"{label}: prefill routing: {kept:,.0f} of "
+              f"{pre_tokens * cfg.top_k * n_moe:,} token-expert pairs kept "
+              f"(drop_frac {drop:.4f}, capacity "
+              f"{moe.capacity(cfg, pre_tokens)} an expert); decode: {statistics.mean(routed):.1f} of "
+              f"{cfg.n_experts} experts routed to a block and step (B = "
+              f"{B}, top-{cfg.top_k})", flush=True)
+    # Prefill: the products of every block kind over the prompt (causal
+    # attention over (S + 1) / 2 keys a query on average), the LM head at
+    # the last positions; bytes: the weights but the embedding (its B x S
+    # rows), the caches written, the logits.
+    mm, f32 = _model_ops(cfg, params, tokens, B, (S + 1) / 2, kept)
+    pre_ops_ms = (mm / BF16_PEAK + f32 / FP32_OPS_PER_S) * 1e3
+    pre_bytes = (nbytes - embed_bytes + tokens * row_bytes + kv_bytes
+                 * S / (S + SERVE_NEW) + rec_bytes + logits_bytes)
+    pre_bound = max(pre_ops_ms, pre_bytes / rate * 1e3)
+    # Decode: the weights but the embedding (B rows of it) and the experts
+    # no token was routed to, the recurrent states read and written, the
+    # KV cache's filled part at the median timed step, the logits.
+    filled = S + SERVE_NEW // 2 + 1
+    kv_read = kv_bytes * filled / (S + SERVE_NEW)
+    unrouted = sum(cfg.n_experts - r for r in routed) / max(
+        SERVE_PROFILED, 1) * expert_bytes
+    dec_bytes = (nbytes - embed_bytes + B * row_bytes - unrouted
+                 + 2 * rec_bytes + kv_read + logits_bytes)
+    dmm, df32 = _model_ops(cfg, params, B, B, filled,
+                           B * cfg.top_k * sum(f == "moe" for _, f in
+                                               cfg.pattern) * cfg.n_units)
+    dec_ops_ms = (dmm / BF16_PEAK + df32 / FP32_OPS_PER_S) * 1e3
+    dec_bound = max(dec_bytes / rate * 1e3, dec_ops_ms)
+    rest = statistics.median(step_ms[1:])
+    host = statistics.median(host_ms[1:])
+    card = _smi()
+    print(f"{label} on {card}: prefill {B} x {S} tokens "
+          f"{prefill_ms[-1]:.1f} ms ("
+          + (f"first call {prefill_ms[0]:.1f}" if len(prefill_ms) > 1
+             else "one timed call") + ") against "
+          f"{pre_bound:.2f} ms = max({mm / 1e12:.2f} T of matmul products "
+          f"at {BF16_PEAK / 1e12:.0f} TFLOP/s + {f32 / 1e12:.3f} T of "
+          f"float32 ops at {FP32_OPS_PER_S / 1e12:.0f} TFLOP/s = "
+          f"{pre_ops_ms:.2f} ms, {pre_bytes / 1e9:.2f} GB at "
+          f"{rate / 1e12:.2f} TB/s = {pre_bytes / rate * 1e3:.2f} ms) "
+          f"(2 x all {n:,} params x tokens: "
+          f"{2 * n * tokens / BF16_PEAK * 1e3:.1f} ms); decode "
+          f"{rest:.2f} ms a token, median of steps 2-{SERVE_NEW} "
+          f"(step 1 {step_ms[0]:.2f}; min {min(step_ms[1:]):.2f}, max "
+          f"{max(step_ms[1:]):.2f}), against {dec_bound:.3f} ms = max("
+          f"{dec_bytes / 1e9:.3f} GB at {rate / 1e12:.2f} TB/s: the "
+          f"weights but the embedding and {unrouted / 1e9:.2f} GB of "
+          f"unrouted experts, {B} embedding rows, {2 * rec_bytes / 1e6:.1f}"
+          f" MB of recurrent state read and written, {kv_read / 1e9:.3f} "
+          f"GB of KV cache at {filled} positions, the logits; "
+          f"{dec_ops_ms:.3f} ms of ops) (all the weights: "
+          f"{nbytes / rate * 1e3:.2f} ms); under sync-debug 'error' with "
+          f"no sync", flush=True)
+    print(f"{label} on {card}: decode on the host's clock, no sync: "
+          f"{host:.2f} ms a token to queue, median of steps 2-"
+          f"{SERVE_NEW} (min {min(host_ms[1:]):.2f}, max "
+          f"{max(host_ms[1:]):.2f}) for {dec.kernels:.0f} device "
+          f"kernels a token: {host / dec.kernels * 1e3:.2f} us of host "
+          f"time a launch; the card's step {rest:.2f} ms, its kernels "
+          f"busy {dec.busy_ms:.2f} ms", flush=True)
+    short_s = SERVE_LSTM_PROFILED if lstm else S
+    print(f"{label} on {card} under torch.profiler: prefill of {B} x "
+          f"{short_s} "
+          f"tokens {pre.kernels} kernels, device busy {pre.busy_ms:.1f} ms "
+          f"(idle {1 - pre.busy_ms / prof_ms:.1%} of the timed "
+          f"{prof_ms:.1f} ms), by kernel {pre.top}; decode "
+          f"{dec.kernels} kernels a token, device busy "
+          f"{dec.busy_ms:.2f} ms a token (idle "
+          f"{1 - dec.busy_ms / rest:.1%} of the timed {rest:.2f} ms), "
+          f"by kernel {dec.top}", flush=True)
     del params, prompt, m
     _release(torch)
 
 
-def phase_model_serving(torch, dev, rate: float) -> None:
-    """The model zoo served on the card: ``qwen3-14b`` at full width and
-    depth in bfloat16, timed, then at full width and SERVE_F32_LAYERS
-    layers in float32 for the tight consistency checks."""
+def phase_model_serving(torch, dev, rate: float,
+                        arch: str = SERVE_ARCH) -> None:
+    """The model zoo served on the card: ``arch`` at full width and depth
+    in bfloat16, timed, then at full width and SERVE_F32_LAYERS layers in
+    float32 for the tight consistency checks."""
     from repro_torch.configs import get_config
     _release(torch)
-    cfg = get_config(SERVE_ARCH)
+    cfg = get_config(arch)
     _serve_model(torch, cfg.replace(param_dtype="bfloat16"), dev, rate)
-    _serve_model(torch, cfg.replace(n_layers=SERVE_F32_LAYERS), dev, None)
+    _serve_model(torch, cfg.replace(n_layers=SERVE_F32_LAYERS,
+                                    param_dtype="float32"), dev, None)
 
 
-def _lm_federation(torch, dev, seed: int = SEED):
+def phase_mamba_mixer(torch, dev, rate: float) -> None:
+    """The Mamba mixer alone at ``jamba-1.5-large-398b``'s published width
+    (d_model 8192, d_inner 16384, d_state 16, d_conv 4, dt rank 512) in
+    bfloat16: ``mamba_prefill`` on SERVE_BATCH x SERVE_PROMPT, then
+    MAMBA_NEW ``mamba_decode`` steps under sync-debug "error". Held, as
+    relative L2 distances, against the same weights and inputs in float32
+    (``SERVE_TOL["bfloat16"]``), and the prefill + decode against every
+    token decoded one at a time from the zeroed state (the recurrence
+    itself) in bfloat16 (the same limit) and float32
+    (``SERVE_TOL["float32"]``). Prints prefill and decode beside their
+    bounds."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import ssm
+    from repro_torch.utils import tree_leaves, tree_map
+    _release(torch)
+    cfg = get_config(MAMBA_ARCH).replace(param_dtype="bfloat16")
+    B, S, D = SERVE_BATCH, SERVE_PROMPT, cfg.d_model
+    gen = torch.Generator(dev).manual_seed(SEED)
+    p16 = ssm.init_mamba(cfg, gen)
+    x = torch.randn((B, S + MAMBA_NEW, D), generator=gen, device=dev,
+                    dtype=torch.float32).to(torch.bfloat16)
+    nbytes = sum(t.numel() * t.element_size() for t in tree_leaves(p16))
+
+    def serve(p, xs):
+        out, st = ssm.mamba_prefill(p, cfg, xs[:, :S])
+        steps = []
+        for i in range(S, S + MAMBA_NEW):
+            y, st = ssm.mamba_decode(p, cfg, xs[:, i:i + 1], st)
+            steps.append(y)
+        return out, torch.cat(steps, 1), st
+
+    def one_at_a_time(p, xs):
+        st = ssm.init_mamba_state(cfg, B, xs.dtype, dev)
+        ys = []
+        for i in range(S + MAMBA_NEW):
+            y, st = ssm.mamba_decode(p, cfg, xs[:, i:i + 1], st)
+            ys.append(y)
+        y = torch.cat(ys, 1)
+        return y[:, :S], y[:, S:], st
+
+    with torch.no_grad():
+        pre_ms = []
+        for _ in range(2):                 # the first call warms cuBLAS up
+            a = torch.cuda.Event(enable_timing=True)
+            b = torch.cuda.Event(enable_timing=True)
+            a.record()
+            out, st = ssm.mamba_prefill(p16, cfg, x[:, :S])
+            b.record()
+            b.synchronize()
+            pre_ms.append(a.elapsed_time(b))
+        ends = [torch.cuda.Event(enable_timing=True)
+                for _ in range(MAMBA_NEW + 1)]
+        ends[0].record()
+        dec = []
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            for i in range(MAMBA_NEW):
+                y, st = ssm.mamba_decode(p16, cfg, x[:, S + i:S + i + 1], st)
+                ends[i + 1].record()
+                dec.append(y)
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+        torch.cuda.synchronize()
+        step_ms = [a.elapsed_time(b) for a, b in zip(ends, ends[1:])]
+        got = (out, torch.cat(dec, 1), st)
+        check(all(bool(torch.isfinite(t).all()) for t in tree_leaves(got)),
+              "Mamba outputs not finite")
+        busy = _device_busy(torch, lambda: ssm.mamba_prefill(
+            p16, cfg, x[:, :S]))
+        busy += _device_busy(torch, lambda: [ssm.mamba_decode(
+            p16, cfg, x[:, S:S + 1], st) for _ in range(SERVE_PROFILED)],
+            SERVE_PROFILED)
+        p32 = tree_map(lambda t: t.float(), p16)
+        got32 = serve(p32, x.float())
+        errs = {}
+        for name, a_, b_, tol in (
+                ("bf16 vs float32", got, got32, SERVE_TOL["bfloat16"]),
+                ("bf16 vs one token at a time", got, one_at_a_time(p16, x),
+                 SERVE_TOL["bfloat16"]),
+                ("float32 vs one token at a time", got32,
+                 one_at_a_time(p32, x.float()), SERVE_TOL["float32"])):
+            d = max(_rel_l2(torch, u, v) for u, v in
+                    zip(tree_leaves(a_), tree_leaves(b_)))
+            check(d <= tol, f"Mamba mixer: {name} at relative L2 {d:.3g} "
+                  f"> {tol}")
+            errs[name] = (d, tol)
+        st_bytes = sum(t.numel() * t.element_size()
+                       for t in tree_leaves(st))
+    tokens = B * S
+    mats = sum(p16[k].numel() for k in ("in_proj", "x_proj", "dt_proj",
+                                        "out_proj"))
+    f32 = tokens * (8 * cfg.d_inner * cfg.d_state
+                    + 2 * cfg.d_conv * cfg.d_inner)
+    pre_ops_ms = (2 * mats * tokens / BF16_PEAK + f32 / FP32_OPS_PER_S) * 1e3
+    io = 2 * tokens * D * 2                          # x read, out written
+    pre_bytes = nbytes + io + st_bytes
+    pre_bound = max(pre_ops_ms, pre_bytes / rate * 1e3)
+    dec_bytes = nbytes + 2 * st_bytes + 2 * B * D * 2
+    dec_ops_ms = (2 * mats * B / BF16_PEAK
+                  + f32 / S / FP32_OPS_PER_S) * 1e3
+    dec_bound = max(dec_bytes / rate * 1e3, dec_ops_ms)
+    rest = statistics.median(step_ms[1:])
+    pre, dec_b = busy
+    label = (f"Mamba mixer at {MAMBA_ARCH}'s width (d_model {D}, d_inner "
+             f"{cfg.d_inner}, d_state {cfg.d_state}, d_conv {cfg.d_conv}, "
+             f"dt rank {cfg.resolved_dt_rank}) bf16")
+    print(f"{label}: consistency (relative L2): " + ", ".join(
+        f"{k} {d:.3g} (limit {t})" for k, (d, t) in errs.items()),
+        flush=True)
+    card = _smi()
+    print(f"{label} on {card}: prefill {B} x {S} tokens {pre_ms[1]:.2f} ms"
+          f" (first call {pre_ms[0]:.2f}) against {pre_bound:.3f} ms = max("
+          f"{2 * mats * tokens / 1e12:.3f} T of products at "
+          f"{BF16_PEAK / 1e12:.0f} TFLOP/s + {f32 / 1e9:.2f} G float32 scan "
+          f"and conv ops at {FP32_OPS_PER_S / 1e12:.0f} TFLOP/s, "
+          f"{pre_bytes / 1e9:.3f} GB at {rate / 1e12:.2f} TB/s); decode "
+          f"{rest:.3f} ms a token, median of steps 2-{MAMBA_NEW} (step 1 "
+          f"{step_ms[0]:.3f}) against {dec_bound:.4f} ms ({nbytes / 1e9:.3f}"
+          f" GB of weights + {2 * st_bytes / 1e6:.1f} MB of state read and "
+          f"written at {rate / 1e12:.2f} TB/s), under sync-debug 'error'",
+          flush=True)
+    print(f"{label} on {card} under torch.profiler: prefill "
+          f"{pre.kernels} kernels, "
+          f"device busy {pre.busy_ms:.2f} ms (idle "
+          f"{1 - pre.busy_ms / pre_ms[1]:.1%} of the timed "
+          f"{pre_ms[1]:.2f} ms), by kernel {pre.top}; decode "
+          f"{dec_b.kernels:.0f} kernels a step, busy {dec_b.busy_ms:.3f} ms "
+          f"(idle {1 - dec_b.busy_ms / rest:.1%} of the timed "
+          f"{rest:.3f} ms)", flush=True)
+    del p16, p32, x, got, got32, st, out
+    _release(torch)
+
+
+def _lm_federation(torch, dev, seed: int = SEED, arch: str = SERVE_ARCH):
     """``launch/train.py simulate``'s federation through the port: the
-    reduced ``qwen3-14b``, LM_WORKERS workers on SyntheticLM sequences
-    split by ``sequence_split``, batch sizes from (16, 8); the weights
-    drawn on the CPU from ``seed`` and placed on ``dev``."""
+    reduced ``arch``, LM_WORKERS workers on SyntheticLM sequences split
+    by ``sequence_split``, batch sizes from (16, 8); the weights drawn on
+    the CPU from ``seed`` and placed on ``dev``."""
     from repro_torch.configs import get_config
     from repro_torch.data.pipeline import BatchIterator
     from repro_torch.data.synthetic import SyntheticLM, sequence_split
     from repro_torch.fed.worker import Worker, make_worker_configs
     from repro_torch.models import build_model
-    m = build_model(get_config(SERVE_ARCH).reduced())
+    m = build_model(get_config(arch).reduced())
     toks = SyntheticLM(n_sequences=LM_SEQUENCES, seq_len=LM_SEQ_LEN,
                        vocab=m.cfg.vocab, seed=seed).generate()
     splits = sequence_split(len(toks), LM_WORKERS, seed=seed)
@@ -2513,14 +2876,14 @@ def _lm_federation(torch, dev, seed: int = SEED):
     return m, toks, workers, params
 
 
-def phase_fed_lm(torch, dev) -> dict:
-    """A transformer federated through ``run_fedpc``: the wire kernels #1
-    and #2 on the model zoo's tree. Two runs on the card (bitwise equal),
-    the first's rounds each held to ``core.fedpc.master_round`` over its
-    own local models as trees (``_second_oracle``: #1 and #2 at this
-    path's shapes), one on the CPU (the plain versions: same pilots); a
-    captured training step of an LM worker replayed against the same
-    step called eagerly."""
+def phase_fed_lm(torch, dev, arch: str = SERVE_ARCH) -> dict:
+    """The reduced ``arch`` federated through ``run_fedpc``: the wire
+    kernels #1 and #2 on the model zoo's tree. Two runs on the card
+    (bitwise equal), the first's rounds each held to
+    ``core.fedpc.master_round`` over its own local models as trees
+    (``_second_oracle``: #1 and #2 at this path's shapes), one on the CPU
+    (the plain versions: same pilots); a captured training step of an LM
+    worker replayed against the same step called eagerly."""
     import numpy as np
 
     from repro_torch.core import flat as fl
@@ -2532,7 +2895,7 @@ def phase_fed_lm(torch, dev) -> dict:
     runs, own = [], {"uplink_stacked": 0, "master": 0}
     kept: list = []
     for run in range(2):
-        m, toks, workers, params = _lm_federation(torch, dev)
+        m, toks, workers, params = _lm_federation(torch, dev, arch=arch)
         if not run:
             layout = fl.layout_of(params)
         d = _drive(torch, FedSimulator(workers, params, device=dev), ROUNDS,
@@ -2541,18 +2904,20 @@ def phase_fed_lm(torch, dev) -> dict:
                                            LM_WORKERS)
         for k, n in _check_run(torch, d.res, d.launches,
                                {k: ROUNDS for k in own}, [want] * ROUNDS,
-                               workers, "federated LM").items():
+                               workers, f"federated LM {arch}").items():
             own[k] += n
         runs.append(d.res)
-    _same_runs(torch, *runs, "federated LM card run twice")
+    _same_runs(torch, *runs, f"federated LM {arch} card run twice")
     oracle = [_second_oracle(torch, k, layout) for k in kept]
-    _, _, cworkers, cparams = _lm_federation(torch, torch.device("cpu"))
+    _, _, cworkers, cparams = _lm_federation(torch, torch.device("cpu"),
+                                             arch=arch)
     cres = FedSimulator(cworkers, cparams, device="cpu").run_fedpc(ROUNDS)
     check(cres.pilot_history == runs[0].pilot_history,
-          f"federated LM: pilots card {runs[0].pilot_history} cpu "
+          f"federated LM {arch}: pilots card {runs[0].pilot_history} cpu "
           f"{cres.pilot_history}")
     check(np.allclose(runs[0].costs, cres.costs, rtol=1e-3),
-          f"federated LM: costs card {runs[0].costs} cpu {cres.costs}")
+          f"federated LM {arch}: costs card {runs[0].costs} cpu "
+          f"{cres.costs}")
     # A uniform LM worker (64 sequences at batch 16): its captured step.
     cfg = workers[1].cfg
     w = Worker(cfg=cfg, loader=BatchIterator((toks[:64],), 16, seed=0),
@@ -3683,6 +4048,7 @@ def main() -> int:
               "is missing)", file=sys.stderr)
         return 1
     sys.path.insert(0, str(SRC))
+    start = time.perf_counter()
     try:
         import torch
         name, count, rate = phase_card(torch)
@@ -3719,6 +4085,11 @@ def main() -> int:
         phase_model_serving(torch, dev, rate)
         for kind, n in phase_fed_lm(torch, dev).items():
             launches[kind] += n
+        phase_model_serving(torch, dev, rate, MOE_ARCH)
+        phase_model_serving(torch, dev, rate, XLSTM_ARCH)
+        phase_mamba_mixer(torch, dev, rate)
+        for kind, n in phase_fed_lm(torch, dev, MOE_ARCH).items():
+            launches[kind] += n
         rows = phase_times(torch, dev, rate, launches, errs)
         rows += phase_times_masked(torch, dev, rate, launches, errs)
         rows += phase_times_tree(torch, dev, rate, {
@@ -3736,6 +4107,8 @@ def main() -> int:
               f"({_queue['cycles']} cycles); the host queued "
               f"{QUEUED} calls in at most {_queue['host_share']:.1%} of it",
               flush=True)
+        print(f"chip_smoke: every phase passed in "
+              f"{time.perf_counter() - start:.1f} s on {_smi()}", flush=True)
     except (SmokeError, RuntimeError, ImportError, OSError,
             subprocess.SubprocessError) as exc:
         print(f"FAIL: {type(exc).__name__}: {exc}", file=sys.stderr)

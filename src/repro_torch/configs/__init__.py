@@ -1,10 +1,7 @@
 """Config registry: importing this package registers every architecture
 (the JAX package's ``repro.configs``, field for field) and the federation
-scenario presets (``configs.federation``).
-
-Every architecture is registered, but ``models.build_model`` builds only
-the attention + MLP ones; a Mamba, mLSTM, sLSTM or MoE block raises
-``NotImplementedError`` until those mixers are ported.
+scenario presets (``configs.federation``); ``models.build_model`` builds
+every architecture.
 """
 from repro_torch.configs.base import (  # noqa: F401
     ArchConfig, get_config, list_configs, register,

@@ -27,7 +27,8 @@ import numpy as np
 import torch
 
 from repro_torch.configs.base import ArchConfig
-from repro_torch.models.layers import apply_rope, dense_init, dtype_of, rms_norm
+from repro_torch.models.layers import (apply_rope, dense_init, draw_device,
+                                       dtype_of, rms_norm)
 from repro_torch.sharding import activations as act
 
 NEG_INF = -1e30
@@ -45,8 +46,9 @@ def init_attention(cfg: ArchConfig, generator: torch.Generator,
         "wo": dense_init(generator, cfg.n_heads * dh, D, dt),
     }
     if cfg.qk_norm and not cross:
-        p["q_norm"] = torch.ones((dh,), dtype=dt, device=generator.device)
-        p["k_norm"] = torch.ones((dh,), dtype=dt, device=generator.device)
+        dev = draw_device(generator)
+        p["q_norm"] = torch.ones((dh,), dtype=dt, device=dev)
+        p["k_norm"] = torch.ones((dh,), dtype=dt, device=dev)
     return p
 
 

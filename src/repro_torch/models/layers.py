@@ -6,7 +6,9 @@ reference does. Initializers draw from a ``torch.Generator`` on its own
 device, in chunks of at most ``CHUNK`` values so that a large leaf needs
 no temporaries of its own size; ``jax.random`` draws other numbers, so a
 test that compares with the JAX package carries its weights across
-(``repro_torch.convert``).
+(``repro_torch.convert``). A ``None`` generator draws nothing: the leaves
+come out on the ``meta`` device, shapes and dtypes only (the full-size
+trees are counted so).
 """
 from __future__ import annotations
 
@@ -25,9 +27,16 @@ def dtype_of(name: str) -> torch.dtype:
             "float16": torch.float16}[name]
 
 
+def draw_device(generator) -> torch.device:
+    """Where ``generator`` draws: its own device, ``meta`` for ``None``."""
+    return torch.device("meta") if generator is None else generator.device
+
+
 def _fill(out: torch.Tensor, draw) -> torch.Tensor:
     """Fill ``out`` (contiguous) a chunk at a time: ``draw(n)`` gives the
     next ``n`` values in float32 or float64."""
+    if out.is_meta:
+        return out
     flat = out.view(-1)
     for s in range(0, flat.numel(), CHUNK):
         n = min(CHUNK, flat.numel() - s)
@@ -35,9 +44,9 @@ def _fill(out: torch.Tensor, draw) -> torch.Tensor:
     return out
 
 
-def dense_init(generator: torch.Generator, d_in: int, d_out: int,
-               dtype: torch.dtype = torch.float32) -> torch.Tensor:
-    """Truncated-normal fan-in init: std ``1/sqrt(d_in)``, cut at ±2 std.
+def trunc_normal(generator, shape: tuple, div: float,
+                 dtype: torch.dtype = torch.float32) -> torch.Tensor:
+    """A standard normal cut at ±2, divided by ``div``, in ``dtype``.
 
     Drawn on the generator's device by inverting the normal CDF over
     [Φ(−2), Φ(2)], in float64, a chunk of at most ``CHUNK`` values at a
@@ -47,22 +56,46 @@ def dense_init(generator: torch.Generator, d_in: int, d_out: int,
         u = torch.rand((n,), generator=generator, device=generator.device,
                        dtype=torch.float64)
         z = math.sqrt(2.0) * torch.erfinv(2.0 * (_LO + u * (_HI - _LO)) - 1.0)
-        return (z.clamp(-2.0, 2.0) / math.sqrt(d_in)).to(dtype)
+        return (z.clamp(-2.0, 2.0) / div).to(dtype)
 
-    out = torch.empty((d_in, d_out), dtype=dtype, device=generator.device)
+    out = torch.empty(shape, dtype=dtype, device=draw_device(generator))
+    return _fill(out, draw)
+
+
+def dense_init(generator: torch.Generator, d_in: int, d_out: int,
+               dtype: torch.dtype = torch.float32) -> torch.Tensor:
+    """Truncated-normal fan-in init: std ``1/sqrt(d_in)``, cut at ±2 std."""
+    return trunc_normal(generator, (d_in, d_out), math.sqrt(d_in), dtype)
+
+
+def normal_init(generator, shape: tuple, std: float,
+                dtype: torch.dtype = torch.float32) -> torch.Tensor:
+    """Normal init with std ``std``, drawn in float32."""
+    def draw(n):
+        return (std * torch.randn((n,), generator=generator,
+                                  device=generator.device,
+                                  dtype=torch.float32)).to(dtype)
+
+    out = torch.empty(shape, dtype=dtype, device=draw_device(generator))
+    return _fill(out, draw)
+
+
+def uniform_init(generator, shape: tuple, lo: float, hi: float
+                 ) -> torch.Tensor:
+    """Uniform in [lo, hi), float32."""
+    def draw(n):
+        return lo + (hi - lo) * torch.rand((n,), generator=generator,
+                                           device=generator.device)
+
+    out = torch.empty(shape, dtype=torch.float32,
+                      device=draw_device(generator))
     return _fill(out, draw)
 
 
 def embed_init(generator: torch.Generator, vocab: int, d: int,
                dtype: torch.dtype = torch.float32) -> torch.Tensor:
     """Normal init with std 0.02, drawn in float32."""
-    def draw(n):
-        return (0.02 * torch.randn((n,), generator=generator,
-                                   device=generator.device,
-                                   dtype=torch.float32)).to(dtype)
-
-    out = torch.empty((vocab, d), dtype=dtype, device=generator.device)
-    return _fill(out, draw)
+    return normal_init(generator, (vocab, d), 0.02, dtype)
 
 
 def rms_norm(x: torch.Tensor, scale: torch.Tensor,

@@ -1,4 +1,4 @@
-"""Model facade: build an attention + MLP architecture from its ArchConfig.
+"""Model facade: build any registered architecture from its ArchConfig.
 
 The counterpart of the JAX package's ``models/model.py``; the API is its
 own, functional, over nested dicts of tensors with the reference's keys:
@@ -105,10 +105,7 @@ class Model:
 
 def build_model(cfg: ArchConfig, optimizer: Optional[Optimizer] = None
                 ) -> Model:
-    """The model of ``cfg``; raises ``NotImplementedError`` for a pattern
-    with a mixer or feed-forward the port has not ported."""
-    for mixer, f in cfg.pattern:
-        tf.check_ported(mixer, f)
+    """The model of ``cfg``."""
     opt = optimizer or momentum()
     act_dtype = dtype_of(cfg.param_dtype)
 
@@ -133,9 +130,16 @@ def build_model(cfg: ArchConfig, optimizer: Optional[Optimizer] = None
         return _logits(cfg, params, x), aux
 
     def loss(params: PyTree, batch: dict):
+        """Next-token cross-entropy plus, for a MoE stack, the router's
+        load-balance and z-loss terms averaged over its MoE blocks."""
         logits, aux = forward(params, batch)
         labels = batch["tokens"][:, 1:]
-        return _xent(logits[:, :-1], labels), aux
+        l = _xent(logits[:, :-1], labels)
+        n_moe = sum(1 for _, f in cfg.pattern if f == "moe") * cfg.n_units
+        if n_moe:
+            l = l + cfg.router_aux_weight * aux["load_balance"] / n_moe \
+                  + 1e-3 * aux["z_loss"] / n_moe
+        return l, aux
 
     def loss_and_grad(params: PyTree, batch):
         """``((loss, aux), grads)`` with ``grads`` shaped like ``params``;

@@ -1,49 +1,70 @@
 """Config-driven block stack: init + apply for train / prefill / decode.
 
-The counterpart of the JAX package's ``models/transformer.py`` for the
-attention mixers (``attn``, ``swa``) with MLP feed-forwards. Layers are
+The counterpart of the JAX package's ``models/transformer.py``. Layers are
 grouped into repeating *units* (one period of ``cfg.pattern``); unit
 parameters are stacked along a leading axis, as in the reference's tree,
 and the stack is applied by a Python loop over that axis that indexes the
-stacked leaves (the reference's ``lax.scan``).
+stacked leaves (the reference's ``lax.scan``). Heterogeneous hybrids
+(Jamba's 7:1 mamba:attn, xLSTM's mLSTM/sLSTM alternation) are handled by
+the per-position sub-block types inside a unit.
 
 Caches mirror the unit structure: ``cache['units']['b<j>']`` holds the
-per-unit-stacked KV rings for pattern position j, filled in place.
-
-The recurrent mixers (``mamba``, ``mlstm``, ``slstm``) and the MoE
-feed-forward are not ported yet (ROADMAP queue 1, item 7b): a block of
-one raises ``NotImplementedError``.
+per-unit-stacked state for pattern position j (KV rings for attention,
+SSM/LSTM states for recurrent mixers), filled in place.
 """
 from __future__ import annotations
 
-from typing import Any, Callable, Optional
+from typing import Any, Callable, NamedTuple, Optional
 
 import torch
 
 from repro_torch.configs.base import ArchConfig
 from repro_torch.models import attention as attn
 from repro_torch.models import ffn as ffn_mod
-from repro_torch.models.layers import (dense_init, dtype_of, embed_init,
-                                       rms_norm, sinusoidal_positions)
+from repro_torch.models import moe as moe_mod
+from repro_torch.models import ssm
+from repro_torch.models.layers import (dense_init, draw_device, dtype_of,
+                                       embed_init, rms_norm,
+                                       sinusoidal_positions)
 from repro_torch.sharding import activations as act
 from repro_torch.utils import tree_flatten, tree_map, tree_unflatten
 
 PyTree = Any
 
 ATTN_MIXERS = ("attn", "swa")
-FFNS = ("mlp", "none")
 
 
-def check_ported(mixer: str, ffn: str) -> None:
-    """Raise ``NotImplementedError`` for a block the port cannot build."""
-    if mixer not in ATTN_MIXERS:
-        raise NotImplementedError(
-            f"the {mixer!r} mixer is not ported yet (ROADMAP queue 1, item "
-            f"7b: models/ssm.py)")
-    if ffn not in FFNS:
-        raise NotImplementedError(
-            f"the {ffn!r} feed-forward is not ported yet (ROADMAP queue 1, "
-            f"item 7b: models/moe.py)")
+class _Recurrent(NamedTuple):
+    """The functions that serve one recurrent mixer kind."""
+    init: Callable          # (cfg, generator) -> params
+    train: Callable         # (p, cfg, x) -> h
+    prefill: Callable       # (p, cfg, x) -> (h, state)
+    decode: Callable        # (p, cfg, x, state) -> (h, state)
+    init_state: Callable    # (cfg, batch, dtype, device, lead) -> state
+
+
+RECURRENT = {
+    "mamba": _Recurrent(ssm.init_mamba, ssm.mamba_train, ssm.mamba_prefill,
+                        ssm.mamba_decode, ssm.init_mamba_state),
+    "mlstm": _Recurrent(
+        ssm.init_mlstm, ssm.mlstm_train,
+        lambda p, cfg, x: ssm.mlstm_train(p, cfg, x, return_state=True),
+        ssm.mlstm_decode,
+        lambda cfg, b, dtype, device, lead: ssm.init_mlstm_state(
+            cfg, b, device, lead=lead)),
+    "slstm": _Recurrent(
+        ssm.init_slstm, ssm.slstm_train,
+        lambda p, cfg, x: ssm.slstm_train(p, cfg, x, return_state=True),
+        ssm.slstm_decode,
+        lambda cfg, b, dtype, device, lead: ssm.init_slstm_state(
+            cfg, b, device, lead=lead)),
+}
+
+
+def _recurrent(mixer: str) -> _Recurrent:
+    if mixer not in RECURRENT:
+        raise ValueError(f"unknown mixer {mixer}")
+    return RECURRENT[mixer]
 
 
 # ---------------------------------------------------------------------------
@@ -53,17 +74,23 @@ def check_ported(mixer: str, ffn: str) -> None:
 def _init_block(cfg: ArchConfig, generator: torch.Generator, mixer: str,
                 ffn: str, cross: bool = False,
                 d_ff: Optional[int] = None) -> dict:
-    check_ported(mixer, ffn)
     dt = dtype_of(cfg.param_dtype)
     ones = lambda: torch.ones((cfg.d_model,), dtype=dt,          # noqa: E731
-                              device=generator.device)
-    p: dict = {"norm1": ones(), "mixer": attn.init_attention(cfg, generator)}
+                              device=draw_device(generator))
+    p: dict = {"norm1": ones()}
+    if mixer in ATTN_MIXERS:
+        p["mixer"] = attn.init_attention(cfg, generator)
+    else:
+        p["mixer"] = _recurrent(mixer).init(cfg, generator)
     if cross:
         p["norm_x"] = ones()
         p["cross"] = attn.init_attention(cfg, generator, cross=True)
     if ffn == "mlp":
         p["norm2"] = ones()
         p["ffn"] = ffn_mod.init_mlp(cfg, generator, d_ff=d_ff)
+    elif ffn == "moe":
+        p["norm2"] = ones()
+        p["ffn"] = moe_mod.init_moe(cfg, generator)
     return p
 
 
@@ -137,42 +164,66 @@ def _n_stacked(stack: PyTree) -> int:
 # Block application
 # ---------------------------------------------------------------------------
 
+def _store(cache: dict, new: dict) -> None:
+    """Copy a recurrent mixer's new state into its cache, in place."""
+    for k, v in new.items():
+        cache[k].copy_(v)
+
+
 def _ffn_residual(cfg: ArchConfig, bp: dict, x, cross_kv):
+    """Cross-attention and the feed-forward after the mixer's residual.
+    Returns (x, aux): the MoE's auxiliaries, ``{}`` for any other block."""
+    aux: dict = {}
     if cross_kv is not None:
         h = rms_norm(x, bp["norm_x"], cfg.norm_eps)
         x = x + attn.cross_attn(bp["cross"], cfg, h, cross_kv)
     if "ffn" in bp:
         h = rms_norm(x, bp["norm2"], cfg.norm_eps)
-        x = act.residual(x + ffn_mod.mlp(bp["ffn"], cfg, h))
-    return x
+        if "router" in bp["ffn"]:
+            h, aux = moe_mod.moe(bp["ffn"], cfg, h)
+        else:
+            h = ffn_mod.mlp(bp["ffn"], cfg, h)
+        x = act.residual(x + h)
+    return x, aux
 
 
 def _apply_block_train(cfg: ArchConfig, bp: dict, mixer: str, f: str, x,
                        cos, sin, cross_kv=None, causal=True):
-    check_ported(mixer, f)
     h = rms_norm(x, bp["norm1"], cfg.norm_eps)
-    h = attn.attn_train(bp["mixer"], cfg, h, cos, sin, causal=causal)
+    if mixer in ATTN_MIXERS:
+        h = attn.attn_train(bp["mixer"], cfg, h, cos, sin, causal=causal)
+    else:
+        h = _recurrent(mixer).train(bp["mixer"], cfg, h)
     x = act.residual(x + h)
     return _ffn_residual(cfg, bp, x, cross_kv)
 
 
 def _apply_block_prefill(cfg: ArchConfig, bp: dict, mixer: str, f: str, x,
                          cos, sin, cache, cross_kv=None):
-    """Full-sequence pass that also fills the decode cache entry."""
-    check_ported(mixer, f)
+    """Full-sequence pass that also fills the decode cache entry (in
+    place). Returns (x, aux)."""
     h = rms_norm(x, bp["norm1"], cfg.norm_eps)
-    h, _ = attn.attn_prefill(bp["mixer"], cfg, h, cos, sin, cache)
+    if mixer in ATTN_MIXERS:
+        h, _ = attn.attn_prefill(bp["mixer"], cfg, h, cos, sin, cache)
+    else:
+        h, new = _recurrent(mixer).prefill(bp["mixer"], cfg, h)
+        _store(cache, new)
     x = act.residual(x + h)
     return _ffn_residual(cfg, bp, x, cross_kv)
 
 
 def _apply_block_decode(cfg: ArchConfig, bp: dict, mixer: str, f: str, x,
                         pos, cache, cos, sin, cross_kv=None):
-    check_ported(mixer, f)
+    """One token through a block, its cache updated in place; the MoE's
+    auxiliaries are dropped, as the reference drops them."""
     h = rms_norm(x, bp["norm1"], cfg.norm_eps)
-    h, _ = attn.attn_decode(bp["mixer"], cfg, h, pos, cache, cos, sin)
+    if mixer in ATTN_MIXERS:
+        h, _ = attn.attn_decode(bp["mixer"], cfg, h, pos, cache, cos, sin)
+    else:
+        h, new = _recurrent(mixer).decode(bp["mixer"], cfg, h, cache)
+        _store(cache, new)
     x = act.residual(x + h)
-    return _ffn_residual(cfg, bp, x, cross_kv)
+    return _ffn_residual(cfg, bp, x, cross_kv)[0]
 
 
 # ---------------------------------------------------------------------------
@@ -180,9 +231,16 @@ def _apply_block_decode(cfg: ArchConfig, bp: dict, mixer: str, f: str, x,
 # ---------------------------------------------------------------------------
 
 def zero_aux(device) -> dict:
-    """The reference's MoE auxiliaries, all 0 for attention+MLP stacks."""
+    """The MoE auxiliaries' starting sums: all 0."""
     return {k: torch.zeros((), dtype=torch.float32, device=device)
             for k in ("load_balance", "z_loss", "drop_frac")}
+
+
+def _acc_aux(acc: dict, aux: dict) -> dict:
+    """``acc`` plus a block's auxiliaries (``{}`` adds nothing)."""
+    if not aux:
+        return acc
+    return {k: acc[k] + aux[k] for k in acc}
 
 
 def _unit_blocks(cfg: ArchConfig, params: PyTree, caches=None,
@@ -199,22 +257,27 @@ def _unit_blocks(cfg: ArchConfig, params: PyTree, caches=None,
 
 def apply_units_train(cfg: ArchConfig, params: PyTree, x, cos, sin,
                       cross_kvs=None, causal=True):
-    """The unit stack in train (no cache) mode. Returns (x, aux)."""
+    """The unit stack in train (no cache) mode. Returns (x, aux), aux
+    summed block by block in the stack's order."""
+    acc = zero_aux(x.device)
     for bp, mixer, f, _, ckv in _unit_blocks(cfg, params,
                                              cross_kvs=cross_kvs):
-        x = _apply_block_train(cfg, bp, mixer, f, x, cos, sin,
-                               cross_kv=ckv, causal=causal)
-    return x, zero_aux(x.device)
+        x, aux = _apply_block_train(cfg, bp, mixer, f, x, cos, sin,
+                                    cross_kv=ckv, causal=causal)
+        acc = _acc_aux(acc, aux)
+    return x, acc
 
 
 def apply_units_prefill(cfg: ArchConfig, params: PyTree, x, cos, sin,
                         caches, cross_kvs=None):
     """The unit stack in parallel-prefill mode: full-sequence compute plus
     cache fill (in place). Returns (x, caches, aux)."""
+    acc = zero_aux(x.device)
     for bp, mixer, f, c, ckv in _unit_blocks(cfg, params, caches, cross_kvs):
-        x = _apply_block_prefill(cfg, bp, mixer, f, x, cos, sin, c,
-                                 cross_kv=ckv)
-    return x, caches, zero_aux(x.device)
+        x, aux = _apply_block_prefill(cfg, bp, mixer, f, x, cos, sin, c,
+                                      cross_kv=ckv)
+        acc = _acc_aux(acc, aux)
+    return x, caches, acc
 
 
 def apply_units_decode(cfg: ArchConfig, params: PyTree, x, pos, caches,
@@ -227,12 +290,16 @@ def apply_units_decode(cfg: ArchConfig, params: PyTree, x, pos, caches,
 
 def init_unit_caches(cfg: ArchConfig, batch: int, max_len: int, dtype,
                      device=None) -> PyTree:
-    """Stacked (n_units, ...) cache tree for the decode loop."""
+    """Stacked (n_units, ...) cache tree for the decode loop: KV rings for
+    attention, the recurrent mixers' states."""
+    lead = (cfg.n_units,)
     caches = {}
-    for j, (mixer, f) in enumerate(cfg.pattern):
-        check_ported(mixer, f)
-        caches[f"b{j}"] = attn.init_cache(cfg, batch, max_len, dtype, device,
-                                          lead=(cfg.n_units,))
+    for j, (mixer, _) in enumerate(cfg.pattern):
+        if mixer in ATTN_MIXERS:
+            c = attn.init_cache(cfg, batch, max_len, dtype, device, lead=lead)
+        else:
+            c = _recurrent(mixer).init_state(cfg, batch, dtype, device, lead)
+        caches[f"b{j}"] = c
     return caches
 
 
@@ -244,8 +311,8 @@ def apply_dense_prefix_train(cfg: ArchConfig, params: PyTree, x, cos, sin):
     if "dense_blocks" not in params:
         return x
     for u in range(_n_stacked(params["dense_blocks"])):
-        x = _apply_block_train(cfg, _unit(params["dense_blocks"], u),
-                               "attn", "mlp", x, cos, sin)
+        x, _ = _apply_block_train(cfg, _unit(params["dense_blocks"], u),
+                                  "attn", "mlp", x, cos, sin)
     return x
 
 
@@ -254,9 +321,9 @@ def apply_dense_prefix_prefill(cfg: ArchConfig, params: PyTree, x, cos, sin,
     if "dense_blocks" not in params:
         return x, caches
     for u in range(_n_stacked(params["dense_blocks"])):
-        x = _apply_block_prefill(cfg, _unit(params["dense_blocks"], u),
-                                 "attn", "mlp", x, cos, sin,
-                                 _unit(caches, u))
+        x, _ = _apply_block_prefill(cfg, _unit(params["dense_blocks"], u),
+                                    "attn", "mlp", x, cos, sin,
+                                    _unit(caches, u))
     return x, caches
 
 
@@ -289,8 +356,8 @@ def apply_encoder(cfg: ArchConfig, params: PyTree, audio_embed):
     pe = torch.from_numpy(sinusoidal_positions(x.shape[1], cfg.d_model))
     x = x + pe.to(device=x.device, dtype=x.dtype)
     for u in range(_n_stacked(params["encoder_blocks"])):
-        x = _apply_block_train(cfg, _unit(params["encoder_blocks"], u),
-                               "attn", "mlp", x, None, None, causal=False)
+        x, _ = _apply_block_train(cfg, _unit(params["encoder_blocks"], u),
+                                  "attn", "mlp", x, None, None, causal=False)
     return rms_norm(x, params["enc_norm_f"], cfg.norm_eps)
 
 

@@ -6,8 +6,8 @@ intermediate and the logits to mesh axes so that XLA's partitioner
 all-gathers weights instead of activations; off a mesh every one of its
 helpers returns its input unchanged
 (``repro/sharding/activations.py::_current_mesh``). The port runs on one
-card, so each hook here is that identity, and ``model_size()`` is 1: the
-attention takes its grouped-query path. The model code calls the hooks at
+card, so each hook here is that identity and ``model_size()`` is 1 (the
+attention takes its grouped-query path). The model code calls the hooks at
 the reference's places, so a multi-card runtime can fill their bodies in
 without touching the models.
 """
@@ -37,3 +37,23 @@ def logits(x):
 def model_size() -> int:
     """Size of the tensor-parallel axis: 1 on one card."""
     return 1
+
+
+def expert_buf(x):
+    """(E, C, D) expert buffer."""
+    return x
+
+
+def expert_weights(w, transposed: bool = False):
+    """(E, D, F) expert weights, or (E, F, D) ``transposed``."""
+    return w
+
+
+def expert_hidden(x):
+    """(E, C, F) expert intermediate."""
+    return x
+
+
+def ssm_state(x):
+    """(B, di, ds) selective-scan state."""
+    return x

@@ -95,13 +95,15 @@ def value_and_grad(loss_fn: Callable, params: PyTree, batch
                    ) -> tuple[tuple[torch.Tensor, Any], PyTree]:
     """``((loss, aux), grads)`` of ``loss_fn(params, batch) -> (loss,
     aux)``, with ``grads`` shaped like ``params`` (``torch.autograd.grad``
-    over detached copies of the leaves): the form a ``Worker`` trains
-    with."""
+    over detached copies of the leaves; ``aux`` detached): the form a
+    ``Worker`` trains with."""
     leaves, treedef = tree_flatten(params)
     leaves = [p.detach().requires_grad_(True) for p in leaves]
     with torch.enable_grad():
         loss, aux = loss_fn(tree_unflatten(treedef, leaves), batch)
         grads = torch.autograd.grad(loss, leaves)
+    aux = tree_map(lambda a: a.detach() if isinstance(a, torch.Tensor)
+                   else a, aux)
     return (loss.detach(), aux), tree_unflatten(treedef, list(grads))
 
 

@@ -35,6 +35,7 @@ def test_no_module_imports_jax_or_the_jax_package():
                  "configs.base", "configs.qwen3_14b", "configs.xlstm_350m",
                  "sharding.activations", "models.layers", "models.ffn",
                  "models.attention", "models.transformer", "models.model",
+                 "models.moe", "models.ssm",
                  "data.synthetic", "convert"):
         assert f"repro_torch.{name}" in names
     script = (

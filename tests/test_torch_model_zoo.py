@@ -1,22 +1,20 @@
 """The port's model zoo against the JAX package's: the architecture
-registry, the parameter tree, and ``build_model`` on the seven
-attention + MLP configs (reduced), from the JAX package's own initial
-weights carried across with ``repro_torch.convert``.
-
-Float32, per config: ``loss`` within ``rtol=1e-5``; the params after one
-``train_step`` within ``rtol=1e-4, atol=1e-6`` (a gradient sums over the
-batch and the sequence in another order in XLA and ATen); ``prefill``'s
-last logits, one ``decode_step`` after it, ``prefill_sequential`` and the
-caches within ``rtol=1e-4, atol=1e-5``. bfloat16: the port's bfloat16
-model held to the JAX package's float32 model on the same (bfloat16)
-weights, within 3% relative L2 on the logits and 0.2% on the loss
-(bfloat16 rounds each matmul output and norm to 8 significant bits, a
-relative 2^-9 = 0.2% at most, and a 2-layer stack compounds a few of
-them; the loss averages its positions' errors). A model with a recurrent mixer or MoE raises
-``NotImplementedError``.
+registry, every registered config's full-size parameter tree (as shapes),
+and ``build_model`` on the seven attention + MLP configs (reduced), from
+the JAX package's own initial weights carried across with
+``repro_torch.convert``, within the tolerances of ``tests/_zoo_parity.py``
+(the MoE and recurrent configs: ``tests/test_torch_model_zoo_7b.py``).
+bfloat16: the port's bfloat16 model held to the JAX package's float32
+model on the same (bfloat16) weights, within 3% relative L2 on the
+logits and 0.2% on the loss (bfloat16 rounds each matmul output and norm
+to 8 significant bits, a relative 2^-9 = 0.2% at most, and a 2-layer
+stack compounds a few of them; the loss averages its positions' errors).
 """
 import dataclasses
 import functools
+import importlib.util
+import math
+from pathlib import Path
 
 import jax
 import jax.numpy as jnp
@@ -24,6 +22,10 @@ import numpy as np
 import pytest
 import torch
 
+from _zoo_parity import (SERVE, B, S, _close, _np, _pair, _paths,
+                         loss_and_train_step_match,
+                         param_tree_carries_across,
+                         prefill_decode_and_sequential_match)
 from repro.configs import ASSIGNED as J_ASSIGNED
 from repro.configs import get_config as jget
 from repro.configs import list_configs as jlist
@@ -31,29 +33,12 @@ from repro.models import build_model as jbuild
 from repro_torch.configs import ASSIGNED as T_ASSIGNED
 from repro_torch.configs import get_config as tget
 from repro_torch.configs import list_configs as tlist
-from repro_torch.convert import params_from_numpy
 from repro_torch.models import attention as tattn
 from repro_torch.models import build_model as tbuild
-from repro_torch.utils import tree_flatten, tree_leaves
+from repro_torch.utils import tree_leaves, tree_size
 
 ZOO_7A = ("fedpc-paper", "qwen3-14b", "phi4-mini-3.8b", "mistral-nemo-12b",
           "mistral-large-123b", "whisper-medium", "qwen2-vl-7b")
-ZOO_7B = ("deepseek-moe-16b", "grok-1-314b", "jamba-1.5-large-398b",
-          "xlstm-350m")
-B, S = 2, 32
-LOSS = dict(rtol=1e-5, atol=1e-6)
-STEP = dict(rtol=1e-4, atol=1e-6)
-SERVE = dict(rtol=1e-4, atol=1e-5)
-
-
-def _np(x):
-    if isinstance(x, torch.Tensor):
-        x = x.detach().float()
-    return np.asarray(x, np.float32)
-
-
-def _close(t, j, tol):
-    np.testing.assert_allclose(_np(t), _np(j), **tol)
 
 
 def test_registry_matches():
@@ -70,10 +55,32 @@ def test_registry_matches():
         tget("no-such-arch")
 
 
-@pytest.mark.parametrize("arch", ZOO_7B)
-def test_unported_mixers_raise(arch):
-    with pytest.raises(NotImplementedError, match="7b"):
-        tbuild(tget(arch).reduced())
+@functools.lru_cache(maxsize=None)
+def _full_size(arch: str) -> tuple:
+    """The JAX package's full-size tree of ``arch`` as (path, shape,
+    dtype), traced with ``jax.eval_shape`` (nothing allocated)."""
+    return tuple(_paths(jax.eval_shape(jbuild(jget(arch)).init,
+                                       jax.random.PRNGKey(0))))
+
+
+@pytest.mark.parametrize("arch", jlist())
+def test_every_config_builds_at_full_size(arch):
+    # shapes and dtypes only: the port's init with no generator draws
+    # nothing and puts every leaf on the meta device
+    own = tbuild(tget(arch)).init(None, device="meta")
+    assert all(x.is_meta for x in tree_leaves(own))
+    want = _full_size(arch)
+    assert _paths(own) == list(want)
+    assert tree_size(own) == sum(math.prod(s) for _, s, _ in want)
+
+
+def test_chip_smoke_param_counts_are_the_reference_s():
+    spec = importlib.util.spec_from_file_location(
+        "chip_smoke", Path(__file__).resolve().parents[1] / "chip_smoke.py")
+    smoke = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(smoke)
+    for arch, n in smoke.SERVE_PARAMS_OF.items():
+        assert n == sum(math.prod(s) for _, s, _ in _full_size(arch)), arch
 
 
 def test_entry_points_default_to_cuda():
@@ -86,121 +93,20 @@ def test_entry_points_default_to_cuda():
         m.init_decode_state(1, 8)
 
 
-def _paths(tree):
-    return [(jax.tree_util.keystr(p), tuple(x.shape), str(x.dtype))
-            for p, x in jax.tree_util.tree_flatten_with_path(tree)[0]]
-
-
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 @pytest.mark.parametrize("arch", ZOO_7A)
 def test_param_tree_carries_across(arch, dtype):
-    jcfg = jget(arch).reduced().replace(param_dtype=dtype)
-    jp = jax.tree_util.tree_map(np.asarray,
-                                jbuild(jcfg).init(jax.random.PRNGKey(0)))
-    carried = params_from_numpy(jp, device="cpu")
-    own = tbuild(tget(arch).reduced().replace(param_dtype=dtype)).init(
-        torch.Generator().manual_seed(0), device="cpu")
-    want = _paths(jp)
-    for tree in (carried, own):
-        got = [(jax.tree_util.keystr(p), tuple(x.shape),
-                str(x.dtype).replace("torch.", ""))
-               for p, x in jax.tree_util.tree_flatten_with_path(tree)[0]]
-        assert got == want
-    # the flat layout's leaf order is the JAX order
-    assert [tuple(x.shape) for x in tree_flatten(own)[0]] == \
-        [s for _, s, _ in want]
-
-
-def _batch(cfg, seed: int = 1) -> dict:
-    rng = np.random.default_rng(seed)
-    batch = {"tokens": rng.integers(0, cfg.vocab, (B, S)).astype(np.int32)}
-    if cfg.mrope:
-        batch["positions"] = np.broadcast_to(
-            np.arange(S)[None, None], (3, B, S)).astype(np.int32)
-    if cfg.is_encdec:
-        batch["audio_embed"] = rng.standard_normal(
-            (B, cfg.n_frames, cfg.d_model)).astype(np.float32)
-    if cfg.arch_type == "vlm":
-        batch["vision_embed"] = rng.standard_normal(
-            (B, cfg.n_patches, cfg.d_model)).astype(np.float32)
-    return batch
-
-
-@functools.lru_cache(maxsize=None)
-def _pair(arch: str, dtype: str = "float32"):
-    """Both packages' models of one reduced config, the JAX weights, the
-    port's copy of them, a batch in both forms and the jitted JAX
-    functions (compiled once a config)."""
-    jcfg = jget(arch).reduced().replace(param_dtype=dtype)
-    jm, tm = jbuild(jcfg), tbuild(tget(arch).reduced().replace(
-        param_dtype=dtype))
-    jp = jm.init(jax.random.PRNGKey(0))
-    tp = params_from_numpy(jax.tree_util.tree_map(np.asarray, jp),
-                           device="cpu")
-    b = _batch(jcfg)
-    jb = {k: jnp.asarray(v) for k, v in b.items()}
-    tb = {k: torch.from_numpy(np.array(v)) for k, v in b.items()}
-    fns = {name: jax.jit(getattr(jm, name)) for name in (
-        "loss", "train_step", "prefill", "decode_step",
-        "prefill_sequential")}
-    return jcfg, jm, tm, jp, tp, jb, tb, fns
+    param_tree_carries_across(arch, dtype)
 
 
 @pytest.mark.parametrize("arch", ZOO_7A)
 def test_loss_and_train_step_match(arch):
-    _, jm, tm, jp, tp, jb, tb, fns = _pair(arch)
-    jl, jaux = fns["loss"](jp, jb)
-    tl, taux = tm.loss(tp, tb)
-    _close(tl, jl, LOSS)
-    assert sorted(taux) == sorted(jaux)
-    jp2, jo2, jmet = fns["train_step"](jp, jm.optimizer.init(jp), jb,
-                                       jnp.float32(0.01))
-    tp2, to2, tmet = tm.train_step(tp, tm.optimizer.init(tp), tb, 0.01)
-    assert sorted(tmet) == sorted(jmet)
-    _close(tmet["grad_norm"], jmet["grad_norm"], STEP)
-    for a, b in zip(tree_leaves(tp2), jax.tree_util.tree_leaves(jp2)):
-        _close(a, b, STEP)
-    for a, b in zip(tree_leaves(to2), jax.tree_util.tree_leaves(jo2)):
-        _close(a, b, STEP)
-    # the worker-shaped helper: the loss, gradients shaped as the params,
-    # and a loader's (tokens,) batch taken as {"tokens": ...}
-    (l2, _), grads = tm.loss_and_grad(tp, tb)
-    _close(l2, jl, LOSS)
-    assert [g.shape for g in tree_leaves(grads)] == \
-        [p.shape for p in tree_leaves(tp)]
-    if set(tb) == {"tokens"}:
-        assert torch.equal(tm.loss_and_grad(tp, (tb["tokens"],))[0][0], l2)
+    loss_and_train_step_match(arch)
 
 
 @pytest.mark.parametrize("arch", ZOO_7A)
 def test_prefill_decode_and_sequential_match(arch):
-    cfg, jm, tm, jp, tp, jb, tb, fns = _pair(arch)
-    js = jm.init_decode_state(B, 2 * S)
-    ts = tm.init_decode_state(B, 2 * S, device="cpu")
-    jlog, js = fns["prefill"](jp, jb, js)
-    with torch.no_grad():
-        tlog, ts = tm.prefill(tp, tb, ts)
-    _close(tlog, jlog, SERVE)
-    tok = np.argmax(_np(jlog), -1).astype(np.int32)
-    jsb = {"token": jnp.asarray(tok), "pos": jnp.asarray(S, jnp.int32)}
-    tsb = {"token": torch.from_numpy(tok), "pos": torch.tensor(S)}
-    if cfg.mrope:
-        jsb["positions"] = jnp.full((3, B, 1), S, jnp.int32)
-        tsb["positions"] = torch.full((3, B, 1), S, dtype=torch.int32)
-    jlog, js = fns["decode_step"](jp, js, jsb)
-    with torch.no_grad():
-        tlog, ts = tm.decode_step(tp, ts, tsb)
-    _close(tlog, jlog, SERVE)
-    for a, b in zip(tree_leaves(ts), jax.tree_util.tree_leaves(js)):
-        _close(a, b, SERVE)
-    js = jm.init_decode_state(B, 2 * S)
-    ts = tm.init_decode_state(B, 2 * S, device="cpu")
-    jlog, js = fns["prefill_sequential"](jp, jb, js)
-    with torch.no_grad():
-        tlog, ts = tm.prefill_sequential(tp, tb, ts)
-    _close(tlog, jlog, SERVE)
-    for a, b in zip(tree_leaves(ts), jax.tree_util.tree_leaves(js)):
-        _close(a, b, SERVE)
+    prefill_decode_and_sequential_match(arch)
 
 
 def _rel_l2(a, b) -> float:

@@ -5,9 +5,11 @@ copied to the card.
 Held within ``rtol=1e-4, atol=1e-5`` of the CPU: ``loss``, the params
 after one ``train_step``, ``prefill`` and two ``decode_step`` calls with
 ``pos`` a device tensor (decoded under sync-debug "error"), and the
-caches; cuBLAS and ATen's CPU kernels sum in other orders. A federated
-LM worker's captured training step is replayed against the same step
-called eagerly, bitwise.
+caches; cuBLAS and ATen's CPU kernels sum in other orders. The configs
+are the attention + MLP ones and the MoE / recurrent ones (DeepSeekMoE,
+Grok-1, Jamba, xLSTM). A federated LM worker's captured training step
+(a dense one and a MoE one) is replayed against the same step called
+eagerly, bitwise.
 
 Needs a CUDA card; every test here is marked ``gpu`` and skips where
 ``torch.cuda.is_available()`` is false. It imports nothing of JAX::
@@ -60,7 +62,9 @@ def _close(a, b):
 @pytest.mark.gpu
 @pytest.mark.parametrize("arch", ["fedpc-paper", "qwen3-14b",
                                   "mistral-nemo-12b", "whisper-medium",
-                                  "qwen2-vl-7b"])
+                                  "qwen2-vl-7b", "deepseek-moe-16b",
+                                  "grok-1-314b", "jamba-1.5-large-398b",
+                                  "xlstm-350m"])
 def test_model_on_card_matches_cpu(cuda, arch):
     cfg = get_config(arch).reduced()
     m = build_model(cfg)
@@ -108,7 +112,18 @@ def test_model_on_card_matches_cpu(cuda, arch):
 @pytest.mark.gpu
 @pytest.mark.parametrize("optimizer", ["momentum", "adam"])
 def test_lm_worker_graph_replay_equals_eager_step(cuda, optimizer):
-    cfg = get_config("qwen3-14b").reduced()
+    _graph_replay_equals_eager_step(cuda, "qwen3-14b", optimizer)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("optimizer", ["momentum", "adam"])
+def test_moe_worker_graph_replay_equals_eager_step(cuda, optimizer):
+    # routing, dispatch and the router's auxiliaries inside the graph
+    _graph_replay_equals_eager_step(cuda, "deepseek-moe-16b", optimizer)
+
+
+def _graph_replay_equals_eager_step(cuda, arch, optimizer):
+    cfg = get_config(arch).reduced()
     m = build_model(cfg)
     params = m.init(torch.Generator().manual_seed(0), device=cuda)
     toks = SyntheticLM(n_sequences=64, seq_len=64, vocab=cfg.vocab,
