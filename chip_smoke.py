@@ -177,6 +177,26 @@ result:
    sync-debug "error", held to float32 (0.08) and to every token decoded
    one at a time (0.08 in bf16, 1e-4 in float32). Then the federated LM
    on the reduced ``deepseek-moe-16b``: its launches join #1's and #2's.
+   distributed slice — the mesh runtime (``fed.distributed``) on this
+   card: the (10, 1) and (4, 2) meshes, each rank a spawned process on
+   card 0 with gloo (every collective staged through host memory), the
+   MLP at full width; at rounds 1 and 3 every strategy with betas and a
+   participation mask and the masked wire at 16 and 32 bits, DP off and
+   on; on (10, 1) the flat masked wire under ``FaultPlan(**FAULTS)`` with
+   threshold 2 beside the survivors-only sync; on (4, 2) masks off, the
+   masked tree at fanout 2 and the replicated wire (every rank the whole
+   buffer: the (4, 1) computation); each sync under sync-debug "error"
+   but for its staged transport calls, one audited (``enforce``). Every
+   rank's new models equal (digests); bitwise: masks on == off, repaired
+   == survivors-only, the tree == the flat wire, sharded == replicated
+   for the exact modes, and the (10, 1) packed round ==
+   ``WirePath.round_from_stacked`` on the same ten locals in this
+   process; ``fedpc_reduce`` within its f16 bound of the int8 gather and
+   the (10, 1) FedAvg within its f32 bound of the sum in worker order in
+   this process. The ranks' launches (#2, #3, #6, #8) join the
+   ``kernels`` line. Then ``launch.train distributed --backend gloo
+   --full-size`` (F = 4, M = 2, 3 rounds) and ``simulate`` (3 rounds), as
+   two subprocesses side by side.
 8. times  — each kernel and its plain version with CUDA events at the
    main-path shape (median of 25), beside its bound: device-memory bytes,
    or integer operations for the stream-generating kernels; the plain
@@ -193,7 +213,10 @@ result:
    fault path's selects on the device; the one-worker uplinks, encode,
    pack, unpack and the unfused master (beside the two-call PyTorch composition
    ``addcmul(q, tensordot(w, codes), p1 - p2)``), and the per-worker
-   round's wire against the batched round's.
+   round's wire against the batched round's; then a mesh rank's kernels
+   at each mesh's slab (#3, #2 with the pilot apart, #6 at N = 1 with
+   L = F at 16 and 32 bits with RR, #8 on the reduced slab), each
+   bitwise to its plain version first.
 
 The line before the last is one JSON object with every kernel's numbers,
 one entry a kernel function, each with ``row``, its row in the kernel
@@ -203,6 +226,7 @@ table of ``PERF.md`` (#1–#14); the last is ``{"ok": true, "device":
 from __future__ import annotations
 
 import json
+import os
 import re
 import statistics
 import subprocess
@@ -4042,6 +4066,622 @@ def phase_times_unfused(torch, dev, rate: float, launches: dict,
     return rows
 
 
+# -- distributed slice: the mesh runtime, F·M gloo ranks on one card -------
+
+DIST_MESHES = ((10, 1), (4, 2))   # the paper's ten nodes; a model axis of 2
+DIST_ROUNDS = (1, 3)              # both Eq. (3)/(4)/(5) branches
+DIST_TIMEOUT = 300                # seconds a mesh's ranks may take
+DIST_STRATEGIES = ("fedpc", "fedpc_packed", "fedpc_reduce", "fedavg")
+DIST_DP = dict(dp_epsilon=DP_EPSILON)
+DIST_M32 = dict(modulus_bits=32, fixpoint_bits=24)
+DIST_E2E = ("--fed-workers", "4", "--model-shards", "2", "--rounds", "3")
+# The kernels a mesh rank launches: #2 at Nq = 1, #3, #6 at N = 1, #8.
+MESH_KINDS = ("master", "uplink_traced", "uplink_masked_16",
+              "uplink_masked_32", "mask_repair")
+
+
+class DistCase(NamedTuple):
+    key: str
+    strategy: str
+    privacy: dict | None          # PrivacySpec keywords; None = plain wire
+    fanout: int | None            # the masked tree's
+    faults: bool                  # under FaultPlan(**FAULTS)
+    shard_wire: bool              # False: every rank runs the whole buffer
+    mask: str                     # "het": betas + mask; "none"; "alive"
+
+
+def _dist_cases(F: int, M: int) -> list:
+    """The syncs a mesh runs at each round. Both meshes: every strategy
+    with betas and a participation mask, the masked wire at 16 bits with
+    DP off and on and at 32 bits. Without a model axis (the paper's ten
+    nodes): 32 bits with DP too, and the flat masked wire under the fault
+    plan beside the survivors-only sync. With one: masks off (DP off and
+    on) and the exact modes on the replicated wire (every rank the whole
+    buffer: the (F, 1) computation). Where F is a power of two (the mesh
+    tree folds ``fanout`` ranks a level), the masked tree at fanout 2. One
+    sync a run audits itself (``enforce``, the default: the (4, 2) mesh's
+    16-bit wire); the others skip the audit, which is host work on
+    ``meta`` tensors."""
+    quiet = {"enforce": False}
+    cases = [DistCase(s, s, None, None, False, True, "het")
+             for s in DIST_STRATEGIES]
+    masked = [("m16", {} if M > 1 else quiet), ("m16_dp", {**DIST_DP, **quiet}),
+              ("m32", {**DIST_M32, **quiet})]
+    if M == 1:
+        masked.append(("m32_dp", {**DIST_M32, **DIST_DP, **quiet}))
+    else:
+        masked += [("m16_off", {"mask_seed": None, **quiet}),
+                   ("m16_dp_off", {"mask_seed": None, **DIST_DP, **quiet})]
+    cases += [DistCase(k, "fedpc", kw, None, False, True, "het")
+              for k, kw in masked]
+    if F & (F - 1) == 0:
+        cases.append(DistCase("tree2", "fedpc", quiet, 2, False, True, "het"))
+    if M == 1:
+        rec = {"recovery_threshold": 2, **quiet}
+        cases += [DistCase("faults", "fedpc", rec, None, True, True, "none"),
+                  DistCase("survivors", "fedpc", rec, None, False, True,
+                           "alive")]
+    else:
+        cases += [DistCase(s + "_rep", s, None, None, False, False, "het")
+                  for s in ("fedpc", "fedpc_packed")]
+        cases += [DistCase(k + "_rep", "fedpc", kw, None, False, False,
+                           "het")
+                  for k, kw in (("m16", quiet), ("m32", {**DIST_M32,
+                                                         **quiet}))]
+    return cases
+
+
+def _dist_models(torch, dev, workers, dims: tuple) -> tuple:
+    """The mesh phase's models on ``dev``: P^0 (the MLP of ``dims`` =
+    (features, classes, hidden widths) drawn from SEED), P^{-1} = P^0 +
+    0.01·N(0, 1) and each of ``workers``' local models, P^0 + 0.01·N(0, 1)
+    from its own seed."""
+    from repro_torch.models.mlp import init_mlp_classifier
+    from repro_torch.utils import tree_map
+    params = init_mlp_classifier(torch.Generator().manual_seed(SEED), *dims,
+                                 device=dev)
+
+    def nudged(seed):
+        gen = torch.Generator(device=dev).manual_seed(seed)
+        return tree_map(lambda x: x + 0.01 * torch.randn(
+            x.shape, generator=gen, device=dev), params)
+    return params, nudged(SEED + 1), {k: nudged(SEED + 10 + k)
+                                      for k in workers}
+
+
+def _dist_public(torch, dev, F: int) -> dict:
+    """The round's public (F,) values: sizes, costs, betas, the
+    participation mask (worker 1 sits out) and last round's costs."""
+    return {"sizes": torch.linspace(50.0, 200.0, F, device=dev),
+            "costs": torch.linspace(0.9, 0.5, F, device=dev),
+            "betas": torch.linspace(0.1, 0.35, F, device=dev),
+            "mask": (torch.arange(F, device=dev) != 1).float(),
+            "prev": torch.ones(F, device=dev)}
+
+
+def _dist_rank(rank: int, world: int, F: int, M: int, store: str,
+               out: str, backend: str, devices: tuple, dims: tuple) -> None:
+    """One rank of a mesh (a spawned process on ``devices[rank]``):
+    every sync of ``_dist_cases`` at both rounds, each under sync-debug
+    "error" but for its staged transport calls; checks what one rank can
+    (``_dist_checks``); writes its digests, launches and timings to
+    ``out/rank<r>.json``, and on rank 0 of the (10, 1) mesh the packed
+    and FedAvg rounds' new buffers, for the single-process comparison."""
+    import hashlib
+    import torch
+    import torch.distributed as dist
+    from repro_torch.core import flat as fl
+    from repro_torch.core.tree import TreeSpec
+    from repro_torch.fed import collectives as col
+    from repro_torch.fed.distributed import build_fed_sync
+    from repro_torch.fed.faults import FaultPlan
+    from repro_torch.kernels import fused_wire, masked_wire
+    from repro_torch.launch.mesh import make_debug_mesh
+    from repro_torch.privacy import recovery as pvr
+    from repro_torch.privacy.spec import PrivacySpec
+    from repro_torch.utils import tree_leaves, tree_map
+    dev = torch.device(devices[rank])
+    cuda = dev.type == "cuda"
+    if cuda:
+        torch.cuda.set_device(dev)
+    dist.init_process_group(backend, init_method="file://" + store,
+                            world_size=world, rank=rank)
+    try:
+        mesh = make_debug_mesh(F, M)
+        f = mesh.axes["data"].index
+        params, prev, locs = _dist_models(torch, dev, [f], dims)
+        local = locs.pop(f)
+        pub = _dist_public(torch, dev, F)
+        layout = fl.layout_of(params)
+        zeros = tree_map(torch.zeros_like, params)
+        mult = {1: 0.01, 3: float(max((a - b).abs().max() for a, b in zip(
+            tree_leaves(params), tree_leaves(prev))))}
+        cases = _dist_cases(F, M)
+        syncs = {}
+        for c in cases:
+            kw = {}
+            if c.privacy is not None:
+                kw["privacy"] = PrivacySpec(**c.privacy)
+            if c.fanout:
+                kw["tree"] = TreeSpec(fanout=c.fanout)
+            if c.faults:
+                kw["faults"] = FaultPlan(**FAULTS)
+            if c.mask == "het":
+                kw["betas"] = pub["betas"]
+            syncs[c.key] = build_fed_sync(None, mesh, "data", c.strategy,
+                                          shard_wire=c.shard_wire,
+                                          device=dev, **kw)
+
+        def state_at(t):
+            return {"params": params,
+                    "params_prev": prev if t > 1 else zeros,
+                    "prev_costs": (pub["prev"] if t > 1 else
+                                   torch.full((F,), float("inf"),
+                                              device=dev)),
+                    "round": torch.tensor(t, dtype=torch.int32, device=dev)}
+
+        def masks_at(state):
+            alive = FaultPlan(**FAULTS).alive(state["round"], F)
+            eff, dead = pvr.effective_masks(None, alive, 2, None, F)
+            return {"het": pub["mask"], "none": None, "alive": eff}, dead
+
+        if backend == "nccl":
+            # NCCL makes a group's communicator, and each send/recv pair's,
+            # at its first call: make them before the checked rounds
+            state = state_at(DIST_ROUNDS[0])
+            masks, _ = masks_at(state)
+            for c in cases:
+                syncs[c.key](local, pub["costs"], pub["sizes"], state,
+                             masks[c.mask])
+        report = {"digests": {}, "rounds": {}, "repaired": 0}
+        counters = (fused_wire.LAUNCHES, masked_wire.LAUNCHES)
+        for t in DIST_ROUNDS:
+            state = state_at(t)
+            masks, dead = masks_at(state)
+            if "faults" in syncs:
+                report["repaired"] += int(dead.sum())
+            got = {}
+            for c in cases:
+                before = [dict(cnt) for cnt in counters]
+                col.reset_stats()
+                if cuda:
+                    torch.cuda.synchronize()
+                # the ranks start each sync together: a rank's host work
+                # after the last one (its digest) stays out of the timing
+                dist.barrier()
+                t0 = time.perf_counter()
+                if cuda:
+                    torch.cuda.set_sync_debug_mode("error")
+                try:
+                    new, aux = syncs[c.key](local, pub["costs"],
+                                            pub["sizes"], state,
+                                            masks[c.mask])
+                finally:
+                    if cuda:
+                        torch.cuda.set_sync_debug_mode(0)
+                if cuda:
+                    torch.cuda.synchronize()
+                wall = time.perf_counter() - t0
+                launched = {k: v - b[k] for cnt, b in zip(counters, before)
+                            for k, v in cnt.items() if v != b[k]}
+                flat = fl.flatten_tree(new, layout)
+                check(bool(torch.isfinite(flat).all()),
+                      f"mesh {F}x{M} {c.key} t={t}: not finite")
+                got[c.key] = flat
+                report["digests"][f"{c.key}_t{t}"] = hashlib.blake2b(
+                    flat.cpu().numpy().tobytes(), digest_size=16).hexdigest()
+                report["rounds"][f"{c.key}_t{t}"] = {
+                    "wall_s": wall, "k_star": int(aux["k_star"]),
+                    "launches": launched, **col.STATS}
+            _dist_checks(torch, got, pub, F, M, t, mult[t])
+            if (F, M) == DIST_MESHES[0] and rank == 0:
+                for key in ("fedpc_packed", "fedavg"):
+                    torch.save(got[key].cpu(), f"{out}/{key}_t{t}.pt")
+            del got
+        with open(f"{out}/rank{rank}.json", "w") as fh:
+            json.dump(report, fh)
+    finally:
+        dist.destroy_process_group()
+
+
+def _dist_checks(torch, got: dict, pub: dict, F: int, M: int, t: int,
+                 mult: float) -> None:
+    """What one rank checks of one round: bitwise where the wire is
+    exact, ``fedpc_reduce`` within its f16 bound of the int8 gather."""
+    def same(a, b, what):
+        if a in got and b in got:
+            check(torch.equal(got[a].view(torch.int32),
+                              got[b].view(torch.int32)),
+                  f"mesh {F}x{M} t={t}: {what}: {a} != {b}")
+
+    same("m16", "m16_off", "masks on != masks off")
+    same("m16_dp", "m16_dp_off", "masks on != masks off with DP")
+    check(not torch.equal(got["m16"], got["m16_dp"]),
+          f"mesh {F}x{M} t={t}: DP changed nothing")
+    same("faults", "survivors", "repaired != survivors-only")
+    same("tree2", "m16", "the masked tree != the flat masked wire")
+    for key in ("fedpc", "fedpc_packed", "m16", "m32"):
+        same(key, key + "_rep", "sharded != replicated")
+    # fedpc_reduce beside the int8 gather's exact f32 fold: F f16 terms
+    # and F - 1 f16 sums, each off by at most 2^-11 of what it rounds
+    p = pub["sizes"] / pub["sizes"].sum()
+    wsum = float((p * (pub["betas"] if t > 1 else 1.0)).abs().sum())
+    diff = (got["fedpc_reduce"] - got["fedpc"]).abs()
+    bound = (F + 1) * 2.0 ** -11 * wsum * mult + 2 * _ulp(torch,
+                                                          got["fedpc"])
+    check(bool((diff <= bound).all()),
+          f"mesh {F}x{M} t={t}: reduce off gather by {float(diff.max())}")
+
+
+def _ulp(torch, x):
+    """The spacing of float32 at each entry of ``x``."""
+    return torch.nextafter(x.abs(), torch.full_like(x, float("inf"))) \
+        - x.abs()
+
+
+def _dist_dims() -> tuple:
+    return (N_FEATURES, N_CLASSES, HIDDEN)
+
+
+def _dist_run(F: int, M: int, out: str, backend: str,
+              devices: tuple) -> list:
+    """Spawn a mesh's F·M ranks, rank r on ``devices[r]``, under
+    ``backend`` and wait for them, at most DIST_TIMEOUT seconds (then
+    every rank is stopped); returns each rank's report."""
+    import torch.multiprocessing as mp
+    from torch.multiprocessing.spawn import ProcessException
+    ctx = mp.start_processes(_dist_rank, args=(F * M, F, M,
+                                               f"{out}/rendezvous", out,
+                                               backend, devices,
+                                               _dist_dims()),
+                             nprocs=F * M, join=False, start_method="spawn")
+    deadline = time.perf_counter() + DIST_TIMEOUT
+    try:
+        while not ctx.join(timeout=1):
+            check(time.perf_counter() < deadline,
+                  f"mesh {F}x{M}: ranks still running after {DIST_TIMEOUT} s")
+    except ProcessException as exc:
+        raise SmokeError(f"mesh {F}x{M}: a rank failed:\n{exc}") from None
+    finally:
+        for p in ctx.processes:
+            if p.is_alive():
+                p.terminate()
+            p.join()
+    reports = []
+    for r in range(F * M):
+        with open(f"{out}/rank{r}.json") as fh:
+            reports.append(json.load(fh))
+    return reports
+
+
+def _dist_report(F: int, M: int, reports: list, label: str) -> tuple:
+    """Check that every rank's new models equal rank 0's, and sum the
+    ranks' launches: those of the sharded wire by the kind of the mesh's
+    kernel row (#6 split by word width), those of the replicated wire
+    (every rank the whole buffer: another shape) apart. Returns them and
+    a line a sync, and the seconds the syncs took (the median rank's,
+    summed)."""
+    first = reports[0]
+    for r, rep in enumerate(reports):
+        check(rep["digests"] == first["digests"],
+              f"{label}: rank {r}'s new models differ from rank 0's")
+    cases = {c.key: c for c in _dist_cases(F, M)}
+    sharded: dict = {}
+    whole: dict = {}
+    for rep in reports:
+        for key, rr in rep["rounds"].items():
+            c = cases[key.rsplit("_t", 1)[0]]
+            into = sharded if c.shard_wire else whole
+            for kind, n in rr["launches"].items():
+                if kind == "uplink_masked":
+                    kind += f"_{(c.privacy or {}).get('modulus_bits', 16)}"
+                into[kind] = into.get(kind, 0) + n
+    by_key: dict = {}
+    for key in first["rounds"]:
+        walls = [rep["rounds"][key]["wall_s"] for rep in reports]
+        comm = [rep["rounds"][key]["seconds"] for rep in reports]
+        by_key.setdefault(key.rsplit("_t", 1)[0], []).append((
+            statistics.median(walls), statistics.median(comm),
+            first["rounds"][key]))
+    lines = []
+    for base, runs in by_key.items():
+        one = runs[0][2]
+        lines.append(
+            f"{label} {base}: round "
+            f"{' / '.join(f'{r[0] * 1e3:.1f}' for r in runs)} ms at t = "
+            f"{' / '.join(map(str, DIST_ROUNDS))} (the median over the "
+            f"ranks; the first call of a sync audits itself where it "
+            f"enforces), transport "
+            f"{' / '.join(f'{r[1] * 1e3:.1f}' for r in runs)} ms "
+            f"({one['calls']} calls, {one['staged']} staged through host "
+            f"memory = host syncs; protocol {one['protocol_bytes']:,} B, "
+            f"link {one['link_bytes']:,} B a rank); launches "
+            f"{one['launches'] or 'none'}; pilots "
+            f"{[r[2]['k_star'] for r in runs]}")
+    return sharded, whole, lines, sum(r[0] for runs in by_key.values()
+                                      for r in runs)
+
+
+def _dist_single(torch, dev, F: int) -> dict:
+    """The (F, 1) mesh's rounds computed in one process on the F locals:
+    the packed round by ``WirePath.round_from_stacked`` (#1 + #2), and
+    FedAvg's weighted sum in worker order with its f32 bound, 2(F − 1)
+    units of 2^-24 of Σ_k |w_k x_k| (two summation orders) and an ulp."""
+    from repro_torch.core import flat as fl
+    from repro_torch.core.goodness import select_pilot
+    from repro_torch.fed import rounds as rd
+    params, prev, locs = _dist_models(torch, dev, range(F), _dist_dims())
+    pub = _dist_public(torch, dev, F)
+    layout = fl.layout_of(params)
+    bufs = torch.stack([fl.flatten_tree(locs[k], layout) for k in range(F)])
+    del locs
+    p1 = fl.flatten_tree(params, layout)
+    wire = rd.WirePath()
+    wm = pub["sizes"] * pub["mask"]
+    wts = wm / wm.sum()
+    avg = torch.zeros_like(p1)
+    terms = torch.zeros_like(p1)
+    for k in range(F):
+        avg = avg + bufs[k] * wts[k]
+        terms = terms + (bufs[k] * wts[k]).abs()
+    out = {"fedavg": (avg, 2 * (F - 1) * 2.0 ** -24 * terms
+                      + _ulp(torch, avg))}
+    for t in DIST_ROUNDS:
+        tt = torch.tensor(t, dtype=torch.int32, device=dev)
+        p2 = fl.flatten_tree(prev, layout) if t > 1 else torch.zeros_like(p1)
+        prev_costs = (pub["prev"] if t > 1
+                      else torch.full((F,), float("inf"), device=dev))
+        k, _ = select_pilot(pub["costs"], prev_costs, pub["sizes"], tt,
+                            pub["mask"])
+        w = wire.weights(pub["sizes"] / pub["sizes"].sum(), k, tt,
+                         betas=pub["betas"], mask=pub["mask"])
+        out[t], _ = wire.round_from_stacked(bufs, k, w, p1, p2, t=tt,
+                                            betas=pub["betas"])
+    return out
+
+
+def phase_distributed_slice(torch, dev) -> dict:
+    """The mesh runtime (``fed.distributed``) at full width: the (10, 1)
+    and (4, 2) meshes of gloo ranks on this card, every case of
+    ``_dist_cases`` at rounds 1 and 3; the (10, 1) packed round against
+    the single-process round on the same ten locals, bitwise; then
+    ``launch/train.py distributed`` (fedpc-paper at its registered size,
+    F = 4, M = 2, 3 rounds) and ``simulate`` (3 rounds). Returns the
+    ranks' launches on their slabs by mesh and kernel row
+    (``_dist_report``)."""
+    import tempfile
+    import numpy as np
+    t_phase = time.perf_counter()
+    launches: dict = {}
+    lines = []
+    with tempfile.TemporaryDirectory(prefix="mesh") as tmp:
+        for F, M in DIST_MESHES:
+            out = f"{tmp}/{F}x{M}"
+            Path(out).mkdir()
+            t0 = time.perf_counter()
+            reports = _dist_run(F, M, out, "gloo", (str(dev),) * (F * M))
+            spawn_s = time.perf_counter() - t0
+            first = reports[0]
+            mine, whole, more, sync_s = _dist_report(
+                F, M, reports, f"distributed: {F}x{M}")
+            launches[(F, M)] = mine
+            lines += more
+            check(first["repaired"] > 0 or M > 1, f"mesh {F}x{M}: the "
+                  f"fault plan killed no worker")
+            print(f"distributed: mesh {F}x{M}: {F * M} gloo ranks on "
+                  f"{torch.cuda.get_device_name(0)}, {len(more)} syncs x "
+                  f"{len(DIST_ROUNDS)} rounds in {spawn_s:.1f} s, the "
+                  f"syncs {sync_s:.1f} s of it (the rest spawning the ranks "
+                  f"and building their models and syncs); every rank's new "
+                  f"models equal; "
+                  f"{first['repaired']} faulted workers repaired; the "
+                  f"ranks launched {mine} on their slabs"
+                  + (f", and {whole} on the replicated wire (every rank "
+                     f"the whole buffer: the (4, 1) shapes, not in this "
+                     f"mesh's kernel rows)" if whole else ""), flush=True)
+            if (F, M) == DIST_MESHES[0]:
+                single = _dist_single(torch, dev, F)
+                avg, bound = single.pop("fedavg")
+                worst = 0.0
+                for t in DIST_ROUNDS:
+                    mesh = torch.load(f"{out}/fedpc_packed_t{t}.pt").to(dev)
+                    want = single[t].reshape(mesh.shape)
+                    differ = mesh.view(torch.int32) != want.view(torch.int32)
+                    zeros = differ & (mesh == 0) & (want == 0)
+                    check(not bool(differ.any()),
+                          f"(10, 1) packed t={t}: {int(differ.sum())} "
+                          f"entries differ from the single-process round "
+                          f"({int(zeros.sum())} of them signed zeros)")
+                    mesh = torch.load(f"{out}/fedavg_t{t}.pt").to(dev)
+                    diff = (mesh - avg.reshape(mesh.shape)).abs()
+                    check(bool((diff <= bound.reshape(mesh.shape)).all()),
+                          f"(10, 1) fedavg t={t} off the single-process sum "
+                          f"by {float(diff.max())}")
+                    worst = max(worst, float(diff.max()))
+                del single, mesh, want, avg, bound
+                print(f"distributed: (10, 1) fedpc_packed == single-process "
+                      f"round_from_stacked on the same ten locals, bitwise, "
+                      f"rounds {DIST_ROUNDS}; fedavg within its f32 bound of "
+                      f"the sum in worker order (largest difference "
+                      f"{worst:.3g})", flush=True)
+            _release(torch)
+    for line in lines:
+        print(line, flush=True)
+    # Both CLI modes at once, as two subprocesses.
+    env = dict(os.environ, PYTHONPATH=str(SRC))
+    on = ("--device", dev.type)
+    t0 = time.perf_counter()
+    procs = {mode: (args, subprocess.Popen(
+        [sys.executable, "-m", "repro_torch.launch.train", mode, *args],
+        env=env, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True))
+        for mode, args in (("distributed", ("--backend", "gloo",
+                                            "--full-size", *DIST_E2E, *on)),
+                           ("simulate", ("--rounds", "3", *on)))}
+    try:
+        for mode, (args, proc) in procs.items():
+            stdout, stderr = proc.communicate(timeout=DIST_TIMEOUT)
+            check(proc.returncode == 0, f"launch.train {mode} failed:\n"
+                  f"{stderr[-3000:]}")
+            costs = [float(c) for c in re.findall(r"cost[= ](\d+\.\d+)",
+                                                  stdout)]
+            check(costs and all(np.isfinite(costs)),
+                  f"launch.train {mode}: no finite cost in {stdout!r}")
+            print(f"distributed: launch.train {mode} {' '.join(args)} done "
+                  f"{time.perf_counter() - t0:.1f} s after both started: "
+                  + "; ".join(stdout.strip().splitlines()), flush=True)
+    finally:
+        for _, proc in procs.values():
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+    print(f"distributed: phase in {time.perf_counter() - t_phase:.1f} s on "
+          f"{_smi()}; the ranks launched {launches}", flush=True)
+    return launches
+
+
+def phase_times_dist(torch, dev, rate: float, launches: dict) -> list[dict]:
+    """The kernels a mesh rank launches, at each mesh's slab: #3 (one
+    worker's uplink at a device round), #2 with the pilot's buffer apart
+    (Nq = 1) beside the F gathered packed slabs, #6 at N = 1 with the
+    rank's (1, F) key and sign row (the row-fold kernel) at 16 and 32
+    bits with RR, and #8 on the reduced 16-bit slab with the fault plan's
+    repair pairs. Each is held bitwise to its plain version, then timed
+    beside its bound. ``launches`` maps a mesh to its ranks' launches."""
+    from repro_torch.core import flat as fl
+    from repro_torch.fed.faults import FaultPlan
+    from repro_torch.kernels import fused_wire as fw
+    from repro_torch.kernels import masked_wire as mw
+    from repro_torch.models.mlp import init_mlp_classifier
+    from repro_torch.privacy import dp as pdp
+    from repro_torch.privacy import masking as pvm
+    from repro_torch.privacy import recovery as pvr
+    from repro_torch.privacy.spec import PrivacySpec
+    params = init_mlp_classifier(torch.Generator().manual_seed(SEED),
+                                 N_FEATURES, N_CLASSES, HIDDEN, device="meta")
+    saved = _read_counts()
+    rows = []
+    f32 = 4
+    for F, M in DIST_MESHES:
+        sr = fl.layout_of(params, shards=M).shard_rows
+        r, m = sr // 4, sr // 4 * 512
+        gen = torch.Generator(device=dev).manual_seed(SEED + 20 + F)
+        q, p1, p2, beta, _, _ = _inputs(torch, 1, r, gen, dev)
+        q = q[0]
+        tt = torch.tensor(3, dtype=torch.int32, device=dev)
+        a1 = torch.tensor(0.01, device=dev)
+        b0 = beta[0].contiguous()
+        packed = torch.randint(0, 256, (F, r, 128), generator=gen,
+                               device=dev, dtype=torch.uint8)
+        w = torch.rand((F,), generator=gen, device=dev) / F
+        zero = torch.zeros((), dtype=torch.int64, device=dev)
+        pilot = q[None]
+        idx, m_idx = F - 2, M - 1
+        keys = pvm.pair_stream_keys_row(0, idx, F, tt, m_idx)[None]
+        signs = pvm.pair_signs_row(idx, F, device=dev)[None]
+        rrk = pdp.rr_stream_key(1, tt, idx, m_idx).reshape(1)
+        active = int((signs != 0).sum())
+        plan = FaultPlan(**FAULTS)
+        for t_rep in DIST_ROUNDS:
+            trep = torch.tensor(t_rep, dtype=torch.int32, device=dev)
+            eff, dead = pvr.effective_masks(None, plan.alive(trep, F), 2,
+                                            None, F)
+            if int(dead.sum()):
+                break
+        rkeys, rcoeff = pvr.repair_coefficients(
+            pvm.pair_stream_keys(0, F, trep, m_idx),
+            pvm.pair_signs(F, device=dev), eff, dead,
+            *pvr.repair_pair_index(F, None, dev))
+        live = int((rcoeff != 0).sum())
+        pairs = rkeys.shape[0]
+        words = pvm.to_words(torch.randint(0, 1 << 16, (r, 512),
+                                           generator=gen, device=dev), 16)
+        spec16 = PrivacySpec(dp_epsilon=DP_EPSILON, enforce=False)
+        spec32 = PrivacySpec(dp_epsilon=DP_EPSILON, enforce=False,
+                             **DIST_M32)
+        small = 4 * f32
+        work = [
+            ("uplink_traced", 3, "ternary_pack_any",
+             "src/repro/kernels/fused_wire.py:246", "fused_wire.cu",
+             f"one rank's slab, R = {r:,}",
+             3 * m * f32 + m // 4 + 3 * f32, ("f32", 4 * m),
+             lambda: fw.ternary_pack_any(q, p1, p2, tt, b0, a1),
+             lambda: fw.ternary_pack_any_plain(q, p1, p2, tt, b0, a1)),
+            ("master", 2, "packed_master_update",
+             "src/repro/kernels/fused_wire.py:335", "fused_wire.cu",
+             f"the pilot apart (Nq = 1) beside {F} gathered slabs, "
+             f"R = {r:,}",
+             3 * m * f32 + F * m // 4 + F * f32 + f32 + 8 + m * f32,
+             ("f32", 3 * F * m + 3 * m),
+             lambda: fw.packed_master_update(pilot, zero, packed, w, p1, p2,
+                                             tt, 0.01),
+             lambda: fw.packed_master_update_plain(pilot, zero, packed, w, p1,
+                                                   p2, tt, 0.01))]
+        for bits, spec in ((16, spec16), (32, spec32)):
+            kw = dict(rr_threshold=spec.rr_threshold, word_bits=bits)
+            wq = pvm.quantize_weights(w[idx:idx + 1], spec.fixpoint_bits)
+            args = (q[None], p1, p2, tt, b0.reshape(1), 0.01, wq, keys,
+                    signs, rrk)
+            work.append((
+                f"uplink_masked_{bits}", 6, "ternary_pack_masked",
+                "src/repro/kernels/masked_wire.py:299", "masked_wire.cu",
+                f"one rank, N = 1, L = {F} ({active} active), {bits}-bit, RR",
+                3 * m * f32 + m * bits // 8 + 8 * F + small,
+                ("int", *uplink_masked_int_ops(1, m, bits, True, True, active,
+                                               folds=1)),
+                lambda args=args, kw=kw: mw.ternary_pack_masked(*args, **kw),
+                lambda args=args, kw=kw: mw.ternary_pack_masked_plain(
+                    *args, **kw)))
+        if M == 1:                      # the mesh that runs the fault plan
+            work.append((
+                "mask_repair", 8, "mask_repair",
+                "src/repro/kernels/masked_wire.py:503", "masked_wire.cu",
+                f"the reduced 16-bit slab, {pairs} pairs, {live} with a "
+                f"coefficient (round {t_rep}), out of place",
+                2 * 2 * m + 8 * pairs,
+                ("int", (3 + 3 * live) * m, (4.5 + 5.5 * live) * m),
+                lambda: mw.mask_repair(words, rkeys, rcoeff),
+                lambda: mw.mask_repair_plain(words, rkeys, rcoeff)))
+        for (kind, row, name, replaces, src, what, nbytes, ops, kern,
+             plain) in work:
+            got, want = kern(), plain()
+            torch.cuda.synchronize()
+            if got.dtype.is_floating_point:
+                same = torch.equal(got.view(torch.int32),
+                                   want.view(torch.int32))
+                err = float((got - want).abs().max())
+            else:
+                same = torch.equal(pvm.as_u64(got), pvm.as_u64(want))
+                err = float((pvm.as_u64(got) - pvm.as_u64(want)).abs().max())
+            check(same, f"mesh {F}x{M}: {name} ({what}) differs from its "
+                  f"plain version")
+            del got, want
+            ms, call_ms = _kernel_ms(torch, kern)
+            plain_ms = _median_ms(torch, plain)
+            bytes_ms = nbytes / rate * 1e3
+            ops_ms = (ops[1] / FP32_OPS_PER_S * 1e3 if ops[0] == "f32"
+                      else int_bound_ms(ops[1], ops[2]))
+            bound_ms = max(bytes_ms, ops_ms)
+            by = "bytes" if bytes_ms >= ops_ms else "operations"
+            print(f"time: {name} ({what}; mesh {F}x{M}) {ms:.4f} ms on the "
+                  f"device ({call_ms:.4f} ms a call from the host; plain "
+                  f"{plain_ms:.4f} ms); bound {bound_ms:.4f} ms by {by}: "
+                  f"{nbytes / 1e6:.1f} MB = {bytes_ms:.4f} ms, ops "
+                  f"{ops_ms:.4f} ms; {bound_ms / ms:.1%} of bound; bitwise "
+                  f"to plain", flush=True)
+            rows.append({
+                "name": f"{name} (mesh {F}x{M}: {what})", "row": row,
+                "route": "cuda",
+                "source": f"src/repro_torch/kernels/csrc/{src}",
+                "replaces": replaces,
+                "launches": launches[(F, M)].get(kind, 0),
+                "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+                "bound_ms": bound_ms, "bound_by": by, "library_ms": None})
+        del q, p1, p2, packed, words
+        _release(torch)
+    _restore_counts(saved)                         # timing launches not counted
+    return rows
+
+
 def main() -> int:
     if not (SRC / "repro_torch" / "kernels" / "csrc").is_dir():
         print("FAIL: run from the root of the repository (src/repro_torch "
@@ -4090,6 +4730,12 @@ def main() -> int:
         phase_mamba_mixer(torch, dev, rate)
         for kind, n in phase_fed_lm(torch, dev, MOE_ARCH).items():
             launches[kind] += n
+        mesh = phase_distributed_slice(torch, dev)
+        for (F, M), mine in mesh.items():     # the fault plan runs at M = 1
+            check(set(mine) <= set(MESH_KINDS) and all(
+                mine.get(k) for k in MESH_KINDS[:5 if M == 1 else 4]),
+                f"mesh {F}x{M}: the ranks launched {mine}, each of "
+                f"{MESH_KINDS} expected")
         rows = phase_times(torch, dev, rate, launches, errs)
         rows += phase_times_masked(torch, dev, rate, launches, errs)
         rows += phase_times_tree(torch, dev, rate, {
@@ -4101,6 +4747,7 @@ def main() -> int:
             + telemetry["mask_repair"] + privacy["mask_repair"],
             "masked_partial_sum_off": tree["masked_partial_sum"]}, errs)
         rows += phase_times_unfused(torch, dev, rate, worker_rounds, errs)
+        rows += phase_times_dist(torch, dev, rate, mesh)
         rows.sort(key=lambda row: row["row"])
         print(f"time: queued timings behind a sleep of "
               f"{_queue['cycles'] * _queue['ms_per_cycle']:.2f} ms "

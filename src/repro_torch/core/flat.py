@@ -42,14 +42,24 @@ class FlatLayout(NamedTuple):
     offsets: tuple[int, ...]   # start of each leaf in the flat vector
     n: int                     # total real scalars
     rows: int                  # padded buffer rows (rows % ROW_MULTIPLE == 0)
+    shards: int = 1            # model-axis slabs (rows % (ROW_MULTIPLE*shards) == 0)
 
     @property
     def padded(self) -> int:
         return self.rows * LANES
 
+    @property
+    def shard_rows(self) -> int:
+        """Rows of one model shard's (shard_rows, 128) slab."""
+        return self.rows // self.shards
 
-def layout_of(tree: PyTree) -> FlatLayout:
-    """The FlatLayout of a tree."""
+
+def layout_of(tree: PyTree, shards: int = 1) -> FlatLayout:
+    """The FlatLayout of a tree. ``shards`` pads ``rows`` to a multiple of
+    ``ROW_MULTIPLE * shards``, so that the buffer splits into ``shards``
+    aligned slabs, one a model-axis rank of the distributed runtime."""
+    if shards < 1:
+        raise ValueError(f"shards must be >= 1, got {shards}")
     leaves, treedef = tree_flatten(tree)
     shapes = tuple(tuple(l.shape) for l in leaves)
     dtypes = tuple(l.dtype for l in leaves)
@@ -58,9 +68,9 @@ def layout_of(tree: PyTree) -> FlatLayout:
     for s in sizes:
         offsets.append(off)
         off += s
-    rows = round_up(max(-(-off // LANES), 1), ROW_MULTIPLE)
+    rows = round_up(max(-(-off // LANES), 1), ROW_MULTIPLE * shards)
     return FlatLayout(treedef, shapes, dtypes, sizes, tuple(offsets), off,
-                      rows)
+                      rows, shards)
 
 
 def flatten_tree(tree: PyTree, layout: FlatLayout) -> torch.Tensor:

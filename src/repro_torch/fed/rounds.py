@@ -321,7 +321,9 @@ class WirePath:
                w: torch.Tensor, buf_p1: torch.Tensor, buf_p2: torch.Tensor,
                *, t) -> torch.Tensor:
         """Fused Eq. (3) over the packed wire codes, one launch; the
-        pilot's buffer is ``bufs_q[k_star]``, read in place."""
+        pilot's buffer is ``bufs_q[k_star]``, read in place (a mesh rank
+        passes the pilot's slab alone, ``bufs_q`` (1, rows, 128) at
+        ``k_star`` 0)."""
         return ops.flat_master_update(bufs_q, k_star, packed, w, buf_p1,
                                       buf_p2, t=t, alpha0=self.cfg.alpha0)
 
@@ -356,6 +358,30 @@ class WirePath:
             rr_keys=rrk, rr_threshold=spec.rr_threshold,
             word_bits=spec.modulus_bits, use_masks=spec.masking_on)
         return y, wq
+
+    def uplink_masked_slab(self, buf_q: torch.Tensor, buf_p1: torch.Tensor,
+                           buf_p2: torch.Tensor, *, t, wq_own, keys_row,
+                           signs_row, rr_key, beta=None) -> torch.Tensor:
+        """One worker's masked wire words over one (sr, 128) slab, the
+        distributed runtime's per-rank form: the masked uplink at N = 1.
+        ``wq_own`` is this worker's fixed-point weight (a 0-d uint32
+        tensor); ``keys_row``/``signs_row`` its (F,) row of the pair keys
+        and signs (``masking.pair_stream_keys_row`` salted by the
+        model-shard index, ``pair_signs_row`` or ``tree_pair_signs_row``);
+        ``rr_key`` its RR stream key; ``beta`` its beta_k. The kernel draws
+        the streams from them in registers. Returns (sr//4, 512) in
+        ``privacy.word_dtype``."""
+        spec = self.privacy
+        y = ops.flat_ternary_pack_masked(
+            buf_q[None], buf_p1, buf_p2, t=t,
+            beta=self.cfg.beta if beta is None else beta,
+            alpha1=self.cfg.alpha1, wq=wq_own.reshape(1),
+            pair_keys=keys_row.reshape(1, -1),
+            pair_signs=signs_row.reshape(1, -1),
+            rr_keys=torch.as_tensor(rr_key).reshape(1),
+            rr_threshold=spec.rr_threshold, word_bits=spec.modulus_bits,
+            use_masks=spec.masking_on)
+        return y[0]
 
     def _leaf_pairs(self, n: int, t, pmask, dev: torch.device
                     ) -> tuple[torch.Tensor, torch.Tensor]:
@@ -705,13 +731,16 @@ class RoundEngine:
         bufs_q = engine.flatten_locals(locals_)
         new_params = engine.run_round(bufs_q, k_star, p_shares, t)
 
-    two kernel launches and one unflatten. ``device=None`` means CUDA.
+    two kernel launches and one unflatten. ``shards`` pads the flat
+    layout's rows to whole model-axis slabs, as the mesh runtime lays the
+    buffer out (the padding is a fixed point of the wire, so the round's
+    values do not change). ``device=None`` means CUDA.
     """
 
     def __init__(self, init_params: PyTree, cfg: WireConfig | None = None,
-                 *, device=None):
+                 *, shards: int = 1, device=None):
         self.device = resolve_device(device)
-        self.layout = fl.layout_of(init_params)
+        self.layout = fl.layout_of(init_params, shards=shards)
         self.wire = WirePath(cfg or WireConfig())
         self.buf_p1 = fl.flatten_tree(init_params, self.layout).to(
             self.device)                                        # P^{t-1}

@@ -113,9 +113,11 @@ __device__ __forceinline__ float fold(float acc, uint32_t field, float wk) {
 // blocks, so the sum has the reference's bits. The Eq. (3) combine
 // q - coeff * mult is one fused multiply-add, as XLA computes it on the
 // CPU. At round <= 1 mult is alpha0 and the history is not read. The
-// pilot's model is read in place from the stacked worker buffers at the
-// device index k_star, so no copy of it is made; an index outside
-// [0, n) yields NaN rather than a read out of bounds.
+// pilot's model is read in place from a stack of nq float buffers at the
+// device index k_star, so no copy of it is made: the N workers' own
+// stack in one process (nq = n), or the one pilot buffer a mesh rank
+// received over the fed axis (nq = 1). An index outside [0, nq) yields
+// NaN rather than a read out of bounds.
 __global__ void __launch_bounds__(kThreads)
 packed_master_update_kernel(const float4* __restrict__ q,
                             const int64_t* __restrict__ k_star,
@@ -124,11 +126,12 @@ packed_master_update_kernel(const float4* __restrict__ q,
                             const float4* __restrict__ p1,
                             const float4* __restrict__ p2,
                             const int32_t* __restrict__ t, float alpha0,
-                            float4* __restrict__ out, int n, int64_t m) {
+                            float4* __restrict__ out, int n, int nq,
+                            int64_t m) {
   const int64_t i = static_cast<int64_t>(blockIdx.x) * kThreads + threadIdx.x;
   if (i >= m) return;
   const int64_t pilot = *k_star;
-  if (pilot < 0 || pilot >= n) {
+  if (pilot < 0 || pilot >= nq) {
     const float nan = __int_as_float(0x7fc00000);
     out[i] = make_float4(nan, nan, nan, nan);
     return;
@@ -199,12 +202,12 @@ int fw_ternary_pack(int rule, const void* q, const void* p1, const void* p2,
   return static_cast<int>(cudaGetLastError());
 }
 
-// q (n, m) float4, k_star int64 scalar, p1/p2/out (m,) float4, packed
+// q (nq, m) float4, k_star int64 scalar, p1/p2/out (m,) float4, packed
 // (n, m) uint8, w (n,) float, t int32 scalar.
 int fw_packed_master_update(const void* q, const void* k_star,
                             const void* packed, const void* w, const void* p1,
                             const void* p2, const void* t, float alpha0,
-                            void* out, int n, long long m, int device,
+                            void* out, int n, int nq, long long m, int device,
                             void* stream) {
   const cudaError_t set = cudaSetDevice(device);
   if (set != cudaSuccess) return static_cast<int>(set);
@@ -214,7 +217,7 @@ int fw_packed_master_update(const void* q, const void* k_star,
       static_cast<const uint8_t*>(packed), static_cast<const float*>(w),
       static_cast<const float4*>(p1), static_cast<const float4*>(p2),
       static_cast<const int32_t*>(t), alpha0, static_cast<float4*>(out), n,
-      m);
+      nq, m);
   return static_cast<int>(cudaGetLastError());
 }
 

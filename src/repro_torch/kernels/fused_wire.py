@@ -64,7 +64,7 @@ def _lib() -> ctypes.CDLL:
         lib.fw_ternary_pack_stacked.restype = ctypes.c_int
         lib.fw_packed_master_update.argtypes = [
             _P, _P, _P, _P, _P, _P, _P, ctypes.c_float, _P, ctypes.c_int,
-            ctypes.c_longlong, ctypes.c_int, _P]
+            ctypes.c_int, ctypes.c_longlong, ctypes.c_int, _P]
         lib.fw_packed_master_update.restype = ctypes.c_int
         lib.fw_ternary_pack.argtypes = [
             ctypes.c_int, _P, _P, _P, _P, _P, _P, ctypes.c_float,
@@ -257,23 +257,28 @@ def packed_master_update(q: torch.Tensor, k_star: torch.Tensor,
                          alpha0: float) -> torch.Tensor:
     """Eq. (3) over every worker's packed codes in one launch.
 
-    q (N, R, 512) float32, every worker's view, of which the pilot's is
-    read in place at k_star, a 0-d int64 device index in [0, N) (the
-    kernel writes NaN for one outside it); packed (N, R, 128) uint8; w (N,)
-    float32, the Eq. (3) weights with the pilot's entry zeroed; p1/p2
-    (R, 512) float32; t 0-d int32 (alpha0 steps at t <= 1,
-    P^{t-1} − P^{t-2} after). Workers fold strictly in order k = 0..N−1.
-    Returns (R, 512) float32.
+    q (Nq, R, 512) float32, a stack of float views of which the pilot's is
+    read in place at k_star, a 0-d int64 device index in [0, Nq) (the
+    kernel writes NaN for one outside it): every worker's view in one
+    process (Nq = N, k_star the pilot), or the pilot's alone where it
+    arrived apart, as on a mesh rank (Nq = 1, k_star 0); packed
+    (N, R, 128) uint8; w (N,) float32, the Eq. (3) weights with the
+    pilot's entry zeroed; p1/p2 (R, 512) float32; t 0-d int32 (alpha0
+    steps at t <= 1, P^{t-1} − P^{t-2} after). Workers fold strictly in
+    order k = 0..N−1. Returns (R, 512) float32.
     """
     dev = device_of(q)
-    n, r = q.shape[0], q.shape[1]
-    check_operand("q", q, torch.float32, (n, r, WIDE), dev, align=16)
+    nq, r = q.shape[0], q.shape[1]
+    n = packed.shape[0] if packed.dim() == 3 else -1
+    check_operand("q", q, torch.float32, (nq, r, WIDE), dev, align=16)
     check_operand("k_star", k_star, torch.int64, (), dev)
     check_operand("packed", packed, torch.uint8, (n, r, LANES), dev)
     check_operand("w", w, torch.float32, (n,), dev)
     check_operand("p1", p1, torch.float32, (r, WIDE), dev, align=16)
     check_operand("p2", p2, torch.float32, (r, WIDE), dev, align=16)
     check_operand("t", t, torch.int32, (), dev)
+    if n < 1 or nq < 1:
+        raise ValueError("need at least one worker and one pilot buffer")
     with tprof.kernel_scope("master", r, n, dev):
         if dev.type != "cuda":
             return run_plain("master", packed_master_update_plain, q, k_star,
@@ -282,6 +287,6 @@ def packed_master_update(q: torch.Tensor, k_star: torch.Tensor,
         _launch("master", _lib().fw_packed_master_update,
                 q.data_ptr(), k_star.data_ptr(), packed.data_ptr(),
                 w.data_ptr(), p1.data_ptr(), p2.data_ptr(), t.data_ptr(),
-                float(alpha0), out.data_ptr(), n, r * LANES, dev.index,
+                float(alpha0), out.data_ptr(), n, nq, r * LANES, dev.index,
                 torch.cuda.current_stream(dev).cuda_stream)
         return out

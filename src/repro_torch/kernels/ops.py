@@ -193,11 +193,12 @@ def flat_master_update(bufs_q: torch.Tensor, k_star,
                        packed_stacked: torch.Tensor, w: torch.Tensor,
                        buf_p1: torch.Tensor, buf_p2: torch.Tensor, *, t,
                        alpha0: float) -> torch.Tensor:
-    """Fused Eq. (3) over all N packed wire buffers: bufs_q (N, rows, 128)
-    float32, whose pilot row ``k_star`` (a device tensor or an int) the
-    kernel reads in place; buf_p* (rows, 128) float32; packed_stacked
-    (N, rows//4, 128) uint8; w (N,) weights with the pilot zeroed.
-    Returns the new global (rows, 128) buffer."""
+    """Fused Eq. (3) over all N packed wire buffers: bufs_q (Nq, rows,
+    128) float32, whose pilot row ``k_star`` (a device tensor or an int)
+    the kernel reads in place (the N workers' stack, or the pilot's buffer
+    alone at Nq = 1, k_star 0); buf_p* (rows, 128) float32;
+    packed_stacked (N, rows//4, 128) uint8; w (N,) weights with the pilot
+    zeroed. Returns the new global (rows, 128) buffer."""
     n, rows, _ = bufs_q.shape
     r4 = rows // PACK
     dev = bufs_q.device

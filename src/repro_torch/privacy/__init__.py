@@ -11,15 +11,18 @@ expansions here are the reference.
 Dropout recovery (``recovery``: Shamir shares of the pair seeds, the
 repair's device operands), the tree forms of the masks
 (``masking.tree_level_seed``, ``tree_pair_signs``, ``tree_activity``) and
-the §4.2 round-program audit (``audit.check_round_program``, which
-``PrivacySpec(enforce=True)`` runs in both FedPC drivers) are here too.
-Not ported yet: the distributed runtime's collective audit
-(``check_fed_collectives``) and the per-worker ``_row`` and slab forms of
-the mask functions.
+the §4.2 audits (``audit.check_round_program``, which
+``PrivacySpec(enforce=True)`` runs in both FedPC drivers, and
+``audit.check_fed_collectives``, which it runs in the distributed
+runtime's ``build_fed_sync``) and the per-worker ``_row`` and slab forms
+of the mask and RR functions that a mesh rank draws its own streams with
+are here too.
 """
 from repro_torch.privacy.accountant import PrivacyAccountant
-from repro_torch.privacy.audit import (check_recovery_target,
-                                       check_round_program)
+from repro_torch.privacy.audit import (check_fed_collectives,
+                                       check_recovery_target,
+                                       check_round_program,
+                                       collective_payloads)
 from repro_torch.privacy.dp import (rr_bits, rr_fields, rr_stream_key,
                                     rr_stream_keys)
 from repro_torch.privacy.masking import (mix32, net_masks, pair_incidence,
@@ -28,8 +31,9 @@ from repro_torch.privacy.masking import (mix32, net_masks, pair_incidence,
 from repro_torch.privacy.spec import PrivacySpec
 
 __all__ = [
-    "PrivacyAccountant", "PrivacySpec", "check_recovery_target",
-    "check_round_program", "mix32", "net_masks",
+    "PrivacyAccountant", "PrivacySpec", "check_fed_collectives",
+    "check_recovery_target", "check_round_program", "collective_payloads",
+    "mix32", "net_masks",
     "pair_incidence", "pair_signs", "pair_stream_keys", "quantize_weights",
     "rr_bits", "rr_fields", "rr_stream_key", "rr_stream_keys", "stream_key",
 ]

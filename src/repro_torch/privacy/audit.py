@@ -29,8 +29,15 @@ axis (mask and RR streams are generated in the kernels from counter keys),
 and no dict-carried output of the program (the info and telemetry records
 a driver exports) holds a float payload stacked over the worker axis.
 
-The JAX package's second boundary, the distributed runtime's collectives
-(``check_fed_collectives``), waits for that runtime's port.
+The second boundary is the distributed runtime's (``fed.distributed``):
+what crosses between fed ranks is exactly the payloads of the fed-axis
+transport (``fed.collectives``). :func:`check_fed_collectives` runs a
+rank's sync body once on ``meta`` tensors under the transport's recorder
+(and the launch seam's, for the kernels on the way): no float payload
+stacked over the fed axis may cross (the pilot travels as a masked sum of
+one slab), and on the masked wire no int8/uint8 code payload, no unsigned
+payload other than the ``MASKED_WORD_DTYPES`` words and no signed integer
+buffer (a partial de-masked below the root) may cross either.
 """
 from __future__ import annotations
 
@@ -39,10 +46,20 @@ from typing import Any, Callable
 import torch
 
 from repro_torch.core.privacy import LeakageError
+from repro_torch.fed import collectives as col
+from repro_torch.kernels import seam
 from repro_torch.kernels.seam import as_specs, record
 
-__all__ = ["MASKED_WORD_DTYPES", "as_specs", "check_recovery_target",
-           "check_round_program"]
+__all__ = ["COLLECTIVE_PRIMITIVES", "MASKED_WORD_DTYPES", "as_specs",
+           "check_fed_collectives", "check_recovery_target",
+           "check_round_program", "collective_payloads"]
+
+#: Primitives that move data between fed ranks, by the JAX package's
+#: names (its ``psum_scatter`` lowers to ``reduce_scatter``).
+COLLECTIVE_PRIMITIVES = frozenset({
+    "psum", "all_gather", "psum_scatter", "reduce_scatter", "all_to_all",
+    "ppermute", "pmax", "pmin",
+})
 
 _CODE_DTYPE_NAMES = ("int8", "uint8")
 
@@ -190,6 +207,54 @@ def check_round_program(fn: Callable, *args, n_workers: int,
                     f"round-tripped through device memory")
         _check_info_payloads(out, n_workers)
     return {"boundary": "round-step", "n_launches": len(launches),
+            "masked": masked}
+
+
+def collective_payloads(fn: Callable, *args, **kwargs) -> list[dict]:
+    """Every fed-axis transport payload of one run of ``fn(*args,
+    **kwargs)`` on the ``meta`` specs of its tensor arguments:
+    ``{"primitive", "shape", "dtype"}`` a call, in call order."""
+    spec_args, spec_kwargs = as_specs((args, kwargs))
+    with seam.recording(), col.recording() as rec:
+        fn(*spec_args, **spec_kwargs)
+    return [p for p in rec.payloads()
+            if p["primitive"] in COLLECTIVE_PRIMITIVES]
+
+
+def check_fed_collectives(fn: Callable, *args, n_fed: int,
+                          masked: bool = False, **kwargs) -> dict:
+    """Audit a distributed sync program's cross-rank payloads.
+
+    Raises :class:`LeakageError` when a floating-point payload stacked over
+    the fed axis crosses a collective (a gather of full-precision worker
+    params), or, with ``masked=True``, when a plaintext int8/uint8 code
+    payload, an unsigned payload that is not a masked word, or a signed
+    integer buffer crosses at all. Returns a summary for the ledger.
+    """
+    payloads = collective_payloads(fn, *args, **kwargs)
+    for p in payloads:
+        if _stacked_float_buffer(p["shape"], getattr(torch, p["dtype"]),
+                                 n_fed):
+            raise LeakageError(
+                f"full-precision payload stacked over the fed axis crosses "
+                f"a {p['primitive']}: shape {p['shape']} {p['dtype']}")
+        if masked and _is_code_dtype(p["dtype"]):
+            raise LeakageError(
+                f"plaintext ternary codes cross a {p['primitive']} on the "
+                f"masked wire: shape {p['shape']} {p['dtype']}")
+        if (masked and _is_unsigned_dtype(p["dtype"])
+                and p["dtype"] not in MASKED_WORD_DTYPES):
+            raise LeakageError(
+                f"unexpected unsigned payload crosses a {p['primitive']} "
+                f"on the masked wire: shape {p['shape']} {p['dtype']} — "
+                f"masked words must be one of {MASKED_WORD_DTYPES}")
+        if masked and _is_signed_int_buffer(p["shape"], p["dtype"]):
+            raise LeakageError(
+                f"de-masked integer partial crosses a {p['primitive']} "
+                f"below the root: shape {p['shape']} {p['dtype']} — "
+                f"tree edges must carry masked unsigned words; the signed "
+                f"de-biased sum exists only after the root unmask")
+    return {"boundary": "fed-collectives", "n_payloads": len(payloads),
             "masked": masked}
 
 

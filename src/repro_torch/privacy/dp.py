@@ -50,6 +50,18 @@ def rr_bits(seed, t, n: int, shape: tuple, *, device=None) -> torch.Tensor:
         (n,) + tuple(shape))
 
 
+def rr_bits_worker(seed, t, worker_idx, shape: tuple, shard_idx=0
+                   ) -> torch.Tensor:
+    """One worker's RR word plane over its model-shard slab, uint32
+    ``shape``: the distributed form, keyed by (round, worker, model
+    shard). The stream is a shard's own (its element indices depend on the
+    shard count), so meshes with other model axes agree bitwise only with
+    DP off."""
+    key = torch.as_tensor(rr_stream_key(seed, t, worker_idx, shard_idx))
+    return to_words(rr_bits64(key.reshape(1), math.prod(shape))[0],
+                    32).reshape(tuple(shape))
+
+
 def rr_fields64(fields: torch.Tensor, bits: torch.Tensor,
                 threshold: int) -> torch.Tensor:
     """:func:`rr_fields` on int64 values."""

@@ -246,6 +246,41 @@ def tree_pair_signs(n: int, sibling: int, *, participation=None,
     return signs * same.to(torch.int32)
 
 
+def pair_stream_keys_row(seed, idx, n: int, t, shard_idx=0, *,
+                         device=None) -> torch.Tensor:
+    """One worker's (n,) row of :func:`pair_stream_keys`: the distributed
+    form, for worker ``idx`` (an int or a 0-d tensor) of a fed axis of
+    ``n``, its keys salted by the model-shard index ``shard_idx``."""
+    dev = _device(idx, t, device=device)
+    others = torch.arange(n, device=dev)
+    pid = others.clamp(max=idx) * n + others.clamp(min=idx)
+    return to_words(key64(seed, pid, t, shard_idx), 32)
+
+
+def pair_signs_row(idx, n: int, *, participation=None, device=None
+                   ) -> torch.Tensor:
+    """One worker's (n,) int32 row of :func:`pair_signs` (``idx`` an int
+    or a 0-d tensor; an int stays a host scalar, so nothing is copied to
+    the device)."""
+    dev = _device(idx, participation, device=device)
+    others = torch.arange(n, device=dev)
+    signs = (others > idx).to(torch.int32) - (others < idx).to(torch.int32)
+    if participation is not None:
+        m = (torch.as_tensor(participation, device=dev) > 0).to(torch.int32)
+        signs = signs * m * m[idx]
+    return signs
+
+
+def tree_pair_signs_row(idx, n: int, sibling: int, *, participation=None,
+                        device=None) -> torch.Tensor:
+    """One node's (n,) row of :func:`tree_pair_signs`."""
+    signs = pair_signs_row(idx, n, participation=participation,
+                           device=device)
+    others = torch.arange(n, device=signs.device)
+    same = (others // sibling) == (idx // sibling)
+    return signs * same.to(torch.int32)
+
+
 def tree_activity(mask, fanout: int) -> torch.Tensor:
     """Fold a (w,) participation/activity mask one tree level up: a node
     is active iff any of its (at most ``fanout``) children is. Returns
@@ -309,6 +344,43 @@ def net_masks(seed, n: int, t, shape: tuple, *, word_bits: int = 32,
                 total[i] += vals
                 total[j] -= vals
     return to_words(total, word_bits).reshape((n,) + tuple(shape))
+
+
+def _pair_values(seed, pids, t, size: int, word_bits: int,
+                 shard_idx=0) -> torch.Tensor:
+    """(P, size) uint32 mask values (below 2**word_bits) of the pair ids
+    ``pids``: the reference's stream expansion."""
+    pids = torch.as_tensor(pids)
+    h = index_hash64(size if word_bits == 32 else 2 * ((size + 1) // 2),
+                     word_bits, device=pids.device)
+    keys = key64(seed, pids, t, shard_idx)
+    u = mix32_64((h[None, :] + keys[:, None]) & M32)
+    if word_bits == 16:
+        u = halves16_64(u)
+    return to_words(u[:, :size], 32)
+
+
+def net_mask_slab(seed, idx, n: int, t, shape: tuple, shard_idx=0, *,
+                  word_bits: int = 32, participation=None,
+                  signs_row=None) -> torch.Tensor:
+    """One worker's net mask over its model-shard slab, ``shape`` in the
+    wire dtype: the distributed form of :func:`net_masks` (worker ``idx``
+    of ``n``, its streams salted by ``shard_idx``, so that both endpoints
+    of a pair mask the same slab alike). Every one of the ``n`` lanes
+    draws its stream, the self-pair's and inactive pairs' then
+    sign-zeroed. ``signs_row`` overrides the signs (the tree reduce passes
+    sibling-scoped :func:`tree_pair_signs_row` rows for its node masks).
+    """
+    dev = _device(idx, t, participation, signs_row)
+    size = math.prod(shape)
+    if n < 2:
+        return to_words(torch.zeros(size, dtype=torch.int64, device=dev),
+                        word_bits).reshape(tuple(shape))
+    keys = pair_stream_keys_row(seed, idx, n, t, shard_idx, device=dev)
+    signs = (pair_signs_row(idx, n, participation=participation, device=dev)
+             if signs_row is None else signs_row)
+    total = net_words64(keys[None], signs[None], size, word_bits)[0]
+    return to_words(total, word_bits).reshape(tuple(shape))
 
 
 def quantize_weights(w: torch.Tensor, fixpoint_bits: int) -> torch.Tensor:

@@ -36,7 +36,9 @@ def test_no_module_imports_jax_or_the_jax_package():
                  "sharding.activations", "models.layers", "models.ffn",
                  "models.attention", "models.transformer", "models.model",
                  "models.moe", "models.ssm",
-                 "data.synthetic", "convert"):
+                 "data.synthetic", "convert", "fed.distributed",
+                 "fed.collectives", "launch.train", "launch.mesh",
+                 "sharding.specs"):
         assert f"repro_torch.{name}" in names
     script = (
         "import importlib, sys\n"
@@ -93,3 +95,22 @@ def test_torch_examples_import_neither_jax_nor_the_jax_package():
                 names.append(node.module or "")
         assert any(n.startswith("repro_torch") for n in names), path.name
         assert [n for n in names if n.split(".")[0] in FORBIDDEN] == []
+
+
+def test_distributed_entry_points_default_to_cuda():
+    from repro_torch.fed.distributed import build_fed_step, build_fed_sync
+    from repro_torch.launch import train
+    from repro_torch.launch.mesh import Mesh
+    if torch.cuda.is_available():
+        pytest.skip("a card is present: the default device is usable")
+    mesh = Mesh.meta(2)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        build_fed_sync(None, mesh)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        build_fed_step(None, mesh)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        train.main(["distributed", "--backend", "gloo"])
+    with pytest.raises(RuntimeError, match="CUDA"):
+        train.main(["simulate"])
+    with pytest.raises(SystemExit):          # the backend is the caller's
+        train.main(["distributed", "--device", "cpu"])

@@ -83,6 +83,72 @@ def test_kernels_match_plain_on_card(cuda, n, r, t):
 
 
 @pytest.mark.gpu
+@pytest.mark.parametrize("n", [1, 4, 10])
+@pytest.mark.parametrize("t", [1, 2])
+def test_master_with_the_pilot_apart_matches_plain_on_card(cuda, n, t):
+    # A mesh rank's form of #2: the pilot's buffer alone (Nq = 1, index
+    # 0) beside N workers' packed codes; an index outside [0, 1) is NaN.
+    rng = np.random.default_rng(50 + n + t)
+    q, p1, p2 = _history(rng, n + 1, 64)
+    dq, dp1, dp2 = (torch.from_numpy(a).to(cuda) for a in (q, p1, p2))
+    dt = torch.tensor(t, dtype=torch.int32, device=cuda)
+    packed = torch.from_numpy(rng.integers(0, 256, (n, 64, 128),
+                                           dtype=np.uint8)).to(cuda)
+    w = torch.from_numpy(rng.random(n, dtype=np.float32) / n).to(cuda)
+    pilot = dq[n:].contiguous()
+    zero = torch.tensor(0, device=cuda)
+    before = tfw.LAUNCHES["master"]
+    out = tfw.packed_master_update(pilot, zero, packed, w, dp1, dp2, dt,
+                                   ALPHA0)
+    assert tfw.LAUNCHES["master"] == before + 1
+    plain = tfw.packed_master_update_plain(pilot, zero, packed, w, dp1, dp2,
+                                           dt, ALPHA0)
+    stacked = tfw.packed_master_update(
+        torch.cat([dq[:n], pilot]), torch.tensor(n, device=cuda),
+        torch.cat([packed, packed[:1] * 0]),
+        torch.cat([w, w.new_zeros(1)]), dp1, dp2, dt, ALPHA0)
+    torch.cuda.synchronize()
+    assert torch.equal(out.view(torch.int32), plain.view(torch.int32))
+    assert torch.equal(out.view(torch.int32), stacked.view(torch.int32))
+    bad = tfw.packed_master_update(pilot, torch.tensor(1, device=cuda),
+                                   packed, w, dp1, dp2, dt, ALPHA0)
+    assert bool(bad.isnan().all())
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("bits", [16, 32])
+@pytest.mark.parametrize("cohort", [4, 10])
+@pytest.mark.parametrize("thr", [0, 3277])
+def test_masked_uplink_of_one_rank_matches_plain_on_card(cuda, bits, cohort,
+                                                         thr):
+    # A mesh rank's form of #6: N = 1 with its (1, L) key and sign row
+    # salted by a model-shard index (the row-fold kernel), on a slab.
+    rng = np.random.default_rng(70 + cohort + bits + thr)
+    q, p1, p2 = _history(rng, 1, 64)
+    dq, dp1, dp2 = (torch.from_numpy(a).to(cuda) for a in (q, p1, p2))
+    assert not tmw.uses_pair_kernel(1, cohort)
+    for t in (1, 2):
+        dt = torch.tensor(t, dtype=torch.int32, device=cuda)
+        idx = cohort - 2
+        keys = pvm.pair_stream_keys_row(0, idx, cohort, dt, 1)[None]
+        part = torch.ones(cohort, device=cuda)
+        part[0] = 0.0
+        signs = pvm.pair_signs_row(idx, cohort, participation=part)[None]
+        rrk = pdp.rr_stream_key(1, dt, idx, 1).reshape(1)
+        wq = pvm.to_words(torch.tensor([12345], device=cuda), 32)
+        beta = torch.full((1,), 0.2, device=cuda)
+        kw = dict(rr_threshold=thr, word_bits=bits)
+        before = tmw.LAUNCHES["uplink_masked"]
+        words = tmw.ternary_pack_masked(dq, dp1, dp2, dt, beta, ALPHA1, wq,
+                                        keys, signs, rrk, **kw)
+        assert tmw.LAUNCHES["uplink_masked"] == before + 1
+        plain = tmw.ternary_pack_masked_plain(dq, dp1, dp2, dt, beta, ALPHA1,
+                                              wq, keys, signs, rrk, **kw)
+        torch.cuda.synchronize()
+        assert torch.equal(pvm.as_u64(words), pvm.as_u64(plain))
+
+
+@pytest.mark.gpu
 def test_master_refuses_a_pilot_outside_the_workers(cuda):
     # An index outside [0, N) gives NaN, not a read past the buffers.
     q = torch.zeros((3, 8, 512), device=cuda)
