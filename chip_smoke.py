@@ -2411,8 +2411,8 @@ class _Routes:
         from repro_torch.models import moe
         self._route = route = moe.route
 
-        def recorded(p, cfg, xf):
-            out = route(p, cfg, xf)
+        def recorded(p, cfg, xf, **kw):
+            out = route(p, cfg, xf, **kw)
             self.calls.append((out[3], out[5]))
             return out
 
@@ -2500,7 +2500,7 @@ def _split_state(state: dict) -> tuple[int, int]:
     return kv, rec
 
 
-def _serve_model(torch, cfg, dev, rate: float | None) -> None:
+def _serve_model(torch, cfg, dev, rate: float | None) -> dict | None:
     """Init ``cfg`` from a seeded generator on the card, prefill
     SERVE_BATCH x SERVE_PROMPT random tokens, greedy-decode SERVE_NEW
     tokens (``pos`` a device tensor, every step under sync-debug "error"),
@@ -2626,7 +2626,7 @@ def _serve_model(torch, cfg, dev, rate: float | None) -> None:
     if rate is None:
         del params, prompt, m
         _release(torch)
-        return
+        return None
     pre, dec = busy
     B, S = SERVE_BATCH, SERVE_PROMPT
     tokens = B * S
@@ -2727,19 +2727,23 @@ def _serve_model(torch, cfg, dev, rate: float | None) -> None:
           f"by kernel {dec.top}", flush=True)
     del params, prompt, m
     _release(torch)
+    return {"param_bytes": nbytes, "prefill_products": mm}
 
 
 def phase_model_serving(torch, dev, rate: float,
-                        arch: str = SERVE_ARCH) -> None:
+                        arch: str = SERVE_ARCH) -> dict:
     """The model zoo served on the card: ``arch`` at full width and depth
     in bfloat16, timed, then at full width and SERVE_F32_LAYERS layers in
-    float32 for the tight consistency checks."""
+    float32 for the tight consistency checks. Returns the bfloat16 run's
+    parameter bytes and its prefill's matmul products (``_model_ops``)."""
     from repro_torch.configs import get_config
     _release(torch)
     cfg = get_config(arch)
-    _serve_model(torch, cfg.replace(param_dtype="bfloat16"), dev, rate)
+    got = _serve_model(torch, cfg.replace(param_dtype="bfloat16"), dev,
+                       rate)
     _serve_model(torch, cfg.replace(n_layers=SERVE_F32_LAYERS,
                                     param_dtype="float32"), dev, None)
+    return got
 
 
 def phase_mamba_mixer(torch, dev, rate: float) -> None:
@@ -4440,7 +4444,7 @@ def _dist_single(torch, dev, F: int) -> dict:
     return out
 
 
-def phase_distributed_slice(torch, dev) -> dict:
+def phase_distributed_slice(torch, dev) -> tuple:
     """The mesh runtime (``fed.distributed``) at full width: the (10, 1)
     and (4, 2) meshes of gloo ranks on this card, every case of
     ``_dist_cases`` at rounds 1 and 3; the (10, 1) packed round against
@@ -4448,7 +4452,8 @@ def phase_distributed_slice(torch, dev) -> dict:
     ``launch/train.py distributed`` (fedpc-paper at its registered size,
     F = 4, M = 2, 3 rounds) and ``simulate`` (3 rounds). Returns the
     ranks' launches on their slabs by mesh and kernel row
-    (``_dist_report``)."""
+    (``_dist_report``), and the (10, 1) mesh's rank 0 report (its
+    launches and transport bytes a sync and round)."""
     import tempfile
     import numpy as np
     t_phase = time.perf_counter()
@@ -4465,6 +4470,8 @@ def phase_distributed_slice(torch, dev) -> dict:
             mine, whole, more, sync_s = _dist_report(
                 F, M, reports, f"distributed: {F}x{M}")
             launches[(F, M)] = mine
+            if (F, M) == DIST_MESHES[0]:
+                first_rank = reports[0]
             lines += more
             check(first["repaired"] > 0 or M > 1, f"mesh {F}x{M}: the "
                   f"fault plan killed no worker")
@@ -4536,7 +4543,7 @@ def phase_distributed_slice(torch, dev) -> dict:
                 proc.wait()
     print(f"distributed: phase in {time.perf_counter() - t_phase:.1f} s on "
           f"{_smi()}; the ranks launched {launches}", flush=True)
-    return launches
+    return launches, first_rank
 
 
 def phase_times_dist(torch, dev, rate: float, launches: dict) -> list[dict]:
@@ -4682,6 +4689,186 @@ def phase_times_dist(torch, dev, rate: float, launches: dict) -> list[dict]:
     return rows
 
 
+# The dry run's combos on the production mesh (``launch.dryrun``), each
+# ``ok`` but the one its shape skips: (arch, shape or fed strategy, fed).
+DRYRUN_COMBOS = (("qwen3-14b", "train_4k", False),
+                 ("qwen3-14b", "prefill_32k", False),
+                 ("qwen3-14b", "decode_32k", False),
+                 ("deepseek-moe-16b", "train_4k", False),  # shard-local MoE
+                 ("xlstm-350m", "prefill_32k", False),     # rolled LSTM loops
+                 ("qwen3-14b", "long_500k", False),        # skipped: full attn
+                 ("mistral-nemo-12b", "fedpc_packed", True),
+                 ("mistral-nemo-12b", "fedavg", True))
+DRYRUN_SKIPPED = {("qwen3-14b", "long_500k")}
+DRYRUN_TIMEOUT = 300              # seconds the combos' processes may take
+COUNT_TOL = 0.01                  # counted prefill FLOPs vs _model_ops
+
+
+def _dryrun_records(tmp: str) -> list:
+    """Every DRYRUN_COMBOS record, each combo a ``repro_torch.launch.dryrun``
+    process of its own (its own fake process group), all at once."""
+    env = dict(os.environ, PYTHONPATH=str(SRC))
+    procs = []
+    for i, (arch, what, fed) in enumerate(DRYRUN_COMBOS):
+        args = (["--fed", what] if fed else ["--shape", what])
+        with open(f"{tmp}/combo{i}.log", "w") as log:   # no pipe to fill
+            procs.append(subprocess.Popen(
+                [sys.executable, "-m", "repro_torch.launch.dryrun",
+                 "--arch", arch, *args, "--out", f"{tmp}/combo{i}.json"],
+                env=env, stdout=log, stderr=subprocess.STDOUT))
+    records = []
+    try:
+        deadline = time.perf_counter() + DRYRUN_TIMEOUT
+        for i, ((arch, what, _), proc) in enumerate(zip(DRYRUN_COMBOS,
+                                                        procs)):
+            proc.wait(timeout=max(deadline - time.perf_counter(), 1))
+            out = Path(f"{tmp}/combo{i}.json")
+            check(out.exists(), f"dry run {arch} x {what} wrote no record:"
+                  f"\n{Path(f'{tmp}/combo{i}.log').read_text()[-2000:]}")
+            records.append(json.loads(out.read_text())[-1])
+    finally:
+        for proc in procs:
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+    return records
+
+
+def _count_prefill(torch, cfg) -> tuple:
+    """The serving phase's prefill (SERVE_BATCH x SERVE_PROMPT, bfloat16)
+    counted on ``meta`` with no mesh: (counter stats, ``_model_ops``'s
+    matmul products for it with causal attention over (S + 1) / 2 keys a
+    query, as the phase's bound counts them, and over every key, as the
+    blocked attention computes them: it visits every key block)."""
+    from repro_torch.launch import hlo_stats
+    from repro_torch.models import build_model, scan_config
+    m = build_model(cfg)
+    params = m.init(None, device="meta")
+    state = m.init_decode_state(SERVE_BATCH, SERVE_PROMPT + SERVE_NEW,
+                                device="meta")
+    tokens = torch.empty((SERVE_BATCH, SERVE_PROMPT), dtype=torch.int64,
+                         device="meta")
+    counter = hlo_stats.OpCounter()
+    counter.hold_arguments(params)
+    with torch.no_grad(), scan_config.counting(counter), counter:
+        m.prefill(params, {"tokens": tokens}, state)
+    tokens = SERVE_BATCH * SERVE_PROMPT
+    causal, _ = _model_ops(cfg, params, tokens, SERVE_BATCH,
+                           (SERVE_PROMPT + 1) / 2, 0.0)
+    every, _ = _model_ops(cfg, params, tokens, SERVE_BATCH, SERVE_PROMPT,
+                          0.0)
+    return counter.stats, causal, every
+
+
+def _count_dist_sync(torch, dev, first_rank: dict) -> list:
+    """The distributed slice's (10, 1) ``fedpc_packed`` sync of rank 0 at
+    each round, counted on ``meta`` (``launch.dryrun.count_sync``) and
+    held to what the real run on the card counted: launches, protocol and
+    link bytes, calls. Returns a line a round."""
+    from repro_torch.fed.distributed import build_fed_sync
+    from repro_torch.launch.dryrun import count_sync
+    from repro_torch.launch.mesh import Mesh
+    from repro_torch.utils import tree_map
+    F, M = DIST_MESHES[0]
+    params, prev, locs = _dist_models(torch, dev, [0], _dist_dims())
+    pub = _dist_public(torch, dev, F)
+    sync = build_fed_sync(None, Mesh.meta(F, M, 0), "data", "fedpc_packed",
+                          betas=pub["betas"], device="meta")
+    lines = []
+    for t in DIST_ROUNDS:
+        state = {"params": params,
+                 "params_prev": (prev if t > 1 else
+                                 tree_map(torch.zeros_like, params)),
+                 "prev_costs": (pub["prev"] if t > 1 else torch.full(
+                     (F,), float("inf"), device=dev)),
+                 "round": torch.tensor(t, dtype=torch.int32, device=dev)}
+        got = count_sync(sync, locs[0], pub["costs"], pub["sizes"], state,
+                         pub["mask"])
+        card = first_rank["rounds"][f"fedpc_packed_t{t}"]
+        for key in ("calls", "protocol_bytes", "link_bytes"):
+            check(got[key] == card[key],
+                  f"(10, 1) fedpc_packed t={t}: {key} counted on meta "
+                  f"{got[key]:,}, the card's run {card[key]:,}")
+        check(got["launches"] == card["launches"],
+              f"(10, 1) fedpc_packed t={t}: launches counted on meta "
+              f"{got['launches']}, the card's run {card['launches']}")
+        lines.append(f"t={t}: {got['launches']}, {got['calls']} transport "
+                     f"calls, protocol {got['protocol_bytes']:,} B, link "
+                     f"{got['link_bytes']:,} B")
+    return lines
+
+
+def phase_launch_slice(torch, dev, served: dict, first_rank: dict) -> None:
+    """The dry run (``launch.dryrun``, on ``meta`` over a fake process
+    group) on the H100 production mesh, and its counter held to the card:
+    (a) DRYRUN_COMBOS, a process each, every record ``ok`` (or the
+    expected skip), a line each; (b) the serving phase's qwen3-14b prefill
+    counted on ``meta`` with no mesh — its matmul FLOPs within COUNT_TOL of
+    ``_model_ops``'s products over every key, the serving bound's count
+    over the causal average equal to the card's, and its argument bytes
+    equal to the card's parameter bytes — and the distributed slice's
+    (10, 1) packed sync counted on ``meta`` equal to the card run's
+    launches and bytes."""
+    import tempfile
+    from repro_torch.configs import get_config
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory(prefix="dryrun") as tmp:
+        records = _dryrun_records(tmp)
+    combos_s = time.perf_counter() - t0
+    replicated = set()
+    for (arch, what, fed), rec in zip(DRYRUN_COMBOS, records):
+        want = "skipped" if (arch, what) in DRYRUN_SKIPPED else "ok"
+        check(rec["status"] == want,
+              f"dry run {arch} x {what}: {rec['status']} "
+              f"({rec.get('error') or rec.get('reason')}), expected {want}")
+        if want == "skipped":
+            print(f"launch: dry run {arch} x {what} on {rec['mesh']}: "
+                  f"skipped ({rec['reason']})", flush=True)
+            continue
+        rl = rec["roofline"]
+        replicated.update(rec["replicated_ops"])
+        fed_b = (f"; fed axis {rec['fed_axis_bytes']:,} B a device, "
+                 f"launches {rec['launches']}" if fed else "")
+        print(f"launch: dry run {arch} x {what} on {rec['mesh']} H100s "
+              f"(counted, datasheet constants, not measured): "
+              f"{rl['peak_bytes_device'] / 1e9:.2f} GB a device "
+              f"({'fits' if rl['fits'] else 'does not fit'} 80 GB); "
+              f"compute {rl['compute_s'] * 1e3:.2f} ms, memory "
+              f"{rl['memory_s'] * 1e3:.2f} ms, NVLink "
+              f"{rl['nvlink_s'] * 1e3:.2f} ms, network "
+              f"{rl['network_s'] * 1e3:.2f} ms: {rl['dominant']}-bound; "
+              f"traced in {rec['trace_s']:.1f} s; loops "
+              f"{rec['loop_trip_counts']}{fed_b}", flush=True)
+    cfg = get_config(SERVE_ARCH).replace(param_dtype="bfloat16")
+    stats, causal, every = _count_prefill(torch, cfg)
+    check(stats.argument_bytes == served["param_bytes"],
+          f"counted argument bytes {stats.argument_bytes:,}, the card's "
+          f"parameters {served['param_bytes']:,}")
+    check(causal == served["prefill_products"],
+          f"_model_ops on meta {causal:.6g}, on the card "
+          f"{served['prefill_products']:.6g}")
+    check(abs(stats.flops - every) <= COUNT_TOL * every,
+          f"counted prefill FLOPs {stats.flops / 1e12:.3f} T, _model_ops "
+          f"over every key {every / 1e12:.3f} T: beyond {COUNT_TOL:.0%}")
+    print(f"launch: the serving phase's {SERVE_ARCH} bf16 prefill "
+          f"({SERVE_BATCH} x {SERVE_PROMPT}) counted on meta: "
+          f"{stats.flops / 1e12:.3f} T of matmul FLOPs against "
+          f"_model_ops' {every / 1e12:.3f} T with attention over every key "
+          f"({stats.flops / every - 1:+.3%}; the blocked attention visits "
+          f"every key block) and the serving bound's {causal / 1e12:.3f} T "
+          f"over the causal average ({stats.flops / causal - 1:+.3%}); "
+          f"argument bytes {stats.argument_bytes:,} = the card's parameter "
+          f"bytes; loops {stats.loop_trip_counts}", flush=True)
+    lines = _count_dist_sync(torch, dev, first_rank)
+    print(f"launch: the distributed slice's (10, 1) fedpc_packed rank 0 "
+          f"counted on meta == its run on {_smi()}, each round: "
+          + "; ".join(lines), flush=True)
+    print(f"launch: phase in {time.perf_counter() - t0:.1f} s (the combos' "
+          f"processes {combos_s:.1f} s, side by side); ops DTensor could "
+          f"not run as the port runs them: {sorted(replicated)}",
+          flush=True)
+
+
 def main() -> int:
     if not (SRC / "repro_torch" / "kernels" / "csrc").is_dir():
         print("FAIL: run from the root of the repository (src/repro_torch "
@@ -4722,7 +4909,7 @@ def main() -> int:
         privacy = phase_privacy_slice(torch, dev)
         for kind in ("uplink_masked", "master_masked"):
             launches[kind] += telemetry[kind] + privacy[kind]
-        phase_model_serving(torch, dev, rate)
+        served = phase_model_serving(torch, dev, rate)
         for kind, n in phase_fed_lm(torch, dev).items():
             launches[kind] += n
         phase_model_serving(torch, dev, rate, MOE_ARCH)
@@ -4730,12 +4917,13 @@ def main() -> int:
         phase_mamba_mixer(torch, dev, rate)
         for kind, n in phase_fed_lm(torch, dev, MOE_ARCH).items():
             launches[kind] += n
-        mesh = phase_distributed_slice(torch, dev)
+        mesh, first_rank = phase_distributed_slice(torch, dev)
         for (F, M), mine in mesh.items():     # the fault plan runs at M = 1
             check(set(mine) <= set(MESH_KINDS) and all(
                 mine.get(k) for k in MESH_KINDS[:5 if M == 1 else 4]),
                 f"mesh {F}x{M}: the ranks launched {mine}, each of "
                 f"{MESH_KINDS} expected")
+        phase_launch_slice(torch, dev, served, first_rank)
         rows = phase_times(torch, dev, rate, launches, errs)
         rows += phase_times_masked(torch, dev, rate, launches, errs)
         rows += phase_times_tree(torch, dev, rate, {

@@ -36,11 +36,12 @@ A call staged through host memory makes the host wait for the device
 by design, so it lifts ``torch.cuda``'s sync-debug mode for its own
 duration (the rest of the round stays under the caller's check); a call
 on the device (NCCL) stays under it. Every call adds its host time, its
-protocol bytes, the bytes it put on the link and whether it was staged
-to :data:`STATS`. Both byte counts are of the payload one rank hands the
-call (a gather's own shard, a permute's sends): the protocol bytes as the
-JAX program has it, the link bytes as the backend takes it, a widened
-``uint16`` sum four bytes a word.
+protocol bytes (also by the name of its axis, under ``axis_bytes``), the
+bytes it put on the link and whether it was staged to :data:`STATS`.
+Both byte counts are of the payload one rank hands the call (a gather's
+own shard, a permute's sends): the protocol bytes as the JAX program has
+it, the link bytes as the backend takes it, a widened ``uint16`` sum
+four bytes a word.
 
 The transport is also a seam, as ``kernels.seam`` is for launches: while
 a :func:`recording` records, each call is recorded as ``{"primitive",
@@ -48,6 +49,9 @@ a :func:`recording` records, each call is recorded as ``{"primitive",
 the JAX package's jaxpr gives the primitive (``psum_scatter`` is
 ``reduce_scatter`` there), and it answers on ``meta`` tensors without a
 process group. ``privacy.audit.check_fed_collectives`` reads that record.
+The recorder also books every call's bytes as :data:`STATS` would
+(``Recorder.stats``), a call kept out of the record too, so that a run on
+``meta`` counts what a real run moves (``launch.dryrun``).
 """
 from __future__ import annotations
 
@@ -65,7 +69,7 @@ __all__ = ["AxisGroup", "STATS", "all_gather",
 
 #: Transport totals of this process since :func:`reset_stats`.
 STATS = {"calls": 0, "seconds": 0.0, "protocol_bytes": 0, "link_bytes": 0,
-         "staged": 0}
+         "staged": 0, "axis_bytes": {}}
 
 _ACTIVE: contextvars.ContextVar = contextvars.ContextVar(
     "repro_torch_collective_recorder", default=None)
@@ -85,16 +89,39 @@ class AxisGroup(NamedTuple):
     index: int
     ranks: tuple
     backend: str
+    name: str = ""
 
     @classmethod
-    def meta(cls, size: int, index: int) -> "AxisGroup":
+    def meta(cls, size: int, index: int, name: str = "") -> "AxisGroup":
         """An axis with no process group, for a :func:`recording`."""
-        return cls(None, size, index, tuple(range(size)), "meta")
+        return cls(None, size, index, tuple(range(size)), "meta", name)
+
+
+def _zero_stats() -> dict:
+    return {"calls": 0, "protocol_bytes": 0, "link_bytes": 0,
+            "axis_bytes": {}}
 
 
 def reset_stats() -> None:
     for k in STATS:
-        STATS[k] = 0.0 if k == "seconds" else 0
+        STATS[k] = ({} if k == "axis_bytes" else
+                    0.0 if k == "seconds" else 0)
+
+
+def _book(stats: dict, axis: AxisGroup, x: torch.Tensor,
+          link_bytes: int) -> None:
+    n = x.numel() * x.element_size()
+    stats["calls"] += 1
+    stats["protocol_bytes"] += n
+    stats["link_bytes"] += link_bytes
+    stats["axis_bytes"][axis.name] = stats["axis_bytes"].get(axis.name,
+                                                             0) + n
+
+
+def _sum_bytes(x: torch.Tensor) -> int:
+    """The link bytes of a sum of ``x``: a widened ``uint16`` word is
+    four bytes."""
+    return x.numel() * (4 if x.dtype == torch.uint16 else x.element_size())
 
 
 class Recorder:
@@ -102,6 +129,7 @@ class Recorder:
 
     def __init__(self):
         self.calls: list[dict] = []
+        self.stats = _zero_stats()
 
     def payloads(self) -> list[dict]:
         return [dict(c) for c in self.calls]
@@ -119,13 +147,14 @@ def recording():
         _ACTIVE.reset(token)
 
 
-def _recorded(primitive: str, x: torch.Tensor, out_shape: tuple
-              ) -> torch.Tensor | None:
+def _recorded(primitive: str, x: torch.Tensor, out_shape: tuple,
+              axis: AxisGroup, link_bytes: int) -> torch.Tensor | None:
     rec = _ACTIVE.get()
     if rec is None:
         return None
     rec.calls.append({"primitive": primitive, "shape": tuple(x.shape),
                       "dtype": str(x.dtype).rsplit(".", 1)[-1]})
+    _book(rec.stats, axis, x, link_bytes)
     return torch.empty(out_shape, dtype=x.dtype, device="meta")
 
 
@@ -153,9 +182,7 @@ def _call(axis: AxisGroup, x: torch.Tensor, link_bytes: int):
         yield
     finally:
         STATS["seconds"] += time.perf_counter() - t0
-        STATS["calls"] += 1
-        STATS["protocol_bytes"] += x.numel() * x.element_size()
-        STATS["link_bytes"] += link_bytes
+        _book(STATS, axis, x, link_bytes)
         if mode:
             torch.cuda.set_sync_debug_mode(mode)
 
@@ -216,7 +243,7 @@ def _byte_form(x: torch.Tensor) -> torch.Tensor:
 def psum(x: torch.Tensor, axis: AxisGroup) -> torch.Tensor:
     """The sum of every rank's ``x`` over ``axis``, on every rank (mod the
     word width for ``uint16``/``uint32``); ``x`` is not written."""
-    out = _recorded("psum", x, tuple(x.shape))
+    out = _recorded("psum", x, tuple(x.shape), axis, _sum_bytes(x))
     if out is not None:
         return out
     y = _sum_form(x.contiguous())
@@ -236,7 +263,7 @@ def psum_scatter(x: torch.Tensor, axis: AxisGroup) -> torch.Tensor:
     if x.shape[0] % f:
         raise ValueError(f"{x.shape[0]} rows do not split over {f} ranks")
     shape = (x.shape[0] // f, *x.shape[1:])
-    out = _recorded("reduce_scatter", x, shape)
+    out = _recorded("reduce_scatter", x, shape, axis, _sum_bytes(x))
     if out is not None:
         return out
     y = _sum_form(x.contiguous())
@@ -261,9 +288,11 @@ def all_gather(x: torch.Tensor, axis: AxisGroup, *, tiled: bool = False,
              else (f, *x.shape))
     rec = _ACTIVE.get()
     if rec is not None:
+        link = x.numel() * x.element_size()
         if not record:
+            _book(rec.stats, axis, x, link)
             return torch.empty(shape, dtype=x.dtype, device="meta")
-        return _recorded("all_gather", x, shape)
+        return _recorded("all_gather", x, shape, axis, link)
     y = _byte_form(x.contiguous())
     with _call(axis, x, y.numel() * y.element_size()):
         h = _host(axis, y)
@@ -278,12 +307,13 @@ def ppermute(x: torch.Tensor, axis: AxisGroup, perm) -> torch.Tensor:
     """Rank ``dst`` receives rank ``src``'s ``x`` for each ``(src, dst)``
     index pair of ``perm`` (each rank at most once on either side, never
     to itself); a rank no pair sends to receives zeros."""
-    out = _recorded("ppermute", x, tuple(x.shape))
-    if out is not None:
-        return out
     me = axis.index
     send = [dst for src, dst in perm if src == me]
     recv = [src for src, dst in perm if dst == me]
+    out = _recorded("ppermute", x, tuple(x.shape), axis,
+                    len(send) * x.numel() * x.element_size())
+    if out is not None:
+        return out
     y = _byte_form(x.contiguous())
     with _call(axis, x, len(send) * y.numel() * y.element_size()):
         h = _host(axis, y)

@@ -49,9 +49,11 @@ from repro_torch.privacy import dp as pdp
 from repro_torch.privacy import masking as pvm
 from repro_torch.privacy import recovery as pvr
 from repro_torch.privacy.spec import PrivacySpec
-from repro_torch.sharding.specs import wire_specs
+from repro_torch.sharding.specs import (P, param_specs, placements,
+                                        spec_leaves, wire_specs)
 from repro_torch.telemetry import record as tmr
-from repro_torch.utils import PyTree, resolve_device, tree_leaves, tree_map
+from repro_torch.utils import (PyTree, resolve_device, tree_flatten,
+                               tree_leaves, tree_map, tree_unflatten)
 
 STRATEGIES = ("fedpc", "fedpc_packed", "fedpc_reduce", "fedavg")
 
@@ -461,4 +463,20 @@ def fed_state_init(params: PyTree, n_fed: int) -> dict:
         "prev_costs": torch.full((n_fed,), float("inf"), dtype=torch.float32,
                                  device=dev),
         "round": torch.ones((), dtype=torch.int32, device=dev),
+    }
+
+
+def fed_shardings(model, mesh, fed_axis: str, params: PyTree) -> dict:
+    """DTensor placements of the fed step's arguments on the
+    ``DeviceMesh`` ``mesh``: ``params`` by ``param_specs``, and
+    ``params_F``, the (F, ...) per-worker stacks, the same with their
+    leading axis over ``fed_axis``; a tuple of placements a leaf.
+    ``model`` is unused (the JAX signature's)."""
+    treedef = tree_flatten(params)[1]
+    specs = spec_leaves(param_specs(params, mesh))
+    return {
+        "params": tree_unflatten(treedef, [placements(s, mesh)
+                                           for s in specs]),
+        "params_F": tree_unflatten(treedef, [
+            placements(P(fed_axis, *s), mesh) for s in specs]),
     }

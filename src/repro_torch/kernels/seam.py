@@ -162,6 +162,11 @@ class Recorder(TorchDispatchMode):
         return out
 
     @property
+    def in_launch(self) -> bool:
+        """Whether the ops running now belong to a launch's plain version."""
+        return self._paused > 0
+
+    @property
     def host_syncs(self) -> list[str]:
         """The ops of the run that would make the host wait for the device."""
         return [op.name for op in self.ops if op.name in HOST_SYNC_OPS]

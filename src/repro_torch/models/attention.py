@@ -27,6 +27,7 @@ import numpy as np
 import torch
 
 from repro_torch.configs.base import ArchConfig
+from repro_torch.models import scan_config
 from repro_torch.models.layers import (apply_rope, dense_init, draw_device,
                                        dtype_of, rms_norm)
 from repro_torch.sharding import activations as act
@@ -52,8 +53,23 @@ def init_attention(cfg: ArchConfig, generator: torch.Generator,
     return p
 
 
+def _repeat_kv(k, n_heads):
+    """(B, S, Hk, dh) -> (B, S, H, dh) by group repetition."""
+    hk = k.shape[2]
+    if hk == n_heads:
+        return k
+    return torch.repeat_interleave(k, n_heads // hk, dim=2)
+
+
 def _split_heads(x, n, dh):
-    return x.reshape(x.shape[:-1] + (n, dh))
+    return act.head_split(x, n).reshape(x.shape[:-1] + (n, dh))
+
+
+def _merge_heads(out):
+    """(B, S, H, dh) → (B, S, H·dh), placed as the row-parallel ``wo``
+    takes it."""
+    return act.head_split(out.reshape(out.shape[:-2] + (-1,)),
+                          out.shape[-2])
 
 
 def _scale(dh: int) -> float:
@@ -78,12 +94,38 @@ def _qkv(p, cfg: ArchConfig, x, cos, sin):
 def _sdpa(q, k, v, mask, dh):
     """GQA attention. q (B,Sq,H,dh); k/v (B,Sk,Hk,dh) UN-repeated.
 
-    The reference's grouped branch (one card: ``model_size() == 1``): the
-    H query heads form Hk groups of G = H/Hk, KV-major (head h reads KV
-    head h // G, as ``jnp.repeat`` along the head axis orders them).
+    The reference's path choice by the model axis (``model_size()``, 1
+    off a mesh):
+      * only H divides 'model' → repeat K/V to H heads, after which the
+        head dim shards cleanly;
+      * else the grouped branch: the H query heads form Hk groups of
+        G = H/Hk, KV-major (head h reads KV head h // G, as ``jnp.repeat``
+        along the head axis orders them).
     Scores and the weighted sum are float32. mask: (B|1, 1, Sq, Sk) bool
     keep.
     """
+    h, hk = q.shape[2], k.shape[2]
+    msize = act.model_size()
+    if msize > 1 and hk % msize != 0 and h % msize == 0:
+        k = act.heads(_repeat_kv(k, h))
+        v = act.heads(_repeat_kv(v, h))
+        return act.heads(act.local_heads(_sdpa_repeated, q, k, v, mask, dh))
+    return act.heads(act.local_heads(_sdpa_grouped, q, k, v, mask, dh))
+
+
+def _sdpa_repeated(q, k, v, mask, dh):
+    """Attention of q and k/v of the same H heads."""
+    logits = torch.einsum("bqhd,bkhd->bhqk", q.float(),
+                          k.float()) * _scale(dh)
+    if mask is not None:
+        logits = torch.where(mask, logits, NEG_INF)
+    w = torch.softmax(logits, dim=-1)
+    out = torch.einsum("bhqk,bkhd->bqhd", w.to(v.dtype).float(), v.float())
+    return out.to(v.dtype)
+
+
+def _sdpa_grouped(q, k, v, mask, dh):
+    """Attention of the H query heads in Hk groups of G = H/Hk."""
     b, sq, h, _ = q.shape
     hk = k.shape[2]
     g = h // hk
@@ -94,7 +136,7 @@ def _sdpa(q, k, v, mask, dh):
         logits = torch.where(mask[:, :, None], logits, NEG_INF)
     w = torch.softmax(logits, dim=-1)
     out = torch.einsum("bkgqs,bskd->bqkgd", w.to(v.dtype).float(), v.float())
-    return act.heads(out.to(v.dtype).reshape(b, sq, h, dh))
+    return out.to(v.dtype).reshape(b, sq, h, dh)
 
 
 # Blocked (flash-style) attention for inference prefill, in 512-key
@@ -104,11 +146,20 @@ ATTN_BLOCK_PREFILL = 512
 
 def _sdpa_blocked(q, k, v, dh, causal: bool, window: Optional[int],
                   block: int):
+    """Blocked attention (:func:`_blocked`), on each device's heads under
+    a mesh."""
+    return act.heads(act.local_heads(_blocked, q, k, v, dh, causal, window,
+                                     block))
+
+
+def _blocked(q, k, v, dh, causal: bool, window: Optional[int], block: int):
     """Two-level blocked online-softmax attention (flash-style).
 
     An outer loop over QUERY tiles, an inner loop over KEY blocks with a
     running max, normalizer and (…, q_tile, dh) float32 accumulator; every
-    block is visited (a fully masked one adds exp(-1e30 - m) = 0).
+    block is visited (a fully masked one adds exp(-1e30 - m) = 0), so the
+    dry run's counter traces one tile and one block of each
+    (``scan_config.loop``).
     """
     b, sq, h, _ = q.shape
     sk, hk = k.shape[1], k.shape[2]
@@ -121,13 +172,13 @@ def _sdpa_blocked(q, k, v, dh, causal: bool, window: Optional[int],
     if sq % qt:
         qt = sq
     outs = []
-    for iq in range(sq // qt):
+    for iq in scan_config.loop("attn_q_tiles", sq // qt):
         q_tile = qg[:, iq * qt:(iq + 1) * qt].float()
         q_idx = iq * qt + torch.arange(qt, device=dev)
         m_run = torch.full((b, hk, g, qt), -torch.inf, device=dev)
         l_run = torch.zeros((b, hk, g, qt), device=dev)
         acc = torch.zeros((b, hk, g, qt, dh), device=dev)
-        for ib in range(sk // block):
+        for ib in scan_config.loop("attn_k_blocks", sk // block):
             k_blk = kf[:, ib * block:(ib + 1) * block]
             v_blk = vf[:, ib * block:(ib + 1) * block]
             logits = torch.einsum("bqkgd,bskd->bkgqs", q_tile, k_blk) * scale
@@ -147,18 +198,27 @@ def _sdpa_blocked(q, k, v, dh, causal: bool, window: Optional[int],
             m_run = m_new
         outs.append((acc / torch.clamp_min(l_run, 1e-30)[..., None]
                      ).to(v.dtype))                         # (b,hk,g,qt,dh)
+    outs = outs * (sq // qt // len(outs))
     out = torch.stack(outs, 3).reshape(b, hk, g, sq, dh)
-    return act.heads(out.permute(0, 3, 1, 2, 4).reshape(b, sq, h, dh))
+    return out.permute(0, 3, 1, 2, 4).reshape(b, sq, h, dh)
 
 
 def _sdpa_full_seq(q, k, v, dh, causal: bool, window: Optional[int],
                    grad_path: bool = True):
     """Full-sequence attention dispatcher: off the gradient path, blocked
     when the key length is a multiple of ``ATTN_BLOCK_PREFILL`` above one
-    block; else the materialized-score baseline."""
+    block and the heads shard over the model axis; else the
+    materialized-score baseline."""
     s = k.shape[1]
     blk = ATTN_BLOCK_PREFILL
-    if not grad_path and s % blk == 0 and s > blk:
+    msize = act.model_size()
+    heads_shard = (msize == 1 or k.shape[2] % msize == 0
+                   or q.shape[2] % msize == 0)
+    if not grad_path and s % blk == 0 and s > blk and heads_shard:
+        if msize > 1 and k.shape[2] % msize != 0:
+            # repeat so the head dim shards inside the blocked loops too
+            k = act.heads(_repeat_kv(k, q.shape[2]))
+            v = act.heads(_repeat_kv(v, q.shape[2]))
         return _sdpa_blocked(q, k, v, dh, causal, window, blk)
     mask = causal_mask(s, window, q.device) if causal else None
     return _sdpa(q, k, v, mask, dh)
@@ -181,7 +241,7 @@ def attn_train(p, cfg: ArchConfig, x, cos, sin,
     dh = cfg.resolved_head_dim
     q, k, v = _qkv(p, cfg, x, cos, sin)
     out = _sdpa_full_seq(q, k, v, dh, causal, cfg.sliding_window)
-    return out.reshape(x.shape[:-1] + (-1,)) @ p["wo"]
+    return _merge_heads(out) @ p["wo"]
 
 
 def attn_prefill(p, cfg: ArchConfig, x, cos, sin, cache: dict
@@ -199,11 +259,12 @@ def attn_prefill(p, cfg: ArchConfig, x, cos, sin, cache: dict
     s = x.shape[1]
     out = _sdpa_full_seq(q, k, v, dh, True, cfg.sliding_window,
                          grad_path=False)
-    y = out.reshape(x.shape[:-1] + (-1,)) @ p["wo"]
+    y = _merge_heads(out) @ p["wo"]
 
     s_cache = cache["k"].shape[1]
     for name, new in (("k", k), ("v", v)):
         c = cache[name]
+        new = act.like("aten::copy_ (KV cache fill)", new, c)
         if s <= s_cache:
             c[:, :s] = new
         else:
@@ -243,8 +304,11 @@ def attn_decode(p, cfg: ArchConfig, x, pos, cache: dict,
     slot = pos % s_cache
     for name, new in (("k", k), ("v", v)):
         c = cache[name]
+        new = act.like("aten::index_copy_ (KV cache write)", new, c)
         if isinstance(slot, torch.Tensor):
-            c.index_copy_(1, slot.reshape(1).long(), new.to(c.dtype))
+            # DTensor (torch 2.11) has no strategy for index_copy_
+            act.local(c, 1).index_copy_(1, slot.reshape(1).long(),
+                                        act.local(new, 1).to(c.dtype))
         else:
             c[:, slot:slot + 1] = new
 
@@ -259,8 +323,8 @@ def attn_decode(p, cfg: ArchConfig, x, pos, cache: dict,
     keep = filled | (pos >= s_cache)
     mask = keep[None, None, None, :]             # (1,1,1,S_cache)
 
-    out = _sdpa(q, cache["k"], cache["v"], mask, dh)
-    y = out.reshape(x.shape[:-1] + (-1,)) @ p["wo"]
+    out = _sdpa(q, act.heads(cache["k"]), act.heads(cache["v"]), mask, dh)
+    y = _merge_heads(out) @ p["wo"]
     return y, cache
 
 
@@ -281,4 +345,4 @@ def cross_attn(p, cfg: ArchConfig, x, kv: dict) -> torch.Tensor:
     dh = cfg.resolved_head_dim
     q = _split_heads(x @ p["wq"], cfg.n_heads, dh)
     out = _sdpa(q, kv["k"], kv["v"], None, dh)
-    return out.reshape(x.shape[:-1] + (-1,)) @ p["wo"]
+    return _merge_heads(out) @ p["wo"]

@@ -61,10 +61,16 @@ def _rope_for(cfg: ArchConfig, batch: dict, S: int, device):
     return rope_cos_sin(pos, dh, cfg.rope_theta)
 
 
-def _embed(cfg: ArchConfig, params: PyTree, batch: dict) -> torch.Tensor:
+def _lookup(tokens, table) -> torch.Tensor:
     # F.embedding's CUDA backward sorts the ids and sums each row's
-    # gradients in that order: no atomics, the same bits every run.
-    x = F.embedding(batch["tokens"], params["embed"])
+    # gradients in that order: no atomics, the same bits every run. On a
+    # mesh the table is gathered whole first: DTensor's vocab-sharded
+    # lookup leaves a masked partial that it cannot add or reduce.
+    return F.embedding(tokens, act.replicated("aten::embedding", table))
+
+
+def _embed(cfg: ArchConfig, params: PyTree, batch: dict) -> torch.Tensor:
+    x = _lookup(batch["tokens"], params["embed"])
     if cfg.arch_type == "vlm" and "vision_embed" in batch:
         patches = batch["vision_embed"] @ params["patch_proj"]
         n_p = patches.shape[1]
@@ -82,10 +88,12 @@ def _logits(cfg: ArchConfig, params: PyTree, x) -> torch.Tensor:
 
 
 def _xent(logits, labels) -> torch.Tensor:
+    # The gold logits stay (B, S, 1) until the mean: on vocab-sharded
+    # logits (a mesh) DTensor's masked gather cannot be squeezed first.
     lf = logits.float()
     lse = torch.logsumexp(lf, dim=-1)
-    gold = lf.gather(-1, labels.long()[..., None])[..., 0]
-    return (lse - gold).mean()
+    gold = lf.gather(-1, labels.long()[..., None])
+    return (lse[..., None] - gold).mean()
 
 
 @dataclass(frozen=True)
@@ -212,7 +220,7 @@ def build_model(cfg: ArchConfig, optimizer: Optional[Optimizer] = None
     def decode_step(params: PyTree, state: dict, step_batch: dict):
         tok = step_batch["token"]            # (B, 1)
         pos = step_batch["pos"]              # an int or a 0-d device tensor
-        x = F.embedding(tok, params["embed"])
+        x = _lookup(tok, params["embed"])
         dev = x.device
         if cfg.is_encdec:
             pe = sinusoidal_at(pos, cfg.d_model, dev).to(x.dtype)

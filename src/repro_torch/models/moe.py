@@ -11,20 +11,27 @@ The counterpart of the JAX package's ``models/moe.py``, on one card:
 
 Aux losses: switch-style load balance + router z-loss.
 
-One card holds one data shard, so the dispatch is the reference's
-global-capacity one (its shard-local blocks at ``s == 1``). Nothing here
-syncs with the host (no ``nonzero``, boolean indexing, ``.item()`` or
-range-checked ``index_put_(accumulate=True)``), so a worker's step that
-routes tokens can be captured in a CUDA graph and a decode step runs under
-``torch.cuda.set_sync_debug_mode("error")``.
+Dispatch is SHARD-LOCAL, as the reference's is: the token stream is
+viewed as (s, T/s) blocks matching the data-parallel shards of the active
+mesh (``sharding.activations.dp_size()``), and position-in-expert is
+computed *within each block*, so the scatter into (E, s, C_loc, D)
+buffers never crosses shards. Off a mesh (one card) s == 1 and the
+semantics are the paper-standard global capacity. Expert-parallel
+buffers (E divides the model axis) keep the global dispatch, as the
+reference measured them to; ``FORCE_GLOBAL_DISPATCH`` forces it.
+Nothing here syncs with the host (no ``nonzero``, boolean indexing,
+``.item()`` or range-checked ``index_put_(accumulate=True)``), so a
+worker's step that routes tokens can be captured in a CUDA graph and a
+decode step runs under ``torch.cuda.set_sync_debug_mode("error")``.
 
 Two runs give the same bits. Each token's K copies are a broadcast of its
 row, whose backward sums the K gradients in a fixed order (a gather's
 backward would add them atomically). The kept assignments own distinct
 slots, so the buffer is written, not summed: the reference adds each
 dropped assignment's zero row to slot (0, C-1); here it goes to a spare
-row past the buffer, which is never read. The gather back reads (0, C-1)
-for a dropped one, times a zero gate, as the reference does; its backward
+row past the buffer, which is never read. The gather back reads (0, b,
+C-1) for a dropped one of block b, times a zero gate, as the reference
+does; its backward
 is ``index_put_(accumulate=True)``, which sorts its indices on CUDA.
 """
 from __future__ import annotations
@@ -58,31 +65,36 @@ def init_moe(cfg: ArchConfig, generator: torch.Generator) -> dict:
     return p
 
 
+# Force the paper-standard global-capacity dispatch even on a mesh.
+FORCE_GLOBAL_DISPATCH = [False]
+
+
 def capacity(cfg: ArchConfig, n_tokens: int) -> int:
     c = int(n_tokens * cfg.top_k * cfg.capacity_factor / max(cfg.n_experts, 1))
     return max(c, cfg.top_k)
 
 
-def route(p: dict, cfg: ArchConfig, xf: torch.Tensor):
+def route(p: dict, cfg: ArchConfig, xf: torch.Tensor, s_blk: int = 1):
     """Routing of the (T, D) token stream: ``(logits, probs, gates, e_idx,
     pos, keep)`` — router logits and softmax (T, E) fp32, the renormalized
     top-k gates and experts (T, K), and each assignment's position in its
-    expert and whether it fits the capacity, over the token-major (T·K,)
-    stream."""
+    expert within its block of ``T / s_blk`` tokens and whether it fits
+    that block's capacity, over the token-major (T·K,) stream."""
     E, K = cfg.n_experts, cfg.top_k
     logits = xf.float() @ p["router"]                        # (T, E) fp32
     probs = torch.softmax(logits, dim=-1)
     gate_vals, e_idx = torch.topk(probs, K, dim=-1)          # (T, K)
     gate_vals = gate_vals / torch.clamp_min(
         gate_vals.sum(-1, keepdim=True), 1e-9)
-    flat_e = e_idx.reshape(-1)                               # (T*K,)
-    onehot = F.one_hot(flat_e, E)                            # (T*K, E)
-    # scanned along the innermost dim of (E, T*K): CUDA's scan over an
+    flat_e = e_idx.reshape(s_blk, -1)                        # (s, Tl*K)
+    onehot = F.one_hot(flat_e, E)                            # (s, Tl*K, E)
+    # scanned along the innermost dim of (s, E, Tl*K): CUDA's scan over an
     # outer dim runs a thread a column, 64 threads for 24k rows
-    pos_all = torch.cumsum(onehot.T, dim=1).T - onehot
-    pos = pos_all.gather(1, flat_e[:, None])[:, 0]           # (T*K,)
-    keep = pos < capacity(cfg, xf.shape[0])
-    return logits, probs, gate_vals, e_idx, pos, keep
+    pos_all = torch.cumsum(onehot.transpose(1, 2), dim=2).transpose(
+        1, 2) - onehot
+    pos = pos_all.gather(2, flat_e[..., None])[..., 0]       # (s, Tl*K)
+    keep = pos < capacity(cfg, xf.shape[0] // s_blk)
+    return logits, probs, gate_vals, e_idx, pos.reshape(-1), keep.reshape(-1)
 
 
 def moe(p: dict, cfg: ArchConfig, x: torch.Tensor
@@ -91,33 +103,48 @@ def moe(p: dict, cfg: ArchConfig, x: torch.Tensor
     B, S, D = x.shape
     E, K = cfg.n_experts, cfg.top_k
     T = B * S
-    C = capacity(cfg, T)
+    s_blk = act.dp_size()
+    # Block-local dispatch pays off for tensor-parallel experts (E does
+    # not divide 'model'); expert-parallel buffers keep global dispatch,
+    # as the reference measured them to.
+    if T % s_blk or FORCE_GLOBAL_DISPATCH[0] \
+            or (s_blk > 1 and E % act.model_size() == 0):
+        s_blk = 1
+    Tl = T // s_blk
+    C = capacity(cfg, Tl)                                    # per block
     xf = x.reshape(T, D)
-    logits, probs, gate_vals, e_idx, pos, keep = route(p, cfg, xf)
+    logits, probs, gate_vals, e_idx, pos, keep = route(p, cfg, xf,
+                                                       s_blk=s_blk)
     flat_e = e_idx.reshape(-1)
     gate_flat = gate_vals.reshape(-1) * keep.float()
 
-    # ---- scatter into expert buffers ------------------------------------
-    # A kept assignment owns slot (e, pos); a dropped one writes its zero
-    # row to the spare row E*C, never over a kept slot.
-    slot = flat_e * C + pos
+    # ---- block-local scatter into expert buffers ------------------------
+    # A kept assignment owns slot (e, b, pos) of its block b; a dropped one
+    # writes its zero row to the spare row E*s*C, never over a kept slot.
+    blk = torch.arange(T * K, device=x.device) // (Tl * K)
+    slot = (flat_e * s_blk + blk) * C + pos
+    n_slots = E * s_blk * C
     rows = xf[:, None].expand(T, K, D).reshape(T * K, D)     # token-major
     contrib = torch.where(keep[:, None], rows, 0).to(x.dtype)
-    buf = torch.zeros((E * C + 1, D), dtype=x.dtype, device=x.device)
-    buf = buf.index_put((torch.where(keep, slot, E * C),), contrib)
-    buf = act.expert_buf(buf[:E * C].view(E, C, D))
+    buf = torch.zeros((n_slots + 1, D), dtype=x.dtype, device=x.device)
+    buf = buf.index_put((torch.where(keep, slot, n_slots),), contrib)
+    buf = act.expert_block_buf(buf[:n_slots].view(E, s_blk, C, D))
 
     # ---- expert SwiGLU over the E axis ----------------------------------
     w_gate = act.expert_weights(p["experts_gate"])
     w_up = act.expert_weights(p["experts_up"])
     w_down = act.expert_weights(p["experts_down"], transposed=True)
-    h = act.expert_hidden(silu(torch.bmm(buf, w_gate))
-                          * torch.bmm(buf, w_up))
-    out_buf = act.expert_buf(torch.bmm(h, w_down))           # (E, C, D)
+    xb = buf.reshape(E, s_blk * C, D)
+    h = act.expert_block_hidden(
+        (silu(torch.bmm(xb, w_gate)) * torch.bmm(xb, w_up)).view(
+            E, s_blk, C, -1))
+    out_buf = act.expert_block_buf(
+        torch.bmm(h.reshape(E, s_blk * C, -1), w_down).view(
+            E, s_blk, C, D))                                 # (E, s, C, D)
 
-    # ---- gather + combine -----------------------------------------------
-    y_flat = out_buf.reshape(E * C, D)[
-        torch.where(keep, slot, C - 1)]                      # (T*K, D)
+    # ---- block-local gather + combine -----------------------------------
+    y_flat = out_buf.reshape(n_slots, D)[
+        torch.where(keep, slot, blk * C + C - 1)]            # (T*K, D)
     y = (y_flat.float() * gate_flat[:, None]).reshape(T, K, D).sum(1)
     y = y.to(x.dtype)
     if "shared" in p:

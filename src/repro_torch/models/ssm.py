@@ -27,6 +27,7 @@ import torch.nn.functional as F
 from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import ArchConfig
+from repro_torch.models import scan_config
 from repro_torch.models.layers import (dense_init, draw_device, dtype_of,
                                        normal_init, rms_norm, silu,
                                        uniform_init)
@@ -74,8 +75,10 @@ def _causal_conv(x, w, b):
     """Depthwise causal conv. x (B, S, di), w (dc, di)."""
     dc = w.shape[0]
     pad = F.pad(x, (0, 0, dc - 1, 0))
-    out = sum(pad[:, j:j + x.shape[1]] * w[j] for j in range(dc))
-    return out + b
+    # the taps as (1, 1, di): a mesh places them as it does x's channels
+    out = sum(pad[:, j:j + x.shape[1]] * w[j].view(1, 1, -1)
+              for j in range(dc))
+    return out + b.view(1, 1, -1)
 
 
 def _ssm_scan_chunk(a, b, h0):
@@ -135,7 +138,7 @@ def _mamba_forward(p: dict, cfg: ArchConfig, x: torch.Tensor,
     h = act.ssm_state(torch.zeros((B, di, ds), dtype=torch.float32,
                                   device=x.device))
     ys = []
-    for c in range(S // Q):
+    for c in scan_config.loop("mamba_chunks", S // Q):
         sl = slice(c * Q, (c + 1) * Q)
         dt_c, b_c, c_c, x_c = dt[:, sl], Bm[:, sl], Cm[:, sl], xcf[:, sl]
         a = torch.exp(dt_c[..., None] * A)                  # (B,Q,di,ds)
@@ -144,6 +147,7 @@ def _mamba_forward(p: dict, cfg: ArchConfig, x: torch.Tensor,
         del a, binc
         ys.append(torch.einsum("bqns,bqs->bqn", h_all, c_c))  # (B,Q,di)
         del h_all
+    ys = ys * (S // Q // len(ys))
     y = torch.cat(ys, dim=1)                                # (B,S,di)
     y = y + p["D_skip"] * xcf
     y = (y * silu(z.float())).to(x.dtype)
@@ -242,12 +246,17 @@ def _mlstm_qkvg(p, cfg, x):
     xz = x @ p["in_proj"]
     xm, z = xz.chunk(2, dim=-1)
     lead = xm.shape[:-1]
-    q = (xm @ p["wq"]).reshape(*lead, H, dh)
-    k = (xm @ p["wk"]).reshape(*lead, H, dh).float() / math.sqrt(dh)
-    v = (xm @ p["wv"]).reshape(*lead, H, dh)
+    q = act.head_split(xm @ p["wq"], H).reshape(*lead, H, dh)
+    k = act.head_split(xm @ p["wk"], H).reshape(*lead, H, dh).float() \
+        / math.sqrt(dh)
+    v = act.head_split(xm @ p["wv"], H).reshape(*lead, H, dh)
     gates = xm.float() @ p["gates_w"] + p["gates_b"]
     li, lf_raw = gates.chunk(2, dim=-1)                     # (B,S,H)
-    lf = F.logsigmoid(lf_raw)
+    if act.on_mesh("aten::log_sigmoid (as -logaddexp(0, -x))"):
+        # DTensor has no strategy for log_sigmoid's backward
+        lf = -torch.logaddexp(torch.zeros((), device=lf_raw.device), -lf_raw)
+    else:
+        lf = F.logsigmoid(lf_raw)
     return q, k, v, li, lf, z
 
 
@@ -280,19 +289,23 @@ def _mlstm_step(carry, inp):
 LSTM_CHUNK = 64
 
 
-def _time_loop(step, carry, xs, S: int):
-    """``step(carry, x_t) -> (carry, y_t)`` over the S steps of the
-    (B, S, ...) inputs ``xs``; returns (final carry, [y_t] * S). Chunked
-    and checkpointed under autograd when S is a multiple of
-    ``LSTM_CHUNK`` above it."""
-    def run(carry, lo, hi):
+def _time_loop(step, carry, xs, S: int, name: str, weights=()):
+    """``step(carry, x_t, *weights) -> (carry, y_t)`` over the S steps of
+    the (B, S, ...) inputs ``xs``; returns (final carry, [y_t] * S).
+    Chunked and checkpointed under autograd when S is a multiple of
+    ``LSTM_CHUNK`` above it; while the dry run's counter counts, one chunk
+    is traced and counted S / LSTM_CHUNK times (:func:`_rolled_time_loop`).
+    """
+    def run(carry, lo, hi, xs=xs, weights=weights):
         ys = []
         for t in range(lo, hi):
-            carry, y = step(carry, tuple(x[:, t] for x in xs))
+            carry, y = step(carry, tuple(x[:, t] for x in xs), *weights)
             ys.append(y)
         return carry, ys
 
     Q = LSTM_CHUNK
+    if scan_config.rolled() and S > Q and S % Q == 0:
+        return _rolled_time_loop(run, carry, xs, weights, S, name)
     if not (torch.is_grad_enabled() and S > Q and S % Q == 0):
         return run(carry, 0, S)
     n_c = len(carry)
@@ -307,6 +320,29 @@ def _time_loop(step, carry, xs, S: int):
     return carry, ys
 
 
+def _rolled_time_loop(run, carry, xs, weights, S: int, name: str):
+    """The time loop as the dry run counts it: the first ``LSTM_CHUNK``
+    steps traced, under the counter's scale of S / LSTM_CHUNK; the chunk's
+    outputs stand for every chunk's. The chunk indexes the whole inputs a
+    step at a time, as the loop does, so its backward moves what each
+    chunk's does."""
+    Q = LSTM_CHUNK
+    trips = S // Q
+    if not torch.is_grad_enabled():
+        with scan_config.loop_scope(name, trips):
+            carry, ys = run(carry, 0, Q)
+        return carry, ys * trips
+    n_c, n_x = len(carry), len(xs)
+
+    def body(*ts):
+        c2, ys_c = run(ts[:n_c], 0, Q, ts[n_c:n_c + n_x], ts[n_c + n_x:])
+        return (*c2, torch.stack(ys_c, 1))
+
+    out = scan_config.rolled_call(body, name, trips,
+                                  (*carry, *xs, *weights), n_c)
+    return out[:n_c], list(out[n_c].unbind(1)) * trips
+
+
 def mlstm_train(p: dict, cfg: ArchConfig, x: torch.Tensor,
                 return_state: bool = False):
     B, S, D = x.shape
@@ -317,8 +353,10 @@ def mlstm_train(p: dict, cfg: ArchConfig, x: torch.Tensor,
     carry = init_mlstm_state(cfg, B, device=x.device)
     (C, n, m), hs = _time_loop(_mlstm_step,
                                (carry["C"], carry["n"], carry["m"]),
-                               (q, k, v, li, lf), S)
-    h = torch.stack(hs, 1).reshape(B, S, di)
+                               (q, k, v, li, lf), S, "mlstm_time")
+    # placed like a wide intermediate, so that its gradient, split over
+    # 'model', is gathered before it is viewed as heads again
+    h = act.ffn_hidden(torch.stack(hs, 1).reshape(B, S, di))
     h = rms_norm(h.to(x.dtype), p["norm"], cfg.norm_eps)
     h = h * silu(z)
     out = h @ p["out_proj"]
@@ -396,13 +434,15 @@ def slstm_train(p: dict, cfg: ArchConfig, x: torch.Tensor,
     B, S, D = x.shape
     xg = x.float() @ p["gates_w"]                           # (B,S,4di)
 
-    def step(carry, inp):
-        new = _slstm_step(p, carry, inp[0])
+    def step(carry, inp, r_gates_w, gates_b):
+        new = _slstm_step({"r_gates_w": r_gates_w, "gates_b": gates_b},
+                          carry, inp[0])
         return new, new[2]
 
     st = init_slstm_state(cfg, B, device=x.device)
     (c, n, hh, m), hs = _time_loop(step, (st["c"], st["n"], st["h"],
-                                          st["m"]), (xg,), S)
+                                          st["m"]), (xg,), S, "slstm_time",
+                                   (p["r_gates_w"], p["gates_b"]))
     h = torch.stack(hs, 1).to(x.dtype)                      # (B,S,di)
     out = h @ p["out_proj"]
     if return_state:

@@ -22,7 +22,7 @@ from repro_torch.configs.base import ArchConfig
 from repro_torch.models import attention as attn
 from repro_torch.models import ffn as ffn_mod
 from repro_torch.models import moe as moe_mod
-from repro_torch.models import ssm
+from repro_torch.models import scan_config, ssm
 from repro_torch.models.layers import (dense_init, draw_device, dtype_of,
                                        embed_init, rms_norm,
                                        sinusoidal_positions)
@@ -167,7 +167,8 @@ def _n_stacked(stack: PyTree) -> int:
 def _store(cache: dict, new: dict) -> None:
     """Copy a recurrent mixer's new state into its cache, in place."""
     for k, v in new.items():
-        cache[k].copy_(v)
+        cache[k].copy_(act.like("aten::copy_ (recurrent state)", v,
+                                cache[k]))
 
 
 def _ffn_residual(cfg: ArchConfig, bp: dict, x, cross_kv):
@@ -243,49 +244,71 @@ def _acc_aux(acc: dict, aux: dict) -> dict:
     return {k: acc[k] + aux[k] for k in acc}
 
 
-def _unit_blocks(cfg: ArchConfig, params: PyTree, caches=None,
+def _stack(n: int, name: str, unit: Callable, carry):
+    """``carry = unit(u, carry)`` for u in range(n), ``carry`` what passes
+    from unit to unit. While the dry run's counter counts, off the
+    gradient path, unit 0 alone is traced, counted ``n`` times
+    (``scan_config.loop``): every unit runs the same ops on the same
+    shapes."""
+    for u in scan_config.loop(name, n):
+        carry = unit(u, carry)
+    return carry
+
+
+def _unit_blocks(cfg: ArchConfig, params: PyTree, u: int, caches=None,
                  cross_kvs=None):
-    """(block params, mixer, ffn, cache, cross K/V) a unit at a time, each
-    a view of unit u of its stack."""
-    for u in range(cfg.n_units):
-        for j, (mixer, f) in enumerate(cfg.pattern):
-            key = f"b{j}"
-            yield (_unit(params["units"][key], u), mixer, f,
-                   None if caches is None else _unit(caches[key], u),
-                   None if cross_kvs is None else _unit(cross_kvs[key], u))
+    """(block params, mixer, ffn, cache, cross K/V) of unit ``u``, each a
+    view of unit u of its stack."""
+    for j, (mixer, f) in enumerate(cfg.pattern):
+        key = f"b{j}"
+        yield (_unit(params["units"][key], u), mixer, f,
+               None if caches is None else _unit(caches[key], u),
+               None if cross_kvs is None else _unit(cross_kvs[key], u))
 
 
 def apply_units_train(cfg: ArchConfig, params: PyTree, x, cos, sin,
                       cross_kvs=None, causal=True):
     """The unit stack in train (no cache) mode. Returns (x, aux), aux
     summed block by block in the stack's order."""
-    acc = zero_aux(x.device)
-    for bp, mixer, f, _, ckv in _unit_blocks(cfg, params,
-                                             cross_kvs=cross_kvs):
-        x, aux = _apply_block_train(cfg, bp, mixer, f, x, cos, sin,
-                                    cross_kv=ckv, causal=causal)
-        acc = _acc_aux(acc, aux)
-    return x, acc
+    def unit(u, carry):
+        x, acc = carry
+        for bp, mixer, f, _, ckv in _unit_blocks(cfg, params, u,
+                                                 cross_kvs=cross_kvs):
+            x, aux = _apply_block_train(cfg, bp, mixer, f, x, cos, sin,
+                                        cross_kv=ckv, causal=causal)
+            acc = _acc_aux(acc, aux)
+        return x, acc
+
+    return _stack(cfg.n_units, "units", unit, (x, zero_aux(x.device)))
 
 
 def apply_units_prefill(cfg: ArchConfig, params: PyTree, x, cos, sin,
                         caches, cross_kvs=None):
     """The unit stack in parallel-prefill mode: full-sequence compute plus
     cache fill (in place). Returns (x, caches, aux)."""
-    acc = zero_aux(x.device)
-    for bp, mixer, f, c, ckv in _unit_blocks(cfg, params, caches, cross_kvs):
-        x, aux = _apply_block_prefill(cfg, bp, mixer, f, x, cos, sin, c,
-                                      cross_kv=ckv)
-        acc = _acc_aux(acc, aux)
+    def unit(u, carry):
+        x, acc = carry
+        for bp, mixer, f, c, ckv in _unit_blocks(cfg, params, u, caches,
+                                                 cross_kvs):
+            x, aux = _apply_block_prefill(cfg, bp, mixer, f, x, cos, sin, c,
+                                          cross_kv=ckv)
+            acc = _acc_aux(acc, aux)
+        return x, acc
+
+    x, acc = _stack(cfg.n_units, "units", unit, (x, zero_aux(x.device)))
     return x, caches, acc
 
 
 def apply_units_decode(cfg: ArchConfig, params: PyTree, x, pos, caches,
                        cos, sin, cross_kvs=None):
-    for bp, mixer, f, c, ckv in _unit_blocks(cfg, params, caches, cross_kvs):
-        x = _apply_block_decode(cfg, bp, mixer, f, x, pos, c, cos, sin,
-                                cross_kv=ckv)
-    return x, caches
+    def unit(u, x):
+        for bp, mixer, f, c, ckv in _unit_blocks(cfg, params, u, caches,
+                                                 cross_kvs):
+            x = _apply_block_decode(cfg, bp, mixer, f, x, pos, c, cos, sin,
+                                    cross_kv=ckv)
+        return x
+
+    return _stack(cfg.n_units, "units", unit, x), caches
 
 
 def init_unit_caches(cfg: ArchConfig, batch: int, max_len: int, dtype,
@@ -355,9 +378,14 @@ def apply_encoder(cfg: ArchConfig, params: PyTree, audio_embed):
     x = audio_embed @ params["audio_proj"]
     pe = torch.from_numpy(sinusoidal_positions(x.shape[1], cfg.d_model))
     x = x + pe.to(device=x.device, dtype=x.dtype)
-    for u in range(_n_stacked(params["encoder_blocks"])):
-        x, _ = _apply_block_train(cfg, _unit(params["encoder_blocks"], u),
-                                  "attn", "mlp", x, None, None, causal=False)
+
+    def layer(u, x):
+        return _apply_block_train(cfg, _unit(params["encoder_blocks"], u),
+                                  "attn", "mlp", x, None, None,
+                                  causal=False)[0]
+
+    x = _stack(_n_stacked(params["encoder_blocks"]), "encoder_blocks",
+               layer, x)
     return rms_norm(x, params["enc_norm_f"], cfg.norm_eps)
 
 

@@ -290,6 +290,12 @@ def run_ranks(job: dict, tmp_dir: str, timeout: int = 300) -> dict:
     """Run ``job`` (``{"task", "F", "M", ...}``) on F·M gloo ranks on the
     CPU, one subprocess each; rank 0 writes the ``.npz`` that is
     returned."""
+    return ranks_result(start_ranks(job, tmp_dir), timeout)
+
+
+def start_ranks(job: dict, tmp_dir: str) -> tuple:
+    """Start :func:`run_ranks`' subprocesses; pass what it returns to
+    :func:`ranks_result`."""
     n = job["F"] * job["M"]
     job = dict(job, store=os.path.join(tmp_dir, f"store_{time.time_ns()}"),
                out=os.path.join(tmp_dir, f"port_{job['task']}_{job['F']}x"
@@ -302,6 +308,12 @@ def run_ranks(job: dict, tmp_dir: str, timeout: int = 300) -> dict:
                               env=env, stdout=subprocess.PIPE,
                               stderr=subprocess.PIPE, text=True)
              for r in range(n)]
+    return procs, job["out"]
+
+
+def ranks_result(started: tuple, timeout: int = 300) -> dict:
+    """Wait for :func:`start_ranks`' subprocesses; rank 0's arrays."""
+    procs, out = started
     errs = []
     for r, p in enumerate(procs):
         try:
@@ -313,7 +325,7 @@ def run_ranks(job: dict, tmp_dir: str, timeout: int = 300) -> dict:
         if p.returncode:
             errs.append(f"rank {r}: {err[-3000:]}")
     assert not errs, "\n".join(errs)
-    with np.load(job["out"]) as z:
+    with np.load(out) as z:
         return dict(z)
 
 
@@ -456,8 +468,43 @@ def _step_task(job, mesh, F, M, rank) -> dict:
     return out
 
 
+# The dry run's fed step (``launch.dryrun.run_fed``) against a real run:
+# the reduced config, one local step of a (batch, seq) batch.
+FED_BYTES = dict(arch="mistral-nemo-12b", batch=2, seq=16)
+
+
+def _fed_bytes_task(job, mesh, F, M, rank) -> dict:
+    """One ``build_fed_step`` round a strategy on the reduced
+    ``FED_BYTES`` config; returns this rank's ``fed.collectives.STATS``
+    bytes of each (rank 0's are the ones written)."""
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.fed import collectives as col
+    from repro_torch.fed.distributed import build_fed_step, fed_state_init
+    from repro_torch.models import build_model
+    from repro_torch.optim.optimizers import momentum
+    cfg = get_config(FED_BYTES["arch"]).reduced().replace(
+        param_dtype="bfloat16")
+    m = build_model(cfg, optimizer=momentum(accum_dtype=torch.bfloat16))
+    params = m.init(torch.Generator().manual_seed(0), device="cpu")
+    out = {}
+    for strat in ("fedpc", "fedpc_packed", "fedpc_reduce", "fedavg"):
+        step = build_fed_step(m, mesh, "data", strat, device="cpu")
+        tokens = torch.from_numpy(np.random.default_rng(rank).integers(
+            0, cfg.vocab, (1, FED_BYTES["batch"], FED_BYTES["seq"])))
+        col.reset_stats()
+        step(fed_state_init(params, F), m.optimizer.init(params),
+             {"tokens": tokens}, torch.linspace(50.0, 200.0, F))
+        st = col.STATS
+        out[strat] = np.array([st["calls"], st["protocol_bytes"],
+                               st["link_bytes"],
+                               st["axis_bytes"].get("data", 0),
+                               st["axis_bytes"].get("model", 0)], np.int64)
+    return out
+
+
 TASKS = {"sync": _sync_task, "transport": _transport_task,
-         "step": _step_task}
+         "step": _step_task, "fedbytes": _fed_bytes_task}
 
 
 def _rank_main(job_path: str, rank: int) -> None:

@@ -38,7 +38,8 @@ def test_no_module_imports_jax_or_the_jax_package():
                  "models.moe", "models.ssm",
                  "data.synthetic", "convert", "fed.distributed",
                  "fed.collectives", "launch.train", "launch.mesh",
-                 "sharding.specs"):
+                 "sharding.specs", "models.scan_config", "launch.specs",
+                 "launch.hlo_stats", "launch.analysis", "launch.dryrun"):
         assert f"repro_torch.{name}" in names
     script = (
         "import importlib, sys\n"
