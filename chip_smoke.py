@@ -217,6 +217,24 @@ result:
    at each mesh's slab (#3, #2 with the pilot apart, #6 at N = 1 with
    L = F at 16 and 32 bits with RR, #8 on the reduced slab), each
    bitwise to its plain version first.
+9. tune   — ``kernels.tune`` on the card, after the times (which ran at
+   the default plans): (a) every ``autotune_*`` at the main path's shapes
+   (the uplink and the master at N = 10; the masked uplink and master at
+   16 and 32 bits, N = 10, the pair kernel, and N = 17, the row fold; the
+   partial sums at fanout 2 and 4 over 10 children, plain and masked
+   16-bit; the repair of 13 pairs at 16 and 32 bits), every candidate
+   plan bitwise against the default plan's output and the plain twin's,
+   each timed queued behind the L2 scrub (median of 7), printed beside
+   the default plan's time, the best and the bound; (b) the sweeps'
+   ``plan`` events through ``telemetry.trace.plan_emitter`` into a
+   ``TraceWriter`` trace that validates, and ``telemetry.report``'s
+   "tuner sweeps" table of it; (c) the plain slice and the masked tree
+   slice with faults, untuned and with the tuned table: the same bits and
+   launches (2 a plain round), ``round_step`` under sync-debug "error";
+   (d) the table through ``save_table``, ``clear_table`` and
+   ``load_table``, and loaded beside entries under the JAX package's
+   backends in one file; (e) the table cleared. None of its launches
+   joins the ``kernels`` line.
 
 The line before the last is one JSON object with every kernel's numbers,
 one entry a kernel function, each with ``row``, its row in the kernel
@@ -331,17 +349,18 @@ def phase_build() -> None:
                 usage.setdefault(kernel, []).append(
                     line.split(":", 1)[-1].strip())
         print(f"build: {name} in {dt:.1f} s -> {so.name}", flush=True)
-        # A kernel with one instantiation per worker count (its last
-        # template argument) is reported on one line over all of them.
+        # The pair kernel, one instantiation per worker count (its fourth
+        # template argument), is reported on one line over all of them.
         families: dict[str, dict[str, str]] = {}
         for kernel, use in usage.items():
             spills = [int(b) for b in re.findall(r"(\d+) bytes spill",
                                                   " ".join(use))]
             check(not any(spills), f"{kernel} of {name} spills registers")
-            head, _, last = kernel.rpartition(",")
-            if kernel.count(",") >= 3:
-                families.setdefault(head, {})[last.rstrip(">")] = " ".join(
-                    use)
+            base, _, args = kernel.partition("<")
+            args = args.rstrip(">").split(",")
+            if len(args) >= 4:
+                head = f"{base}<{','.join(args[:3] + ['N'] + args[4:])}>"
+                families.setdefault(head, {})[args[3]] = " ".join(use)
             else:
                 print(f"build:   {kernel}: {'; '.join(use)}", flush=True)
         for head, uses in families.items():
@@ -352,7 +371,7 @@ def phase_build() -> None:
                                                  every)]
             main = re.search(r"Used (\d+) registers",
                              uses.get(str(N_WORKERS), ""))
-            print(f"build:   {head},N> for {len(uses)} worker counts: "
+            print(f"build:   {head} for {len(uses)} worker counts: "
                   f"{min(regs)}-{max(regs)} registers ("
                   f"{main.group(1) if main else '?'} at N = {N_WORKERS}), "
                   f"0 bytes spill stores and loads, stack frame at most "
@@ -3277,9 +3296,9 @@ def phase_worker_rounds(torch, dev, captured: list) -> dict:
 _queue: dict = {}       # the sleep's rate, its length and the L2 scrub's time
 
 
-def _median_ms(torch, fn, queued: bool = False,
-               calls: int = QUEUED) -> float:
-    """Median over REPEATS of one call's time in CUDA events. By default
+def _median_ms(torch, fn, queued: bool = False, calls: int = QUEUED,
+               repeats: int = REPEATS) -> float:
+    """Median over ``repeats`` of one call's time in CUDA events. By default
     one call from an idle card: the wrapper's host time up to its launch
     counts. ``queued``: ``calls`` calls enqueued behind a ``torch.cuda._sleep``
     that keeps the card busy meanwhile, so the events time the device
@@ -3301,7 +3320,7 @@ def _median_ms(torch, fn, queued: bool = False,
     torch.cuda.synchronize()
     times = []
     calls = calls if queued else 1
-    for _ in range(REPEATS):
+    for _ in range(repeats):
         for doubling in range(SLEEP_DOUBLINGS + 1):
             a = torch.cuda.Event(enable_timing=True)
             b = torch.cuda.Event(enable_timing=True)
@@ -4869,6 +4888,218 @@ def phase_launch_slice(torch, dev, served: dict, first_rank: dict) -> None:
           flush=True)
 
 
+TUNE_REPEATS = 7                  # queued timings of a sweep's candidate
+TUNE_ROW_FOLD = 17                # workers past the pair kernel's 16
+TUNE_FANOUTS = (2, 4)             # the plain and the masked tree's
+TUNE_REPAIR_PAIRS = 13            # the main path's repair operands
+
+
+def _tune_sweeps(torch, dev) -> list:
+    """Every sweep of the tune phase at the main path's shapes: (label,
+    sweep, bytes the function must move, (ALU-only, all) integer ops or
+    (float ops, None)). The masked uplink's inputs have RR off and every
+    pair active; its bound expands each pair once."""
+    from repro_torch.kernels import tune
+    from repro_torch.privacy import masking as pvm
+    n, r = N_WORKERS, ROWS // 4
+    m, f32 = r * 512, 4
+    sweeps = [
+        ("uplink_stacked", lambda **k: tune.autotune_stacked(r, n, **k),
+         n * m * f32 + 2 * m * f32 + n * f32 + f32 + n * m // 4,
+         (3 * n * m + m, None)),
+        ("master", lambda **k: tune.autotune_master(r, n, **k),
+         3 * m * f32 + n * m // 4 + n * f32 + f32 + 8 + m * f32,
+         (3 * n * m + 3 * m, None))]
+    for nn in (n, TUNE_ROW_FOLD):
+        for bits in (16, 32):
+            word = bits // 8
+            sweeps.append((
+                f"uplink_masked{bits}",
+                lambda nn=nn, bits=bits, **k: tune.autotune_masked_uplink(
+                    r, nn, word_bits=bits, **k),
+                nn * m * f32 + 2 * m * f32 + 3 * nn * f32 + nn * nn * 8
+                + f32 + nn * m * word,
+                uplink_masked_int_ops(nn, m, bits, False, True,
+                                      nn * (nn - 1) // 2)))
+            sweeps.append((
+                f"master_masked{bits}",
+                lambda nn=nn, bits=bits, **k: tune.autotune_masked_master(
+                    r, nn, word_bits=bits, **k),
+                nn * m * word + 4 + 8 + 3 * m * f32 + f32 + m * f32,
+                ((nn + 6) * m, (nn + 6) * m)))
+    for fan in TUNE_FANOUTS:
+        g = -(-n // fan)
+        active = int((pvm.tree_pair_signs(g, min(g, fan), device="cpu")
+                      != 0).sum())
+        sweeps.append((
+            "partial_sum",
+            lambda fan=fan, **k: tune.autotune_partial_sum(r, fan, n, **k),
+            n * m // 4 + 4 * n + g * 4 * m, (2 * n * m, 3 * n * m)))
+        sweeps.append((
+            "partial_sum_masked16",
+            lambda fan=fan, **k: tune.autotune_partial_sum(
+                r, fan, n, masked=True, word_bits=16, **k),
+            n * 2 * m + g * 2 * m + 8 * g * g,
+            ((3 * g + 3 * active) * m, (4.5 * g + 5.5 * active + n) * m)))
+    live = -(-TUNE_REPAIR_PAIRS // 2)              # every other coefficient
+    for bits, per in ((16, (3, 4.5, 3, 5.5)), (32, (6, 9, 6, 10))):
+        sweeps.append((
+            f"mask_repair{bits}",
+            lambda bits=bits, **k: tune.autotune_mask_repair(
+                r, TUNE_REPAIR_PAIRS, word_bits=bits, **k),
+            2 * (bits // 8) * m + 8 * TUNE_REPAIR_PAIRS,
+            ((per[0] + per[2] * live) * m, (per[1] + per[3] * live) * m)))
+    return sweeps
+
+
+def _tuned_runs(torch, dev, label: str, cfg, on_path: dict) -> None:
+    """One slice at full width twice, untuned (the kernels' default
+    geometry) and with the tuned table loaded: the same launches, the
+    same bits (pilots, costs, bytes, recovery bytes, every leaf),
+    ``round_step`` under sync-debug "error" in both (``_drive``)."""
+    from repro_torch.fed.simulator import FedSimulator
+    from repro_torch.kernels import tune
+    table = dict(tune._TABLE)
+    runs = []
+    for tuned in (False, True):
+        tune.clear_table()
+        if tuned:
+            tune._TABLE.update(table)
+        workers, params = _full_width(torch, dev)
+        sim = FedSimulator(workers, params, cfg, device=dev)
+        drive = _drive(torch, sim, ROUNDS)
+        for k, v in drive.launches.items():
+            check(v == on_path.get(k, 0), f"tune, {label}: {k} launched {v} "
+                  f"times in {ROUNDS} rounds, expected {on_path.get(k, 0)}")
+        runs.append(drive)
+    tune._TABLE.update(table)
+    untuned, tuned = (d.res for d in runs)
+    _same_runs(torch, untuned, tuned, f"tune, {label}")
+    check(untuned.recovery_bytes_per_round == tuned.recovery_bytes_per_round,
+          f"tune, {label}: recovery bytes")
+    print(f"tune: {label} with the tuned table == untuned, bitwise (pilots "
+          f"{tuned.pilot_history}, costs, bytes, params); launches "
+          f"{ {k: v for k, v in runs[1].launches.items() if v} } in "
+          f"{ROUNDS} rounds; round_step under sync-debug 'error' "
+          f"{[round(s * 1e3, 3) for s in runs[1].agg_s]} ms (untuned "
+          f"{[round(s * 1e3, 3) for s in runs[0].agg_s]})", flush=True)
+
+
+def phase_tune(torch, dev, rate: float) -> None:
+    """``kernels.tune`` on the card, after the timings, which ran at the
+    default plans: (a) every ``autotune_*`` at the main path's shapes,
+    each candidate bitwise against the default plan's output and the
+    plain twin's (``verify``) and timed queued behind the L2 scrub, beside
+    the bound; (b) the sweeps' plan events into a validated trace and the
+    report's table of them; (c) the plain slice and the masked tree with
+    faults with the tuned table == untuned; (d) the table through
+    ``save_table``, ``clear_table`` and ``load_table``, beside entries
+    under the JAX package's backends in the same file; (e) the table
+    cleared. Its launches join no kernel row."""
+    import tempfile
+
+    from repro_torch.kernels import tune
+    from repro_torch.telemetry import report as trep
+    from repro_torch.telemetry import trace as tmt
+    t_start = time.perf_counter()
+    saved = _read_counts()
+    tune.clear_table()
+    r = ROWS // 4
+
+    def timer(fn) -> float:
+        return _median_ms(torch, fn, queued=True, repeats=TUNE_REPEATS) * 1e3
+
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, "plans.jsonl")
+        n_plans = 0
+        with tmt.TraceWriter(path, source="chip_smoke tune") as writer:
+            tune.set_trace_writer(tmt.plan_emitter(writer.emit))
+            try:
+                for label, sweep, nbytes, (a, b) in _tune_sweeps(torch, dev):
+                    rec = sweep(device=dev, verify=True, timer=timer)
+                    n_plans += len(rec["timings"])
+                    bytes_ms = nbytes / rate * 1e3
+                    ops_ms = (a / FP32_OPS_PER_S * 1e3 if b is None
+                              else int_bound_ms(a, b))
+                    bound = max(bytes_ms, ops_ms)
+                    by = "bytes" if bytes_ms >= ops_ms else "operations"
+                    ms = {(t["block_rows"], t["block_workers"]):
+                          t["us"] / 1e3 for t in rec["timings"]}
+                    d = tuple(rec["default"].values())
+                    best = tuple(rec["best"].values())
+                    shape = (f"R={r} N={rec['n_workers']}" if "n_children"
+                             not in rec else f"R={r} fanout "
+                             f"{rec['n_workers']} C={rec['n_children']}")
+                    print(f"tune: {label} {shape}: {len(ms)} plans, each "
+                          f"bitwise == the default plan and the plain twin; "
+                          + ", ".join(f"({br},{bw}) {t:.4f}" for (br, bw), t
+                                      in ms.items())
+                          + f" ms; default ({d[0]},{d[1]}) {ms[d]:.4f} ms, "
+                          f"best ({best[0]},{best[1]}) {ms[best]:.4f} ms "
+                          f"({ms[best] / ms[d]:.1%} of default); bound "
+                          f"{bound:.4f} ms by {by}", flush=True)
+            finally:
+                tune.set_trace_writer(None)
+        events = tmt.read_trace(path)
+        check(tmt.validate_trace(events) == len(events), "tune: trace")
+        summary = tmt.summarize(events)
+        check(len(summary.plans) == n_plans
+              and sum(p["best"] for p in summary.plans)
+              == len({(p["kind"], p["rows"], p["n"]) for p in summary.plans}),
+              f"tune: {len(summary.plans)} plan events for {n_plans} plans")
+        text = trep.render(summary)
+        check("tuner sweeps:" in text, "tune: the report has no plan table")
+        for line in text[text.index("tuner sweeps:"):].splitlines():
+            print(f"tune: report | {line}", flush=True)
+
+        print(f"tune: the tuned table's plans on the rounds' launches: "
+              + ", ".join(f"{k}@(r{r},n{n})={tune.lookup(k, r, n)}"
+                          for k, n in (("uplink_stacked", N_WORKERS),
+                                       ("master", N_WORKERS),
+                                       ("uplink_masked16", N_WORKERS),
+                                       ("partial_sum_masked16",
+                                        MASKED_TREE_FANOUT),
+                                       ("mask_repair16", 1))), flush=True)
+        _tuned_runs(torch, dev, "plain slice", None,
+                    {"uplink_stacked": ROUNDS, "master": ROUNDS})
+        cfg = _masked_tree_cfg()
+        _tuned_runs(torch, dev, "masked tree slice with faults", cfg,
+                    {"uplink_masked": ROUNDS,
+                     "masked_partial_sum": ROUNDS * cfg.tree.n_levels(
+                         N_WORKERS),
+                     "mask_repair": ROUNDS, "master_masked": ROUNDS})
+
+        table = os.path.join(tmp, "table.json")
+        tuned = dict(tune._TABLE)
+        tune.save_table(table)
+        keys = sorted(tuned)
+        lookups = [tune.lookup(*k[:3], backend=k[3]) for k in keys]
+        tune.clear_table()
+        check(not tune._TABLE, "tune: the table did not clear")
+        check(tune.load_table(table) == len(tuned) and tune._TABLE == tuned
+              and [tune.lookup(*k[:3], backend=k[3]) for k in keys]
+              == lookups, "tune: save_table / load_table changed the table")
+        with open(table) as f:
+            both = json.load(f)
+        both.update({f"{k}|{r}|{N_WORKERS}|{b}": {"block_rows": 64,
+                                                  "block_workers": 1}
+                     for k in ("uplink_stacked", "master")
+                     for b in ("tpu", "cpu-interpret")})
+        with open(table, "w") as f:
+            json.dump(both, f)
+        tune.clear_table()
+        check(tune.load_table(table) == len(tuned) + 4
+              and [tune.lookup(*k[:3], backend=k[3]) for k in keys]
+              == lookups,
+              "tune: the JAX package's entries moved the card's plans")
+        print(f"tune: save_table / clear_table / load_table kept "
+              f"{len(tuned)} plans; with 4 JAX-package entries in the same "
+              f"file the card's lookups are unchanged", flush=True)
+    tune.clear_table()
+    _restore_counts(saved)
+    print(f"tune: phase {time.perf_counter() - t_start:.1f} s", flush=True)
+
+
 def main() -> int:
     if not (SRC / "repro_torch" / "kernels" / "csrc").is_dir():
         print("FAIL: run from the root of the repository (src/repro_torch "
@@ -4936,6 +5167,7 @@ def main() -> int:
             "masked_partial_sum_off": tree["masked_partial_sum"]}, errs)
         rows += phase_times_unfused(torch, dev, rate, worker_rounds, errs)
         rows += phase_times_dist(torch, dev, rate, mesh)
+        phase_tune(torch, dev, rate)
         rows.sort(key=lambda row: row["row"])
         print(f"time: queued timings behind a sleep of "
               f"{_queue['cycles'] * _queue['ms_per_cycle']:.2f} ms "

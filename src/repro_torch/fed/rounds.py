@@ -201,6 +201,14 @@ class WirePath:
     that touch Eq. (5) or the Eq. (3) weights take an optional per-worker
     override (``beta=`` a scalar, ``betas=`` an (N,) vector).
 
+    ``block_rows``/``block_workers`` pin the launch plan of every wire
+    kernel a round launches (``block_workers`` the partial sums' groups a
+    CTA on a tree); left as None each launch resolves its plan per
+    (kind, shape, N, backend) through the ``kernels.tune`` table, and on
+    the card the untuned plan is the kernels' default geometry. ``ops``
+    snaps a pinned plan to one each kernel honours. No plan changes the
+    bits.
+
     An active ``privacy`` spec puts the round on the secure-aggregation /
     local-DP wire: the uplink becomes masked fixed-point words and the
     master a sum-then-unmask launch, still two launches and no host sync,
@@ -228,6 +236,8 @@ class WirePath:
     degrades to an exact-zero subtree).
     """
     cfg: WireConfig = WireConfig()
+    block_rows: int | None = None
+    block_workers: int | None = None
     privacy: PrivacySpec | None = None
     renorm_shares: bool = False
     tree: TreeSpec | None = None
@@ -295,7 +305,8 @@ class WirePath:
         to :meth:`uplink_traced`."""
         return ops.flat_ternary_pack(buf_q, buf_p1, buf_p2, t=t,
                                      beta=self.cfg.beta,
-                                     alpha1=self.cfg.alpha1)
+                                     alpha1=self.cfg.alpha1,
+                                     block_rows=self.block_rows)
 
     def uplink_traced(self, buf_q: torch.Tensor, buf_p1: torch.Tensor,
                       buf_p2: torch.Tensor, *, t, beta=None) -> torch.Tensor:
@@ -305,7 +316,8 @@ class WirePath:
         beta = self.cfg.beta if beta is None else beta
         return ops.flat_ternary_pack_traced(buf_q, buf_p1, buf_p2, t=t,
                                             beta=beta,
-                                            alpha1=self.cfg.alpha1)
+                                            alpha1=self.cfg.alpha1,
+                                            block_rows=self.block_rows)
 
     def uplink_stacked(self, bufs_q: torch.Tensor, buf_p1: torch.Tensor,
                        buf_p2: torch.Tensor, *, t, betas=None
@@ -313,9 +325,9 @@ class WirePath:
         """All N workers' wire buffers in one launch: (N, rows, 128) →
         (N, rows//4, 128) uint8."""
         beta = self.cfg.beta if betas is None else betas
-        return ops.flat_ternary_pack_stacked(bufs_q, buf_p1, buf_p2, t=t,
-                                             beta=beta,
-                                             alpha1=self.cfg.alpha1)
+        return ops.flat_ternary_pack_stacked(
+            bufs_q, buf_p1, buf_p2, t=t, beta=beta, alpha1=self.cfg.alpha1,
+            block_rows=self.block_rows, block_workers=self.block_workers)
 
     def master(self, bufs_q: torch.Tensor, k_star, packed: torch.Tensor,
                w: torch.Tensor, buf_p1: torch.Tensor, buf_p2: torch.Tensor,
@@ -324,8 +336,10 @@ class WirePath:
         pilot's buffer is ``bufs_q[k_star]``, read in place (a mesh rank
         passes the pilot's slab alone, ``bufs_q`` (1, rows, 128) at
         ``k_star`` 0)."""
-        return ops.flat_master_update(bufs_q, k_star, packed, w, buf_p1,
-                                      buf_p2, t=t, alpha0=self.cfg.alpha0)
+        return ops.flat_master_update(
+            bufs_q, k_star, packed, w, buf_p1, buf_p2, t=t,
+            alpha0=self.cfg.alpha0, block_rows=self.block_rows,
+            block_workers=self.block_workers)
 
     # -- secure-aggregation / local-DP wire (repro_torch.privacy) ----------
 
@@ -356,7 +370,8 @@ class WirePath:
             beta=self.cfg.beta if betas is None else betas,
             alpha1=self.cfg.alpha1, wq=wq, pair_keys=keys, pair_signs=signs,
             rr_keys=rrk, rr_threshold=spec.rr_threshold,
-            word_bits=spec.modulus_bits, use_masks=spec.masking_on)
+            word_bits=spec.modulus_bits, use_masks=spec.masking_on,
+            block_rows=self.block_rows, block_workers=self.block_workers)
         return y, wq
 
     def uplink_masked_slab(self, buf_q: torch.Tensor, buf_p1: torch.Tensor,
@@ -380,7 +395,8 @@ class WirePath:
             pair_signs=signs_row.reshape(1, -1),
             rr_keys=torch.as_tensor(rr_key).reshape(1),
             rr_threshold=spec.rr_threshold, word_bits=spec.modulus_bits,
-            use_masks=spec.masking_on)
+            use_masks=spec.masking_on, block_rows=self.block_rows,
+            block_workers=self.block_workers)
         return y[0]
 
     def _leaf_pairs(self, n: int, t, pmask, dev: torch.device
@@ -406,7 +422,8 @@ class WirePath:
         sum_wq = pvm.as_u64(wq).sum()
         return ops.flat_masked_master_update(
             bufs_q, k_star, masked, sum_wq, buf_p1, buf_p2, t=t,
-            alpha0=self.cfg.alpha0, scale_mult=self.privacy.scale_mult)
+            alpha0=self.cfg.alpha0, scale_mult=self.privacy.scale_mult,
+            block_rows=self.block_rows, block_workers=self.block_workers)
 
     def _tree_fold_masked(self, y: torch.Tensor, *, t, pmask=None
                           ) -> torch.Tensor:
@@ -441,7 +458,8 @@ class WirePath:
                                         device=dev)
             cur = ops.flat_masked_partial_sum(
                 cur, keys, signs, fanout=ts.fanout, sibling=sib,
-                use_masks=spec.masking_on)
+                use_masks=spec.masking_on, block_rows=self.block_rows,
+                block_groups=self.block_workers)
         return cur
 
     def _tree_round_plain(self, bufs_q: torch.Tensor, k_star,
@@ -460,17 +478,21 @@ class WirePath:
                                      betas=betas)
         wq = pvm.quantize_weights(w, TREE_PLAIN_FIXPOINT_BITS)
         cur = ops.flat_partial_sum(packed, wq, fanout=ts.fanout,
-                                   word_bits=TREE_PLAIN_WORD_BITS)
+                                   word_bits=TREE_PLAIN_WORD_BITS,
+                                   block_rows=self.block_rows,
+                                   block_groups=self.block_workers)
         widths = ts.level_widths(n)
         for lvl in range(2, len(widths)):
             keys, signs = _no_masks(widths[lvl], dev)
             cur = ops.flat_masked_partial_sum(
                 cur, keys, signs, fanout=ts.fanout,
-                sibling=ts.sibling_size(lvl, n), use_masks=False)
+                sibling=ts.sibling_size(lvl, n), use_masks=False,
+                block_rows=self.block_rows, block_groups=self.block_workers)
         new_buf = ops.flat_masked_master_update(
             bufs_q, k_star, cur, pvm.as_u64(wq).sum(), buf_p1, buf_p2, t=t,
             alpha0=self.cfg.alpha0,
-            scale_mult=2.0 ** -TREE_PLAIN_FIXPOINT_BITS)
+            scale_mult=2.0 ** -TREE_PLAIN_FIXPOINT_BITS,
+            block_rows=self.block_rows, block_workers=self.block_workers)
         return new_buf, packed
 
     def _viable(self, pmask, alive: torch.Tensor, n: int
@@ -554,7 +576,8 @@ class WirePath:
                 torch.where(keep, _signed(y), _signed(y).new_zeros(()),
                             out=_signed(y_top[1:]))
                 y = y_top[1:]
-                ops.flat_mask_repair(None, *repair, out=y_top[0])
+                ops.flat_mask_repair(None, *repair, out=y_top[0],
+                                     block_rows=self.block_rows)
             else:
                 y = _signed(y).where(keep, 0).view(y.dtype)
             wq = wq.view(torch.int32).where(alive_eff > 0, 0).view(
@@ -566,7 +589,8 @@ class WirePath:
                 # The leaves' residue rides up the tree unchanged, and one
                 # launch repairs it in place in the root's first row (the
                 # tree's own partials: at least one level always runs).
-                ops.flat_mask_repair(y_top[0], *repair, out=y_top[0])
+                ops.flat_mask_repair(y_top[0], *repair, out=y_top[0],
+                                     block_rows=self.block_rows)
         new_buf = self.master_masked(bufs_q, k_star, y_top, wq, buf_p1,
                                      buf_p2, t=t)
         return new_buf, y
@@ -738,10 +762,13 @@ class RoundEngine:
     """
 
     def __init__(self, init_params: PyTree, cfg: WireConfig | None = None,
-                 *, shards: int = 1, device=None):
+                 *, shards: int = 1, device=None,
+                 block_rows: int | None = None,
+                 block_workers: int | None = None):
         self.device = resolve_device(device)
         self.layout = fl.layout_of(init_params, shards=shards)
-        self.wire = WirePath(cfg or WireConfig())
+        self.wire = WirePath(cfg or WireConfig(), block_rows=block_rows,
+                             block_workers=block_workers)
         self.buf_p1 = fl.flatten_tree(init_params, self.layout).to(
             self.device)                                        # P^{t-1}
         self.buf_p2 = torch.zeros_like(self.buf_p1)             # P^{t-2}

@@ -181,15 +181,25 @@ class FedSimulator:
         return torch.tensor([cfg.beta if b is None else b for b in wb],
                             dtype=torch.float32, device=self.device)
 
-    def _setup(self, state: rd.RoundState | None
+    def _wire_path(self, wire_block_rows, wire_block_workers
+                   ) -> rd.WirePath:
+        """The round's WirePath with the config's privacy, renorm, tree
+        and fault axes and the given launch plan (None: the tune table's)."""
+        cfg = self.fed_cfg
+        return rd.WirePath(rd.WireConfig.from_fedpc(cfg),
+                           block_rows=wire_block_rows,
+                           block_workers=wire_block_workers,
+                           privacy=cfg.privacy,
+                           renorm_shares=cfg.renorm_shares, tree=cfg.tree,
+                           faults=cfg.faults)
+
+    def _setup(self, state: rd.RoundState | None, wire_block_rows=None,
+               wire_block_workers=None
                ) -> tuple[rd.WirePath, fl.FlatLayout, rd.RoundState, int]:
         """The round's WirePath, the flat layout, the starting state (fresh
         at round 1 unless given) and its round, read once."""
         cfg = self.fed_cfg
-        wire = rd.WirePath(rd.WireConfig.from_fedpc(cfg),
-                           privacy=cfg.privacy,
-                           renorm_shares=cfg.renorm_shares, tree=cfg.tree,
-                           faults=cfg.faults)
+        wire = self._wire_path(wire_block_rows, wire_block_workers)
         layout = fl.layout_of(self.init_params)
         if state is None:
             state = rd.init_round_state(self.init_params, self.n, layout,
@@ -411,7 +421,9 @@ class FedSimulator:
     def run_fedpc(self, rounds: int, eval_every: int = 0, *,
                   participation: Optional[float] = None, betas=None,
                   participation_seed: int = 0,
-                  state: Optional[rd.RoundState] = None) -> SimResult:
+                  state: Optional[rd.RoundState] = None,
+                  wire_block_rows: Optional[int] = None,
+                  wire_block_workers: Optional[int] = None) -> SimResult:
         """Run ``rounds`` rounds of the FedPC wire (resuming from ``state``
         if given): the plain wire, or the masked one when
         ``FedPCConfig.privacy`` is active, through ``FedPCConfig.tree``
@@ -419,7 +431,9 @@ class FedSimulator:
         optional (N,) per-worker beta_k. ``participation`` in (0, 1]
         samples that fraction of the workers each round from
         ``participation_seed``; a worker left out trains nothing and
-        uploads nothing.
+        uploads nothing. ``wire_block_rows``/``wire_block_workers`` pin
+        the wire kernels' launch plan (default: the ``kernels.tune`` plan
+        for each launch's shape; no plan changes the bits).
 
         Per round: workers train locally (device costs), then one
         ``round_step`` selects the pilot and runs the wire's kernels.
@@ -431,7 +445,8 @@ class FedSimulator:
         the host each round; it is refused with partial participation.
         """
         frac = self._fraction(participation)
-        wire, layout, state, t0 = self._setup(state)
+        wire, layout, state, t0 = self._setup(state, wire_block_rows,
+                                              wire_block_workers)
         masks, betas_dev = self._resolve_scenario(
             frac, betas, rounds, participation_seed, t0)
         if self.evade_streak and masks is not None:
@@ -504,9 +519,14 @@ class FedSimulator:
     def run_fedpc_scan(self, rounds: int, *,
                        participation: Optional[float] = None, betas=None,
                        participation_seed: int = 0,
-                       state: Optional[rd.RoundState] = None) -> SimResult:
+                       state: Optional[rd.RoundState] = None,
+                       wire_block_rows: Optional[int] = None,
+                       wire_block_workers: Optional[int] = None
+                       ) -> SimResult:
         """The device-resident multi-round driver, bitwise equal to
-        :meth:`run_fedpc` from the same simulator state.
+        :meth:`run_fedpc` from the same simulator state (the wire's launch
+        plan pinned by ``wire_block_rows``/``wire_block_workers`` as
+        there, every round launching the same plan).
 
         First every worker's shard and its ``(rounds, steps, batch)``
         index schedule are staged on the device, drawn from its loader as
@@ -524,7 +544,8 @@ class FedSimulator:
             raise ValueError("evade_streak requires the Python-loop driver "
                              "(per-round host behaviour)")
         frac = self._fraction(participation)
-        wire, layout, state, t0 = self._setup(state)
+        wire, layout, state, t0 = self._setup(state, wire_block_rows,
+                                              wire_block_workers)
         masks, betas_dev = self._resolve_scenario(
             frac, betas, rounds, participation_seed, t0)
         self._enforce_privacy("run_fedpc_scan", wire, state, betas_dev,

@@ -11,6 +11,20 @@
 // wire's modulus needs, and signed overflow (undefined in C++) never
 // arises. The 16-bit modulus keeps the low 16 bits of each word.
 //
+// Launch plans (repro_torch/kernels/tune.py, wire_common.cuh): the uplink
+// and the master take block_rows, the kernel-view rows a CTA of 256 threads
+// covers (2: one position a thread, the default). The row-fold uplink
+// takes block_workers, the workers a CTA handles (grid.y = ceil(n /
+// block_workers), a CTA staging its workers' key rows only; the default
+// is all n). The pair kernel honours only the default, block_rows = 2 and
+// block_workers = n: it holds all n workers, and its loop over a longer
+// span was slower at every plan tried. The master takes block_workers as
+// the word rows a thread loads ahead of each step of its sum (1, 2, 4 or
+// 8; the default 1). The repair keeps its persistent grid; its
+// block_rows is the rows a pass covers, 4, 8 or 16 at 16 bits (2, 4 or 8
+// at 32: 1, 2 or 4 chunks of 16 bytes a thread; the default 4 chunks).
+// Every plan gives the same bits.
+//
 // Plain C interface, bound with ctypes (repro_torch/kernels/masked_wire.py):
 // pointers and the stream arrive as void*, each function makes the
 // tensors' device current, launches on the given stream, never
@@ -24,9 +38,13 @@
 namespace {
 
 using wire::blocks_for;
+using wire::blocks_for_rows;
+using wire::blocks_of;
+using wire::cta_span;
 using wire::kThreads;
 using wire::load_words;
 using wire::mix32;
+using wire::Span;
 using wire::store_words;
 using wire::sub4;
 using wire::wire_field;
@@ -76,94 +94,102 @@ ternary_pack_masked_kernel(const float4* __restrict__ q,
                            const uint32_t* __restrict__ rr_keys,
                            const int32_t* __restrict__ t, float alpha1,
                            uint32_t rr_threshold, void* __restrict__ out,
-                           int n, int cohort, int64_t m) {
-  extern __shared__ uint32_t staged[];     // keys, then signs: 2 * n * cohort
+                           int n, int cohort, int64_t m, int block_rows,
+                           int block_workers) {
+  // The keys, then the signs, of this CTA's worker block: 2 * nb * cohort.
+  extern __shared__ uint32_t staged[];
+  const int k0 = static_cast<int>(blockIdx.y) * block_workers;
+  const int nb = min(k0 + block_workers, n) - k0;
   uint32_t* s_keys = staged;
-  int32_t* s_signs = reinterpret_cast<int32_t*>(staged + n * cohort);
+  int32_t* s_signs = reinterpret_cast<int32_t*>(staged + nb * cohort);
   if constexpr (kMasks) {
-    for (int j = threadIdx.x; j < n * cohort; j += kThreads) {
-      s_keys[j] = keys[j];
-      s_signs[j] = signs[j];
+    const int64_t row0 = static_cast<int64_t>(k0) * cohort;
+    for (int j = threadIdx.x; j < nb * cohort; j += kThreads) {
+      s_keys[j] = keys[row0 + j];
+      s_signs[j] = signs[row0 + j];
     }
     __syncthreads();
   }
-  const int64_t i = static_cast<int64_t>(blockIdx.x) * kThreads + threadIdx.x;
-  if (i >= m) return;
+  const Span span = cta_span(block_rows, m);
   const bool round1 = *t <= 1;
-  const float4 a = p1[i];
-  const float4 b = round1 ? a : p2[i];
-  const float4 step = sub4(a, b);
+  for (int64_t i = span.begin + threadIdx.x; i < span.end; i += kThreads) {
+    const float4 a = p1[i];
+    const float4 b = round1 ? a : p2[i];
+    const float4 step = sub4(a, b);
 
-  // Flat element index of this thread's first element (the wrapper keeps
-  // 4 * m within 32 bits).
-  const uint32_t e0 = static_cast<uint32_t>(i) * 4u;
-  uint32_t hr[4] = {0u, 0u, 0u, 0u};       // RR counter hashes, per element
-  if constexpr (kRR) {
-#pragma unroll
-    for (int j = 0; j < 4; ++j) hr[j] = mix32(e0 + j);
-  }
-  // Mask counter hashes: per element pair at 16 bits, per element at 32.
-  // The stream arithmetic is wire::stream_hashes/fold_stream's, written out
-  // here: at 32 bits without RR the helpers' form made this kernel 1.60 ms
-  // where this one takes 1.12 (N = 10, R = 41,016, on an H100 80GB HBM3
-  // at 700 W), both at 32 registers.
-  uint32_t hm[4] = {0u, 0u, 0u, 0u};
-  if constexpr (kMasks && kWordBits == 16) {
-    hm[0] = mix32(e0 >> 1);
-    hm[1] = mix32((e0 >> 1) + 1u);
-  } else if constexpr (kMasks) {
-#pragma unroll
-    for (int j = 0; j < 4; ++j) hm[j] = kRR ? hr[j] : mix32(e0 + j);
-  }
-
-  for (int k = 0; k < n; ++k) {
-    const int64_t at = static_cast<int64_t>(k) * m + i;
-    const float4 x = q[at];
-    const float bk = beta[k];
-    uint32_t f[4] = {wire_field(x.x, a.x, step.x, bk, alpha1, round1),
-                     wire_field(x.y, a.y, step.y, bk, alpha1, round1),
-                     wire_field(x.z, a.z, step.z, bk, alpha1, round1),
-                     wire_field(x.w, a.w, step.w, bk, alpha1, round1)};
+    // Flat element index of this thread's first element (the wrapper keeps
+    // 4 * m within 32 bits).
+    const uint32_t e0 = static_cast<uint32_t>(i) * 4u;
+    uint32_t hr[4] = {0u, 0u, 0u, 0u};     // RR counter hashes, per element
     if constexpr (kRR) {
-      const uint32_t rk = rr_keys[k];
 #pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        const uint32_t rr = mix32(hr[j] + rk);
-        if ((rr & 0xFFFFu) < rr_threshold) f[j] = (rr >> 16) % 3u;
-      }
+      for (int j = 0; j < 4; ++j) hr[j] = mix32(e0 + j);
     }
-    const uint32_t wk = wq[k];
-    uint32_t acc0 = wk * f[0], acc1 = wk * f[1], acc2 = wk * f[2],
-             acc3 = wk * f[3];
-    if constexpr (kMasks) {
-      const uint32_t* row_keys = s_keys + k * cohort;
-      const int32_t* row_signs = s_signs + k * cohort;
-      for (int l = 0; l < cohort; ++l) {
-        const int32_t s = row_signs[l];
-        if (s == 0) continue;
-        const uint32_t us = static_cast<uint32_t>(s);
-        const uint32_t key = row_keys[l];
-        if constexpr (kWordBits == 16) {
-          const uint32_t u0 = mix32(hm[0] + key);
-          const uint32_t u1 = mix32(hm[1] + key);
-          acc0 += us * (u0 & 0xFFFFu);
-          acc1 += us * (u0 >> 16);
-          acc2 += us * (u1 & 0xFFFFu);
-          acc3 += us * (u1 >> 16);
-        } else {
-          acc0 += us * mix32(hm[0] + key);
-          acc1 += us * mix32(hm[1] + key);
-          acc2 += us * mix32(hm[2] + key);
-          acc3 += us * mix32(hm[3] + key);
+    // Mask counter hashes: per element pair at 16 bits, per element at 32.
+    // The stream arithmetic is wire::stream_hashes/fold_stream's, written
+    // out here: at 32 bits without RR the helpers' form made this kernel
+    // 1.60 ms where this one takes 1.12 (N = 10, R = 41,016, on an H100
+    // 80GB HBM3 at 700 W), both at 32 registers.
+    uint32_t hm[4] = {0u, 0u, 0u, 0u};
+    if constexpr (kMasks && kWordBits == 16) {
+      hm[0] = mix32(e0 >> 1);
+      hm[1] = mix32((e0 >> 1) + 1u);
+    } else if constexpr (kMasks) {
+#pragma unroll
+      for (int j = 0; j < 4; ++j) hm[j] = kRR ? hr[j] : mix32(e0 + j);
+    }
+
+    for (int kk = 0; kk < nb; ++kk) {
+      const int k = k0 + kk;
+      const int64_t at = static_cast<int64_t>(k) * m + i;
+      const float4 x = q[at];
+      const float bk = beta[k];
+      uint32_t f[4] = {wire_field(x.x, a.x, step.x, bk, alpha1, round1),
+                       wire_field(x.y, a.y, step.y, bk, alpha1, round1),
+                       wire_field(x.z, a.z, step.z, bk, alpha1, round1),
+                       wire_field(x.w, a.w, step.w, bk, alpha1, round1)};
+      if constexpr (kRR) {
+        const uint32_t rk = rr_keys[k];
+#pragma unroll
+        for (int j = 0; j < 4; ++j) {
+          const uint32_t rr = mix32(hr[j] + rk);
+          if ((rr & 0xFFFFu) < rr_threshold) f[j] = (rr >> 16) % 3u;
         }
       }
-    }
-    if constexpr (kWordBits == 16) {
-      reinterpret_cast<ushort4*>(out)[at] = make_ushort4(
-          static_cast<uint16_t>(acc0), static_cast<uint16_t>(acc1),
-          static_cast<uint16_t>(acc2), static_cast<uint16_t>(acc3));
-    } else {
-      reinterpret_cast<uint4*>(out)[at] = make_uint4(acc0, acc1, acc2, acc3);
+      const uint32_t wk = wq[k];
+      uint32_t acc0 = wk * f[0], acc1 = wk * f[1], acc2 = wk * f[2],
+               acc3 = wk * f[3];
+      if constexpr (kMasks) {
+        const uint32_t* row_keys = s_keys + kk * cohort;
+        const int32_t* row_signs = s_signs + kk * cohort;
+        for (int l = 0; l < cohort; ++l) {
+          const int32_t s = row_signs[l];
+          if (s == 0) continue;
+          const uint32_t us = static_cast<uint32_t>(s);
+          const uint32_t key = row_keys[l];
+          if constexpr (kWordBits == 16) {
+            const uint32_t u0 = mix32(hm[0] + key);
+            const uint32_t u1 = mix32(hm[1] + key);
+            acc0 += us * (u0 & 0xFFFFu);
+            acc1 += us * (u0 >> 16);
+            acc2 += us * (u1 & 0xFFFFu);
+            acc3 += us * (u1 >> 16);
+          } else {
+            acc0 += us * mix32(hm[0] + key);
+            acc1 += us * mix32(hm[1] + key);
+            acc2 += us * mix32(hm[2] + key);
+            acc3 += us * mix32(hm[3] + key);
+          }
+        }
+      }
+      if constexpr (kWordBits == 16) {
+        reinterpret_cast<ushort4*>(out)[at] = make_ushort4(
+            static_cast<uint16_t>(acc0), static_cast<uint16_t>(acc1),
+            static_cast<uint16_t>(acc2), static_cast<uint16_t>(acc3));
+      } else {
+        reinterpret_cast<uint4*>(out)[at] =
+            make_uint4(acc0, acc1, acc2, acc3);
+      }
     }
   }
 }
@@ -183,6 +209,11 @@ constexpr int kPairMaxWorkers = 16;
 // 80GB HBM3 at 700 W: the guards kept 121 registers and 137 KB of code
 // for 16 workers at any n.) At most 128 registers a thread (two blocks an
 // SM) for the accumulators, hashes and the kN float4 loads in flight.
+//
+// The pair kernel honours the one plan of before plans (block_rows = 2,
+// one position a thread; block_workers = n): a loop over a longer span
+// took 33-43% longer at every plan tried (N = 10, R = 41,016, on an H100
+// 80GB HBM3 at 700 W), and ops snaps any other request to it.
 template <int kWordBits, bool kRR, bool kMasks, int kN>
 __global__ void __launch_bounds__(kThreads, 2)
 ternary_pack_masked_pairs_kernel(const float4* __restrict__ q,
@@ -323,7 +354,7 @@ __device__ __forceinline__ float residue(uint32_t acc, uint32_t sum_wq) {
 // Bound: bytes. A handful of integer and float operations per element
 // against (2 c + 16) bytes at 16 bits; one 8- or 16-byte load per word row
 // per thread, and one 16-byte store.
-template <int kWordBits>
+template <int kWordBits, int kAhead>
 __global__ void __launch_bounds__(kThreads)
 masked_master_update_kernel(const float4* __restrict__ q,
                             const int64_t* __restrict__ k_star,
@@ -333,32 +364,47 @@ masked_master_update_kernel(const float4* __restrict__ q,
                             const float4* __restrict__ p2,
                             const int32_t* __restrict__ t, float alpha0,
                             float scale_mult, float4* __restrict__ out, int n,
-                            int c, int64_t m) {
-  const int64_t i = static_cast<int64_t>(blockIdx.x) * kThreads + threadIdx.x;
-  if (i >= m) return;
+                            int c, int64_t m, int block_rows) {
+  const Span span = cta_span(block_rows, m);
   const int64_t pilot = *k_star;
-  if (pilot < 0 || pilot >= n) {
-    const float nan = __int_as_float(0x7fc00000);
-    out[i] = make_float4(nan, nan, nan, nan);
-    return;
-  }
-  uint32_t a[4] = {0u, 0u, 0u, 0u};
-  for (int k = 0; k < c; ++k) {
-    uint32_t w[4];
-    load_words<kWordBits>(masked, static_cast<int64_t>(k) * m + i, w);
-#pragma unroll
-    for (int j = 0; j < 4; ++j) a[j] += w[j];
-  }
   const uint32_t sw = *sum_wq;
-  const float c0 = __fmul_rn(residue<kWordBits>(a[0], sw), scale_mult);
-  const float c1 = __fmul_rn(residue<kWordBits>(a[1], sw), scale_mult);
-  const float c2 = __fmul_rn(residue<kWordBits>(a[2], sw), scale_mult);
-  const float c3 = __fmul_rn(residue<kWordBits>(a[3], sw), scale_mult);
-  float4 mult = make_float4(alpha0, alpha0, alpha0, alpha0);
-  if (*t > 1) mult = sub4(p1[i], p2[i]);
-  const float4 x = q[pilot * m + i];
-  out[i] = make_float4(__fmaf_rn(-c0, mult.x, x.x), __fmaf_rn(-c1, mult.y, x.y),
-                       __fmaf_rn(-c2, mult.z, x.z), __fmaf_rn(-c3, mult.w, x.w));
+  for (int64_t i = span.begin + threadIdx.x; i < span.end; i += kThreads) {
+    if (pilot < 0 || pilot >= n) {
+      const float nan = __int_as_float(0x7fc00000);
+      out[i] = make_float4(nan, nan, nan, nan);
+      continue;
+    }
+    uint32_t a[4] = {0u, 0u, 0u, 0u};
+    for (int k0 = 0; k0 < c; k0 += kAhead) {
+      // kAhead rows' words requested before the first is summed.
+      uint32_t w[kAhead][4];
+#pragma unroll
+      for (int j = 0; j < kAhead; ++j) {
+        if (kAhead == 1 || k0 + j < c) {
+          load_words<kWordBits>(masked, static_cast<int64_t>(k0 + j) * m + i,
+                                w[j]);
+        }
+      }
+#pragma unroll
+      for (int j = 0; j < kAhead; ++j) {
+        if (kAhead == 1 || k0 + j < c) {
+#pragma unroll
+          for (int e = 0; e < 4; ++e) a[e] += w[j][e];
+        }
+      }
+    }
+    const float c0 = __fmul_rn(residue<kWordBits>(a[0], sw), scale_mult);
+    const float c1 = __fmul_rn(residue<kWordBits>(a[1], sw), scale_mult);
+    const float c2 = __fmul_rn(residue<kWordBits>(a[2], sw), scale_mult);
+    const float c3 = __fmul_rn(residue<kWordBits>(a[3], sw), scale_mult);
+    float4 mult = make_float4(alpha0, alpha0, alpha0, alpha0);
+    if (*t > 1) mult = sub4(p1[i], p2[i]);
+    const float4 x = q[pilot * m + i];
+    out[i] = make_float4(__fmaf_rn(-c0, mult.x, x.x),
+                         __fmaf_rn(-c1, mult.y, x.y),
+                         __fmaf_rn(-c2, mult.z, x.z),
+                         __fmaf_rn(-c3, mult.w, x.w));
+  }
 }
 
 // Replaces mask_repair_2d (JAX package, kernels/masked_wire.py). Per
@@ -372,9 +418,10 @@ masked_master_update_kernel(const float4* __restrict__ q,
 // Bound: bytes (a 16-bit row's read and write, 84 MB at the main path's
 // R) unless many pairs are live. The design answers what held the
 // one-word-group-a-thread kernel at 40% of that bound:
-// - each thread owns kRepairChunks 16-byte chunks (8 words at 16 bits, 4
-//   at 32), a block's width apart, and issues all their loads before any
-//   hashing: 64 bytes in flight a thread;
+// - each thread owns kChunks 16-byte chunks (8 words at 16 bits, 4 at
+//   32), a block's width apart, and issues all their loads before any
+//   hashing: 64 bytes in flight a thread at the default kChunks = 4 (the
+//   plan's block_rows picks 1, 2 or 4);
 // - a persistent grid (the SM count times the blocks an SM holds) walks
 //   the row, so each block stages its pairs once;
 // - warp 0 compacts the pairs with a coefficient into shared memory by
@@ -385,8 +432,6 @@ masked_master_update_kernel(const float4* __restrict__ q,
 // Chunk c's counter hashes are mix32(4c + j), j < 4, at both widths: at
 // 16 bits one per element pair (elements 8c + 2j, 8c + 2j + 1), at 32 one
 // per element (4c + j).
-constexpr int kRepairChunks = 4;
-
 template <int kWordBits>
 __device__ __forceinline__ void fold_chunk(const uint32_t h[4], uint32_t key,
                                            uint32_t s, uint32_t acc[8]) {
@@ -404,29 +449,29 @@ __device__ __forceinline__ void fold_chunk(const uint32_t h[4], uint32_t key,
 
 // Thread threadIdx.x's chunks of the span at `at`, zero past the end or
 // without y.
-template <bool kReadY>
+template <bool kReadY, int kChunks>
 __device__ __forceinline__ void load_chunks(const uint4* y, int64_t at,
                                             int64_t n_chunks,
-                                            uint4 (&v)[kRepairChunks]) {
+                                            uint4 (&v)[kChunks]) {
 #pragma unroll
-  for (int u = 0; u < kRepairChunks; ++u) {
+  for (int u = 0; u < kChunks; ++u) {
     const int64_t c = at + u * kThreads + threadIdx.x;
     v[u] = make_uint4(0u, 0u, 0u, 0u);
     if (kReadY && c < n_chunks) v[u] = y[c];
   }
 }
 
-template <int kWordBits, bool kReadY>
+template <int kWordBits, bool kReadY, int kChunks>
 __global__ void __launch_bounds__(kThreads)
 mask_repair_kernel(const uint4* y, const uint32_t* __restrict__ keys,
                    const int32_t* __restrict__ coeff, uint4* out,
                    int n_pairs, int64_t n_chunks) {
   extern __shared__ uint2 live[];          // (key, coeff) of the live pairs
-  constexpr int kSpan = kThreads * kRepairChunks;
+  constexpr int kSpan = kThreads * kChunks;
   const int64_t stride = static_cast<int64_t>(gridDim.x) * kSpan;
   int64_t base = static_cast<int64_t>(blockIdx.x) * kSpan;
-  uint4 v[kRepairChunks];
-  load_chunks<kReadY>(y, base, n_chunks, v);
+  uint4 v[kChunks];
+  load_chunks<kReadY, kChunks>(y, base, n_chunks, v);
   if (threadIdx.x < 32) {
     const int lane = threadIdx.x;
     int n_live = 0;
@@ -450,10 +495,10 @@ mask_repair_kernel(const uint4* y, const uint32_t* __restrict__ keys,
     n_live = static_cast<int>(live[n_pairs - 1].x);
   }
   for (; base < n_chunks; base += stride) {
-    uint32_t acc[kRepairChunks][8];
-    uint32_t h[kRepairChunks][4];
+    uint32_t acc[kChunks][8];
+    uint32_t h[kChunks][4];
 #pragma unroll
-    for (int u = 0; u < kRepairChunks; ++u) {
+    for (int u = 0; u < kChunks; ++u) {
       const uint32_t c = static_cast<uint32_t>(base + u * kThreads +
                                                threadIdx.x);
       const uint32_t w[4] = {v[u].x, v[u].y, v[u].z, v[u].w};
@@ -469,17 +514,17 @@ mask_repair_kernel(const uint4* y, const uint32_t* __restrict__ keys,
       }
     }
     if (base + stride < n_chunks) {
-      load_chunks<kReadY>(y, base + stride, n_chunks, v);
+      load_chunks<kReadY, kChunks>(y, base + stride, n_chunks, v);
     }
     for (int p = 0; p < n_live; ++p) {
       const uint2 kc = live[p];
 #pragma unroll
-      for (int u = 0; u < kRepairChunks; ++u) {
+      for (int u = 0; u < kChunks; ++u) {
         fold_chunk<kWordBits>(h[u], kc.x, kc.y, acc[u]);
       }
     }
 #pragma unroll
-    for (int u = 0; u < kRepairChunks; ++u) {
+    for (int u = 0; u < kChunks; ++u) {
       const int64_t c = base + u * kThreads + threadIdx.x;
       if (c >= n_chunks) continue;
       uint32_t w[4];
@@ -496,12 +541,12 @@ mask_repair_kernel(const uint4* y, const uint32_t* __restrict__ keys,
 
 // Blocks of the persistent grid: as many as fit on every SM at once with
 // this much shared memory, and no more than the chunks need.
-template <int kWordBits, bool kReadY>
+template <int kWordBits, bool kReadY, int kChunks>
 cudaError_t launch_repair_kernel(const void* y, const uint32_t* keys,
                                  const int32_t* coeff, void* out,
                                  int n_pairs, int64_t n_chunks,
                                  cudaStream_t stream) {
-  const auto kernel = mask_repair_kernel<kWordBits, kReadY>;
+  const auto kernel = mask_repair_kernel<kWordBits, kReadY, kChunks>;
   const size_t staged = sizeof(uint2) * static_cast<size_t>(n_pairs);
   cudaError_t err;
   if (staged > 48 * 1024) {
@@ -517,7 +562,7 @@ cudaError_t launch_repair_kernel(const void* y, const uint32_t* keys,
   err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel,
                                                       kThreads, staged);
   if (err != cudaSuccess) return err;
-  const int64_t span = kThreads * kRepairChunks;
+  const int64_t span = kThreads * kChunks;
   const int64_t need = (n_chunks + span - 1) / span;
   const int64_t fit = static_cast<int64_t>(sms) * (per_sm > 0 ? per_sm : 1);
   const unsigned grid = static_cast<unsigned>(need < fit ? need : fit);
@@ -527,17 +572,40 @@ cudaError_t launch_repair_kernel(const void* y, const uint32_t* keys,
   return cudaGetLastError();
 }
 
+template <int kWordBits, int kChunks>
+cudaError_t launch_repair_chunks(const void* y, const uint32_t* keys,
+                                 const int32_t* coeff, void* out,
+                                 int n_pairs, int64_t n_chunks,
+                                 cudaStream_t stream) {
+  if (y == nullptr) {
+    return launch_repair_kernel<kWordBits, false, kChunks>(
+        y, keys, coeff, out, n_pairs, n_chunks, stream);
+  }
+  return launch_repair_kernel<kWordBits, true, kChunks>(
+      y, keys, coeff, out, n_pairs, n_chunks, stream);
+}
+
+// block_rows: the rows a pass of the grid covers, kChunks * kThreads
+// chunks of 16 bytes; a row is 512 words.
 template <int kWordBits>
 cudaError_t launch_repair(const void* y, const uint32_t* keys,
                           const int32_t* coeff, void* out, int n_pairs,
-                          int64_t rows, cudaStream_t stream) {
+                          int64_t rows, int block_rows, cudaStream_t stream) {
   const int64_t n_chunks = rows * 512 * (kWordBits / 8) / 16;
-  if (y == nullptr) {
-    return launch_repair_kernel<kWordBits, false>(y, keys, coeff, out,
-                                                  n_pairs, n_chunks, stream);
+  constexpr int kRowsPerChunk = 16 * kThreads / (512 * (kWordBits / 8));
+  switch (block_rows) {
+    case 1 * kRowsPerChunk:
+      return launch_repair_chunks<kWordBits, 1>(y, keys, coeff, out, n_pairs,
+                                                n_chunks, stream);
+    case 2 * kRowsPerChunk:
+      return launch_repair_chunks<kWordBits, 2>(y, keys, coeff, out, n_pairs,
+                                                n_chunks, stream);
+    case 4 * kRowsPerChunk:
+      return launch_repair_chunks<kWordBits, 4>(y, keys, coeff, out, n_pairs,
+                                                n_chunks, stream);
+    default:
+      return cudaErrorInvalidValue;
   }
-  return launch_repair_kernel<kWordBits, true>(y, keys, coeff, out, n_pairs,
-                                               n_chunks, stream);
 }
 
 struct PackArgs {
@@ -556,6 +624,8 @@ struct PackArgs {
   int n;
   int cohort;
   int64_t m;
+  int block_rows;
+  int block_workers;
   bool pairs;
   cudaStream_t stream;
 };
@@ -578,11 +648,16 @@ cudaError_t launch_pairs(const PackArgs& a) {
 template <int kWordBits, bool kRR, bool kMasks>
 cudaError_t launch_pack(const PackArgs& a) {
   if (a.pairs) {
-    if (a.cohort != a.n) return cudaErrorInvalidValue;
+    if (a.cohort != a.n || a.block_workers != a.n ||
+        a.block_rows != kThreads / wire::kRowPositions) {
+      return cudaErrorInvalidValue;
+    }
     return launch_pairs<kWordBits, kRR, kMasks>(a);
   }
-  const size_t staged =
-      kMasks ? 2 * sizeof(uint32_t) * static_cast<size_t>(a.n) * a.cohort : 0;
+  const size_t staged = kMasks ? 2 * sizeof(uint32_t) *
+                                     static_cast<size_t>(a.block_workers) *
+                                     a.cohort
+                               : 0;
   if (staged > 48 * 1024) {
     const cudaError_t err = cudaFuncSetAttribute(
         ternary_pack_masked_kernel<kWordBits, kRR, kMasks>,
@@ -590,10 +665,13 @@ cudaError_t launch_pack(const PackArgs& a) {
         static_cast<int>(staged));
     if (err != cudaSuccess) return err;
   }
+  const dim3 grid(blocks_for_rows(a.m, a.block_rows),
+                  blocks_of(a.n, a.block_workers));
   ternary_pack_masked_kernel<kWordBits, kRR, kMasks>
-      <<<blocks_for(a.m), kThreads, staged, a.stream>>>(
+      <<<grid, kThreads, staged, a.stream>>>(
       a.q, a.p1, a.p2, a.beta, a.wq, a.keys, a.signs, a.rr_keys, a.t,
-      a.alpha1, a.rr_threshold, a.out, a.n, a.cohort, a.m);
+      a.alpha1, a.rr_threshold, a.out, a.n, a.cohort, a.m, a.block_rows,
+      a.block_workers);
   return cudaGetLastError();
 }
 
@@ -615,15 +693,19 @@ extern "C" {
 // keys (n, cohort) uint32, signs (n, cohort) int32, rr_keys (n,) uint32,
 // t int32 scalar, out (n, m) ushort4 (word_bits 16) or uint4 (32).
 // pairs != 0 takes the pair kernel (cohort == n <= kPairMaxWorkers, keys
-// symmetric, signs antisymmetric), else the row-fold kernel.
+// symmetric, signs antisymmetric; block_rows == 2, block_workers == n),
+// else the row-fold kernel (1 <= block_workers <= n; block_rows >= 1).
 int mw_ternary_pack_masked(const void* q, const void* p1, const void* p2,
                            const void* beta, const void* wq, const void* keys,
                            const void* signs, const void* rr_keys,
                            const void* t, float alpha1,
                            unsigned rr_threshold, int word_bits,
                            int use_masks, int pairs, void* out, int n,
-                           int cohort, long long m, int device,
-                           void* stream) {
+                           int cohort, long long m, int block_rows,
+                           int block_workers, int device, void* stream) {
+  if (block_rows < 1 || block_workers < 1 || block_workers > n) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
   const cudaError_t set = cudaSetDevice(device);
   if (set != cudaSuccess) return static_cast<int>(set);
   const PackArgs a{static_cast<const float4*>(q),
@@ -641,6 +723,8 @@ int mw_ternary_pack_masked(const void* q, const void* p1, const void* p2,
                    n,
                    cohort,
                    m,
+                   block_rows,
+                   block_workers,
                    pairs != 0,
                    static_cast<cudaStream_t>(stream)};
   const bool rr = rr_threshold > 0;
@@ -657,41 +741,57 @@ int mw_ternary_pack_masked(const void* q, const void* p1, const void* p2,
 }
 
 // q (n, m) float4, k_star int64 scalar, masked (c, m) ushort4 / uint4,
-// sum_wq uint32 scalar, p1/p2/out (m,) float4, t int32 scalar.
+// sum_wq uint32 scalar, p1/p2/out (m,) float4, t int32 scalar;
+// block_rows >= 1, block_workers (the word rows loaded ahead) 1, 2, 4 or 8.
 int mw_masked_master_update(const void* q, const void* k_star,
                             const void* masked, const void* sum_wq,
                             const void* p1, const void* p2, const void* t,
                             float alpha0, float scale_mult, int word_bits,
-                            void* out, int n, int c, long long m, int device,
+                            void* out, int n, int c, long long m,
+                            int block_rows, int block_workers, int device,
                             void* stream) {
-  const cudaError_t set = cudaSetDevice(device);
-  if (set != cudaSuccess) return static_cast<int>(set);
-  const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const auto* qq = static_cast<const float4*>(q);
-  const auto* kk = static_cast<const int64_t*>(k_star);
-  const auto* sw = static_cast<const uint32_t*>(sum_wq);
-  const auto* a = static_cast<const float4*>(p1);
-  const auto* b = static_cast<const float4*>(p2);
-  const auto* tt = static_cast<const int32_t*>(t);
-  auto* o = static_cast<float4*>(out);
+  using Kernel = void (*)(const float4*, const int64_t*, const void*,
+                          const uint32_t*, const float4*, const float4*,
+                          const int32_t*, float, float, float4*, int, int,
+                          int64_t, int);
+  Kernel kernel = nullptr;
   if (word_bits == 16) {
-    masked_master_update_kernel<16><<<blocks_for(m), kThreads, 0, s>>>(
-        qq, kk, masked, sw, a, b, tt, alpha0, scale_mult, o, n, c, m);
+    switch (block_workers) {
+      case 1: kernel = masked_master_update_kernel<16, 1>; break;
+      case 2: kernel = masked_master_update_kernel<16, 2>; break;
+      case 4: kernel = masked_master_update_kernel<16, 4>; break;
+      case 8: kernel = masked_master_update_kernel<16, 8>; break;
+    }
   } else if (word_bits == 32) {
-    masked_master_update_kernel<32><<<blocks_for(m), kThreads, 0, s>>>(
-        qq, kk, masked, sw, a, b, tt, alpha0, scale_mult, o, n, c, m);
-  } else {
+    switch (block_workers) {
+      case 1: kernel = masked_master_update_kernel<32, 1>; break;
+      case 2: kernel = masked_master_update_kernel<32, 2>; break;
+      case 4: kernel = masked_master_update_kernel<32, 4>; break;
+      case 8: kernel = masked_master_update_kernel<32, 8>; break;
+    }
+  }
+  if (kernel == nullptr || block_rows < 1) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
+  const cudaError_t set = cudaSetDevice(device);
+  if (set != cudaSuccess) return static_cast<int>(set);
+  kernel<<<blocks_for_rows(m, block_rows), kThreads, 0,
+           static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const float4*>(q), static_cast<const int64_t*>(k_star),
+      masked, static_cast<const uint32_t*>(sum_wq),
+      static_cast<const float4*>(p1), static_cast<const float4*>(p2),
+      static_cast<const int32_t*>(t), alpha0, scale_mult,
+      static_cast<float4*>(out), n, c, m, block_rows);
   return static_cast<int>(cudaGetLastError());
 }
 
 // y/out (rows, 512) words of word_bits bits, y NULL for the repair term
 // alone (write-only); out may be y. keys (n_pairs,) uint32, coeff
-// (n_pairs,) int32.
+// (n_pairs,) int32; block_rows the rows a pass covers (4, 8 or 16 at 16
+// bits; 2, 4 or 8 at 32).
 int mw_mask_repair(const void* y, const void* keys, const void* coeff,
                    int word_bits, void* out, int n_pairs, long long rows,
-                   int device, void* stream) {
+                   int block_rows, int device, void* stream) {
   const cudaError_t set = cudaSetDevice(device);
   if (set != cudaSuccess) return static_cast<int>(set);
   const auto* kk = static_cast<const uint32_t*>(keys);
@@ -699,9 +799,9 @@ int mw_mask_repair(const void* y, const void* keys, const void* coeff,
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   cudaError_t err;
   if (word_bits == 16) {
-    err = launch_repair<16>(y, kk, cc, out, n_pairs, rows, s);
+    err = launch_repair<16>(y, kk, cc, out, n_pairs, rows, block_rows, s);
   } else if (word_bits == 32) {
-    err = launch_repair<32>(y, kk, cc, out, n_pairs, rows, s);
+    err = launch_repair<32>(y, kk, cc, out, n_pairs, rows, block_rows, s);
   } else {
     err = cudaErrorInvalidValue;
   }

@@ -118,4 +118,31 @@ inline unsigned blocks_for(int64_t m) {
   return static_cast<unsigned>((m + kThreads - 1) / kThreads);
 }
 
+// The launch plan of the tuned kernels (repro_torch/kernels/tune.py): a
+// CTA of kThreads threads covers block_rows kernel-view rows of
+// kRowPositions positions each (a float4 of every float operand, a byte
+// of every packed one), its threads looping over them kThreads positions
+// apart. block_rows = 2 is one position a thread, the one geometry of
+// these kernels before plans. A ragged last CTA is guarded.
+constexpr int kRowPositions = 128;
+
+struct Span {
+  int64_t begin, end;
+};
+
+__device__ __forceinline__ Span cta_span(int block_rows, int64_t m) {
+  const int64_t per = static_cast<int64_t>(block_rows) * kRowPositions;
+  const int64_t begin = static_cast<int64_t>(blockIdx.x) * per;
+  return {begin, begin + per < m ? begin + per : m};
+}
+
+inline unsigned blocks_for_rows(int64_t m, int block_rows) {
+  const int64_t per = static_cast<int64_t>(block_rows) * kRowPositions;
+  return static_cast<unsigned>((m + per - 1) / per);
+}
+
+inline unsigned blocks_of(int n, int per_block) {
+  return static_cast<unsigned>((n + per_block - 1) / per_block);
+}
+
 }  // namespace wire

@@ -11,6 +11,18 @@ what it writes is already masked. It has two kernels, picked by shape
 alone (:func:`uses_pair_kernel`): one that expands each unordered pair
 once for all workers in registers, and one that folds each worker's row.
 
+A launch takes a plan, as ``csrc/masked_wire.cu`` reads it: the uplink's
+and the master's ``block_rows`` (kernel-view rows a CTA covers), the
+row-fold uplink's ``block_workers`` (workers a CTA; the pair kernel
+honours only its default, 2 rows and all N), the master's
+``block_workers`` (word rows loaded ahead of each step of its sum), the
+repair's ``block_rows`` (rows a pass of its persistent grid covers). The plan comes from the caller: ``kernels.ops``
+resolves it through the ``kernels.tune`` table and snaps it to one the
+kernel honours; left as None here it is the kernels' default geometry
+(``tune.default_plan`` on ``"cuda"``), and a plan the kernel would have
+to change raises. The plain twin has no grid, so a plan there changes
+nothing.
+
 Each wrapper checks device, dtype, shape, contiguity and alignment and
 raises on what its kernel does not take. A CUDA tensor launches the
 kernel on the current stream and bumps ``LAUNCHES``; a CPU tensor takes
@@ -27,7 +39,7 @@ import ctypes
 
 import torch
 
-from repro_torch.kernels import build
+from repro_torch.kernels import build, tune
 from repro_torch.kernels.fused_wire import WIDE, check_operand, scope_kind
 from repro_torch.kernels.seam import device_of, run_plain
 from repro_torch.privacy import ref as pref
@@ -58,16 +70,17 @@ def _lib() -> ctypes.CDLL:
         lib.mw_ternary_pack_masked.argtypes = [
             _P, _P, _P, _P, _P, _P, _P, _P, _P, ctypes.c_float,
             ctypes.c_uint, ctypes.c_int, ctypes.c_int, ctypes.c_int, _P,
-            ctypes.c_int, ctypes.c_int, ctypes.c_longlong, ctypes.c_int, _P]
+            ctypes.c_int, ctypes.c_int, ctypes.c_longlong, ctypes.c_int,
+            ctypes.c_int, ctypes.c_int, _P]
         lib.mw_ternary_pack_masked.restype = ctypes.c_int
         lib.mw_masked_master_update.argtypes = [
             _P, _P, _P, _P, _P, _P, _P, ctypes.c_float, ctypes.c_float,
             ctypes.c_int, _P, ctypes.c_int, ctypes.c_int, ctypes.c_longlong,
-            ctypes.c_int, _P]
+            ctypes.c_int, ctypes.c_int, ctypes.c_int, _P]
         lib.mw_masked_master_update.restype = ctypes.c_int
         lib.mw_mask_repair.argtypes = [
             _P, _P, _P, ctypes.c_int, _P, ctypes.c_int, ctypes.c_longlong,
-            ctypes.c_int, _P]
+            ctypes.c_int, ctypes.c_int, _P]
         lib.mw_mask_repair.restype = ctypes.c_int
         lib.mw_error_string.argtypes = [ctypes.c_int]
         lib.mw_error_string.restype = ctypes.c_char_p
@@ -118,7 +131,9 @@ def ternary_pack_masked(q: torch.Tensor, p1: torch.Tensor, p2: torch.Tensor,
                         wq: torch.Tensor, keys: torch.Tensor,
                         signs: torch.Tensor, rr_keys: torch.Tensor, *,
                         rr_threshold: int = 0, word_bits: int = 32,
-                        use_masks: bool = True) -> torch.Tensor:
+                        use_masks: bool = True,
+                        block_rows: int | None = None,
+                        block_workers: int | None = None) -> torch.Tensor:
     """All N workers' masked wire words in one launch.
 
     q (N, R, 512) float32, every worker's view; p1/p2 (R, 512) float32;
@@ -127,8 +142,11 @@ def ternary_pack_masked(q: torch.Tensor, p1: torch.Tensor, p2: torch.Tensor,
     uint32 pair stream keys and signs (N, L) int32 the participation-folded
     signs (row k is worker k's; L is the cohort); rr_keys (N,) uint32;
     ``rr_threshold`` the uint16 flip threshold (0 = RR off); ``word_bits``
-    16 or 32; ``use_masks=False`` adds no mask (the unmasked debug wire).
-    Returns (N, R, 512) uint16 or uint32.
+    16 or 32; ``use_masks=False`` adds no mask (the unmasked debug wire);
+    the plan: any ``block_rows`` in [1, max(R, 2)] and ``block_workers``
+    in [1, N] for the row fold, 2 and N alone for the pair kernel
+    (default 2 and N). Returns
+    (N, R, 512) uint16 or uint32.
 
     Where :func:`uses_pair_kernel` holds, the kernel reads only the upper
     triangle of a square key matrix: the keys must be symmetric and the
@@ -138,22 +156,27 @@ def ternary_pack_masked(q: torch.Tensor, p1: torch.Tensor, p2: torch.Tensor,
     """
     return _pack_masked(q, p1, p2, t, beta, alpha1, wq, keys, signs,
                         rr_keys, rr_threshold, word_bits, use_masks,
-                        row_fold=False)
+                        row_fold=False, block_rows=block_rows,
+                        block_workers=block_workers)
 
 
 def _ternary_pack_masked_rows(q, p1, p2, t, beta, alpha1, wq, keys, signs,
                               rr_keys, *, rr_threshold: int = 0,
-                              word_bits: int = 32, use_masks: bool = True
+                              word_bits: int = 32, use_masks: bool = True,
+                              block_rows: int | None = None,
+                              block_workers: int | None = None
                               ) -> torch.Tensor:
     """:func:`ternary_pack_masked` through the row-fold kernel at any
     shape: the yardstick the pair kernel is timed and checked against."""
     return _pack_masked(q, p1, p2, t, beta, alpha1, wq, keys, signs,
                         rr_keys, rr_threshold, word_bits, use_masks,
-                        row_fold=True)
+                        row_fold=True, block_rows=block_rows,
+                        block_workers=block_workers)
 
 
 def _pack_masked(q, p1, p2, t, beta, alpha1, wq, keys, signs, rr_keys,
-                 rr_threshold, word_bits, use_masks, *, row_fold: bool):
+                 rr_threshold, word_bits, use_masks, *, row_fold: bool,
+                 block_rows: int | None, block_workers: int | None):
     dev = device_of(q)
     n, r = q.shape[0], q.shape[1]
     cohort = keys.shape[1] if keys.dim() == 2 else -1
@@ -187,6 +210,8 @@ def _pack_masked(q, p1, p2, t, beta, alpha1, wq, keys, signs, rr_keys,
                 rr_threshold=rr_threshold, word_bits=word_bits,
                 use_masks=use_masks)
         pairs = not row_fold and uses_pair_kernel(n, cohort)
+        br, bw = tune.cuda_plan(scope_kind("uplink_masked", word_bits), r, n,
+                                block_rows, block_workers, pairs=pairs)
         out = torch.empty((n, r, WIDE), dtype=_WORD_DTYPES[word_bits],
                           device=dev)
         _launch("uplink_masked", _lib().mw_ternary_pack_masked,
@@ -194,7 +219,7 @@ def _pack_masked(q, p1, p2, t, beta, alpha1, wq, keys, signs, rr_keys,
                 wq.data_ptr(), keys.data_ptr(), signs.data_ptr(),
                 rr_keys.data_ptr(), t.data_ptr(), float(alpha1),
                 int(rr_threshold), word_bits, int(bool(use_masks)), int(pairs),
-                out.data_ptr(), n, cohort, r * WIDE // 4, dev.index,
+                out.data_ptr(), n, cohort, r * WIDE // 4, br, bw, dev.index,
                 torch.cuda.current_stream(dev).cuda_stream)
         return out
 
@@ -213,7 +238,9 @@ def masked_master_update_plain(q, k_star, masked, sum_wq, p1, p2, t,
 def masked_master_update(q: torch.Tensor, k_star: torch.Tensor,
                          masked: torch.Tensor, sum_wq: torch.Tensor,
                          p1: torch.Tensor, p2: torch.Tensor, t: torch.Tensor,
-                         alpha0: float, scale_mult: float) -> torch.Tensor:
+                         alpha0: float, scale_mult: float, *,
+                         block_rows: int | None = None,
+                         block_workers: int | None = None) -> torch.Tensor:
     """Eq. (3) over the modular sum of the masked words.
 
     q (N, R, 512) float32, of which the pilot's view is read in place at
@@ -222,8 +249,10 @@ def masked_master_update(q: torch.Tensor, k_star: torch.Tensor,
     modulus), C >= 1 word rows: the N workers' words on the flat wire, the
     w_L last-level partials at a tree's root; sum_wq 0-d uint32, the
     public Σ_k W_k; p1/p2 (R, 512) float32; t 0-d int32; ``scale_mult``
-    the fixed-point descale with the RR unbias folded in. Returns
-    (R, 512) float32.
+    the fixed-point descale with the RR unbias folded in; the plan: any
+    ``block_rows`` in [1, max(R, 2)], ``block_workers`` the word rows loaded
+    ahead, 1, 2, 4 or 8, at most C (default 2 and 1). Returns (R, 512)
+    float32.
     """
     dev = device_of(q)
     n, r = q.shape[0], q.shape[1]
@@ -244,12 +273,14 @@ def masked_master_update(q: torch.Tensor, k_star: torch.Tensor,
             return run_plain("master_masked", masked_master_update_plain, q,
                              k_star, masked, sum_wq, p1, p2, t, alpha0,
                              scale_mult, pilot=(0, 1))
+        br, bw = tune.cuda_plan(scope_kind("master_masked", bits), r, c,
+                                block_rows, block_workers)
         out = torch.empty((r, WIDE), dtype=torch.float32, device=dev)
         _launch("master_masked", _lib().mw_masked_master_update,
                 q.data_ptr(), k_star.data_ptr(), masked.data_ptr(),
                 sum_wq.data_ptr(), p1.data_ptr(), p2.data_ptr(), t.data_ptr(),
                 float(alpha0), float(scale_mult), bits, out.data_ptr(), n, c,
-                r * WIDE // 4, dev.index,
+                r * WIDE // 4, br, bw, dev.index,
                 torch.cuda.current_stream(dev).cuda_stream)
         return out
 
@@ -273,8 +304,8 @@ def mask_repair_plain(y: torch.Tensor | None, keys: torch.Tensor,
 
 
 def mask_repair(y: torch.Tensor | None, keys: torch.Tensor,
-                coeff: torch.Tensor, *, out: torch.Tensor | None = None
-                ) -> torch.Tensor:
+                coeff: torch.Tensor, *, out: torch.Tensor | None = None,
+                block_rows: int | None = None) -> torch.Tensor:
     """Repair one slab of masked words after post-uplink deaths:
     ``y + Σ_p coeff[p]·stream(keys[p])`` mod 2**word_bits, in one launch.
 
@@ -287,6 +318,9 @@ def mask_repair(y: torch.Tensor | None, keys: torch.Tensor,
     place. ``y`` None, with ``out`` given, writes the repair term alone (a
     zero row repaired) without reading anything. P = 0 returns ``y``
     itself with no launch (with ``out``, ``y`` copied into it, or zeros).
+    The plan: ``block_rows`` the rows a pass of the persistent grid
+    covers, ``tune.repair_rows`` of the modulus (4, 8 or 16 at 16 bits;
+    2, 4 or 8 at 32; default the largest).
     """
     ref = y if y is not None else out
     if ref is None:
@@ -313,10 +347,12 @@ def mask_repair(y: torch.Tensor | None, keys: torch.Tensor,
         if dev.type != "cuda":
             return run_plain("mask_repair", mask_repair_plain, y, keys,
                              coeff, out=out)
+        br, _ = tune.cuda_plan(scope_kind("mask_repair", bits), r, 1,
+                               block_rows, None)
         if out is None:
             out = torch.empty_like(y)
         _launch("mask_repair", _lib().mw_mask_repair,
                 None if y is None else y.data_ptr(), keys.data_ptr(),
-                coeff.data_ptr(), bits, out.data_ptr(), p, r, dev.index,
+                coeff.data_ptr(), bits, out.data_ptr(), p, r, br, dev.index,
                 torch.cuda.current_stream(dev).cuda_stream)
         return out

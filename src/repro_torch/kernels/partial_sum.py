@@ -10,6 +10,15 @@ order-free, so every tree shape gives the flat round's bits. A ragged last
 group (C not a multiple of ``fanout``) folds only the children that exist;
 the JAX wrapper's zero padding gives the same bits.
 
+A launch takes a plan, as ``csrc/partial_sum.cu`` reads it:
+``block_rows`` (kernel-view rows a CTA covers) and ``block_groups``
+(output nodes a CTA folds); the leaf sum honours only its default (2
+rows, one node a CTA). ``kernels.ops`` resolves it through the
+``kernels.tune`` table (the kinds ``partial_sum*``, keyed by the fanout)
+and snaps it; left as None here it is the kernels' default geometry, and
+a plan the kernel would have to change raises. The plain twin has no
+grid, so a plan there changes nothing.
+
 Each wrapper checks device, dtype, shape, contiguity and alignment and
 raises on what its kernel does not take. A CUDA tensor launches the
 kernel on the current stream and bumps ``LAUNCHES``; a CPU tensor takes
@@ -24,7 +33,7 @@ import ctypes
 
 import torch
 
-from repro_torch.kernels import build
+from repro_torch.kernels import build, tune
 from repro_torch.kernels.fused_wire import (LANES, PACK, WIDE, check_operand,
                                             scope_kind)
 from repro_torch.kernels.seam import device_of, run_plain
@@ -50,11 +59,12 @@ def _lib() -> ctypes.CDLL:
         lib = build.load("partial_sum")
         lib.ps_partial_sum.argtypes = [
             _P, _P, ctypes.c_int, _P, ctypes.c_int, ctypes.c_int,
-            ctypes.c_longlong, ctypes.c_int, _P]
+            ctypes.c_longlong, ctypes.c_int, ctypes.c_int, ctypes.c_int, _P]
         lib.ps_partial_sum.restype = ctypes.c_int
         lib.ps_masked_partial_sum.argtypes = [
             _P, _P, _P, ctypes.c_int, ctypes.c_int, _P, ctypes.c_int,
-            ctypes.c_int, ctypes.c_int, ctypes.c_longlong, ctypes.c_int, _P]
+            ctypes.c_int, ctypes.c_int, ctypes.c_longlong, ctypes.c_int,
+            ctypes.c_int, ctypes.c_int, _P]
         lib.ps_masked_partial_sum.restype = ctypes.c_int
         lib.ps_error_string.argtypes = [ctypes.c_int]
         lib.ps_error_string.restype = ctypes.c_char_p
@@ -101,13 +111,15 @@ def partial_sum_plain(packed: torch.Tensor, wq: torch.Tensor, *,
 
 
 def partial_sum(packed: torch.Tensor, wq: torch.Tensor, *, fanout: int,
-                word_bits: int = 32) -> torch.Tensor:
+                word_bits: int = 32, block_rows: int | None = None,
+                block_groups: int | None = None) -> torch.Tensor:
     """The leaf level of the plain tree in one launch.
 
     packed (C, R, 128) uint8 §3.3 wire buffers; wq (C,) uint32 public
     fixed-point Eq. (3) weights. Each output node g sums
     ``W_c·field_c`` over its children c in ``[g·fanout, (g+1)·fanout)``,
-    with the biased fields {0, 1, 2}, mod 2**word_bits. Returns
+    with the biased fields {0, 1, 2}, mod 2**word_bits. The plan: only
+    the default, ``block_rows`` 2 and ``block_groups`` 1. Returns
     (ceil(C / fanout), R, 512) uint16 or uint32.
     """
     dev = device_of(packed)
@@ -124,11 +136,13 @@ def partial_sum(packed: torch.Tensor, wq: torch.Tensor, *, fanout: int,
         if dev.type != "cuda":
             return run_plain("partial_sum", partial_sum_plain, packed, wq,
                              fanout=fanout, word_bits=word_bits)
+        br, bg = tune.cuda_plan("partial_sum", r, g, block_rows,
+                                block_groups)
         out = torch.empty((g, r, WIDE), dtype=_WORD_DTYPES[word_bits],
                           device=dev)
         _launch("partial_sum", _lib().ps_partial_sum,
                 packed.data_ptr(), wq.data_ptr(), word_bits, out.data_ptr(), c,
-                fanout, r * LANES, dev.index,
+                fanout, r * LANES, br, bg, dev.index,
                 torch.cuda.current_stream(dev).cuda_stream)
         return out
 
@@ -154,7 +168,8 @@ def masked_partial_sum_plain(words: torch.Tensor, keys: torch.Tensor,
 
 def masked_partial_sum(words: torch.Tensor, keys: torch.Tensor,
                        signs: torch.Tensor, *, fanout: int, sibling: int,
-                       use_masks: bool = True) -> torch.Tensor:
+                       use_masks: bool = True, block_rows: int | None = None,
+                       block_groups: int | None = None) -> torch.Tensor:
     """An interior tree level in one launch.
 
     words (C, R, 512) uint16/uint32 child partials (the dtype picks the
@@ -163,8 +178,10 @@ def masked_partial_sum(words: torch.Tensor, keys: torch.Tensor,
     fanout); ``sibling`` the level's sibling-group size. Each output node
     g sums its children mod 2**word_bits and, with ``use_masks`` and
     G >= 2, adds its own net mask ``Σ_l signs[g, l]·stream(keys[g, l])``
-    over the l of its own sibling group. Returns (G, R, 512) in the words'
-    dtype.
+    over the l of its own sibling group. The plan: any ``block_rows`` in
+    [1, max(R, 2)] and ``block_groups`` in [1, G] (default 2 and 1).
+    Returns
+    (G, R, 512) in the words' dtype.
     """
     dev = device_of(words)
     c, r = (words.shape[0], words.shape[1]) if words.dim() == 3 else (-1, -1)
@@ -187,10 +204,12 @@ def masked_partial_sum(words: torch.Tensor, keys: torch.Tensor,
             return run_plain("masked_partial_sum", masked_partial_sum_plain,
                              words, keys, signs, fanout=fanout,
                              sibling=sibling, use_masks=use_masks)
+        br, bg = tune.cuda_plan(scope_kind("partial_sum_masked", bits), r,
+                                g, block_rows, block_groups)
         out = torch.empty((g, r, WIDE), dtype=words.dtype, device=dev)
         _launch("masked_partial_sum", _lib().ps_masked_partial_sum,
                 words.data_ptr(), keys.data_ptr(), signs.data_ptr(), bits,
                 int(bool(use_masks)), out.data_ptr(), c, fanout, sibling,
-                r * LANES, dev.index,
+                r * LANES, br, bg, dev.index,
                 torch.cuda.current_stream(dev).cuda_stream)
         return out

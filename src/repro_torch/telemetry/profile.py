@@ -6,7 +6,8 @@ PyTorch version a CPU tensor takes instead) runs inside a
 after its tune key: ``wire/<kind>/r<rows>n<N>/<backend>``, with
 ``backend`` ``"cuda"`` for the kernel and ``"cpu-plain"`` for the plain
 version. A ``torch.profiler`` capture then attributes each launch to the
-identity ``PERF.md``'s kernel table and the JAX package's tune table use.
+identity ``PERF.md``'s kernel table and ``kernels.tune``'s table use
+(``backend_tag`` is the tuner's).
 
 A ``record_function`` costs a dispatcher call even with no profiler
 running, so :func:`kernel_scope` opens one only while a profiler records;
@@ -20,14 +21,7 @@ import os
 
 import torch
 
-
-def backend_tag(device=None) -> str:
-    """The table's backend key: ``"cuda"`` for the CUDA kernel (the
-    default device, as the entry points'), ``"cpu-plain"`` for the plain
-    PyTorch version a CPU tensor takes."""
-    if device is None:
-        return "cuda"
-    return "cuda" if torch.device(device).type == "cuda" else "cpu-plain"
+from repro_torch.kernels.tune import backend_tag
 
 
 def scope_name(kind: str, rows: int, n: int = 1, device=None) -> str:

@@ -397,9 +397,9 @@ def summarize(events: list[dict]) -> TraceSummary:
 
 
 def plan_emitter(emit: Callable[[dict], None]) -> Callable[..., None]:
-    """Adapt a raw event sink into a tuner's sweep hook (the signature of
-    the JAX package's ``kernels.tune.set_trace_writer``; the port has no
-    tuner yet): one validated plan event per timed candidate."""
+    """Adapt a raw event sink into the hook ``kernels.tune.
+    set_trace_writer`` takes (the JAX package's signature): one plan event
+    per timed candidate."""
     def hook(kind: str, rows: int, n: int, backend: str,
              timings: list[dict], best: dict) -> None:
         for tm in timings:

@@ -99,7 +99,7 @@ def _jax_round(jkw, n=N):
 def _torch_round(tkw, n=N):
     state = trd.init_round_state(params_from_numpy(_tree_np(), device="cpu"),
                                  n, privacy=tkw.get("privacy"), device="cpu")
-    wire = trd.WirePath(trd.WireConfig(), **tkw)
+    wire = trd.WirePath(trd.WireConfig(), block_workers=1, **tkw)
     sizes = torch.linspace(20.0, 80.0, n)
     bufs = torch.empty((n,) + tuple(state.buf_p1.shape), device="meta")
     costs = torch.empty((n,), device="meta")

@@ -164,7 +164,8 @@ def _spec(pkg, masked: bool):
 def _wires(masked: bool):
     jw = jrd.WirePath(jrd.WireConfig(), interpret=True, block_workers=1,
                       privacy=_spec("jax", masked))
-    tw = trd.WirePath(trd.WireConfig(), privacy=_spec("torch", masked))
+    tw = trd.WirePath(trd.WireConfig(), block_workers=1,
+                      privacy=_spec("torch", masked))
     return jw, tw
 
 

@@ -233,7 +233,8 @@ def test_uplink_masked_slab_equals_the_jax_slab(spec, t):
     F, idx, m_idx = 4, 2, 1
     jw = jrd.WirePath(jrd.WireConfig(), interpret=True, block_workers=1,
                       block_rows=16, privacy=JSpec(**spec))
-    tw = trd.WirePath(trd.WireConfig(), privacy=TSpec(**spec))
+    tw = trd.WirePath(trd.WireConfig(), block_workers=1, block_rows=16,
+                      privacy=TSpec(**spec))
     part = np.array([1, 1, 1, 0], np.float32)
     wq = np.uint32(123456)
     want = jw.uplink_masked_slab(

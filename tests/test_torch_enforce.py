@@ -104,7 +104,8 @@ def test_enforced_drivers_audited_and_match_jax(spec_kw, participation):
     for driver in ("run_fedpc", "run_fedpc_scan"):
         sim = _tsim(spec)
         runs[driver] = getattr(sim, driver)(ROUNDS,
-                                            participation=participation)
+                                            participation=participation,
+                                            wire_block_workers=1)
         assert sim.ledger.audits == [{**jsim.ledger.audits[0],
                                       "runtime": driver}]
         assert sim.ledger.events == jsim.ledger.events

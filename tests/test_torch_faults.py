@@ -324,7 +324,7 @@ def _wires(bits, fanout, plan, *, seed=5, threshold=2, dp=None):
                       privacy=None if bits is None else JSpec(**kw),
                       tree=None if fanout is None else JTree(fanout),
                       faults=None if plan is None else JPlan(**plan))
-    tw = trd.WirePath(trd.WireConfig(),
+    tw = trd.WirePath(trd.WireConfig(), block_workers=1,
                       privacy=None if bits is None else TSpec(**kw),
                       tree=None if fanout is None else TTree(fanout),
                       faults=None if plan is None else tft.FaultPlan(**plan))
@@ -471,7 +471,7 @@ def test_quickstart_federation_with_faults_matches(spec_kw, fanout):
     jres = jsim.run_fedpc(rounds=4, wire_block_workers=1)
     tsim = TSim(tw, params_from_numpy(params_np, device="cpu"), tcfg,
                 device="cpu")
-    tres = tsim.run_fedpc(rounds=4)
+    tres = tsim.run_fedpc(rounds=4, wire_block_workers=1)
     assert tres.pilot_history == jres.pilot_history
     assert tres.bytes_per_round == list(jres.bytes_per_round)
     assert tres.recovery_bytes_per_round == list(
@@ -521,7 +521,8 @@ def test_partial_participation_and_enforce_still_refused():
     tsim = TSim(tw, params, TCfg(
         n_workers=n, tree=TTree(2), faults=tft.FaultPlan(**plan),
         privacy=TSpec(recovery_threshold=2)), device="cpu")
-    tres = tsim.run_fedpc(rounds=3, participation=0.5, participation_seed=2)
+    tres = tsim.run_fedpc(rounds=3, participation=0.5, participation_seed=2,
+                          wire_block_workers=1)
     assert tsim.ledger.audits == jsim.ledger.audits == [
         {"runtime": "run_fedpc", "boundary": "round-step",
          "n_launches": TTree(2).launches(n) + 1, "masked": True}]

@@ -989,3 +989,243 @@ def test_enforced_masked_run_on_card(cuda):
     assert runs[0].costs == runs[1].costs
     for a, b in zip(tree_leaves(runs[0].params), tree_leaves(runs[1].params)):
         assert torch.equal(a, b)
+
+
+# -- launch plans: every plan gives the default plan's and the twin's bits --
+
+@pytest.fixture
+def empty_table(monkeypatch):
+    from repro_torch.kernels import tune
+    monkeypatch.setattr(tune, "_TABLE", {})
+    return tune
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("sweep,args,kw", [
+    ("autotune_stacked", (37, 3), {}), ("autotune_stacked", (37, 10), {}),
+    ("autotune_master", (37, 3), {}), ("autotune_master", (37, 10), {}),
+    ("autotune_masked_uplink", (37, 10), {"word_bits": 16}),
+    ("autotune_masked_uplink", (37, 10), {"word_bits": 32}),
+    ("autotune_masked_uplink", (37, 17), {"word_bits": 16}),
+    ("autotune_masked_uplink", (37, 17), {"word_bits": 32}),
+    ("autotune_masked_master", (37, 3), {"word_bits": 16}),
+    ("autotune_masked_master", (37, 10), {"word_bits": 32}),
+    ("autotune_partial_sum", (37, 2, 10), {}),
+    ("autotune_partial_sum", (37, 4, 10), {"word_bits": 16}),
+    ("autotune_partial_sum", (37, 2, 10), {"masked": True,
+                                           "word_bits": 16}),
+    ("autotune_partial_sum", (37, 4, 7), {"masked": True, "word_bits": 32}),
+    ("autotune_mask_repair", (37, 13), {"word_bits": 16}),
+    ("autotune_mask_repair", (37, 13), {"word_bits": 32})])
+def test_every_sweep_candidate_gives_the_same_bits_on_card(
+        cuda, empty_table, sweep, args, kw):
+    # verify: each candidate bitwise against the plain twin and the
+    # default plan, which is the first candidate; R = 37 leaves a ragged
+    # CTA under every block_rows but 1 and 37.
+    rec = getattr(empty_table, sweep)(*args, device=cuda, reps=1,
+                                      verify=True, **kw)
+    assert rec["verified"] and rec["backend"] == "cuda"
+    first = rec["timings"][0]
+    assert {k: first[k] for k in ("block_rows", "block_workers")} == \
+        rec["default"]
+    # the pair kernel (N <= 16) and the leaf partial sum honour their
+    # default alone
+    alone = ((sweep == "autotune_masked_uplink" and args[1] <= 16)
+             or (sweep == "autotune_partial_sum" and not kw.get("masked")))
+    if alone:
+        assert len(rec["timings"]) == 1
+    else:
+        assert len(rec["timings"]) >= 3 or sweep == "autotune_masked_master"
+
+
+def _plans(kind, r, ext, pairs=False):
+    """A spread of honoured plans over R rows and an axis of ``ext``."""
+    from repro_torch.kernels import tune
+    raw = [(1, 1), (2, ext), (3, 2), (r, ext), (r + 5, 3), (7, 8), (64, 4)]
+    return sorted({tune.fit_cuda_plan(kind, r, ext, br, bw, pairs=pairs)
+                   for br, bw in raw})
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("n,r", [(3, 8), (10, 37)])
+@pytest.mark.parametrize("t", [1, 2])
+def test_plain_round_kernels_under_every_plan_on_card(cuda, n, r, t):
+    rng = np.random.default_rng(7 * n + r + t)
+    q, p1, p2 = _history(rng, n, r)
+    dq, dp1, dp2 = (torch.from_numpy(a).to(cuda) for a in (q, p1, p2))
+    dt = torch.tensor(t, dtype=torch.int32, device=cuda)
+    db = torch.from_numpy(rng.choice([0.1, 0.2], n).astype(np.float32)
+                          ).to(cuda)
+    plain = tfw.ternary_pack_stacked_plain(dq, dp1, dp2, dt, db, ALPHA1)
+    for br, bw in _plans("uplink_stacked", r, n):
+        got = tfw.ternary_pack_stacked(dq, dp1, dp2, dt, db, ALPHA1,
+                                       block_rows=br, block_workers=bw)
+        assert torch.equal(got, plain), (br, bw)
+    w = torch.from_numpy(rng.random(n, dtype=np.float32) / n).to(cuda)
+    k = torch.tensor(0, device=cuda)
+    w[0] = 0.0
+    want = tfw.packed_master_update_plain(dq, k, plain, w, dp1, dp2, dt,
+                                          ALPHA0)
+    for br, bw in _plans("master", r, n):
+        got = tfw.packed_master_update(dq, k, plain, w, dp1, dp2, dt, ALPHA0,
+                                       block_rows=br, block_workers=bw)
+        assert _same(got, want), (br, bw)
+    one = tfw.ternary_pack_plain(dq[0], dp1, dp2, 0.2)
+    for br, _ in _plans("uplink", r, 1):
+        assert torch.equal(tfw.ternary_pack(dq[0], dp1, dp2, 0.2,
+                                            block_rows=br), one), br
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("bits", [16, 32])
+@pytest.mark.parametrize("n", [10, 17])
+def test_masked_kernels_under_every_plan_on_card(cuda, bits, n):
+    rng = np.random.default_rng(n + bits)
+    r = 37
+    ops = _masked_operands(rng, n, r, 2, bits, True, cuda)
+    dq, dp1, dp2, dt, _, wq, _, _, _ = ops
+    kw = dict(rr_threshold=3277, word_bits=bits)
+    plain = tmw.ternary_pack_masked_plain(*ops[:5], ALPHA1, *ops[5:], **kw)
+    pairs = tmw.uses_pair_kernel(n, n)
+    kind = "uplink_masked16" if bits == 16 else "uplink_masked"
+    for br, bw in _plans(kind, r, n, pairs=pairs):
+        got = tmw.ternary_pack_masked(*ops[:5], ALPHA1, *ops[5:], **kw,
+                                      block_rows=br, block_workers=bw)
+        assert torch.equal(pvm.as_u64(got), pvm.as_u64(plain)), (br, bw)
+    for br, bw in _plans("uplink_masked", r, n):       # the row fold
+        got = tmw._ternary_pack_masked_rows(*ops[:5], ALPHA1, *ops[5:], **kw,
+                                            block_rows=br, block_workers=bw)
+        assert torch.equal(pvm.as_u64(got), pvm.as_u64(plain)), (br, bw)
+    sum_wq = pvm.to_words(pvm.as_u64(wq).sum(), 32)
+    k = torch.tensor(1, device=cuda)
+    want = tmw.masked_master_update_plain(dq, k, plain, sum_wq, dp1, dp2, dt,
+                                          ALPHA0, 2.0 ** -14)
+    for br, bw in _plans("master_masked", r, n):
+        got = tmw.masked_master_update(dq, k, plain, sum_wq, dp1, dp2, dt,
+                                       ALPHA0, 2.0 ** -14, block_rows=br,
+                                       block_workers=bw)
+        assert _same(got, want), (br, bw)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("bits", [16, 32])
+def test_tree_and_repair_kernels_under_every_plan_on_card(cuda, bits):
+    rng = np.random.default_rng(bits)
+    r, c, fanout = 37, 10, 4
+    g = -(-c // fanout)
+    packed = torch.from_numpy(rng.integers(0, 256, (c, r, 128),
+                                           dtype=np.uint8)).to(cuda)
+    wq = pvm.to_words(torch.from_numpy(rng.integers(0, 1 << 14, c)),
+                      32).to(cuda)
+    want = tps.partial_sum_plain(packed, wq, fanout=fanout, word_bits=bits)
+    for br, bg in _plans("partial_sum", r, g):
+        got = tps.partial_sum(packed, wq, fanout=fanout, word_bits=bits,
+                              block_rows=br, block_groups=bg)
+        assert torch.equal(pvm.as_u64(got), pvm.as_u64(want)), (br, bg)
+    words = _rand_words(rng, (c, r, 512), bits, cuda)
+    keys = pvm.pair_stream_keys(5, g, 3, device=cuda)
+    signs = pvm.tree_pair_signs(g, 2, device=cuda)
+    want = tps.masked_partial_sum_plain(words, keys, signs, fanout=fanout,
+                                        sibling=2)
+    for br, bg in _plans("partial_sum_masked", r, g):
+        got = tps.masked_partial_sum(words, keys, signs, fanout=fanout,
+                                     sibling=2, block_rows=br,
+                                     block_groups=bg)
+        assert torch.equal(pvm.as_u64(got), pvm.as_u64(want)), (br, bg)
+    y = _rand_words(rng, (1000, 512), bits, cuda)
+    rkeys = pvm.to_words(torch.from_numpy(rng.integers(0, 1 << 32, 13)),
+                         32).to(cuda)
+    coeff = torch.from_numpy(rng.integers(-1, 2, 13).astype(np.int32)
+                             ).to(cuda)
+    want = tmw.mask_repair_plain(y, rkeys, coeff)
+    term = tmw.mask_repair_plain(torch.zeros_like(y), rkeys, coeff)
+    kind = "mask_repair16" if bits == 16 else "mask_repair"
+    from repro_torch.kernels import tune
+    for br in tune.repair_rows(kind):
+        got = tmw.mask_repair(y, rkeys, coeff, block_rows=br)
+        assert torch.equal(pvm.as_u64(got), pvm.as_u64(want)), br
+        z = torch.full_like(y, 7)
+        tmw.mask_repair(None, rkeys, coeff, out=z, block_rows=br)
+        assert torch.equal(pvm.as_u64(z), pvm.as_u64(term)), br
+
+
+@pytest.mark.gpu
+def test_a_plan_a_kernel_would_change_raises_on_card(cuda):
+    rng = np.random.default_rng(3)
+    n, r = 10, 8
+    q, p1, p2 = _history(rng, n, r)
+    dq, dp1, dp2 = (torch.from_numpy(a).to(cuda) for a in (q, p1, p2))
+    dt = torch.tensor(2, dtype=torch.int32, device=cuda)
+    packed = torch.zeros((n, r, 128), dtype=torch.uint8, device=cuda)
+    w = torch.zeros(n, device=cuda)
+    k = torch.tensor(0, device=cuda)
+    with pytest.raises(ValueError, match="nearest plan"):
+        tfw.packed_master_update(dq, k, packed, w, dp1, dp2, dt, ALPHA0,
+                                 block_workers=3)
+    ops = _masked_operands(rng, n, r, 2, 16, False, cuda)
+    with pytest.raises(ValueError, match="nearest plan"):
+        tmw.ternary_pack_masked(*ops[:5], ALPHA1, *ops[5:], word_bits=16,
+                                block_workers=4)
+    with pytest.raises(ValueError, match="nearest plan"):   # the pair kernel
+        tmw.ternary_pack_masked(*ops[:5], ALPHA1, *ops[5:], word_bits=16,
+                                block_rows=8)
+    wq = pvm.to_words(torch.zeros(n, dtype=torch.int64), 32).to(cuda)
+    with pytest.raises(ValueError, match="nearest plan"):   # the leaf sum
+        tps.partial_sum(packed, wq, fanout=2, block_rows=8)
+    y = _rand_words(rng, (r, 512), 16, cuda)
+    rkeys = pvm.to_words(torch.from_numpy(rng.integers(0, 1 << 32, 3)),
+                         32).to(cuda)
+    coeff = torch.ones(3, dtype=torch.int32, device=cuda)
+    with pytest.raises(ValueError, match="nearest plan"):
+        tmw.mask_repair(y, rkeys, coeff, block_rows=5)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("bits,fanout,block_rows,block_workers", [
+    (None, None, 8, 3), (16, None, 3, 4), (16, 4, 5, 2), (None, 2, 8, 2),
+    (32, 2, 1, 8)])
+def test_round_steps_under_a_pinned_plan_on_card(cuda, bits, fanout,
+                                                 block_rows, block_workers):
+    # A pinned plan through WirePath, faults on (the repair runs): every
+    # launch snapped to its kernel, as many launches, the default plan's
+    # bits, the CPU's bits.
+    rng = np.random.default_rng(11)
+    n, rows = 10, 96
+    p0 = rng.standard_normal((rows, 128), dtype=np.float32) * 0.1
+    sizes = rng.integers(100, 900, n).astype(np.float32)
+    spec = (None if bits is None else
+            PrivacySpec(modulus_bits=bits, dp_epsilon=2.0,
+                        recovery_threshold=2, enforce=False))
+    plan = FaultPlan(seed=3, drop_before_uplink=0.1, drop_after_uplink=0.25,
+                     straggler=0.1)
+    tree = None if fanout is None else TreeSpec(fanout)
+    wires = {
+        "default": rd.WirePath(rd.WireConfig(), privacy=spec, tree=tree,
+                               faults=plan),
+        "pinned": rd.WirePath(rd.WireConfig(), privacy=spec, tree=tree,
+                              faults=plan, block_rows=block_rows,
+                              block_workers=block_workers)}
+    runs = [("cpu", "pinned"), (cuda, "default"), (cuda, "pinned")]
+    states = {run: rd.init_round_state({"w": torch.from_numpy(p0).to(
+        run[0])}, n, privacy=spec, device=run[0]) for run in runs}
+    launched = {}
+    for _ in range(3):
+        bufs = (states[runs[0]].buf_p1.numpy()[None]
+                + rng.standard_normal((n, rows, 128), dtype=np.float32) * .01)
+        costs = rng.random(n, dtype=np.float32) + 0.5
+        for run in runs:
+            d = run[0]
+            before = _launch_counts()
+            states[run], _, _ = wires[run[1]].round_step(
+                states[run], torch.from_numpy(bufs).to(d),
+                torch.from_numpy(costs).to(d), torch.from_numpy(sizes).to(d))
+            after = _launch_counts()
+            for k in after:
+                launched[run, k] = (launched.get((run, k), 0)
+                                    + after[k] - before[k])
+    for k in _launch_counts():
+        assert launched[(cuda, "default"), k] == launched[(cuda, "pinned"), k]
+    for run in runs[1:]:
+        for a, b in zip(states[runs[0]][:4], states[run][:4]):   # bitwise
+            assert torch.equal(a.view(torch.int32),
+                               b.cpu().view(torch.int32)), run

@@ -110,7 +110,7 @@ def test_lm_federation_matches():
     jres = JSim(_workers(False), f["jp"]).run_fedpc(rounds=2,
                                                   wire_block_workers=1)
     tres = TSim(_workers(True), params_from_numpy(f["np"], device="cpu"),
-                device="cpu").run_fedpc(rounds=2)
+                device="cpu").run_fedpc(rounds=2, wire_block_workers=1)
     assert tres.pilot_history == jres.pilot_history
     assert tres.bytes_per_round == list(jres.bytes_per_round)
     np.testing.assert_allclose(tres.costs, jres.costs, rtol=1e-4)
@@ -134,7 +134,7 @@ def test_moe_lm_federation_matches():
         rounds=2, wire_block_workers=1)
     tres = TSim(_workers(True, arch), params_from_numpy(f["np"],
                                                         device="cpu"),
-                device="cpu").run_fedpc(rounds=2)
+                device="cpu").run_fedpc(rounds=2, wire_block_workers=1)
     assert tres.pilot_history == jres.pilot_history
     assert tres.bytes_per_round == list(jres.bytes_per_round)
     np.testing.assert_allclose(tres.costs, jres.costs, rtol=1e-4)

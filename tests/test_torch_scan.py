@@ -456,7 +456,8 @@ def test_masked_faults_participation_matches_jax(driver,
                privacy=TSpec(dp_epsilon=2.0, recovery_threshold=2,
                              enforce=False))
     tsim = _tsim(cfg, n=8)
-    tres = getattr(tsim, driver)(4, participation=0.5, participation_seed=1)
+    tres = getattr(tsim, driver)(4, participation=0.5, participation_seed=1,
+                                 wire_block_workers=1)
     assert tres.pilot_history == jres.pilot_history
     assert tres.bytes_per_round == list(jres.bytes_per_round)
     assert tres.recovery_bytes_per_round == list(

@@ -140,7 +140,7 @@ def test_unported_branches_raise():
     sim.fed_cfg = TCfg(n_workers=3, privacy=TSpec())     # enforce=True
     jsim.fed_cfg = JCfg(n_workers=3, privacy=JSpec())
     jres = jsim.run_fedpc(rounds=1, wire_block_workers=1)
-    tres = sim.run_fedpc(rounds=1)
+    tres = sim.run_fedpc(rounds=1, wire_block_workers=1)
     assert tres.pilot_history == jres.pilot_history
     assert sim.ledger.audits == jsim.ledger.audits == [
         {"runtime": "run_fedpc", "boundary": "round-step", "n_launches": 2,

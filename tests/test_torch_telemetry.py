@@ -157,8 +157,9 @@ def _wires(name: str):
     jw = jrd.WirePath(jrd.WireConfig(), interpret=True, block_workers=1,
                       privacy=jcfg.privacy, tree=jcfg.tree,
                       faults=jcfg.faults)
-    tw = trd.WirePath(trd.WireConfig(), privacy=tcfg.privacy,
-                      tree=tcfg.tree, faults=tcfg.faults)
+    tw = trd.WirePath(trd.WireConfig(), block_workers=1,
+                      privacy=tcfg.privacy, tree=tcfg.tree,
+                      faults=tcfg.faults)
     return jw, tw
 
 
@@ -262,7 +263,8 @@ def test_sim_trace_matches_reference(name):
     jcfg, tcfg, kw, sim_kw = _cfgs(name)
     jres = _jsim(jcfg, **sim_kw).run_fedpc(rounds=ROUNDS,
                                            wire_block_workers=1, **kw)
-    tres = _tsim(tcfg, **sim_kw).run_fedpc(rounds=ROUNDS, **kw)
+    tres = _tsim(tcfg, **sim_kw).run_fedpc(rounds=ROUNDS,
+                                           wire_block_workers=1, **kw)
     assert tres.telemetry is not None
     _same_events(tres.telemetry.events(), jres.telemetry.events())
     assert tres.bytes_per_round == jres.bytes_per_round
@@ -355,7 +357,7 @@ def test_schema_rejects_malformed_events():
 
 def test_jsonl_round_trip_and_cross_package_reports(tmp_path, capsys):
     jcfg, tcfg, _, _ = _cfgs("masked_tree_faults")
-    tres = _tsim(tcfg).run_fedpc_scan(rounds=2)
+    tres = _tsim(tcfg).run_fedpc_scan(rounds=2, wire_block_workers=1)
     jres = _jsim(jcfg).run_fedpc_scan(rounds=2, wire_block_workers=1)
     tpath, jpath = str(tmp_path / "port.jsonl"), str(tmp_path / "jax.jsonl")
     n = tres.telemetry.write(tpath)

@@ -227,8 +227,8 @@ def _wires(fanout, bits, *, renorm=False):
     jw = jrd.WirePath(jrd.WireConfig(), interpret=True, block_workers=1,
                       privacy=jspec, renorm_shares=renorm,
                       tree=JTree(fanout))
-    tw = trd.WirePath(trd.WireConfig(), privacy=tspec, renorm_shares=renorm,
-                      tree=TTree(fanout))
+    tw = trd.WirePath(trd.WireConfig(), block_workers=1, privacy=tspec,
+                      renorm_shares=renorm, tree=TTree(fanout))
     return jw, tw
 
 
@@ -365,7 +365,7 @@ def test_quickstart_federation_with_tree_matches(spec_kw):
     tsim = TSim(tw, params_from_numpy(params_np, device="cpu"),
                 TCfg(n_workers=n, privacy=tspec, tree=TTree(fanout)),
                 device="cpu")
-    tres = tsim.run_fedpc(rounds=4)
+    tres = tsim.run_fedpc(rounds=4, wire_block_workers=1)
     assert tres.pilot_history == jres.pilot_history
     assert tres.bytes_per_round == list(jres.bytes_per_round)
     assert tres.recovery_bytes_per_round == [0.0] * 4
