@@ -17,10 +17,11 @@ result:
    shape (N = 10 workers, R = rows/4 = 41,016) and at N ∈ {1, 3}, R = 8.
    The masked round's at 16 and 32 bits, RR off and on, masks off and on,
    t ∈ {1, 2}, at the main-path shape and at N ∈ {1, 2, 3, 10, 16, 17,
-   33}, R = 8, with and without a participation-folded sign matrix and
-   with tree-scoped signs (sibling groups of 2 and 4); the masked uplink
-   through the kernel its wrapper picks (the pair kernel up to 16
-   workers) and through the row-fold kernel, both against the plain
+   33, 64, 170}, R = 8, with and without a participation-folded sign
+   matrix and with tree-scoped signs (sibling groups of 2 and 4); the
+   masked uplink through the kernel its wrapper picks (the pair kernel up
+   to 16 workers, the tile kernel beyond, up to the cap of 170), through
+   the row-fold kernel and through the tile kernel, all against the plain
    version. The tree's:
    ``partial_sum`` at 16/32 bits, fanout ∈ {2, 4, 8}, C ∈ {5, 7, 10}
    (ragged groups) and at the main-path shape (C = 10, fanout 4);
@@ -90,6 +91,12 @@ result:
    masked and unmasked (``mask_seed=None``) rounds must give different
    words and the same new global buffer, and one masked uplink may raise
    the peak of device memory by no more than its output and 1 MiB.
+   cohort slice — the masked federation at 32 workers (the same 10,240
+   samples split over them), 16-bit words with DP, 2 rounds: each round's
+   uplink through the tile kernel (its launches counted, ``round_step``
+   under sync-debug "error"), then the same run with the row fold forced
+   by lowering ``masked_wire.COHORT_MAX_WORKERS``: pilots, costs, bytes,
+   every leaf and epsilon bitwise equal.
 6. tree slice — the plain federation through ``TreeSpec(fanout=2)``
    (widths 10, 5, 3, 2): uplink 3, ``partial_sum`` 3,
    ``masked_partial_sum`` 6, masked master 3 launches; tree Eq. (8)
@@ -203,7 +210,9 @@ result:
    uplink also at round 1, the masked kernels at 16 and 32 bits, the
    masked uplink's pair kernel beside its row-fold kernel, its bound beside
    the row-fold count of operations, the masked uplink without RR, without
-   masks and without either, the
+   masks and without either; the tile kernel at N ∈ {17, 32, 64}, 16 and
+   32 bits, RR off and on, every pair active, beside the row fold on the
+   same inputs and the bound with each pair expanded once; the
    master over the tree root's C = 3 rows, the masks-off partial sums and
    a ``torch.sum`` of sibling groups beside one; the repair in place (the
    tree's form) beside its out-of-place and write-only forms and the
@@ -220,7 +229,8 @@ result:
 9. tune   — ``kernels.tune`` on the card, after the times (which ran at
    the default plans): (a) every ``autotune_*`` at the main path's shapes
    (the uplink and the master at N = 10; the masked uplink and master at
-   16 and 32 bits, N = 10, the pair kernel, and N = 17, the row fold; the
+   16 and 32 bits, N = 10, the pair kernel, and N = 17, the tile kernel,
+   its one plan timed beside the row fold on the same inputs; the
    partial sums at fanout 2 and 4 over 10 children, plain and masked
    16-bit; the repair of 13 pairs at 16 and 32 bits), every candidate
    plan bitwise against the default plan's output and the plain twin's,
@@ -480,15 +490,18 @@ def phase_check_masked(torch, dev) -> dict:
     from repro_torch.privacy import masking as pvm
     from repro_torch.privacy.spec import PrivacySpec
     gen = torch.Generator(device=dev).manual_seed(SEED + 2)
-    errs = {"uplink_masked": 0.0, "master_masked": 0.0}
+    errs = {"uplink_masked": 0.0, "uplink_masked_tiles": 0.0,
+            "master_masked": 0.0}
     cases = 0
     # (N, R, participation, sibling group of tree-scoped signs or None):
-    # the pair kernel runs up to 16 workers, the row-fold kernel beyond.
+    # the pair kernel runs up to 16 workers, the tile kernel beyond, up to
+    # the cap; the row-fold kernel and the tile kernel run at every N.
     shapes = ((N_WORKERS, ROWS // 4, False, None), (1, 8, False, None),
               (2, 8, False, None), (3, 8, True, None), (10, 8, True, 2),
               (10, 8, False, 4), (16, 8, False, None), (16, 8, True, 4),
               (17, 8, True, None), (17, 8, False, 4), (33, 8, False, None),
-              (33, 8, True, None))
+              (33, 8, True, None), (64, 8, False, None),
+              (mw.COHORT_MAX_WORKERS, 8, True, None))
     for n, r, participation, sibling in shapes:
         q, p1, p2, beta, w, k = _inputs(torch, n, r, gen, dev)
         keys, signs, rrk, part = _masked_inputs(torch, n, gen, dev,
@@ -511,6 +524,7 @@ def phase_check_masked(torch, dev) -> dict:
                                   use_masks=use_masks)
                         words = mw.ternary_pack_masked(*args, **kw)
                         rows = mw._ternary_pack_masked_rows(*args, **kw)
+                        tiles = mw._ternary_pack_masked_tiles(*args, **kw)
                         plain = mw.ternary_pack_masked_plain(*args, **kw)
                         out = mw.masked_master_update(
                             q, k, words, sum_wq, p1, p2, tt, 0.01, smult)
@@ -529,6 +543,10 @@ def phase_check_masked(torch, dev) -> dict:
                                           pvm.as_u64(plain)),
                               f"row-fold masked uplink differs from plain "
                               f"at {where}")
+                        check(torch.equal(pvm.as_u64(tiles),
+                                          pvm.as_u64(plain)),
+                              f"tile-kernel masked uplink differs from "
+                              f"plain at {where}")
                         check(torch.equal(out.view(torch.int32),
                                           ref.view(torch.int32)),
                               f"masked master differs from plain at {where}")
@@ -539,13 +557,17 @@ def phase_check_masked(torch, dev) -> dict:
                                 errs["uplink_masked"], up_err)
                             errs["master_masked"] = max(
                                 errs["master_masked"], ma_err)
+                        if mw.cohort_kernel(n, n) == "tiles":
+                            errs["uplink_masked_tiles"] = max(
+                                errs["uplink_masked_tiles"], up_err)
                         cases += 1
-                        del words, rows, plain, out, ref
+                        del words, rows, tiles, plain, out, ref
         del q, p1, p2
-    print(f"kernels: masked uplink (the wrapper's kernel, the pair kernel "
-          f"up to {mw.PAIR_MAX_WORKERS} workers, and the row-fold kernel) "
-          f"and master bitwise equal to their plain versions in all "
-          f"{cases} cases (N, R, participation, tree sibling group in "
+    print(f"kernels: masked uplink (the wrapper's kernel: the pair kernel "
+          f"up to {mw.PAIR_MAX_WORKERS} workers, the tile kernel up to "
+          f"{mw.COHORT_MAX_WORKERS}; and the row-fold and the tile kernel "
+          f"at every N) and master bitwise equal to their plain versions in "
+          f"all {cases} cases (N, R, participation, tree sibling group in "
           f"{list(shapes)}, 16/32 bits, RR off/on, masks off/on, "
           f"t = 1, 2)", flush=True)
     return errs
@@ -1506,6 +1528,74 @@ def phase_masked_wire(torch, dev) -> None:
           f"memory: one masked uplink raised the peak by {rise:,} bytes "
           f"for a {out_bytes:,}-byte output (+{rise - out_bytes:,})",
           flush=True)
+
+
+COHORT_WORKERS = 32              # the tile kernel's federation
+COHORT_ROUNDS = 2
+
+
+def phase_masked_cohort(torch, dev) -> dict:
+    """The masked round of ``COHORT_WORKERS`` workers (16-bit words,
+    masks and RR on) at full width, the scan slice's 10,240 samples split
+    over them: ``COHORT_ROUNDS`` rounds through the tile kernel, then the
+    same run with the row fold forced (``masked_wire.COHORT_MAX_WORKERS``
+    lowered to the pair kernel's cap); pilots, costs, bytes, every leaf
+    and epsilon bitwise equal. Returns the tile kernel's run's launch
+    counts."""
+    from repro_torch.core import protocol as proto
+    from repro_torch.core.fedpc import FedPCConfig
+    from repro_torch.fed.simulator import FedSimulator
+    from repro_torch.kernels import masked_wire as mw
+    from repro_torch.models.mlp import init_mlp_classifier
+    from repro_torch.privacy.spec import PrivacySpec
+    n = COHORT_WORKERS
+    check(mw.cohort_kernel(n, n) == "tiles",
+          f"N = {n} does not take the tile kernel")
+    spec = PrivacySpec(dp_epsilon=DP_EPSILON, enforce=False)
+    cap = mw.COHORT_MAX_WORKERS
+    runs = []
+    for kernel, forced in (("uplink_masked_tiles", cap),
+                           ("uplink_masked", mw.PAIR_MAX_WORKERS)):
+        workers = _federation(n, N_WORKERS * SCAN_SHARD, N_FEATURES,
+                              N_CLASSES, SEED)
+        params = init_mlp_classifier(torch.Generator().manual_seed(SEED),
+                                     N_FEATURES, N_CLASSES, HIDDEN,
+                                     device=dev)
+        sim = FedSimulator(workers, params,
+                           FedPCConfig(n_workers=n, privacy=spec),
+                           device=dev)
+        mw.COHORT_MAX_WORKERS = forced
+        try:
+            drive = _drive(torch, sim, COHORT_ROUNDS)
+        finally:
+            mw.COHORT_MAX_WORKERS = cap
+        want = proto.fedpc_masked_bytes_per_round(
+            proto.model_size_bytes(params), n, word_bits=16)
+        label = (f"cohort slice, N = {n}, "
+                 f"{'tile kernel' if forced == cap else 'row fold forced'}")
+        _check_run(torch, drive.res, drive.launches,
+                   {kernel: COHORT_ROUNDS, "master_masked": COHORT_ROUNDS},
+                   [want] * COHORT_ROUNDS, workers, label,
+                   rounds=COHORT_ROUNDS)
+        runs.append(drive)
+        del sim, workers, params
+        _release(torch)
+    tiles, rows = (d.res for d in runs)
+    _same_runs(torch, tiles, rows, "cohort slice, tile kernel vs row fold")
+    acc_t, acc_r = tiles.round_state.accountant, rows.round_state.accountant
+    check(int(acc_t.spent_rounds) == int(acc_r.spent_rounds) == COHORT_ROUNDS
+          and float(acc_t.epsilon()) == float(acc_r.epsilon()),
+          "cohort slice: the accountants differ")
+    step = [[round(x * 1e3, 3) for x in d.agg_s] for d in runs]
+    print(f"cohort slice: N = {n} through the tile kernel == through the "
+          f"row fold, bitwise (pilots {tiles.pilot_history}, costs, bytes "
+          f"{[round(b) for b in tiles.bytes_per_round]}, every leaf, eps "
+          f"{float(acc_t.epsilon()):.6f} over {int(acc_t.spent_rounds)} "
+          f"rounds); round_step under sync-debug 'error' {step[0]} ms (row "
+          f"fold {step[1]} ms); local training "
+          f"{sum(runs[0].train_s) / COHORT_ROUNDS * 1e3:.1f} ms a round on "
+          f"{_smi()}", flush=True)
+    return {"uplink_masked_tiles": runs[0].launches["uplink_masked_tiles"]}
 
 
 FAULTS = dict(seed=0, drop_before_uplink=0.05, drop_after_uplink=0.15,
@@ -3610,6 +3700,100 @@ def phase_times_masked(torch, dev, rate: float, launches: dict,
     return rows
 
 
+COHORT_TIMED = (17, 32, 64)        # the tile kernel's timed cohorts
+COHORT_REPEATS = 9                # its queued timings (N = 64: ~20 ms each)
+
+
+def phase_times_cohort(torch, dev, rate: float, launches: dict,
+                       errs: dict) -> list[dict]:
+    """The masked uplink's tile kernel at full width (R = rows/4) for N in
+    ``COHORT_TIMED``, 16 and 32 bits, RR off and on, every pair active:
+    bitwise to the row-fold kernel on the same inputs, each timed on the
+    device beside the other and beside the bound with each pair expanded
+    once. The ``kernels`` row is the cohort slice's launch: N =
+    ``COHORT_WORKERS``, 16 bits with RR, beside its plain version (held
+    bitwise too)."""
+    from repro_torch.kernels import masked_wire as mw
+    from repro_torch.privacy import masking as pvm
+    from repro_torch.privacy.spec import PrivacySpec
+    r = ROWS // 4
+    m, f32 = r * 512, 4
+    saved = _read_counts()
+    rows = []
+    for n in COHORT_TIMED:
+        gen = torch.Generator(device=dev).manual_seed(SEED + 7)
+        q, p1, p2, beta, w, _ = _inputs(torch, n, r, gen, dev)
+        keys, signs, rrk, _ = _masked_inputs(torch, n, gen, dev)
+        pairs = int((signs.triu(1) != 0).sum())
+        check(pairs == n * (n - 1) // 2, f"N = {n}: {pairs} active pairs")
+        tt = torch.tensor(2, dtype=torch.int32, device=dev)
+        for bits in (16, 32):
+            spec = PrivacySpec(modulus_bits=bits, dp_epsilon=DP_EPSILON,
+                               enforce=False)
+            wq = pvm.quantize_weights(w, spec.fixpoint_bits)
+            args = (q, p1, p2, tt, beta, 0.01, wq, keys, signs, rrk)
+            nbytes = (n * m * f32 + 2 * m * f32 + 3 * n * f32
+                      + keys.numel() * 8 + f32 + n * m * bits // 8)
+            bytes_ms = nbytes / rate * 1e3
+            for thr in (0, spec.rr_threshold):
+                kw = dict(rr_threshold=thr, word_bits=bits)
+                words = mw.ternary_pack_masked(*args, **kw)
+                by_rows = mw._ternary_pack_masked_rows(*args, **kw)
+                check(torch.equal(pvm.as_u64(words), pvm.as_u64(by_rows)),
+                      f"{bits}-bit tile and row-fold kernels differ at "
+                      f"N = {n}, RR threshold {thr}")
+                del by_rows
+                alu, total = uplink_masked_int_ops(n, m, bits, bool(thr),
+                                                   True, pairs)
+                ops_ms = int_bound_ms(alu, total)
+                bound_ms = max(bytes_ms, ops_ms)
+                by = "bytes" if bytes_ms >= ops_ms else "operations"
+                ms = _median_ms(torch, lambda: mw.ternary_pack_masked(
+                    *args, **kw), queued=True, repeats=COHORT_REPEATS)
+                rows_ms = _median_ms(torch, lambda: mw._ternary_pack_masked_rows(
+                    *args, **kw), queued=True, repeats=COHORT_REPEATS)
+                print(f"time: ternary_pack_masked tile kernel N = {n} "
+                      f"{bits}-bit RR {'on' if thr else 'off'} {ms:.4f} ms "
+                      f"on the device, row-fold kernel {rows_ms:.4f} ms "
+                      f"({rows_ms / ms:.2f}x); bound {bound_ms:.4f} ms by "
+                      f"{by}: {nbytes / 1e6:.1f} MB = {bytes_ms:.4f} ms, "
+                      f"{alu / 1e9:.2f} G ALU-only / {total / 1e9:.2f} G int "
+                      f"ops with each of the {pairs} pairs expanded once = "
+                      f"{ops_ms:.4f} ms; {bound_ms / ms:.1%} of bound (row "
+                      f"fold {bound_ms / rows_ms:.1%})", flush=True)
+                if (n, bits, bool(thr)) != (COHORT_WORKERS, 16, True):
+                    del words
+                    continue
+                call_ms = _median_ms(torch, lambda: mw.ternary_pack_masked(
+                    *args, **kw))
+                plain = mw.ternary_pack_masked_plain(*args, **kw)
+                err = float((pvm.as_u64(words) - pvm.as_u64(plain)).abs()
+                            .max())
+                check(err == 0, f"tile kernel differs from plain at N = {n}")
+                del plain, words
+                plain_ms = _median_ms(torch, lambda: mw.ternary_pack_masked_plain(
+                    *args, **kw), repeats=3)
+                print(f"time: ternary_pack_masked tile kernel N = {n} "
+                      f"{bits}-bit RR on, the cohort slice's launch: "
+                      f"{call_ms:.4f} ms a call from the host; plain "
+                      f"{plain_ms:.4f} ms (median of 3), bitwise", flush=True)
+                rows.append({
+                    "name": "ternary_pack_masked_tiles", "row": 6,
+                    "route": "cuda",
+                    "source": "src/repro_torch/kernels/csrc/masked_wire.cu",
+                    "replaces": "src/repro/kernels/masked_wire.py:299",
+                    "launches": launches["uplink_masked_tiles"],
+                    "max_abs_err": max(err, errs["uplink_masked_tiles"]),
+                    "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
+                    "bound_by": by, "library_ms": None})
+            del wq, args
+        del q, p1, p2, keys, signs
+        torch.cuda.empty_cache()
+    _restore_counts(saved)                         # timing launches not counted
+    check(len(rows) == 1, "no kernels row for the tile kernel")
+    return rows
+
+
 def phase_times_tree(torch, dev, rate: float, launches: dict,
                      errs: dict) -> list[dict]:
     """The tree's and the repair's kernels, the masked master over C = 3
@@ -4889,7 +5073,7 @@ def phase_launch_slice(torch, dev, served: dict, first_rank: dict) -> None:
 
 
 TUNE_REPEATS = 7                  # queued timings of a sweep's candidate
-TUNE_ROW_FOLD = 17                # workers past the pair kernel's 16
+TUNE_TILES = 17                   # workers past the pair kernel's 16
 TUNE_FANOUTS = (2, 4)             # the plain and the masked tree's
 TUNE_REPAIR_PAIRS = 13            # the main path's repair operands
 
@@ -4910,7 +5094,7 @@ def _tune_sweeps(torch, dev) -> list:
         ("master", lambda **k: tune.autotune_master(r, n, **k),
          3 * m * f32 + n * m // 4 + n * f32 + f32 + 8 + m * f32,
          (3 * n * m + 3 * m, None))]
-    for nn in (n, TUNE_ROW_FOLD):
+    for nn in (n, TUNE_TILES):
         for bits in (16, 32):
             word = bits // 8
             sweeps.append((
@@ -4950,6 +5134,31 @@ def _tune_sweeps(torch, dev) -> list:
             2 * (bits // 8) * m + 8 * TUNE_REPAIR_PAIRS,
             ((per[0] + per[2] * live) * m, (per[1] + per[3] * live) * m)))
     return sweeps
+
+
+def _tune_row_fold(torch, dev, label: str, r: int, tiles_ms: float,
+                   bound: float) -> None:
+    """The row-fold kernel on the tile kernel's sweep inputs (RR off,
+    every pair active), bitwise to the tile kernel, timed as the sweep
+    times a plan."""
+    from repro_torch.kernels import masked_wire as mw
+    from repro_torch.kernels import tune
+    from repro_torch.privacy import masking as pvm
+    bits = 16 if label.endswith("16") else 32
+    q, p1, p2, t, beta, _, keys, signs, rrk, wq, _ = tune._masked_inputs(
+        r, TUNE_TILES, 0, bits, dev)
+    args = (q, p1, p2, t, beta, 0.01, wq, keys, signs, rrk)
+    check(torch.equal(pvm.as_u64(mw._ternary_pack_masked_rows(
+        *args, word_bits=bits)), pvm.as_u64(mw.ternary_pack_masked(
+            *args, word_bits=bits))),
+        f"tune: {label} N = {TUNE_TILES}: the row fold differs")
+    ms = _median_ms(torch, lambda: mw._ternary_pack_masked_rows(
+        *args, word_bits=bits), queued=True, repeats=TUNE_REPEATS)
+    print(f"tune: {label} R={r} N={TUNE_TILES}: the tile kernel's one plan "
+          f"{tiles_ms:.4f} ms beside the row-fold kernel's default plan "
+          f"{ms:.4f} ms on the same inputs, bitwise ({ms / tiles_ms:.2f}x); "
+          f"bound {bound:.4f} ms ({bound / tiles_ms:.1%} / "
+          f"{bound / ms:.1%})", flush=True)
 
 
 def _tuned_runs(torch, dev, label: str, cfg, on_path: dict) -> None:
@@ -5038,6 +5247,9 @@ def phase_tune(torch, dev, rate: float) -> None:
                           f"best ({best[0]},{best[1]}) {ms[best]:.4f} ms "
                           f"({ms[best] / ms[d]:.1%} of default); bound "
                           f"{bound:.4f} ms by {by}", flush=True)
+                    if (label.startswith("uplink_masked")
+                            and rec["n_workers"] == TUNE_TILES):
+                        _tune_row_fold(torch, dev, label, r, ms[d], bound)
             finally:
                 tune.set_trace_writer(None)
         events = tmt.read_trace(path)
@@ -5133,6 +5345,7 @@ def main() -> int:
         for kind, n in (*scan.items(), *baselines.items()):
             launches[kind] += n
         phase_masked_wire(torch, dev)
+        launches.update(phase_masked_cohort(torch, dev))
         tree = phase_tree_slice(torch, dev)
         masked_tree = phase_masked_tree_slice(torch, dev)
         phase_tree_wire(torch, dev)
@@ -5157,6 +5370,7 @@ def main() -> int:
         phase_launch_slice(torch, dev, served, first_rank)
         rows = phase_times(torch, dev, rate, launches, errs)
         rows += phase_times_masked(torch, dev, rate, launches, errs)
+        rows += phase_times_cohort(torch, dev, rate, launches, errs)
         rows += phase_times_tree(torch, dev, rate, {
             "partial_sum": tree["partial_sum"],
             "masked_partial_sum": masked_tree["masked_partial_sum"]

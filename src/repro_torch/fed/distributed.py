@@ -241,6 +241,8 @@ def build_fed_sync(model, mesh: Mesh, fed_axis: str = "data",
                    strategy: str = "fedpc", alpha0: float = 0.01,
                    beta: float = 0.2, alpha1: float = 0.01, *,
                    model_axis: str = "model", shard_wire: bool = True,
+                   wire_block_rows: int | None = None,
+                   wire_block_workers: int | None = None,
                    betas=None, privacy: PrivacySpec | None = None,
                    renorm_shares: bool = False,
                    tree: TreeSpec | None = None, faults=None, ledger=None,
@@ -261,7 +263,11 @@ def build_fed_sync(model, mesh: Mesh, fed_axis: str = "data",
     ``shard_wire`` (the default) splits the flat buffer's rows over the
     model axis: each rank runs the wire on its ``rows/M`` slab and the fed
     collectives move that much; ``False`` has every rank run the whole
-    buffer. ``betas`` an optional (F,) per-worker beta_k. ``privacy``,
+    buffer. ``wire_block_rows``/``wire_block_workers`` pin the launch plan
+    of every wire kernel on this rank's slab (``WirePath(block_rows=,
+    block_workers=)``); left as None they resolve through the
+    ``kernels.tune`` table. A plan never changes the bits. ``betas`` an
+    optional (F,) per-worker beta_k. ``privacy``,
     ``renorm_shares``, ``tree`` (masked wire, power-of-two fanout and fed
     axis) and ``faults`` (a :class:`~repro_torch.fed.faults.FaultPlan`;
     on the masked wire it needs ``privacy.recovery_threshold``) as in the
@@ -312,7 +318,9 @@ def build_fed_sync(model, mesh: Mesh, fed_axis: str = "data",
             "fault injection on the masked wire requires "
             "privacy.recovery_threshold (the Shamir t of the "
             "dropout-recovery dealing) to be set")
-    wire = rd.WirePath(wcfg, privacy=privacy if masked_wire else None,
+    wire = rd.WirePath(wcfg, block_rows=wire_block_rows,
+                       block_workers=wire_block_workers,
+                       privacy=privacy if masked_wire else None,
                        renorm_shares=renorm_shares)
     mode = ("masked" if masked_wire else
             {"fedpc_packed": "packed",

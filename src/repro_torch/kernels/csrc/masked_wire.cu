@@ -16,9 +16,10 @@
 // covers (2: one position a thread, the default). The row-fold uplink
 // takes block_workers, the workers a CTA handles (grid.y = ceil(n /
 // block_workers), a CTA staging its workers' key rows only; the default
-// is all n). The pair kernel honours only the default, block_rows = 2 and
-// block_workers = n: it holds all n workers, and its loop over a longer
-// span was slower at every plan tried. The master takes block_workers as
+// is all n). The pair and tile kernels honour only the default,
+// block_rows = 2 and block_workers = n: they hold all n workers (the tile
+// kernel sets its own geometry by n), and the pair kernel's loop over a
+// longer span was slower at every plan tried. The master takes block_workers as
 // the word rows a thread loads ahead of each step of its sum (1, 2, 4 or
 // 8; the default 1). The repair keeps its persistent grid; its
 // block_rows is the rows a pass covers, 4, 8 or 16 at 16 bits (2, 4 or 8
@@ -50,7 +51,7 @@ using wire::sub4;
 using wire::wire_field;
 
 // Replaces ternary_pack_masked_2d (JAX package, kernels/masked_wire.py),
-// in two kernels; the wrapper picks one by shape alone.
+// in three kernels; the wrapper picks one by shape alone.
 //
 // Per worker k and element e: field = code + 1 (wire_field); with RR on,
 // rr = mix32(mix32(e) + rr_keys[k]) (a full word per element at either
@@ -63,7 +64,7 @@ using wire::wire_field;
 //
 // Bound: integer operations or bytes, about even. Each mask stream word
 // costs an add and a mix32 (2 multiplies, 3 xors, 3 shifts), each RR word
-// the same, against 68 bytes moved per element at 16 bits. Both kernels
+// the same, against 68 bytes moved per element at 16 bits. All three kernels
 // compute the counter hashes mix32(e) once per thread and keep them in
 // registers; stage the keys and signs in shared memory per block; skip
 // pairs with sign 0 (the diagonal, non-participants, pairs a tree scopes
@@ -79,9 +80,13 @@ using wire::wire_field;
 // It reads only the upper triangle, so it needs symmetric keys and
 // antisymmetric signs (pair_stream_keys; pair_signs, tree_pair_signs).
 //
-// ternary_pack_masked_kernel runs otherwise (a rectangular key matrix,
-// or more workers than registers hold), the TPU kernel's grid branch:
-// each worker folds its own row of the key matrix, n * cohort expansions.
+// ternary_pack_masked_tiles_kernel runs for a square key matrix of
+// kPairMaxWorkers < n <= kTileMaxWorkers: the same branch, each unordered
+// pair expanded once, with the sums kept in shared memory (its note).
+//
+// ternary_pack_masked_kernel runs otherwise (a rectangular key matrix: a
+// mesh rank's one row of the cohort), the TPU kernel's grid branch: each
+// worker folds its own row of the key matrix, n * cohort expansions.
 template <int kWordBits, bool kRR, bool kMasks>
 __global__ void __launch_bounds__(kThreads)
 ternary_pack_masked_kernel(const float4* __restrict__ q,
@@ -324,6 +329,368 @@ ternary_pack_masked_pairs_kernel(const float4* __restrict__ q,
 #pragma unroll
   for (int k = 0; k < kN; ++k) {
     store_words<kWordBits>(out, static_cast<int64_t>(k) * m + i, acc[k]);
+  }
+}
+
+// a * b + c as one IMAD. With b a runtime 1 the add runs on the FMA pipe
+// where `a + c` would take the integer ALU's, which the 16-bit pair loop
+// fills first.
+__device__ __forceinline__ uint32_t mad_lo(uint32_t a, uint32_t b,
+                                           uint32_t c) {
+#ifdef __CUDA_ARCH__
+  uint32_t d;
+  asm("mad.lo.u32 %0, %1, %2, %3;" : "=r"(d) : "r"(a), "r"(b), "r"(c));
+  return d;
+#else
+  return a * b + c;
+#endif
+}
+// The tile kernel: the whole-cohort branch above kPairMaxWorkers workers,
+// where one thread's n x 4 sums no longer fit in registers. Like the TPU
+// kernel's branch, it expands each unordered pair once, n (n - 1) / 2
+// streams, and folds +s * u into worker i and -s * u into worker j.
+//
+// What held the row fold back: it hashes every stream twice, n (n - 1)
+// expansions, and ran at 40% / 36% of the pairs-once bound at N = 17
+// (1.7093 / 2.8965 ms at 16 / 32 bits, RR off, R = 41,016, on an H100
+// 80GB HBM3 at 700 W). The design:
+// - Workers are cut into groups of kTileWorkers = 8 (the last one padded
+//   with sign-0 pairs) and the upper triangle of pairs into tiles, group
+//   a against group b >= a: ng (ng + 1) / 2 tiles of 64 pairs (a
+//   diagonal tile's 28 above its diagonal), staged once per block in
+//   shared memory as (key, sign) pairs with each tile's live count.
+// - A warp covers 32 positions (a lane the pair kernel's float4 of four
+//   elements) and `split` warps share those positions, taking the tiles
+//   of their position group in turn from a shared counter. A thread holds
+//   the tile's 8 column workers' sums (rb, 32 words) and one row worker's
+//   (ra, 4) in registers: 80 registers, three blocks an SM. Each pair
+//   is hashed once and folded into ra and rb; ra goes into the shared
+//   sums after its row, rb (negated) after the tile, by red.shared.add:
+//   addition mod 2^32 is order free, so the words are the pair kernel's
+//   and the row fold's, bit for bit. One atomic a pair a thread (4 a
+//   row of 8 pairs, 32 a tile), against its 26 integer ops at 16 bits.
+// - Every pair of a dense tile (all live, no ragged group) is expanded
+//   with no test; a sparse tile (a ragged last group, participation, a
+//   tree's scoped signs) tests each sign and skips a dead tile whole.
+// - At 16 bits the pair loop is ALU-bound (shifts, xors and adds: 14 of
+//   its 26 ops a pair); one of its two counter-hash adds is an IMAD
+//   (mad_lo), which runs on the FMA pipe: -1 to -3% at N = 32 and 64.
+// - One launch, three phases a block: the warp's workers' W_k * field
+//   (after RR) into the shared sums, four float4 loads in flight a lane;
+//   the tiles; each warp's workers' words from the shared sums, in one
+//   8- or 16-byte store each. Kept from the pair kernel: the counter
+//   hashes computed once per thread for every pair, the staged (key,
+//   sign) pairs, sign-0 pairs skipped, each float4 of q read once, and no
+//   code, field or mask in device memory.
+// - split: the fewest warps a position group (1, 2, 4, 8) with which
+//   three blocks fit an SM's shared memory, else two, else one
+//   (tile_geometry): N = 17 .. 32 split 2, 33 .. 56 split 4, 57 .. 80
+//   split 8 at three blocks an SM, 81 .. 112 two, beyond one. At
+//   kTileMaxWorkers = 170 (22 groups, 253 tiles) a block takes 221,704
+//   bytes; 170 is also the wrapper's own limit on an (N, N) key matrix
+//   (8 N^2 bytes staged, masked_wire.py).
+// Forms that lost on the card (bench_torch/masked_cohort.py, N = 17, 32
+// and 64): all 64 sums of a tile in registers (128 registers, two blocks
+// an SM; 16-bit 2.0053 / 4.7034 / 16.9946 ms against this form's 1.6081
+// / 3.8371 / 14.4898); fully unrolled dense tiles (up to 1.7x slower);
+// no barrier between the fields and the tiles, both taken from one task
+// list (0-7% slower); a persistent grid with a barrier a position group
+// (up to 8% slower at N = 32 and 64, 2% faster at N = 17, 16 bits),
+// with the next chunk's q copied ahead by cp.async (22-31% slower at its
+// best split: fewer blocks an SM); eight float4 loads in flight a lane
+// (5-18% slower).
+//
+// Its inner loops run over constant 8 x 8 tiles with a runtime count of
+// tiles, so it has one instantiation per (word bits, RR, masks), none
+// per worker count. It honours one plan, the pair kernel's (block_rows =
+// 2, block_workers = n); the C entry refuses any other.
+constexpr int kTileWorkers = 8;
+constexpr int kTileMaxWorkers = 170;
+constexpr int kTilePairs = kTileWorkers * kTileWorkers;
+constexpr int kDiagPairs = kTileWorkers * (kTileWorkers - 1) / 2;
+constexpr int kWarps = kThreads / 32;
+// A position group's sums: 4 words a lane, 32 lanes, a worker.
+constexpr int kSumWords = 4 * 32;
+// Blocks an SM holds at most by registers (__launch_bounds__ below).
+constexpr int kTileBlocks = 3;
+// An SM's shared memory, of which each block reserves 1 KB.
+constexpr size_t kSMSharedBytes = 228 * 1024;
+
+struct TileGeometry {
+  int groups;   // worker groups, ng
+  int tiles;    // staged tiles (0 without masks)
+  int split;    // warps a position group
+  size_t smem;  // dynamic shared memory a block
+};
+
+// The block's shared memory at `split`: the staged pairs, a (groups, live
+// count) word pair a tile, a tile counter a position group, the sums.
+inline size_t tile_smem(const TileGeometry& g, int split) {
+  return (sizeof(uint2) * kTilePairs + sizeof(int2)) * g.tiles +
+         sizeof(int) * kWarps +
+         sizeof(uint32_t) * kSumWords * g.groups * kTileWorkers *
+             (kWarps / split);
+}
+
+inline TileGeometry tile_geometry(int n, bool masks) {
+  TileGeometry g;
+  g.groups = (n + kTileWorkers - 1) / kTileWorkers;
+  g.tiles = masks ? g.groups * (g.groups + 1) / 2 : 0;
+  g.split = kWarps;
+  for (int blocks = kTileBlocks; blocks >= 1 && g.split == kWarps;
+       --blocks) {
+    for (int s = 1; s <= kWarps; s *= 2) {
+      if ((tile_smem(g, s) + 1024) * blocks <= kSMSharedBytes) {
+        g.split = s;
+        break;
+      }
+    }
+  }
+  g.smem = tile_smem(g, g.split);
+  return g;
+}
+
+// One pair's stream over this thread's four elements, folded once into
+// ra (worker r's sums) and once into rb (worker c's, negated when added
+// to the shared sums): s * u. At 16 bits one stream word u feeds two
+// elements, its low half (the low half of s * u) and u >> 16, which is
+// the shift mix32's last step makes: x ^ (x >> 16) >> 16 == x >> 16.
+template <int kWordBits>
+__device__ __forceinline__ void fold_pair(const uint32_t (&hm)[4],
+                                          uint32_t one,
+                                          uint32_t key, uint32_t s,
+                                          uint32_t (&ra)[4],
+                                          uint32_t (&rb)[4]) {
+  if constexpr (kWordBits == 16) {
+#pragma unroll
+    for (int w = 0; w < 2; ++w) {
+      uint32_t x = w == 0 ? mad_lo(key, one, hm[w]) : hm[w] + key;
+      x ^= x >> 16;
+      x *= 0x7FEB352Du;
+      x ^= x >> 15;
+      x *= 0x846CA68Bu;
+      const uint32_t hi = x >> 16;
+      const uint32_t u = x ^ hi;
+      ra[2 * w] += s * u;
+      ra[2 * w + 1] += s * hi;
+      rb[2 * w] += s * u;
+      rb[2 * w + 1] += s * hi;
+    }
+  } else {
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      const uint32_t u = mix32(hm[j] + key);
+      ra[j] += s * u;
+      rb[j] += s * u;
+    }
+  }
+}
+
+// sums[(k * 4 + j) * 32 + lane] += v[j] (negated with kNegate): lanes on
+// consecutive words, no bank conflict.
+template <bool kNegate>
+__device__ __forceinline__ void add_sums(uint32_t* sums, int k, int lane,
+                                         const uint32_t (&v)[4]) {
+  uint32_t* at = sums + k * kSumWords + lane;
+#pragma unroll
+  for (int j = 0; j < 4; ++j) atomicAdd(at + j * 32, kNegate ? 0u - v[j] : v[j]);
+}
+
+// The pairs of one tile, row by row: worker r's sums in ra for the row,
+// the tile's columns' sums in rb. kCheck: skip pairs of sign 0 and
+// columns past `cols` (a ragged last group, a sparse tile); kDiag: a
+// diagonal tile's pairs c > r.
+template <int kWordBits, bool kCheck, bool kDiag>
+__device__ __forceinline__ void fold_tile(const uint2* pairs, int rows,
+                                          int cols, int a, int lane,
+                                          uint32_t* sums,
+                                          const uint32_t (&hm)[4],
+                                          uint32_t one,
+                                          uint32_t (&rb)[kTileWorkers][4]) {
+  for (int r = 0; r < rows; ++r) {
+    uint32_t ra[4] = {0u, 0u, 0u, 0u};
+    const uint2* row = pairs + r * kTileWorkers;
+#pragma unroll
+    for (int c = 0; c < kTileWorkers; ++c) {
+      if (kCheck && c >= cols) break;
+      if (kDiag && c <= r) continue;
+      const uint2 pair = row[c];
+      if (kCheck && pair.y == 0u) continue;
+      fold_pair<kWordBits>(hm, one, pair.x, pair.y, ra, rb[c]);
+    }
+    add_sums<false>(sums, a * kTileWorkers + r, lane, ra);
+  }
+}
+
+template <int kWordBits, bool kRR, bool kMasks>
+__global__ void __launch_bounds__(kThreads, kTileBlocks)
+ternary_pack_masked_tiles_kernel(const float4* __restrict__ q,
+                                 const float4* __restrict__ p1,
+                                 const float4* __restrict__ p2,
+                                 const float* __restrict__ beta,
+                                 const uint32_t* __restrict__ wq,
+                                 const uint32_t* __restrict__ keys,
+                                 const int32_t* __restrict__ signs,
+                                 const uint32_t* __restrict__ rr_keys,
+                                 const int32_t* __restrict__ t, float alpha1,
+                                 uint32_t rr_threshold,
+                                 void* __restrict__ out, int n, int64_t m,
+                                 int split) {
+  extern __shared__ uint2 s_pairs[];
+  const int ng = (n + kTileWorkers - 1) / kTileWorkers;
+  const int n_pad = ng * kTileWorkers;
+  const int n_tiles = kMasks ? ng * (ng + 1) / 2 : 0;
+  int2* s_info = reinterpret_cast<int2*>(s_pairs + n_tiles * kTilePairs);
+  int* s_next = reinterpret_cast<int*>(s_info + n_tiles);
+  const int warp = threadIdx.x >> 5;
+  const int lane = threadIdx.x & 31;
+  const int pgroup = warp / split;
+  const int sub = warp - pgroup * split;
+  uint32_t* sums = reinterpret_cast<uint32_t*>(s_next + kWarps) +
+                   pgroup * n_pad * kSumWords;
+  const int64_t i =
+      (static_cast<int64_t>(blockIdx.x) * (kWarps / split) + pgroup) * 32 +
+      lane;
+  const bool live = i < m;
+
+  if constexpr (kMasks) {
+    // Warp w stages tiles w, w + 8, ...: the upper triangle's (key, sign)
+    // pairs (0 below a diagonal tile's diagonal and past n), and the
+    // tile's groups and live pairs.
+    for (int tile = warp; tile < n_tiles; tile += kWarps) {
+      int a = 0, rest = tile;
+      while (rest >= ng - a) rest -= ng - a++;
+      const int b = a + rest;
+      int live_pairs = 0;
+#pragma unroll
+      for (int half = 0; half < 2; ++half) {
+        const int rc = half * 32 + lane;
+        const int r = a * kTileWorkers + rc / kTileWorkers;
+        const int c = b * kTileWorkers + rc % kTileWorkers;
+        uint2 v = make_uint2(0u, 0u);
+        if (r < c && c < n) {
+          const int64_t at = static_cast<int64_t>(r) * n + c;
+          v = make_uint2(keys[at], static_cast<uint32_t>(signs[at]));
+        }
+        s_pairs[tile * kTilePairs + rc] = v;
+        live_pairs += __popc(__ballot_sync(0xFFFFFFFFu, v.y != 0u));
+      }
+      if (lane == 0) s_info[tile] = make_int2(a | b << 16, live_pairs);
+    }
+    if (threadIdx.x < kWarps) s_next[threadIdx.x] = 0;
+  }
+
+  // Phase 1: W_k * field of this warp's workers.
+  const bool round1 = *t <= 1;
+  float4 a = make_float4(0.f, 0.f, 0.f, 0.f), step = a;
+  if (live) {
+    a = p1[i];
+    step = sub4(a, round1 ? a : p2[i]);
+  }
+  const uint32_t e0 = static_cast<uint32_t>(i) * 4u;
+  uint32_t hr[4] = {0u, 0u, 0u, 0u};       // RR counter hashes, per element
+  if constexpr (kRR) {
+#pragma unroll
+    for (int j = 0; j < 4; ++j) hr[j] = mix32(e0 + j);
+  }
+  for (int k0 = sub; k0 < n_pad; k0 += 4 * split) {
+    float4 x[4];
+#pragma unroll
+    for (int u = 0; u < 4; ++u) {
+      const int k = k0 + u * split;
+      x[u] = live && k < n ? q[static_cast<int64_t>(k) * m + i]
+                           : make_float4(0.f, 0.f, 0.f, 0.f);
+    }
+#pragma unroll
+    for (int u = 0; u < 4; ++u) {
+      const int k = k0 + u * split;
+      if (k >= n_pad) break;
+      uint32_t w[4] = {0u, 0u, 0u, 0u};
+      if (k < n) {
+        const float bk = beta[k];
+        uint32_t f[4] = {wire_field(x[u].x, a.x, step.x, bk, alpha1, round1),
+                         wire_field(x[u].y, a.y, step.y, bk, alpha1, round1),
+                         wire_field(x[u].z, a.z, step.z, bk, alpha1, round1),
+                         wire_field(x[u].w, a.w, step.w, bk, alpha1, round1)};
+        if constexpr (kRR) {
+          const uint32_t rk = rr_keys[k];
+#pragma unroll
+          for (int j = 0; j < 4; ++j) {
+            const uint32_t rr = mix32(hr[j] + rk);
+            if ((rr & 0xFFFFu) < rr_threshold) f[j] = (rr >> 16) % 3u;
+          }
+        }
+        const uint32_t wk = wq[k];
+#pragma unroll
+        for (int j = 0; j < 4; ++j) w[j] = wk * f[j];
+      }
+#pragma unroll
+      for (int j = 0; j < 4; ++j) sums[(k * 4 + j) * 32 + lane] = w[j];
+    }
+  }
+  __syncthreads();
+
+  // Phase 2: the position group's warps take its tiles in turn.
+  if constexpr (kMasks) {
+    uint32_t hm[4];
+    if constexpr (kWordBits == 16) {
+      hm[0] = mix32(e0 >> 1);
+      hm[1] = mix32((e0 >> 1) + 1u);
+      hm[2] = hm[3] = 0u;
+    } else {
+#pragma unroll
+      for (int j = 0; j < 4; ++j) hm[j] = kRR ? hr[j] : mix32(e0 + j);
+    }
+    for (;;) {
+      int tile = 0;
+      if (lane == 0) tile = atomicAdd(s_next + pgroup, 1);
+      tile = __shfl_sync(0xFFFFFFFFu, tile, 0);
+      if (tile >= n_tiles) break;
+      const int2 info = s_info[tile];
+      if (info.y == 0) continue;
+      const int ta = info.x & 0xFFFF;
+      const int tb = info.x >> 16;
+      const int rows = min(kTileWorkers, n - ta * kTileWorkers);
+      const int cols = min(kTileWorkers, n - tb * kTileWorkers);
+      const uint2* pairs = s_pairs + tile * kTilePairs;
+      const uint32_t one = n > 0;
+      uint32_t rb[kTileWorkers][4];
+#pragma unroll
+      for (int c = 0; c < kTileWorkers; ++c) {
+#pragma unroll
+        for (int j = 0; j < 4; ++j) rb[c][j] = 0u;
+      }
+      if (ta != tb) {
+        if (info.y == kTilePairs) {
+          fold_tile<kWordBits, false, false>(pairs, rows, cols, ta, lane,
+                                             sums, hm, one, rb);
+        } else {
+          fold_tile<kWordBits, true, false>(pairs, rows, cols, ta, lane,
+                                            sums, hm, one, rb);
+        }
+      } else if (info.y == kDiagPairs) {
+        fold_tile<kWordBits, false, true>(pairs, rows, cols, ta, lane, sums,
+                                          hm, one, rb);
+      } else {
+        fold_tile<kWordBits, true, true>(pairs, rows, cols, ta, lane, sums,
+                                         hm, one, rb);
+      }
+#pragma unroll
+      for (int c = 0; c < kTileWorkers; ++c) {
+        if (c < cols) add_sums<true>(sums, tb * kTileWorkers + c, lane, rb[c]);
+      }
+    }
+  }
+  __syncthreads();
+
+  // Phase 3: this warp's workers' words.
+  if (live) {
+    for (int k = sub; k < n; k += split) {
+      uint32_t w[4];
+#pragma unroll
+      for (int j = 0; j < 4; ++j) w[j] = sums[(k * 4 + j) * 32 + lane];
+      store_words<kWordBits>(out, static_cast<int64_t>(k) * m + i, w);
+    }
   }
 }
 
@@ -626,7 +993,7 @@ struct PackArgs {
   int64_t m;
   int block_rows;
   int block_workers;
-  bool pairs;
+  int kernel;   // 0 the row fold, 1 the pair kernel, 2 the tile kernel
   cudaStream_t stream;
 };
 
@@ -646,13 +1013,34 @@ cudaError_t launch_pairs(const PackArgs& a) {
 }
 
 template <int kWordBits, bool kRR, bool kMasks>
+cudaError_t launch_tiles(const PackArgs& a) {
+  const auto kernel = ternary_pack_masked_tiles_kernel<kWordBits, kRR, kMasks>;
+  const TileGeometry g = tile_geometry(a.n, kMasks);
+  if (g.smem > 48 * 1024) {
+    const cudaError_t err = cudaFuncSetAttribute(
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        static_cast<int>(g.smem));
+    if (err != cudaSuccess) return err;
+  }
+  const int64_t per_block = static_cast<int64_t>(kWarps / g.split) * 32;
+  const unsigned grid = static_cast<unsigned>((a.m + per_block - 1) /
+                                              per_block);
+  kernel<<<grid, kThreads, g.smem, a.stream>>>(
+      a.q, a.p1, a.p2, a.beta, a.wq, a.keys, a.signs, a.rr_keys, a.t,
+      a.alpha1, a.rr_threshold, a.out, a.n, a.m, g.split);
+  return cudaGetLastError();
+}
+
+template <int kWordBits, bool kRR, bool kMasks>
 cudaError_t launch_pack(const PackArgs& a) {
-  if (a.pairs) {
+  if (a.kernel != 0) {
     if (a.cohort != a.n || a.block_workers != a.n ||
-        a.block_rows != kThreads / wire::kRowPositions) {
+        a.block_rows != kThreads / wire::kRowPositions ||
+        a.n > (a.kernel == 1 ? kPairMaxWorkers : kTileMaxWorkers)) {
       return cudaErrorInvalidValue;
     }
-    return launch_pairs<kWordBits, kRR, kMasks>(a);
+    return a.kernel == 1 ? launch_pairs<kWordBits, kRR, kMasks>(a)
+                         : launch_tiles<kWordBits, kRR, kMasks>(a);
   }
   const size_t staged = kMasks ? 2 * sizeof(uint32_t) *
                                      static_cast<size_t>(a.block_workers) *
@@ -692,18 +1080,21 @@ extern "C" {
 // q (n, m) float4, p1/p2 (m,) float4, beta (n,) float, wq (n,) uint32,
 // keys (n, cohort) uint32, signs (n, cohort) int32, rr_keys (n,) uint32,
 // t int32 scalar, out (n, m) ushort4 (word_bits 16) or uint4 (32).
-// pairs != 0 takes the pair kernel (cohort == n <= kPairMaxWorkers, keys
-// symmetric, signs antisymmetric; block_rows == 2, block_workers == n),
-// else the row-fold kernel (1 <= block_workers <= n; block_rows >= 1).
+// kernel 1 (the pair kernel, n <= kPairMaxWorkers) and 2 (the tile
+// kernel, n <= kTileMaxWorkers) expand each unordered pair once: cohort
+// == n, keys symmetric, signs antisymmetric; block_rows == 2,
+// block_workers == n. kernel 0 takes the row-fold kernel (1 <=
+// block_workers <= n; block_rows >= 1).
 int mw_ternary_pack_masked(const void* q, const void* p1, const void* p2,
                            const void* beta, const void* wq, const void* keys,
                            const void* signs, const void* rr_keys,
                            const void* t, float alpha1,
                            unsigned rr_threshold, int word_bits,
-                           int use_masks, int pairs, void* out, int n,
+                           int use_masks, int kernel, void* out, int n,
                            int cohort, long long m, int block_rows,
                            int block_workers, int device, void* stream) {
-  if (block_rows < 1 || block_workers < 1 || block_workers > n) {
+  if (block_rows < 1 || block_workers < 1 || block_workers > n ||
+      kernel < 0 || kernel > 2) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   const cudaError_t set = cudaSetDevice(device);
@@ -725,7 +1116,7 @@ int mw_ternary_pack_masked(const void* q, const void* p1, const void* p2,
                    m,
                    block_rows,
                    block_workers,
-                   pairs != 0,
+                   kernel,
                    static_cast<cudaStream_t>(stream)};
   const bool rr = rr_threshold > 0;
   const bool masks = use_masks != 0;

@@ -7,14 +7,17 @@ They take the same ``(R, 512)`` float views as ``kernels.fused_wire`` and
 ``uint32`` at 32. The uplink regenerates the pairwise mask and RR streams
 in registers from the ``(N, L)`` key/sign matrices and the ``(N,)`` RR
 keys, so no code, field, RR or mask tensor ever reaches device memory;
-what it writes is already masked. It has two kernels, picked by shape
-alone (:func:`uses_pair_kernel`): one that expands each unordered pair
-once for all workers in registers, and one that folds each worker's row.
+what it writes is already masked. It has three kernels, picked by shape
+alone (:func:`cohort_kernel`): for a square key matrix, each unordered
+pair is expanded once and folded into both workers, with all workers'
+sums in registers up to ``PAIR_MAX_WORKERS`` (the pair kernel) and in
+shared memory beyond, up to ``COHORT_MAX_WORKERS`` (the tile kernel);
+otherwise each worker folds its own row (the row-fold kernel).
 
 A launch takes a plan, as ``csrc/masked_wire.cu`` reads it: the uplink's
 and the master's ``block_rows`` (kernel-view rows a CTA covers), the
-row-fold uplink's ``block_workers`` (workers a CTA; the pair kernel
-honours only its default, 2 rows and all N), the master's
+row-fold uplink's ``block_workers`` (workers a CTA; the pair and tile
+kernels honour only their default, 2 rows and all N), the master's
 ``block_workers`` (word rows loaded ahead of each step of its sum), the
 repair's ``block_rows`` (rows a pass of its persistent grid covers). The plan comes from the caller: ``kernels.ops``
 resolves it through the ``kernels.tune`` table and snaps it to one the
@@ -48,14 +51,23 @@ from repro_torch.privacy.masking import net_words64, to_words, word_bits_of
 from repro_torch.privacy.recovery import mask_repair_ref
 from repro_torch.telemetry import profile as tprof
 
-#: Kernel launches per wrapper; only a launch on the card counts.
-LAUNCHES = {"uplink_masked": 0, "master_masked": 0, "mask_repair": 0}
+#: Kernel launches per kernel; only a launch on the card counts. The
+#: masked uplink's pair and row-fold kernels count under
+#: ``uplink_masked``, its tile kernel under ``uplink_masked_tiles``.
+LAUNCHES = {"uplink_masked": 0, "uplink_masked_tiles": 0,
+            "master_masked": 0, "mask_repair": 0}
 
 #: Bytes of shared memory a block may stage the (N, L) keys and signs in.
 MAX_STAGED_BYTES = 227 * 1024
 
 #: Most workers the pair kernel holds in registers (``kPairMaxWorkers``).
 PAIR_MAX_WORKERS = 16
+
+#: Most workers of a square key matrix whose pairs are each expanded once
+#: (``kTileMaxWorkers``): the tile kernel takes ``PAIR_MAX_WORKERS`` + 1
+#: up to it, every N whose (N, N) keys and signs fit ``MAX_STAGED_BYTES``.
+#: Read at each call: lowering it sends those cohorts to the row fold.
+COHORT_MAX_WORKERS = 170
 
 _WORD_DTYPES = {16: torch.uint16, 32: torch.uint32}
 _P = ctypes.c_void_p
@@ -117,13 +129,23 @@ def ternary_pack_masked_plain(q, p1, p2, t, beta, alpha1: float, wq, keys,
                                  masks.view(n, r, WIDE), bits, rr_threshold)
 
 
+def cohort_kernel(n: int, cohort: int) -> str:
+    """The kernel of the masked uplink of N workers over an (N, L =
+    cohort) key matrix: ``"pairs"`` for a square matrix of at most
+    ``PAIR_MAX_WORKERS`` workers, ``"tiles"`` for a square one of more, up
+    to ``COHORT_MAX_WORKERS``, ``"rows"`` (the row fold) for any other."""
+    if cohort != n or not 1 <= n <= COHORT_MAX_WORKERS:
+        return "rows"
+    return "pairs" if n <= PAIR_MAX_WORKERS else "tiles"
+
+
 def uses_pair_kernel(n: int, cohort: int) -> bool:
     """Whether the masked uplink of N workers over an (N, L = cohort) key
-    matrix takes the pair kernel, which expands each unordered pair once
-    and folds it into both workers: a square matrix of at most
-    ``PAIR_MAX_WORKERS`` workers. Otherwise the row-fold kernel, where each
-    worker folds its own row, runs."""
-    return cohort == n and 1 <= n <= PAIR_MAX_WORKERS
+    matrix expands each unordered pair once and folds it into both
+    workers (the pair or the tile kernel, :func:`cohort_kernel`), as the
+    TPU kernel does for a cohort it holds whole. Otherwise the row-fold
+    kernel, where each worker folds its own row, runs."""
+    return cohort_kernel(n, cohort) != "rows"
 
 
 def ternary_pack_masked(q: torch.Tensor, p1: torch.Tensor, p2: torch.Tensor,
@@ -144,9 +166,8 @@ def ternary_pack_masked(q: torch.Tensor, p1: torch.Tensor, p2: torch.Tensor,
     ``rr_threshold`` the uint16 flip threshold (0 = RR off); ``word_bits``
     16 or 32; ``use_masks=False`` adds no mask (the unmasked debug wire);
     the plan: any ``block_rows`` in [1, max(R, 2)] and ``block_workers``
-    in [1, N] for the row fold, 2 and N alone for the pair kernel
-    (default 2 and N). Returns
-    (N, R, 512) uint16 or uint32.
+    in [1, N] for the row fold, 2 and N alone for the pair and tile
+    kernels (default 2 and N). Returns (N, R, 512) uint16 or uint32.
 
     Where :func:`uses_pair_kernel` holds, the kernel reads only the upper
     triangle of a square key matrix: the keys must be symmetric and the
@@ -156,8 +177,7 @@ def ternary_pack_masked(q: torch.Tensor, p1: torch.Tensor, p2: torch.Tensor,
     """
     return _pack_masked(q, p1, p2, t, beta, alpha1, wq, keys, signs,
                         rr_keys, rr_threshold, word_bits, use_masks,
-                        row_fold=False, block_rows=block_rows,
-                        block_workers=block_workers)
+                        block_rows=block_rows, block_workers=block_workers)
 
 
 def _ternary_pack_masked_rows(q, p1, p2, t, beta, alpha1, wq, keys, signs,
@@ -167,16 +187,38 @@ def _ternary_pack_masked_rows(q, p1, p2, t, beta, alpha1, wq, keys, signs,
                               block_workers: int | None = None
                               ) -> torch.Tensor:
     """:func:`ternary_pack_masked` through the row-fold kernel at any
-    shape: the yardstick the pair kernel is timed and checked against."""
+    shape: the yardstick the pair and tile kernels are timed and checked
+    against."""
     return _pack_masked(q, p1, p2, t, beta, alpha1, wq, keys, signs,
                         rr_keys, rr_threshold, word_bits, use_masks,
-                        row_fold=True, block_rows=block_rows,
+                        kernel="rows", block_rows=block_rows,
                         block_workers=block_workers)
 
 
+def _ternary_pack_masked_tiles(q, p1, p2, t, beta, alpha1, wq, keys, signs,
+                               rr_keys, *, rr_threshold: int = 0,
+                               word_bits: int = 32, use_masks: bool = True
+                               ) -> torch.Tensor:
+    """:func:`ternary_pack_masked` through the tile kernel at any square N
+    up to ``COHORT_MAX_WORKERS``, the pair kernel's range too: the tile
+    kernel beside the pair kernel at the same N."""
+    if keys.shape != (q.shape[0], q.shape[0]) or not (
+            1 <= q.shape[0] <= COHORT_MAX_WORKERS):
+        raise ValueError("the tile kernel takes a square key matrix of at "
+                         f"most {COHORT_MAX_WORKERS} workers")
+    return _pack_masked(q, p1, p2, t, beta, alpha1, wq, keys, signs,
+                        rr_keys, rr_threshold, word_bits, use_masks,
+                        kernel="tiles", block_rows=None, block_workers=None)
+
+
+#: The C entry's number of each masked uplink kernel.
+_KERNEL_IDS = {"rows": 0, "pairs": 1, "tiles": 2}
+
+
 def _pack_masked(q, p1, p2, t, beta, alpha1, wq, keys, signs, rr_keys,
-                 rr_threshold, word_bits, use_masks, *, row_fold: bool,
-                 block_rows: int | None, block_workers: int | None):
+                 rr_threshold, word_bits, use_masks, *,
+                 block_rows: int | None, block_workers: int | None,
+                 kernel: str | None = None):
     dev = device_of(q)
     n, r = q.shape[0], q.shape[1]
     cohort = keys.shape[1] if keys.dim() == 2 else -1
@@ -209,16 +251,19 @@ def _pack_masked(q, p1, p2, t, beta, alpha1, wq, keys, signs, rr_keys,
                 q, p1, p2, t, beta, alpha1, wq, keys, signs, rr_keys,
                 rr_threshold=rr_threshold, word_bits=word_bits,
                 use_masks=use_masks)
-        pairs = not row_fold and uses_pair_kernel(n, cohort)
+        kernel = kernel or cohort_kernel(n, cohort)
         br, bw = tune.cuda_plan(scope_kind("uplink_masked", word_bits), r, n,
-                                block_rows, block_workers, pairs=pairs)
+                                block_rows, block_workers,
+                                pairs=kernel != "rows")
         out = torch.empty((n, r, WIDE), dtype=_WORD_DTYPES[word_bits],
                           device=dev)
-        _launch("uplink_masked", _lib().mw_ternary_pack_masked,
+        _launch("uplink_masked_tiles" if kernel == "tiles"
+                else "uplink_masked", _lib().mw_ternary_pack_masked,
                 q.data_ptr(), p1.data_ptr(), p2.data_ptr(), beta.data_ptr(),
                 wq.data_ptr(), keys.data_ptr(), signs.data_ptr(),
                 rr_keys.data_ptr(), t.data_ptr(), float(alpha1),
-                int(rr_threshold), word_bits, int(bool(use_masks)), int(pairs),
+                int(rr_threshold), word_bits, int(bool(use_masks)),
+                _KERNEL_IDS[kernel],
                 out.data_ptr(), n, cohort, r * WIDE // 4, br, bw, dev.index,
                 torch.cuda.current_stream(dev).cuda_stream)
         return out

@@ -274,8 +274,9 @@ def flat_ternary_pack_masked(bufs_q: torch.Tensor, buf_p1: torch.Tensor,
     ``t`` may be a device tensor; ``beta`` a shared scalar or an (N,)
     vector. The plan resolves under ``uplink_masked16``/``uplink_masked``
     by modulus, chaining down to the ``uplink_stacked`` plan when untuned;
-    the pair kernel (a square key matrix of at most 16 workers) holds all
-    N workers a CTA.
+    the pair and tile kernels (a square key matrix of at most
+    ``masked_wire.COHORT_MAX_WORKERS`` workers) hold all N workers a CTA
+    and honour that plan alone.
     """
     n, rows, _ = bufs_q.shape
     r4 = rows // PACK

@@ -242,11 +242,12 @@ def fit_cuda_plan(kind: str, rows: int, extent: int, block_rows: int,
       uplinks' worker blocks any value in [1, N]; the masters' loads
       ahead the largest of ``MASTER_AHEAD`` ≤ the request and ≤ the rows
       they fold; the masked partial sum's groups any value in [1, G].
-    - Two kernels honour only their default, so every request snaps to
-      it: the pair kernel (``pairs``: ``masked_wire.uses_pair_kernel``),
-      which holds all N workers, and the leaf partial sum
-      (``partial_sum``). Their loop over a longer span was slower at
-      every plan tried on an H100.
+    - Three kernels honour only their default, so every request snaps to
+      it: the masked uplink's pair and tile kernels (``pairs``:
+      ``masked_wire.uses_pair_kernel``), which hold all N workers, and
+      the leaf partial sum (``partial_sum``). The pair kernel's and the
+      leaf partial sum's loop over a longer span was slower at every plan
+      tried on an H100; the tile kernel sets its own geometry by N.
     """
     family = _family(kind)
     rows, extent = max(1, int(rows)), max(1, int(extent))
@@ -426,8 +427,9 @@ def _candidate_plans(kind: str, rows: int, n: int, backend: str, *,
       an SM (every CTA resident at once, no tail wave); worker blocks of
       ceil(N/2) and of 1 (twice and N times the CTAs in flight for the
       same positions, each worker block reading p1/p2 again: the JAX
-      package's rows-major, worker-minor trade). The pair kernel honours
-      its default alone (:func:`fit_cuda_plan`): its sweep is that plan.
+      package's rows-major, worker-minor trade). The pair and tile kernels
+      honour their default alone (:func:`fit_cuda_plan`): a sweep of
+      either is that plan.
     - the one-worker uplink: 2, 8 rows and one wave of 8 CTAs an SM.
     - the masters: 1, 2, 4 and 8 workers' bytes loaded ahead of each
       step of the fold (more loads in flight a thread against the
@@ -641,7 +643,8 @@ def autotune_masked_uplink(rows: int, n_workers: int, *, device=None,
                            verify: bool = False) -> dict:
     """Timed sweep of the masked uplink's plans for (rows, N) at one wire
     modulus (kind ``uplink_masked16``/``uplink_masked``): the pair kernel
-    up to ``PAIR_MAX_WORKERS`` workers, the row fold beyond."""
+    up to ``PAIR_MAX_WORKERS`` workers and the tile kernel up to
+    ``COHORT_MAX_WORKERS`` (one plan each), the row fold beyond."""
     from repro_torch.kernels import masked_wire as mw
     dev = resolve_device(device)
     q, p1, p2, t, beta, _, keys, signs, rrk, wq, _ = _masked_inputs(

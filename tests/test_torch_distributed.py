@@ -351,3 +351,160 @@ def test_round_engine_shards_pad_to_whole_slabs():
     for shards in (2, 4):
         np.testing.assert_array_equal(new[shards].view(np.uint32),
                                       new[1].view(np.uint32))
+
+
+# -- the wire's launch-plan knobs ----------------------------------------------
+
+KNOBS = {"wire_block_rows": 8, "wire_block_workers": 2}
+KNOB_CASES = (("fedpc_packed", None), ("fedpc", "m16_dp"))
+
+KNOB_ORACLE = r"""
+import os, sys
+os.environ["XLA_FLAGS"] = "--xla_force_host_platform_device_count=8"
+sys.path.insert(0, sys.argv[1])
+import numpy as np
+import jax, jax.numpy as jnp
+from jax.sharding import Mesh
+import _torch_dist as H
+import test_torch_distributed as T
+from repro.fed.distributed import build_fed_sync, fed_state_init
+from repro.privacy import PrivacySpec
+
+out = {}
+for F, M in H.MESHES:
+    mesh = Mesh(np.array(jax.devices()[:F * M]).reshape(F, M),
+                ("data", "model"))
+    for strategy, spec in T.KNOB_CASES:
+        kw = dict(T.KNOBS, betas=jnp.asarray(H.inputs(F, 1)["betas"]))
+        if spec:
+            kw["privacy"] = PrivacySpec(**H.SPECS[spec])
+        with mesh:
+            sync = jax.jit(build_fed_sync(None, mesh, "data", strategy, **kw))
+            for t in H.ROUNDS:
+                x = H.inputs(F, t)
+                state = fed_state_init(jax.tree_util.tree_map(
+                    jnp.asarray, x["params"]), F)
+                state["round"] = jnp.asarray(t, jnp.int32)
+                state["params_prev"] = jax.tree_util.tree_map(
+                    jnp.asarray, x["params_prev"])
+                state["prev_costs"] = jnp.asarray(x["prev_costs"])
+                params_F = {k: jnp.stack([jnp.asarray(l[k])
+                                          for l in x["local"]])
+                            for k in x["params"]}
+                new, aux = sync(params_F, jnp.asarray(x["costs"]),
+                                jnp.asarray(x["sizes"]), state,
+                                jnp.asarray(x["mask"]))
+                key = f"{F}x{M}_t{t}_{strategy}_{spec}"
+                out[key] = H.flat(jax.tree_util.tree_map(np.asarray, new))
+                out[key + "_k"] = np.asarray(aux["k_star"])
+np.savez(sys.argv[2], **out)
+"""
+
+KNOB_RANK = r"""
+import json, os, sys
+sys.path.insert(0, os.path.dirname(sys.argv[1]))
+import numpy as np
+import torch
+import torch.distributed as dist
+job = json.load(open(sys.argv[2]))
+rank, F, M = int(sys.argv[3]), job["F"], job["M"]
+sys.path.insert(0, job["src"])
+import _torch_dist as H
+import test_torch_distributed as T
+from repro_torch.fed import distributed as D
+from repro_torch.fed.distributed import build_fed_sync, fed_state_init
+from repro_torch.launch.mesh import make_debug_mesh
+from repro_torch.privacy import PrivacySpec
+
+dist.init_process_group("gloo", init_method="file://" + job["store"],
+                        world_size=F * M, rank=rank)
+plans = []
+wire_path = D.rd.WirePath
+
+
+def recording(*args, **kw):
+    wire = wire_path(*args, **kw)
+    plans.append((wire.block_rows, wire.block_workers))
+    return wire
+
+
+D.rd.WirePath = recording
+try:
+    mesh = make_debug_mesh(F, M)
+    f = mesh.axes["data"].index
+    tensors = lambda tree: {k: torch.from_numpy(np.array(v))
+                            for k, v in tree.items()}
+    out = {}
+    for strategy, spec in T.KNOB_CASES:
+        kw = dict(T.KNOBS, betas=torch.from_numpy(H.inputs(F, 1)["betas"]))
+        if spec:
+            kw["privacy"] = PrivacySpec(**H.SPECS[spec])
+        sync = build_fed_sync(None, mesh, "data", strategy, device="cpu",
+                              **kw)
+        for t in H.ROUNDS:
+            x = H.inputs(F, t)
+            state = fed_state_init(tensors(x["params"]), F)
+            state["round"] = torch.tensor(t, dtype=torch.int32)
+            state["params_prev"] = tensors(x["params_prev"])
+            state["prev_costs"] = torch.from_numpy(x["prev_costs"])
+            new, aux = sync(tensors(x["local"][f]),
+                            torch.from_numpy(x["costs"]),
+                            torch.from_numpy(x["sizes"]), state,
+                            torch.from_numpy(x["mask"]))
+            key = f"{F}x{M}_t{t}_{strategy}_{spec}"
+            out[key] = H.flat({k: v.numpy() for k, v in new.items()})
+            out[key + "_k"] = aux["k_star"].numpy()
+    out["plans"] = np.array(plans, np.int64)
+    dist.barrier()
+    if rank == 0:
+        np.savez(job["out"], **out)
+finally:
+    dist.destroy_process_group()
+"""
+
+
+def _knob_ranks(F, M, tmp):
+    """The port's side of the knob cases on F·M gloo ranks; rank 0's
+    arrays."""
+    import json
+    import os
+    import subprocess
+    import sys
+    job = {"F": F, "M": M, "src": H.SRC, "store": str(tmp / f"store{F}{M}"),
+           "out": str(tmp / f"port{F}{M}.npz")}
+    path = tmp / f"job{F}{M}.json"
+    path.write_text(json.dumps(job))
+    env = dict(os.environ, PYTHONPATH=H.SRC, OMP_NUM_THREADS="1")
+    procs = [subprocess.Popen([sys.executable, "-c", KNOB_RANK, H.__file__,
+                               str(path), str(r)], env=env,
+                              stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+                              text=True) for r in range(F * M)]
+    return procs, job["out"]
+
+
+def test_wire_plan_knobs_equal_the_jax_sync(tmp_path):
+    """``build_fed_sync(wire_block_rows=, wire_block_workers=)`` takes the
+    JAX signature's knobs, hands them to every rank's ``WirePath`` and
+    gives the JAX runtime's bits and pilot with the same knobs: the plain
+    packed wire and the masked 16-bit wire with DP, rounds 1 and 3, on
+    both meshes."""
+    oracle = H.start_oracle(KNOB_ORACLE, str(tmp_path / "oracle.npz"))
+    started = [_knob_ranks(F, M, tmp_path) for F, M in H.MESHES]
+    port = {}
+    for mesh, got in zip(H.MESHES, started):
+        got = H.ranks_result(got)
+        plans = got.pop("plans")
+        assert plans.tolist() == [[KNOBS["wire_block_rows"],
+                                   KNOBS["wire_block_workers"]]] * len(
+                                       KNOB_CASES), (mesh, plans)
+        port.update(got)
+    want = H.oracle_result(oracle)
+    assert sorted(port) == sorted(want)
+    assert len(want) == 2 * len(H.MESHES) * len(KNOB_CASES) * len(H.ROUNDS)
+    for key in want:
+        if key.endswith("_k"):
+            assert int(port[key]) == int(want[key]), key
+        else:
+            np.testing.assert_array_equal(port[key].view(np.uint32),
+                                          want[key].view(np.uint32),
+                                          err_msg=key)

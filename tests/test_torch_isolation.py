@@ -81,6 +81,22 @@ def test_entry_points_default_to_cuda():
         init_round_state(params, 2)
 
 
+def test_bench_scripts_import_neither_jax_nor_the_jax_package():
+    # The card's timing scripts run on the machine with the card, which
+    # has no JAX: every import statement, those inside functions too.
+    scripts = sorted((ROOT / "bench_torch").glob("*.py"))
+    assert "masked_cohort.py" in [p.name for p in scripts]
+    for path in scripts:
+        names = []
+        for node in ast.walk(ast.parse(path.read_text())):
+            if isinstance(node, ast.Import):
+                names += [a.name for a in node.names]
+            elif isinstance(node, ast.ImportFrom):
+                names.append(node.module or "")
+        assert [n for n in names if n.split(".")[0] in FORBIDDEN] == [], \
+            path.name
+
+
 def test_torch_examples_import_neither_jax_nor_the_jax_package():
     examples = sorted((ROOT / "examples").glob("*_torch.py"))
     assert [p.name for p in examples] == [

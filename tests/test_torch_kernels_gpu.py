@@ -228,18 +228,22 @@ def _masked_operands(rng, n, r, t, bits, participation, dev, sibling=None):
 def test_masked_kernels_match_plain_on_card(cuda, bits, n, r, participation,
                                             sibling, t, thr):
     # Up to 16 workers the wrapper takes the pair kernel, beyond them the
-    # row-fold kernel; the row-fold kernel's private entry runs at every N.
+    # tile kernel (counted apart); the row-fold kernel's private entry runs
+    # at every N.
     rng = np.random.default_rng(1000 * n + 10 * t + bits + thr)
     ops = _masked_operands(rng, n, r, t, bits, participation, cuda, sibling)
     dq, dp1, dp2, dt, _, wq, _, _, _ = ops
+    kind = ("uplink_masked_tiles" if tmw.cohort_kernel(n, n) == "tiles"
+            else "uplink_masked")
     for use_masks in (True, False):
         kw = dict(rr_threshold=thr, word_bits=bits, use_masks=use_masks)
-        before = tmw.LAUNCHES["uplink_masked"]
+        before = dict(tmw.LAUNCHES)
         words = tmw.ternary_pack_masked(*ops[:5], ALPHA1, *ops[5:], **kw)
-        assert tmw.LAUNCHES["uplink_masked"] == before + 1
+        assert tmw.LAUNCHES[kind] == before[kind] + 1
         rows = tmw._ternary_pack_masked_rows(*ops[:5], ALPHA1, *ops[5:],
                                              **kw)
-        assert tmw.LAUNCHES["uplink_masked"] == before + 2
+        assert tmw.LAUNCHES["uplink_masked"] == (
+            before["uplink_masked"] + 1 + (kind == "uplink_masked"))
         plain = tmw.ternary_pack_masked_plain(*ops[:5], ALPHA1, *ops[5:],
                                               **kw)
         assert words.dtype == rows.dtype == plain.dtype
@@ -255,6 +259,103 @@ def test_masked_kernels_match_plain_on_card(cuda, bits, n, r, participation,
                                            dt, ALPHA0, spec.scale_mult)
     torch.cuda.synchronize()
     assert torch.equal(out.view(torch.int32), plain.view(torch.int32))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("bits", [16, 32])
+@pytest.mark.parametrize("n", [17, 24, 32, 33, 48, 64,
+                               tmw.COHORT_MAX_WORKERS])
+@pytest.mark.parametrize("thr", [0, 3277])
+def test_tile_kernel_matches_plain_and_row_fold_on_card(cuda, bits, n, thr):
+    # The tile kernel (N > 16 up to the cap) bitwise against the plain twin
+    # and the row fold: masks off and on, t = 1, 2, all pairs active, a
+    # participation fold, and a tree's signs scoped to sibling groups of 2
+    # and 4 (sparse tiles), at R = 8 and at a ragged R = 3 (not a whole
+    # block of 256 positions where a block holds 8 position groups).
+    assert tmw.cohort_kernel(n, n) == "tiles"
+    for r, participation, sibling in ((8, False, None), (3, True, None),
+                                      (8, True, 2), (3, False, 4)):
+        for t in (1, 2):
+            rng = np.random.default_rng(n + 10 * r + t + bits + thr)
+            ops = _masked_operands(rng, n, r, t, bits, participation, cuda,
+                                   sibling)
+            for use_masks in (True, False):
+                kw = dict(rr_threshold=thr, word_bits=bits,
+                          use_masks=use_masks)
+                before = tmw.LAUNCHES["uplink_masked_tiles"]
+                words = tmw.ternary_pack_masked(*ops[:5], ALPHA1, *ops[5:],
+                                                **kw)
+                assert tmw.LAUNCHES["uplink_masked_tiles"] == before + 1
+                rows = tmw._ternary_pack_masked_rows(*ops[:5], ALPHA1,
+                                                     *ops[5:], **kw)
+                plain = tmw.ternary_pack_masked_plain(*ops[:5], ALPHA1,
+                                                      *ops[5:], **kw)
+                torch.cuda.synchronize()
+                where = (r, participation, sibling, t, use_masks)
+                assert words.dtype == plain.dtype, where
+                assert torch.equal(pvm.as_u64(words), pvm.as_u64(plain)), where
+                assert torch.equal(pvm.as_u64(rows), pvm.as_u64(plain)), where
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("bits", [16, 32])
+@pytest.mark.parametrize("n", [1, 3, 8, 10, 16])
+def test_tile_kernel_equals_the_pair_kernel_on_card(cuda, bits, n):
+    # Below 17 workers the wrapper takes the pair kernel; the tile kernel,
+    # forced, gives its bits (one group, padded where N < 8).
+    rng = np.random.default_rng(300 + n + bits)
+    for t, participation in ((1, False), (2, True)):
+        ops = _masked_operands(rng, n, 8, t, bits, participation, cuda)
+        for thr in (0, 3277):
+            kw = dict(rr_threshold=thr, word_bits=bits)
+            pairs = tmw.ternary_pack_masked(*ops[:5], ALPHA1, *ops[5:], **kw)
+            tiles = tmw._ternary_pack_masked_tiles(*ops[:5], ALPHA1,
+                                                   *ops[5:], **kw)
+            torch.cuda.synchronize()
+            assert torch.equal(pvm.as_u64(tiles), pvm.as_u64(pairs))
+
+
+def _c_pack(ops, bits, kernel, n, cohort, r, block_rows, block_workers):
+    """The masked uplink's C entry called as is, with no check of the
+    wrapper's: its CUDA error code."""
+    q, p1, p2, t, beta, wq, keys, signs, rrk = ops
+    out = torch.empty((n, r, 512), dtype=torch.uint16 if bits == 16
+                      else torch.uint32, device=q.device)
+    return tmw._lib().mw_ternary_pack_masked(
+        q.data_ptr(), p1.data_ptr(), p2.data_ptr(), beta.data_ptr(),
+        wq.data_ptr(), keys.data_ptr(), signs.data_ptr(), rrk.data_ptr(),
+        t.data_ptr(), ALPHA1, 0, bits, 1, kernel, out.data_ptr(), n, cohort,
+        r * 128, block_rows, block_workers, q.device.index,
+        torch.cuda.current_stream(q.device).cuda_stream)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("bits", [16, 32])
+def test_tile_kernel_refuses_other_plans_on_card(cuda, bits):
+    # The tile kernel honours one plan, the pair kernel's (2 rows, all N):
+    # the wrapper refuses another, ops snaps to it, and the C entry (kernel
+    # 2; 1 is the pair kernel, 0 the row fold) refuses it, a cohort past
+    # the cap, and the pair kernel past 16 workers.
+    n, r = 20, 8
+    rng = np.random.default_rng(bits)
+    ops = _masked_operands(rng, n, r, 2, bits, False, cuda)
+    kind = "uplink_masked16" if bits == 16 else "uplink_masked"
+    for br, bw in ((8, None), (None, 4), (1, 20), (2, 1)):
+        with pytest.raises(ValueError, match="nearest plan"):
+            tmw.ternary_pack_masked(*ops[:5], ALPHA1, *ops[5:],
+                                    word_bits=bits, block_rows=br,
+                                    block_workers=bw)
+    from repro_torch.kernels import tune
+    assert tune.fit_cuda_plan(kind, r, n, 8, 4, pairs=True) == (2, n)
+    assert _c_pack(ops, bits, 2, n, n, r, 2, n) == 0
+    for br, bw in ((8, n), (2, 4), (1, n)):
+        assert _c_pack(ops, bits, 2, n, n, r, br, bw) != 0, (br, bw)
+    assert _c_pack(ops, bits, 1, n, n, r, 2, n) != 0
+    assert _c_pack(ops, bits, 3, n, n, r, 2, n) != 0
+    big = tmw.COHORT_MAX_WORKERS + 1
+    assert _c_pack(_masked_operands(rng, big, 1, 2, bits, False, cuda), bits,
+                   2, big, big, 1, 2, big) != 0
+    torch.cuda.synchronize()
 
 
 @pytest.mark.gpu
@@ -1028,9 +1129,11 @@ def test_every_sweep_candidate_gives_the_same_bits_on_card(
     first = rec["timings"][0]
     assert {k: first[k] for k in ("block_rows", "block_workers")} == \
         rec["default"]
-    # the pair kernel (N <= 16) and the leaf partial sum honour their
+    # the masked uplink's pair and tile kernels (a square cohort up to
+    # the cap: N = 10 and 17 here) and the leaf partial sum honour their
     # default alone
-    alone = ((sweep == "autotune_masked_uplink" and args[1] <= 16)
+    alone = ((sweep == "autotune_masked_uplink"
+              and tmw.uses_pair_kernel(args[1], args[1]))
              or (sweep == "autotune_partial_sum" and not kw.get("masked")))
     if alone:
         assert len(rec["timings"]) == 1
@@ -1078,8 +1181,11 @@ def test_plain_round_kernels_under_every_plan_on_card(cuda, n, r, t):
 
 @pytest.mark.gpu
 @pytest.mark.parametrize("bits", [16, 32])
-@pytest.mark.parametrize("n", [10, 17])
+@pytest.mark.parametrize("n", [10, 17, 33])
 def test_masked_kernels_under_every_plan_on_card(cuda, bits, n):
+    # The wrapper's kernel (the pair kernel at N = 10, the tile kernel at
+    # 17 and 33) under the plans it honours, its default alone; the row
+    # fold under a spread of its own.
     rng = np.random.default_rng(n + bits)
     r = 37
     ops = _masked_operands(rng, n, r, 2, bits, True, cuda)
@@ -1087,7 +1193,9 @@ def test_masked_kernels_under_every_plan_on_card(cuda, bits, n):
     kw = dict(rr_threshold=3277, word_bits=bits)
     plain = tmw.ternary_pack_masked_plain(*ops[:5], ALPHA1, *ops[5:], **kw)
     pairs = tmw.uses_pair_kernel(n, n)
+    assert pairs
     kind = "uplink_masked16" if bits == 16 else "uplink_masked"
+    assert _plans(kind, r, n, pairs=pairs) == [(2, n)]
     for br, bw in _plans(kind, r, n, pairs=pairs):
         got = tmw.ternary_pack_masked(*ops[:5], ALPHA1, *ops[5:], **kw,
                                       block_rows=br, block_workers=bw)

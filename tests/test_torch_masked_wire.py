@@ -13,6 +13,8 @@ power-of-two ``scale_mult`` and at DP's, which is not one.
 ``test_torch_kernels_gpu`` holds the CUDA kernels against these plain
 versions on the card.
 """
+from pathlib import Path
+
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -31,10 +33,10 @@ FIX_BITS = {16: 14, 32: 24}
 ROWS = 32                       # flat rows; the kernel view has 8
 
 
-def _fixture(rng, n):
-    p1 = rng.standard_normal((ROWS, 128), dtype=np.float32) * 0.05
-    p2 = p1 + rng.standard_normal((ROWS, 128), dtype=np.float32) * 0.02
-    q = p1[None] + rng.standard_normal((n, ROWS, 128),
+def _fixture(rng, n, rows=ROWS):
+    p1 = rng.standard_normal((rows, 128), dtype=np.float32) * 0.05
+    p2 = p1 + rng.standard_normal((rows, 128), dtype=np.float32) * 0.02
+    q = p1[None] + rng.standard_normal((n, rows, 128),
                                        dtype=np.float32) * 0.03
     p1[-1], p2[-1], q[:, -1] = 0.0, 0.0, 0.0     # zero tail row
     w = np.linspace(0.01, 0.05, n).astype(np.float32)
@@ -51,7 +53,7 @@ def _uplinks(q, p1, p2, w, t, betas, bits, thr, *, use_masks=True,
              part=None, sibling=None, block_workers=1):
     """(port, reference) wire words for the same inputs; ``sibling`` scopes
     the signs to a tree's sibling groups."""
-    n = q.shape[0]
+    n, rows = q.shape[:2]
     wq = jm.quantize_weights(w, FIX_BITS[bits])
     tpart = None if part is None else torch.from_numpy(part)
     if sibling is None:
@@ -65,7 +67,7 @@ def _uplinks(q, p1, p2, w, t, betas, bits, thr, *, use_masks=True,
         alpha1=0.01, wq=wq, pair_keys=jm.pair_stream_keys(0, n, t),
         pair_signs=jsigns, rr_keys=jdp.rr_stream_keys(1, t, n),
         rr_threshold=thr, word_bits=bits, use_masks=use_masks,
-        interpret=True, block_rows=ROWS // 4, block_workers=block_workers)
+        interpret=True, block_rows=rows // 4, block_workers=block_workers)
     tt = _tt(t)
     got = tops.flat_ternary_pack_masked(
         torch.from_numpy(q), torch.from_numpy(p1), torch.from_numpy(p2),
@@ -94,6 +96,21 @@ def test_masked_uplink_plain_bitwise(bits, n, t, thr):
 
 
 @pytest.mark.parametrize("bits", [16, 32])
+@pytest.mark.parametrize("n", [17, 33])
+def test_masked_uplink_plain_bitwise_whole_cohort(bits, n):
+    # The reference's whole-cohort branch (block_workers = N: each
+    # unordered pair expanded once and folded into both workers), the
+    # branch the tile kernel ports above 16 workers, RR on; a few rows,
+    # for its trace unrolls N (N - 1) / 2 pairs.
+    rng = np.random.default_rng(70 + n + bits)
+    q, p1, p2, w = _fixture(rng, n, rows=8)
+    betas = np.linspace(0.1, 0.3, n).astype(np.float32)
+    assert tmw.cohort_kernel(n, n) == "tiles"
+    got, want = _uplinks(q, p1, p2, w, 2, betas, bits, 3277, block_workers=n)
+    np.testing.assert_array_equal(got.numpy(), want)
+
+
+@pytest.mark.parametrize("bits", [16, 32])
 def test_masked_uplink_unmasked_and_participation(bits):
     rng = np.random.default_rng(bits)
     q, p1, p2, w = _fixture(rng, 5)
@@ -116,7 +133,8 @@ def test_masked_uplink_plain_bitwise_under_tree_signs(bits, n,
     # A tree's leaf signs, scoped to sibling groups of 4 with a worker
     # sitting out, RR on. At N = 10 the Pallas kernel holds the whole
     # cohort and expands each pair once (the pair kernel's form); at N = 17
-    # each worker folds its row (the row-fold kernel's).
+    # each worker folds its row (the row-fold kernel's form), where the
+    # port's tile kernel expands each pair once: the words are the same.
     rng = np.random.default_rng(50 + n + bits)
     q, p1, p2, w = _fixture(rng, n)
     betas = np.linspace(0.1, 0.3, n).astype(np.float32)
@@ -124,7 +142,9 @@ def test_masked_uplink_plain_bitwise_under_tree_signs(bits, n,
     part[[1, n - 3]] = 0.0
     got, want = _uplinks(q, p1, p2, w * part, 2, betas, bits, 3277,
                          part=part, sibling=4, block_workers=block_workers)
-    assert tmw.uses_pair_kernel(n, n) == (block_workers == n)
+    assert tmw.uses_pair_kernel(n, n)
+    assert tmw.cohort_kernel(n, n) == ("pairs" if block_workers == n
+                                       else "tiles")
     np.testing.assert_array_equal(got.numpy(), want)
     got_plain = tmw.ternary_pack_masked_plain(
         torch.from_numpy(q).view(n, ROWS // 4, 512),
@@ -139,15 +159,37 @@ def test_masked_uplink_plain_bitwise_under_tree_signs(bits, n,
                                   want)
 
 
-@pytest.mark.parametrize("n", [1, 2, 10, 16, 17, 33])
+@pytest.mark.parametrize("n", [1, 2, 10, 16, 17, 24, 25, 33, 64, 170, 171])
 def test_pair_kernel_dispatch(n):
-    # The pair kernel takes a square key matrix of at most 16 workers; the
-    # row-fold kernel any other shape.
+    # A square key matrix has each unordered pair expanded once: the pair
+    # kernel up to 16 workers, the tile kernel (groups of 8: 24 fills
+    # three, 25 starts a fourth) up to the cap, 170, the most the
+    # wrapper's staged keys allow; the row-fold kernel any other shape.
+    # The constants are the CUDA source's.
+    src = (Path(tmw.__file__).parent / "csrc" / "masked_wire.cu").read_text()
+    assert "constexpr int kPairMaxWorkers = 16;" in src
+    assert "constexpr int kTileMaxWorkers = 170;" in src
+    assert "constexpr int kTileWorkers = 8;" in src
     assert tmw.PAIR_MAX_WORKERS == 16
-    assert tmw.uses_pair_kernel(n, n) == (n <= 16)
+    assert tmw.COHORT_MAX_WORKERS == 170
+    cap = tmw.COHORT_MAX_WORKERS
+    assert 8 * cap ** 2 <= tmw.MAX_STAGED_BYTES < 8 * (cap + 1) ** 2
+    assert tmw.uses_pair_kernel(n, n) == (n <= cap)
+    assert tmw.cohort_kernel(n, n) == ("pairs" if n <= 16 else
+                                       "tiles" if n <= cap else "rows")
     assert not tmw.uses_pair_kernel(n, n + 1)
     assert not tmw.uses_pair_kernel(n, 33 if n != 33 else 10)
     assert not tmw.uses_pair_kernel(n + 1, n)
+    if n > cap:                 # the wrapper refuses such a key matrix
+        z = torch.zeros((n, 1, 512))
+        p = torch.zeros((1, 512))
+        with pytest.raises(ValueError, match="shared memory"):
+            tmw.ternary_pack_masked(
+                z, p, p, _tt(2), torch.zeros(n), 0.01,
+                torch.zeros(n, dtype=torch.uint32),
+                torch.zeros((n, n), dtype=torch.uint32),
+                torch.zeros((n, n), dtype=torch.int32),
+                torch.zeros(n, dtype=torch.uint32))
 
 
 @pytest.mark.parametrize("n", [1, 2, 3, 10, 16, 17])

@@ -194,8 +194,9 @@ def test_cuda_snapping_rules():
 def test_cuda_masked_uplink_borrows_no_plain_uplink_plan(tables, kind, pairs):
     # On the card a step of the fallback chain that leaves the kernel ends
     # the walk at the heuristic: the plain uplink's tuned plan says
-    # nothing of the masked uplink's kernels.
-    n = 10 if pairs else 17
+    # nothing of the masked uplink's kernels. The row fold takes a square
+    # cohort past the tile kernel's cap.
+    n = 10 if pairs else tmw.COHORT_MAX_WORKERS + 1
     assert tmw.uses_pair_kernel(n, n) == pairs
     want = tops._stacked_plan(kind, 41016, n, None, None, "cuda",
                               pairs=pairs)
