@@ -202,8 +202,27 @@ result:
    the (10, 1) FedAvg within its f32 bound of the sum in worker order in
    this process. The ranks' launches (#2, #3, #6, #8) join the
    ``kernels`` line. Then ``launch.train distributed --backend gloo
-   --full-size`` (F = 4, M = 2, 3 rounds) and ``simulate`` (3 rounds), as
+   --full-size`` (F = 4, M = 2, 3 rounds; each fed worker's model
+   tensor-parallel over its two ranks) and ``simulate`` (3 rounds), as
    two subprocesses side by side.
+   model axis — ``build_fed_step`` with each fed worker's model
+   tensor-parallel over its M ranks (``fed.distributed.train_sharded``;
+   the model axis's DTensor collectives staged through host memory by
+   ``fed.collectives.model_transport``), gloo ranks on card 0: reduced
+   ``qwen3-14b`` and reduced ``deepseek-moe-16b``, 2 rounds of 2 local
+   steps of ``fedpc_packed`` at (F, M) = (2, 2), each round under
+   sync-debug "error", against the same federation at (2, 1): the same
+   pilots, the mean costs within ``rtol=1e-4``, the first round's new
+   global params within ``rtol=1e-4, atol=1e-6``, the last round's too
+   but for at most 2 / 20 entries (a ternary code flipped by float32
+   drift, each within one code step), each worker's optimizer state
+   after each round too but for at most 4 entries, each within 4 times
+   its tolerance; each rank's local bytes of params and optimizer state equal to what
+   ``param_specs`` places (printed beside the (2, 1) run's), its peak
+   allocated bytes a round, and the model axis's ring bytes of one
+   bfloat16 round at one local step equal to the fed dry run's count of
+   the same round, config and mesh. The ranks' #2 and #3 launches are
+   printed apart, not in the ``kernels`` line.
 8. times  — each kernel and its plain version with CUDA events at the
    main-path shape (median of 25), beside its bound: device-memory bytes,
    or integer operations for the stream-generating kernels; the plain
@@ -4530,30 +4549,36 @@ def _dist_dims() -> tuple:
     return (N_FEATURES, N_CLASSES, HIDDEN)
 
 
-def _dist_run(F: int, M: int, out: str, backend: str,
-              devices: tuple) -> list:
-    """Spawn a mesh's F·M ranks, rank r on ``devices[r]``, under
-    ``backend`` and wait for them, at most DIST_TIMEOUT seconds (then
-    every rank is stopped); returns each rank's report."""
+def _spawn_ranks(fn, args: tuple, n: int, label: str,
+                 timeout: float = DIST_TIMEOUT) -> None:
+    """Spawn ``fn(rank, *args)`` on ``n`` ranks and wait for them, at most
+    ``timeout`` seconds (then every rank is stopped)."""
     import torch.multiprocessing as mp
     from torch.multiprocessing.spawn import ProcessException
-    ctx = mp.start_processes(_dist_rank, args=(F * M, F, M,
-                                               f"{out}/rendezvous", out,
-                                               backend, devices,
-                                               _dist_dims()),
-                             nprocs=F * M, join=False, start_method="spawn")
-    deadline = time.perf_counter() + DIST_TIMEOUT
+    ctx = mp.start_processes(fn, args=args, nprocs=n, join=False,
+                             start_method="spawn")
+    deadline = time.perf_counter() + timeout
     try:
         while not ctx.join(timeout=1):
             check(time.perf_counter() < deadline,
-                  f"mesh {F}x{M}: ranks still running after {DIST_TIMEOUT} s")
+                  f"{label}: ranks still running after {timeout} s")
     except ProcessException as exc:
-        raise SmokeError(f"mesh {F}x{M}: a rank failed:\n{exc}") from None
+        raise SmokeError(f"{label}: a rank failed:\n{exc}") from None
     finally:
         for p in ctx.processes:
             if p.is_alive():
                 p.terminate()
             p.join()
+
+
+def _dist_run(F: int, M: int, out: str, backend: str,
+              devices: tuple) -> list:
+    """Spawn a mesh's F·M ranks, rank r on ``devices[r]``, under
+    ``backend`` and wait for them (``_spawn_ranks``); returns each rank's
+    report."""
+    _spawn_ranks(_dist_rank, (F * M, F, M, f"{out}/rendezvous", out,
+                              backend, devices, _dist_dims()),
+                 F * M, f"mesh {F}x{M}")
     reports = []
     for r in range(F * M):
         with open(f"{out}/rank{r}.json") as fh:
@@ -4747,6 +4772,475 @@ def phase_distributed_slice(torch, dev) -> tuple:
     print(f"distributed: phase in {time.perf_counter() - t_phase:.1f} s on "
           f"{_smi()}; the ranks launched {launches}", flush=True)
     return launches, first_rank
+
+
+# The model axis: each fed worker's model tensor-parallel over its M ranks
+# (``fed.distributed.train_sharded``), against the same federation with
+# each worker whole on one rank.
+AXIS_ARCHS = ("qwen3-14b", MOE_ARCH)     # dense; the MoE's own dispatch
+AXIS_MESHES = ((2, 2), (2, 1))
+AXIS_JOB = dict(archs=AXIS_ARCHS, full=False, layers=None, dtype="float32",
+                strategies=("fedpc_packed",), rounds=2, local_steps=2,
+                batch=2, seq_len=16, lr=0.05, save=True, count=True)
+AXIS_DRIFT = dict(rtol=1e-4, atol=1e-6)  # tests/test_torch_distributed_step.py
+# Entries of the last round's new model that may take the neighbouring
+# ternary code (float32 drift across an Eq. (5) threshold; each then within
+# one code step), about twice the count measured on an H100 (1 and 10); the
+# first round's model allows none.
+AXIS_FLIPS = {"qwen3-14b": 2, MOE_ARCH: 20}
+# A worker's optimizer state (momentum: sums of gradients over the batch,
+# in which float32's other summation order can cancel to a larger relative
+# error than the params carry): entries outside AXIS_DRIFT allowed a worker
+# and round, and their largest distance in units of its tolerance
+# (measured on the CPU: at most 1 entry of 1,443,328 for qwen3-14b, at
+# 1.38, and 3 of 10,243,840 over the four for deepseek-moe-16b, at 1.1).
+AXIS_OPT_TAIL = (4, 4.0)
+
+
+def _axis_model(torch, arch: str, job: dict):
+    """The job's config of ``arch`` and its model: reduced unless
+    ``full``, cut to ``layers``, in ``dtype`` (bfloat16 with momentum in
+    bfloat16, as the dry run has it)."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import build_model
+    from repro_torch.optim.optimizers import momentum
+    cfg = get_config(arch)
+    if not job["full"]:
+        cfg = cfg.reduced()
+    if job["layers"]:
+        cfg = cfg.replace(n_layers=job["layers"])
+    if job["dtype"] == "bfloat16":
+        cfg = cfg.replace(param_dtype="bfloat16")
+        return cfg, build_model(cfg, optimizer=momentum(
+            accum_dtype=torch.bfloat16))
+    return cfg, build_model(cfg)
+
+
+def _axis_local_bytes(torch, tree, M: int) -> tuple:
+    """A tree's local bytes on this rank (a DTensor's shard) beside what
+    ``param_specs`` places on a model axis of ``M`` and the whole tree."""
+    from torch.distributed.tensor import DTensor
+    from repro_torch.launch.mesh import Mesh
+    from repro_torch.sharding.specs import param_specs, spec_leaves
+    from repro_torch.utils import tree_leaves
+    leaves = tree_leaves(tree)
+    whole = sum(x.numel() * x.element_size() for x in leaves)
+    local = sum((x.to_local() if isinstance(x, DTensor) else x).nbytes
+                for x in leaves)
+    if M == 1:
+        return local, whole, whole
+    want = sum(x.numel() * x.element_size() // M ** sum(
+        "model" in ((a,) if isinstance(a, str) else a or ()) for a in spec)
+        for x, spec in zip(leaves, spec_leaves(param_specs(
+            tree, Mesh({"model": M}, {})))))
+    return local, want, whole
+
+
+def _axis_rank(rank: int, world: int, F: int, M: int, store: str, out: str,
+               backend: str, devices: tuple, job: dict) -> None:
+    """One rank of an (F, M) mesh training ``job``'s configs through
+    ``build_fed_step`` (a spawned process on ``devices[rank]``): for each
+    arch and strategy, ``rounds`` rounds, each under sync-debug "error"
+    but for the staged transport calls (under NCCL one unchecked round
+    first makes the communicators; its state is dropped), with its wall
+    time, pilot, mean cost, peak allocated bytes, wire launches, the
+    model axis's DTensor calls and ring bytes, and a digest of the new
+    model; then the local bytes of the params as the step places them and
+    of the optimizer state, beside ``param_specs``'. With ``count``, one
+    more round a config at one local step in bfloat16, the fed dry run's
+    config, for the model axis's bytes. Rank 0 saves each round's new
+    model with ``save``; every rank writes ``out/rank<r>.json``."""
+    import hashlib
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+    from repro_torch.fed import collectives as col
+    from repro_torch.fed import distributed as fd
+    from repro_torch.kernels import fused_wire, masked_wire
+    from repro_torch.launch.mesh import make_debug_mesh
+    from repro_torch.utils import tree_leaves
+    dev = torch.device(devices[rank])
+    cuda = dev.type == "cuda"
+    if cuda:
+        torch.cuda.set_device(dev)
+    dist.init_process_group(backend, init_method="file://" + store,
+                            world_size=world, rank=rank)
+    counters = (fused_wire.LAUNCHES, masked_wire.LAUNCHES)
+
+    def launches():
+        return {k: v for cnt in counters for k, v in cnt.items()}
+
+    def run(step, state, opt, tokens, sizes, checked):
+        before = launches()
+        col.reset_stats()
+        if cuda:
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+        dist.barrier()
+        t0 = time.perf_counter()
+        if cuda and checked:
+            torch.cuda.set_sync_debug_mode("error")
+        try:
+            state, opt, met = step(state, opt, {"tokens": tokens}, sizes)
+        finally:
+            if cuda:
+                torch.cuda.set_sync_debug_mode(0)
+        if cuda:
+            torch.cuda.synchronize()
+        rec = {"ms": (time.perf_counter() - t0) * 1e3,
+               "k_star": int(met["k_star"]), "cost": float(met["cost_mean"]),
+               "peak": torch.cuda.max_memory_allocated() if cuda else 0,
+               "launches": {k: v - before.get(k, 0)
+                            for k, v in launches().items()
+                            if v != before.get(k, 0)},
+               "dtensor": dict(col.STATS["dtensor"]),
+               "moved": dict(col.STATS["moved"]),
+               "staged": col.STATS["staged"]}
+        return state, opt, rec
+
+    try:
+        mesh = make_debug_mesh(F, M)
+        f = mesh.axes["data"].index
+        sizes = torch.tensor([100.0 + 25 * k for k in range(F)], device=dev)
+        report: dict = {}
+        for arch in job["archs"]:
+            cfg, m = _axis_model(torch, arch, job)
+            params = m.init(torch.Generator(device=dev).manual_seed(0),
+                            device=dev)
+            last = {}           # fedpc's and fedpc_reduce's last model
+            shape = (F, job["local_steps"], job["batch"], job["seq_len"])
+            tokens = [torch.from_numpy(np.random.default_rng(100 + r)
+                                       .integers(0, cfg.vocab, shape)[f])
+                      .to(dev) for r in range(job["rounds"])]
+            for strategy in job["strategies"]:
+                step = fd.build_fed_step(m, mesh, "data", strategy,
+                                         local_steps=job["local_steps"],
+                                         lr=job["lr"], device=dev)
+                state = fd.fed_state_init(params, F)
+                if backend == "nccl":
+                    run(step, state, m.optimizer.init(params), tokens[0],
+                        sizes, False)
+                opt = m.optimizer.init(params)
+                rounds = []
+                for r in range(job["rounds"]):
+                    state, opt, rec = run(step, state, opt, tokens[r], sizes,
+                                          True)
+                    digest = hashlib.blake2b(digest_size=16)
+                    for x in tree_leaves(state["params"]):
+                        check(bool(torch.isfinite(x).all()),
+                              f"model axis {arch} {strategy} {F}x{M} "
+                              f"round {r + 1}: not finite")
+                        digest.update(x.contiguous().view(torch.uint8)
+                                      .cpu().numpy().tobytes())
+                    rec["digest"] = digest.hexdigest()
+                    if rank == 0 and job["save"]:
+                        torch.save(torch.cat([
+                            x.reshape(-1).float().cpu()
+                            for x in tree_leaves(state["params"])]),
+                            f"{out}/{arch}_{strategy}_r{r}.pt")
+                    if strategy == "fedpc" and r == 0:
+                        last["mult"] = max(float((a.float() - b.float())
+                                                 .abs().max()) for a, b in
+                                           zip(tree_leaves(state["params"]),
+                                               tree_leaves(params)))
+                    if job["save"]:     # each worker's optimizer state
+                        whole = opt
+                        if M > 1:
+                            with col.model_transport(mesh.axes["model"]):
+                                whole = [x.full_tensor()
+                                         for x in tree_leaves(opt)]
+                        if rank % M == 0:
+                            torch.save(torch.cat([
+                                x.reshape(-1).float().cpu()
+                                for x in tree_leaves(whole)]),
+                                f"{out}/{arch}_{strategy}_opt{f}_r{r}.pt")
+                        del whole
+                    rounds.append(rec)
+                if strategy in ("fedpc", "fedpc_reduce"):
+                    last[strategy] = [x.cpu() for x in
+                                      tree_leaves(state["params"])]
+                if "fedpc" in last and "fedpc_reduce" in last:
+                    report[f"{arch}/reduce_off"] = _axis_reduce_bound(
+                        torch, last, F, job)
+                    last.clear()
+                placed = (fd.shard_tree(params, fd.model_mesh(mesh,
+                                                              device=dev))
+                          if M > 1 else params)
+                report[f"{arch}/{strategy}"] = {
+                    "rounds": rounds,
+                    "params_bytes": _axis_local_bytes(torch, placed, M),
+                    "opt_bytes": _axis_local_bytes(torch, opt, M)}
+                del step, state, opt, placed
+                if cuda:
+                    torch.cuda.empty_cache()
+            if job["save"] and rank == 0:
+                torch.save(torch.cat([x.reshape(-1).float().cpu()
+                                      for x in tree_leaves(params)]),
+                           f"{out}/{arch}_init.pt")
+            del params
+        if job["count"] and M > 1:
+            one = dict(job, dtype="bfloat16", local_steps=1)
+            for arch in job["archs"]:
+                cfg, m = _axis_model(torch, arch, one)
+                params = m.init(torch.Generator(device=dev).manual_seed(0),
+                                device=dev)
+                step = fd.build_fed_step(m, mesh, "data", "fedpc_packed",
+                                         local_steps=1, lr=job["lr"],
+                                         device=dev)
+                tokens = torch.from_numpy(np.random.default_rng(0).integers(
+                    0, cfg.vocab, (F, 1, job["batch"], job["seq_len"]))[f])
+                _, _, rec = run(step, fd.fed_state_init(params, F),
+                                m.optimizer.init(params), tokens.to(dev),
+                                sizes, True)
+                report[f"{arch}/count"] = rec
+                del step, params
+        with open(f"{out}/rank{rank}.json", "w") as fh:
+            json.dump(report, fh)
+    finally:
+        dist.destroy_process_group()
+
+
+def _axis_reduce_bound(torch, last: dict, F: int, job: dict) -> list:
+    """``fedpc_reduce``'s last new model beside ``fedpc``'s (the int8
+    gather's exact fold) at round ``rounds``: ``_dist_checks``' f16
+    bound, F f16 terms and F − 1 f16 sums each off by at most 2^-11 of
+    what it rounds,
+    over weights p_k·beta that sum to at most beta (the step's beta, 0.2)
+    and the round's step max |P^1 − P^0|, plus two float32 ulps and, for
+    parameters stored narrower, one step of their precision. Checks it;
+    returns the largest difference and its bound."""
+    mult = 0.01 if job["rounds"] == 1 else last["mult"]
+    worst = [0.0, 0.0]
+    for a, b in zip(last["fedpc_reduce"], last["fedpc"]):
+        a, b = a.float(), b.float()
+        rel = torch.finfo(last["fedpc"][0].dtype).eps
+        bound = ((F + 1) * 2.0 ** -11 * 0.2 * mult + 2 * _ulp(torch, b)
+                 + (b.abs() * rel if rel > 2.0 ** -23 else 0.0))
+        diff = (a - b).abs()
+        check(bool((diff <= bound).all()),
+              f"fedpc_reduce off fedpc by {float(diff.max())}, above its "
+              f"f16 bound")
+        if float(diff.max()) >= worst[0]:
+            worst = [float(diff.max()), float(bound.max())]
+    return worst
+
+
+def _axis_run(F: int, M: int, out: str, backend: str, devices: tuple,
+              job: dict, timeout: float = DIST_TIMEOUT) -> list:
+    """Spawn an (F, M) mesh of ``_axis_rank``s and wait for them, at most
+    ``timeout`` seconds; returns each rank's report."""
+    _spawn_ranks(_axis_rank, (F * M, F, M, f"{out}/rendezvous", out,
+                              backend, devices, job),
+                 F * M, f"model axis {F}x{M}", timeout)
+    reports = []
+    for r in range(F * M):
+        with open(f"{out}/rank{r}.json") as fh:
+            reports.append(json.load(fh))
+    return reports
+
+
+def _axis_counts(tmp: str, job: dict, mesh: tuple) -> dict:
+    """Start the fed dry run of ``job``'s count round (``fedpc_packed``,
+    one local step, bfloat16) on an (F, M) mesh, a process an arch; pass
+    what it returns to ``_axis_counted``."""
+    env = dict(os.environ, PYTHONPATH=str(SRC))
+    procs = {}
+    for arch in job["archs"]:
+        args = ["--reduced"] if not job["full"] else []
+        if job["layers"]:
+            args += ["--layers", str(job["layers"])]
+        log = open(f"{tmp}/count_{arch}.log", "w")
+        procs[arch] = (subprocess.Popen(
+            [sys.executable, "-m", "repro_torch.launch.dryrun", "--fed",
+             "fedpc_packed", "--arch", arch, *args, "--mesh",
+             f"{mesh[0]}x{mesh[1]}", "--local-steps", "1", "--local-batch",
+             str(job["batch"]), "--seq", str(job["seq_len"]), "--out",
+             f"{tmp}/count_{arch}.json"], env=env, stdout=log,
+            stderr=subprocess.STDOUT), log)
+    return procs
+
+
+def _axis_counted(tmp: str, procs: dict) -> dict:
+    """Each arch's fed dry-run record (``_axis_counts``)."""
+    records = {}
+    try:
+        for arch, (proc, log) in procs.items():
+            proc.wait(timeout=DRYRUN_TIMEOUT)
+            log.close()
+            out = Path(f"{tmp}/count_{arch}.json")
+            check(out.exists(), f"the fed dry run of {arch} wrote no record:"
+                  f"\n{Path(f'{tmp}/count_{arch}.log').read_text()[-2000:]}")
+            records[arch] = json.loads(out.read_text())[-1]
+            check(records[arch]["status"] == "ok",
+                  f"the fed dry run of {arch}: {records[arch].get('error')}")
+    finally:
+        for proc, log in procs.values():
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+            log.close()
+    return records
+
+
+def _axis_near(torch, got, want, init, first) -> tuple:
+    """``got`` beside ``want`` (the (F, 1) run's new model): the entries
+    outside AXIS_DRIFT, and whether each of them lies within one Eq. (3)
+    code step, 2 |P^1 − P^0| (``first`` the first round's model, ``init``
+    the initial one)."""
+    tol = AXIS_DRIFT["atol"] + AXIS_DRIFT["rtol"] * want.abs()
+    diff = (got - want).abs()
+    far = diff > tol
+    step = 2 * (first - init).abs()
+    return int(far.sum()), bool((diff[far] <= step[far] + tol[far]).all())
+
+
+def phase_model_axis(torch, dev) -> dict:
+    """The model axis of the mesh runtime: each fed worker's model
+    tensor-parallel over its two model ranks (``build_fed_step`` at
+    (F, M) = (2, 2), gloo ranks on this card, the model axis's collectives
+    staged through host memory by ``fed.collectives.model_transport``)
+    against the same federation at (2, 1), each worker whole on one rank:
+    reduced ``qwen3-14b`` and reduced ``deepseek-moe-16b``, 2 rounds of 2
+    local steps of ``fedpc_packed``, each round under sync-debug "error".
+    Holds the pilots equal, the mean costs within ``rtol``, the first
+    round's new global params within AXIS_DRIFT, the last round's too but
+    for at most AXIS_FLIPS entries, each within one code step, and each
+    worker's optimizer state after each round within AXIS_DRIFT but for
+    AXIS_OPT_TAIL; prints each rank's local bytes of
+    params and optimizer state beside ``param_specs``' and the (2, 1)
+    run's, its peak allocated bytes a round, and the model axis's ring
+    bytes of one round at one local step in bfloat16 beside the fed dry
+    run's count of the same round, config and mesh (equal). Returns the
+    (2, 2) ranks' wire launches."""
+    import tempfile
+    t_phase = time.perf_counter()
+    launched: dict = {}
+    with tempfile.TemporaryDirectory(prefix="axis") as tmp:
+        counting = _axis_counts(tmp, AXIS_JOB, AXIS_MESHES[0])
+        for F, M in AXIS_MESHES:
+            Path(f"{tmp}/{F}x{M}").mkdir()
+        t0 = time.perf_counter()
+        with ThreadPoolExecutor(len(AXIS_MESHES)) as pool:
+            runs = dict(zip(AXIS_MESHES, pool.map(
+                lambda fm: _axis_run(fm[0], fm[1], f"{tmp}/{fm[0]}x{fm[1]}",
+                                     "gloo", (str(dev),) * (fm[0] * fm[1]),
+                                     dict(AXIS_JOB, count=fm[1] > 1)),
+                AXIS_MESHES)))
+        spawn_s = time.perf_counter() - t0
+        counted = _axis_counted(tmp, counting)
+        sharded, whole = (runs[mesh] for mesh in AXIS_MESHES)
+        for arch in AXIS_ARCHS:
+            key = f"{arch}/fedpc_packed"
+            for label, reps in (("(2, 2)", sharded), ("(2, 1)", whole)):
+                for r, rep in enumerate(reps):
+                    check(rep[key]["rounds"][-1]["digest"]
+                          == reps[0][key]["rounds"][-1]["digest"],
+                          f"model axis {arch} {label}: rank {r}'s new "
+                          f"global model differs from rank 0's")
+            a, b = sharded[0][key], whole[0][key]
+            for r, (ra, rb) in enumerate(zip(a["rounds"], b["rounds"])):
+                check(ra["k_star"] == rb["k_star"],
+                      f"model axis {arch} round {r + 1}: pilot "
+                      f"{ra['k_star']} at (2, 2), {rb['k_star']} at (2, 1)")
+                check(abs(ra["cost"] - rb["cost"])
+                      <= AXIS_DRIFT["rtol"] * abs(rb["cost"]),
+                      f"model axis {arch} round {r + 1}: mean cost "
+                      f"{ra['cost']} at (2, 2), {rb['cost']} at (2, 1)")
+            last = AXIS_JOB["rounds"] - 1
+            load = lambda mesh, what: torch.load(
+                f"{tmp}/{mesh[0]}x{mesh[1]}/{arch}_{what}.pt")
+            got = load(AXIS_MESHES[0], f"fedpc_packed_r{last}")
+            want = load(AXIS_MESHES[1], f"fedpc_packed_r{last}")
+            far, within = _axis_near(
+                torch, got, want, load(AXIS_MESHES[1], "init"),
+                load(AXIS_MESHES[1], "fedpc_packed_r0"))
+            check(far <= AXIS_FLIPS[arch] and within,
+                  f"model axis {arch}: {far} of {want.numel()} entries "
+                  f"outside {AXIS_DRIFT} of the (2, 1) run's "
+                  f"(within one code step: {within})")
+            tail = [0, 0.0]             # the optimizer states' outliers
+            for what in ["fedpc_packed_r0"] + [
+                    f"fedpc_packed_opt{f}_r{r}" for f in range(2)
+                    for r in range(AXIS_JOB["rounds"])]:
+                a0, b0 = load(AXIS_MESHES[0], what), load(AXIS_MESHES[1],
+                                                          what)
+                off = (a0 - b0).abs() / (AXIS_DRIFT["atol"]
+                                         + AXIS_DRIFT["rtol"] * b0.abs())
+                n0, worst = int((off > 1).sum()), float(off.max())
+                allowed = ((0, 1.0) if what.endswith("_r0") and "opt"
+                           not in what else AXIS_OPT_TAIL)
+                check(n0 <= allowed[0] and worst <= allowed[1]
+                      and bool(b0.abs().sum() > 0),
+                      f"model axis {arch}: {what} at (2, 2) has {n0} of "
+                      f"{b0.numel()} entries outside {AXIS_DRIFT} of the "
+                      f"(2, 1) run's, the farthest at {worst:.3g} times "
+                      f"its tolerance")
+                if "opt" in what:
+                    tail = [tail[0] + n0, max(tail[1], worst)]
+            for rep in sharded:
+                for what in ("params_bytes", "opt_bytes"):
+                    local, placed, all_ = rep[key][what]
+                    check(local == placed < all_,
+                          f"model axis {arch}: a rank holds {local:,} B of "
+                          f"{what[:-6]}, param_specs places {placed:,} B "
+                          f"of {all_:,}")
+            cnt = counted[arch]["collectives"]["bytes_by_axis"].get(
+                "model", 0.0)
+            one = sharded[0][f"{arch}/count"]
+            real = one["moved"].get("model", 0.0)
+            check(real == cnt,
+                  f"model axis {arch}: the card's model-axis bytes {real:,} "
+                  f"a round != the fed dry run's count {cnt:,}")
+            for rep in sharded:
+                for rr in rep[key]["rounds"]:
+                    for kind, n in rr["launches"].items():
+                        launched[kind] = launched.get(kind, 0) + n
+            ms = lambda rep: " / ".join(f"{rr['ms']:.1f}"
+                                        for rr in rep[key]["rounds"])
+            peak = lambda reps: " / ".join(
+                f"{max(rr['peak'] for rr in rep[key]['rounds']) / 2**20:.1f}"
+                for rep in reps)
+            dt = a["rounds"][-1]["dtensor"]
+            n = _param_count(torch, arch)
+            print(f"model axis: {arch} (reduced, {n:,} params) "
+                  f"fedpc_packed 2 rounds x 2 local steps: pilots "
+                  f"{[rr['k_star'] for rr in a['rounds']]} at (2, 2) == "
+                  f"(2, 1); mean costs "
+                  f"{[round(rr['cost'], 6) for rr in a['rounds']]} / "
+                  f"{[round(rr['cost'], 6) for rr in b['rounds']]}; the "
+                  f"first round's params within {AXIS_DRIFT} of (2, 1)'s,"
+                  f" the last round's but {far} of {want.numel():,} "
+                  f"entries (each within one code step); both workers' "
+                  f"optimizer states each round but {tail[0]} entries, "
+                  f"the farthest at {tail[1]:.3g} times its tolerance; "
+                  f"a rank's local bytes params "
+                  f"{a['params_bytes'][0]:,} / opt {a['opt_bytes'][0]:,} "
+                  f"(= param_specs'; (2, 1): {b['params_bytes'][0]:,} / "
+                  f"{b['opt_bytes'][0]:,}); peak MiB a rank (2, 2) "
+                  f"{peak(sharded)}, (2, 1) {peak(whole)}; round ms rank 0 "
+                  f"(2, 2) {ms(sharded[0])}, (2, 1) {ms(whole[0])}; model "
+                  f"axis a round {dt['calls']} DTensor calls "
+                  f"{dt['kinds']} staged through host memory "
+                  f"({dt['seconds'] * 1e3:.1f} ms); one bf16 round at one "
+                  f"local step moves {real:,.0f} B a rank on the model axis "
+                  f"== the fed dry run's count {cnt:,.0f}, its peak "
+                  f"{one['peak']:,} B allocated on rank 0 beside the dry "
+                  f"run's {counted[arch]['memory']['peak_size_in_bytes']:,}",
+                  flush=True)
+        _release(torch)
+    print(f"model axis: phase in {time.perf_counter() - t_phase:.1f} s "
+          f"(the meshes {spawn_s:.1f} s, side by side) on {_smi()}; the "
+          f"(2, 2) ranks launched {launched}", flush=True)
+    check(launched.get("uplink_traced") and launched.get("master"),
+          f"model axis: the (2, 2) ranks launched {launched}, #3 and #2 "
+          f"expected")
+    return launched
+
+
+def _param_count(torch, arch: str) -> int:
+    from repro_torch.utils import tree_leaves
+    _, m = _axis_model(torch, arch, AXIS_JOB)
+    return sum(x.numel() for x in tree_leaves(m.init(None, device="meta")))
 
 
 def phase_times_dist(torch, dev, rate: float, launches: dict) -> list[dict]:
@@ -5367,6 +5861,7 @@ def main() -> int:
                 mine.get(k) for k in MESH_KINDS[:5 if M == 1 else 4]),
                 f"mesh {F}x{M}: the ranks launched {mine}, each of "
                 f"{MESH_KINDS} expected")
+        phase_model_axis(torch, dev)
         phase_launch_slice(torch, dev, served, first_rank)
         rows = phase_times(torch, dev, rate, launches, errs)
         rows += phase_times_masked(torch, dev, rate, launches, errs)

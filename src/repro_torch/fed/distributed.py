@@ -3,8 +3,12 @@ round's wire is a collective over the fed axis — the port of the JAX
 package's ``fed.distributed``.
 
 A rank of the (F fed × M model) mesh (``launch.mesh``) holds its fed
-worker's model. The round sync flattens it into the padded ``(rows,
-128)`` buffer of ``core.flat`` (``layout_of(..., shards=M)``), keeps the
+worker's model, tensor-parallel over the worker's M ranks: local
+training runs on DTensors placed by ``param_specs`` on the worker's
+model group (:func:`train_sharded`), as the JAX runtime shards a worker
+over 'model'. The round sync gathers the trained model whole, flattens it
+into the padded ``(rows, 128)`` buffer of ``core.flat`` (``layout_of(...,
+shards=M)``), keeps the
 ``(rows/M, 128)`` slab of its model index (``sharding.specs``), runs the
 wire kernels on that slab on its own device, and moves across the fed
 axis only what the JAX runtime's ``shard_map`` moves
@@ -421,7 +425,7 @@ def build_fed_step(model, mesh: Mesh, fed_axis: str = "data",
                    lr: float = 0.01, betas=None,
                    privacy: PrivacySpec | None = None,
                    renorm_shares: bool = False, faults=None, ledger=None,
-                   device=None) -> Callable:
+                   device=None, local_mesh=None) -> Callable:
     """Returns this rank's ``fed_step(state, opt_state, batches, sizes,
     mask=None) -> (state', opt_state', metrics)``.
 
@@ -431,34 +435,146 @@ def build_fed_step(model, mesh: Mesh, fed_axis: str = "data",
     optimizer state persisting (and frozen in a round it sits out of, per
     ``mask``), and reports its last loss as its round cost; the fed axis
     gathers the (F,) costs, and the sync of :func:`build_fed_sync` (same
-    options) makes the next global model. The M ranks of a fed worker
-    train replicas of it, as the JAX runtime replicates params over the
-    model axis outside the sync. ``metrics`` holds ``cost_mean`` and
-    ``k_star`` on the device.
+    options) makes the next global model. With M > 1 model ranks the
+    worker trains tensor-parallel over them (:func:`train_sharded` on
+    :func:`model_mesh`, ``local_mesh`` in its place if given): the
+    optimizer state comes back as DTensors, their local shards kept from
+    round to round, and the collectives DTensor issues on the model group
+    go through ``fed.collectives.model_transport``. ``metrics`` holds
+    ``cost_mean`` and ``k_star`` on the device.
     """
     sync = build_fed_sync(model, mesh, fed_axis, strategy, betas=betas,
                           privacy=privacy, renorm_shares=renorm_shares,
                           faults=faults, ledger=ledger, device=device)
     fed = mesh.axes[fed_axis]
+    m_axis = mesh.axes.get("model")
+    sharded = local_mesh is not None or mesh.shape.get("model", 1) > 1
+    if sharded and local_mesh is None:
+        local_mesh = model_mesh(mesh, device)
+
+    def local_train(params, opt_state, batches, keep):
+        if not sharded:
+            m, opt = {}, opt_state
+            for s in range(local_steps):
+                batch = tree_map(lambda x: x[s], batches)
+                params, opt, m = model.train_step(params, opt, batch, lr)
+            if keep is not None:
+                opt = tree_map(lambda new, old: _keep(keep, new, old),
+                               opt, opt_state)
+            return params, opt, m
+        if m_axis is None or m_axis.group is None:      # a recording
+            return train_sharded(model, local_mesh, params, opt_state,
+                                 batches, lr, local_steps, keep)
+        with col.model_transport(m_axis):
+            return train_sharded(model, local_mesh, params, opt_state,
+                                 batches, lr, local_steps, keep)
 
     def fed_step(state: dict, opt_state: PyTree, batches: PyTree,
                  sizes: torch.Tensor, mask: torch.Tensor | None = None):
-        params, opt = state["params"], opt_state
-        loss = None
-        for s in range(local_steps):
-            batch = tree_map(lambda x: x[s], batches)
-            params, opt, m = model.train_step(params, opt, batch, lr)
-            loss = m["loss"]
-        if mask is not None:    # a skipped worker's private state is frozen
-            keep = mask[col.axis_index(fed)] > 0
-            opt = tree_map(lambda new, old: torch.where(keep, new, old),
-                           opt, opt_state)
+        # a skipped worker's private state is frozen
+        keep = None if mask is None else mask[col.axis_index(fed)] > 0
+        params, opt, m = local_train(state["params"], opt_state, batches,
+                                     keep)
+        loss = m["loss"]
         costs = col.all_gather(loss.float().reshape(1), fed, tiled=True)
         _new_params, aux = sync(params, costs, sizes, state, mask)
         metrics = {"cost_mean": costs.mean(), "k_star": aux["k_star"]}
         return aux["state"], opt, metrics
 
     return fed_step
+
+
+def model_mesh(mesh: Mesh, device=None):
+    """The 1-D ``DeviceMesh`` named ``"model"`` over this rank's fed
+    worker's M ranks, on the process group ``launch.mesh.make_debug_mesh``
+    made for that axis, of ``device``'s type (CUDA by default)."""
+    from torch.distributed.device_mesh import DeviceMesh
+    return DeviceMesh.from_group(mesh.axes["model"].group,
+                                 resolve_device(device).type,
+                                 mesh_dim_names=("model",))
+
+
+def _shard(x: torch.Tensor, mesh, pl: tuple) -> torch.Tensor:
+    """``x``, which every rank holds whole, as a DTensor with placements
+    ``pl`` on ``mesh``: this rank's shard sliced locally (no collective),
+    the same shard ``distribute_tensor`` gives; a ``meta`` tensor's shard
+    is made empty."""
+    from torch.distributed.tensor import DTensor, Shard
+    local = x
+    for i, p in enumerate(pl):
+        if isinstance(p, Shard):
+            n = local.shape[p.dim] // mesh.size(i)
+            local = local.narrow(p.dim, mesh.get_local_rank(i) * n, n)
+    if x.is_meta:
+        local = torch.empty(local.shape, dtype=x.dtype, device="meta")
+    else:
+        local = local.clone(memory_format=torch.contiguous_format)
+    return DTensor.from_local(local, mesh, pl, run_check=False,
+                              shape=x.shape,
+                              stride=torch.empty(x.shape,
+                                                 device="meta").stride())
+
+
+def shard_tree(tree: PyTree, mesh) -> PyTree:
+    """``tree`` (params, or an optimizer state of their names) as DTensors
+    on the worker's model ``mesh`` placed as :func:`fed_shardings` places
+    ``params`` (``param_specs`` with no fed axis): a plain leaf, which every rank
+    holds whole, sliced locally (no collective); a DTensor leaf that
+    training left on other placements redistributed to its own."""
+    from torch.distributed.tensor import DTensor
+    leaves, treedef = tree_flatten(tree)
+    pls = _placements_of(tree, mesh)
+    return tree_unflatten(treedef, [
+        _shard(x, mesh, pl) if not isinstance(x, DTensor) else
+        x if tuple(x.placements) == tuple(pl) else x.redistribute(mesh, pl)
+        for x, pl in zip(leaves, pls)])
+
+
+def train_sharded(model, mesh, params: PyTree, opt_state: PyTree,
+                  batches: PyTree, lr: float, local_steps: int,
+                  keep: torch.Tensor | None = None):
+    """A fed worker's local training, tensor-parallel over its model
+    ``mesh`` (a ``DeviceMesh``): ``params`` (whole, the public global
+    model) sharded by :func:`shard_tree` with no collective, the optimizer
+    state too where it is not yet; ``local_steps`` steps of
+    ``model.train_step`` on DTensors, with the activation hooks off (as
+    both packages' fed dry runs train); the new model gathered whole for
+    the wire, and the optimizer state put back on its placements (the
+    update leaves some leaves elsewhere: a norm's velocity as a partial
+    sum, a projection's sharded on another dim); where ``keep`` is false
+    (the worker sits this round out), the optimizer state as it came in,
+    placed. Returns ``(new params,
+    whole; optimizer state, DTensors; the last step's metrics, its loss
+    whole)``. The fed dry run (``launch.dryrun.run_fed``) counts this
+    same function on ``meta``."""
+    from torch.distributed.tensor import DTensor
+    from repro_torch.sharding import activations as act
+    with act.disabled(), act.use_mesh(mesh):
+        p = shard_tree(params, mesh)
+        opt = opt_in = shard_tree(opt_state, mesh)
+        m = {}
+        for s in range(local_steps):
+            batch = tree_map(lambda x: x[s], batches)
+            p, opt, m = model.train_step(p, opt, batch, lr)
+        new = tree_map(lambda x: x.full_tensor(), p)
+        opt = shard_tree(opt, mesh)
+        if keep is not None:
+            opt = tree_map(lambda a, b: _keep(keep, a, b), opt, opt_in)
+        if isinstance(m.get("loss"), DTensor):
+            m = {**m, "loss": m["loss"].full_tensor()}
+    return new, opt, m
+
+
+def _keep(keep: torch.Tensor, new: torch.Tensor,
+          old: torch.Tensor) -> torch.Tensor:
+    """``new`` where ``keep``, else ``old``; on DTensors shard by shard."""
+    from torch.distributed.tensor import DTensor
+    if isinstance(new, DTensor):
+        return DTensor.from_local(
+            torch.where(keep, new.to_local(), old.to_local()),
+            new.device_mesh, new.placements, run_check=False,
+            shape=new.shape, stride=new.stride())
+    return torch.where(keep, new, old)
 
 
 def fed_state_init(params: PyTree, n_fed: int) -> dict:
@@ -474,17 +590,26 @@ def fed_state_init(params: PyTree, n_fed: int) -> dict:
     }
 
 
-def fed_shardings(model, mesh, fed_axis: str, params: PyTree) -> dict:
+def _placements_of(tree: PyTree, mesh) -> list:
+    """The placements of ``param_specs`` on ``mesh``, a tuple a leaf of
+    ``tree`` in ``tree_flatten`` order."""
+    return [placements(s, mesh)
+            for s in spec_leaves(param_specs(tree, mesh))]
+
+
+def fed_shardings(model, mesh, fed_axis: str | None,
+                  params: PyTree) -> dict:
     """DTensor placements of the fed step's arguments on the
-    ``DeviceMesh`` ``mesh``: ``params`` by ``param_specs``, and
-    ``params_F``, the (F, ...) per-worker stacks, the same with their
-    leading axis over ``fed_axis``; a tuple of placements a leaf.
+    ``DeviceMesh`` ``mesh``: ``params`` by ``param_specs``, and, where
+    ``mesh`` has ``fed_axis``, ``params_F``, the (F, ...) per-worker
+    stacks, the same with their leading axis over ``fed_axis``; a tuple
+    of placements a leaf. On a worker's model mesh (no fed axis) the
+    ``params`` placements are those :func:`build_fed_step` trains on.
     ``model`` is unused (the JAX signature's)."""
     treedef = tree_flatten(params)[1]
     specs = spec_leaves(param_specs(params, mesh))
-    return {
-        "params": tree_unflatten(treedef, [placements(s, mesh)
-                                           for s in specs]),
-        "params_F": tree_unflatten(treedef, [
-            placements(P(fed_axis, *s), mesh) for s in specs]),
-    }
+    out = {"params": tree_unflatten(treedef, _placements_of(params, mesh))}
+    if fed_axis in tuple(mesh.mesh_dim_names):
+        out["params_F"] = tree_unflatten(treedef, [
+            placements(P(fed_axis, *s), mesh) for s in specs])
+    return out

@@ -21,8 +21,14 @@ default geometry. Every plan, given or looked up, is snapped by
 launches (:func:`_stacked_plan`), as the JAX package's ``ops`` snap to
 legal tilings. ``ternary_encode``, ``pack2bit``, ``unpack2bit`` and
 ``master_update`` launch their one geometry.
+
+Every wrapper takes plain tensors: a mesh rank hands it the slab it cut
+from its gathered model. A DTensor raises ``TypeError`` (gathering it here
+would be a collective no caller asked for).
 """
 from __future__ import annotations
+
+import functools
 
 import torch
 import torch.nn.functional as F
@@ -42,6 +48,29 @@ PACK = fw.PACK
 ROW_MULTIPLE = 8
 
 
+def _is_dtensor(x) -> bool:
+    if isinstance(x, (list, tuple)):
+        return any(_is_dtensor(y) for y in x)
+    if not isinstance(x, torch.Tensor) or type(x) is torch.Tensor:
+        return False
+    from torch.distributed.tensor import DTensor
+    return isinstance(x, DTensor)
+
+
+def _plain(fn):
+    """``fn``, refusing a DTensor among its arguments."""
+    @functools.wraps(fn)
+    def wrapped(*args, **kwargs):
+        for name, x in (*enumerate(args), *kwargs.items()):
+            if _is_dtensor(x):
+                raise TypeError(f"ops.{fn.__name__}: argument {name} is a "
+                                f"DTensor; the wire kernels take a rank's "
+                                f"plain slab (cut it from the gathered "
+                                f"model)")
+        return fn(*args, **kwargs)
+    return wrapped
+
+
 def _device_scalar(x, dtype: torch.dtype, device: torch.device,
                    what: str) -> torch.Tensor:
     """``x`` as a 0-d ``dtype`` tensor on ``device``. A tensor already
@@ -54,16 +83,19 @@ def _device_scalar(x, dtype: torch.dtype, device: torch.device,
     return torch.full((), value, dtype=dtype, device=device)
 
 
+@_plain
 def round_index(t, device: torch.device) -> torch.Tensor:
     """The 1-based round as a 0-d int32 tensor on ``device``."""
     return _device_scalar(t, torch.int32, device, "round index")
 
 
+@_plain
 def pilot_index(k_star, device: torch.device) -> torch.Tensor:
     """The pilot's worker index as a 0-d int64 tensor on ``device``."""
     return _device_scalar(k_star, torch.int64, device, "pilot index")
 
 
+@_plain
 def per_worker(beta, n: int, device: torch.device) -> torch.Tensor:
     """A shared scalar or an (N,) vector of beta_k as an (N,) float32
     tensor on ``device``."""
@@ -113,6 +145,7 @@ def _static(what: str, x):
     return x
 
 
+@_plain
 def ternary_encode(q: torch.Tensor, p1: torch.Tensor, p2: torch.Tensor,
                    beta: float) -> torch.Tensor:
     """Eq. (5) over a tensor of any shape; int8 codes of ``q.shape``."""
@@ -122,6 +155,7 @@ def ternary_encode(q: torch.Tensor, p1: torch.Tensor, p2: torch.Tensor,
     return out.reshape(-1)[:n].reshape(q.shape)
 
 
+@_plain
 def ternary_encode_round1(q: torch.Tensor, p0: torch.Tensor,
                           alpha: float) -> torch.Tensor:
     """Eq. (4) over a tensor of any shape; int8 codes of ``q.shape``."""
@@ -130,6 +164,7 @@ def ternary_encode_round1(q: torch.Tensor, p0: torch.Tensor,
     return out.reshape(-1)[:n].reshape(q.shape)
 
 
+@_plain
 def pack2bit(t: torch.Tensor) -> torch.Tensor:
     """int8 codes of any shape → uint8 (ceil(n/4),) packed bytes; the
     zero pad packs as code 0."""
@@ -137,12 +172,14 @@ def pack2bit(t: torch.Tensor) -> torch.Tensor:
     return pk.pack2bit(t2).reshape(-1)[:cdiv(n, PACK)]
 
 
+@_plain
 def unpack2bit(b: torch.Tensor, n: int) -> torch.Tensor:
     """uint8 packed bytes → int8 (n,) codes."""
     b2, _ = _to_2d(b, ROW_MULTIPLE)
     return pk.unpack2bit(b2).reshape(-1)[:n]
 
 
+@_plain
 def ternary_pack(q: torch.Tensor, p1: torch.Tensor, p2: torch.Tensor,
                  beta: float) -> torch.Tensor:
     """Fused Eq. (5) → §3.3 uplink over a tensor of any shape: equals
@@ -157,6 +194,7 @@ def ternary_pack(q: torch.Tensor, p1: torch.Tensor, p2: torch.Tensor,
     return out.reshape(-1)[:cdiv(n, PACK)]
 
 
+@_plain
 def ternary_pack_round1(q: torch.Tensor, p0: torch.Tensor,
                         alpha: float) -> torch.Tensor:
     """Round-1 (Eq. (4)) variant of :func:`ternary_pack`."""
@@ -168,6 +206,7 @@ def ternary_pack_round1(q: torch.Tensor, p0: torch.Tensor,
     return out.reshape(-1)[:cdiv(n, PACK)]
 
 
+@_plain
 def flat_ternary_pack(buf_q: torch.Tensor, buf_p1: torch.Tensor,
                       buf_p2: torch.Tensor, *, t: int, beta: float,
                       alpha1: float, block_rows: int | None = None
@@ -189,6 +228,7 @@ def flat_ternary_pack(buf_q: torch.Tensor, buf_p1: torch.Tensor,
                            buf_p2.reshape(r4, wide), beta, block_rows=br)
 
 
+@_plain
 def flat_ternary_pack_traced(buf_q: torch.Tensor, buf_p1: torch.Tensor,
                              buf_p2: torch.Tensor, *, t, beta,
                              alpha1, block_rows: int | None = None
@@ -208,6 +248,7 @@ def flat_ternary_pack_traced(buf_q: torch.Tensor, buf_p1: torch.Tensor,
         _device_scalar(alpha1, torch.float32, dev, "alpha1"), block_rows=br)
 
 
+@_plain
 def flat_ternary_pack_stacked(bufs_q: torch.Tensor, buf_p1: torch.Tensor,
                               buf_p2: torch.Tensor, *, t, beta,
                               alpha1: float, block_rows: int | None = None,
@@ -228,6 +269,7 @@ def flat_ternary_pack_stacked(bufs_q: torch.Tensor, buf_p1: torch.Tensor,
         per_worker(beta, n, dev), alpha1, block_rows=br, block_workers=bw)
 
 
+@_plain
 def flat_master_update(bufs_q: torch.Tensor, k_star,
                        packed_stacked: torch.Tensor, w: torch.Tensor,
                        buf_p1: torch.Tensor, buf_p2: torch.Tensor, *, t,
@@ -253,6 +295,7 @@ def flat_master_update(bufs_q: torch.Tensor, k_star,
     return out.reshape(rows, LANES)
 
 
+@_plain
 def flat_ternary_pack_masked(bufs_q: torch.Tensor, buf_p1: torch.Tensor,
                              buf_p2: torch.Tensor, *, t, beta, alpha1: float,
                              wq: torch.Tensor, pair_keys: torch.Tensor,
@@ -294,6 +337,7 @@ def flat_ternary_pack_masked(bufs_q: torch.Tensor, buf_p1: torch.Tensor,
         block_workers=bw)
 
 
+@_plain
 def word_scalar(x, device: torch.device) -> torch.Tensor:
     """An int, or an integer tensor already on ``device``, as a 0-d
     uint32 tensor there (its value mod 2**32), with no host copy."""
@@ -305,6 +349,7 @@ def word_scalar(x, device: torch.device) -> torch.Tensor:
                                device=device), 32)
 
 
+@_plain
 def flat_masked_master_update(bufs_q: torch.Tensor, k_star,
                               masked: torch.Tensor, sum_wq,
                               buf_p1: torch.Tensor, buf_p2: torch.Tensor, *,
@@ -335,6 +380,7 @@ def flat_masked_master_update(bufs_q: torch.Tensor, k_star,
     return out.reshape(rows, LANES)
 
 
+@_plain
 def flat_mask_repair(words: torch.Tensor | None, pair_keys: torch.Tensor,
                      pair_coeff: torch.Tensor, *,
                      out: torch.Tensor | None = None,
@@ -358,6 +404,7 @@ def flat_mask_repair(words: torch.Tensor | None, pair_keys: torch.Tensor,
                           block_rows=br)
 
 
+@_plain
 def flat_partial_sum(packed: torch.Tensor, wq: torch.Tensor, *, fanout: int,
                      word_bits: int = 32, block_rows: int | None = None,
                      block_groups: int | None = None) -> torch.Tensor:
@@ -376,6 +423,7 @@ def flat_partial_sum(packed: torch.Tensor, wq: torch.Tensor, *, fanout: int,
                           block_groups=bg)
 
 
+@_plain
 def flat_masked_partial_sum(words: torch.Tensor, keys: torch.Tensor,
                             signs: torch.Tensor, *, fanout: int,
                             sibling: int, use_masks: bool = True,
@@ -399,6 +447,7 @@ def flat_masked_partial_sum(words: torch.Tensor, keys: torch.Tensor,
                                  block_rows=br, block_groups=bg)
 
 
+@_plain
 def master_update(q_pilot: torch.Tensor, tern_stacked: torch.Tensor,
                   w: torch.Tensor, p1: torch.Tensor, p2: torch.Tensor
                   ) -> torch.Tensor:

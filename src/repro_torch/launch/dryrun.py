@@ -7,6 +7,8 @@ Usage:
     PYTHONPATH=src python -m repro_torch.launch.dryrun --all              # single-pod
     PYTHONPATH=src python -m repro_torch.launch.dryrun --all --multi-pod
     PYTHONPATH=src python -m repro_torch.launch.dryrun --fed fedpc_packed
+    PYTHONPATH=src python -m repro_torch.launch.dryrun --fed fedpc_packed \
+        --arch qwen3-14b --layers 2 --mesh 2x2 --local-batch 2 --seq 16
 Results are appended to ``bench_torch/results/dryrun.json`` (one record a
 combo, replacing an earlier one of the same combo).
 
@@ -42,7 +44,7 @@ from repro_torch.launch.specs import (SHAPES, input_specs, shape_supported,
 from repro_torch.models import scan_config
 from repro_torch.sharding import activations as act
 from repro_torch.sharding.specs import param_specs
-from repro_torch.utils import tree_leaves, tree_map
+from repro_torch.utils import tree_leaves
 
 RESULTS = os.path.join(os.path.dirname(__file__), "..", "..", "..",
                        "bench_torch", "results")
@@ -142,24 +144,6 @@ def run_one(arch: str, shape_name: str, multi_pod: bool = False, *,
     return rec
 
 
-class _ShardedTraining:
-    """A model whose ``train_step`` trains a fed worker's replica as
-    DTensors over ``mesh`` (the worker's model group): the params are
-    placed by ``param_specs`` on that mesh, trained, and gathered whole
-    again for the wire, which flattens a worker's whole model."""
-
-    def __init__(self, model, mesh):
-        self.model, self.mesh = model, mesh
-
-    def train_step(self, params, opt_state, batch, lr):
-        placed = tree_placed(params, self.mesh,
-                             param_specs(params, self.mesh))
-        new, opt_state, metrics = self.model.train_step(
-            placed, opt_state, batch, lr)
-        return (tree_map(lambda x: x.full_tensor(), new), opt_state,
-                metrics)
-
-
 def count_program(fn, *args, counter=None):
     """Run ``fn(*args)`` once with the wire kernels' launches recorded
     (``kernels.seam``) and the transport's calls answered on ``meta``
@@ -194,11 +178,6 @@ def count_sync(sync, *args) -> dict:
     return {"launches": launches, **trec.stats}
 
 
-_TRANSPORT_KINDS = {"psum": "all-reduce", "reduce_scatter": "reduce-scatter",
-                    "all_gather": "all-gather",
-                    "ppermute": "collective-permute"}
-
-
 def run_fed(arch: str, strategy: str, multi_pod: bool = False,
             local_steps: int = 1, local_batch: int = 16, seq: int = 4096, *,
             cfg=None, mesh=None, verbose: bool = True) -> dict:
@@ -206,11 +185,12 @@ def run_fed(arch: str, strategy: str, multi_pod: bool = False,
     × sync strategy).
 
     Fed workers are the 'data' (single pod) or 'pod' (multi-pod) slices;
-    a worker's local training runs as DTensors over the rest of the mesh
-    (its model group), and ``fed.distributed.build_fed_step``'s round —
-    the costs' gather and the sync — runs on a (fed, model) view of the
-    mesh under the transport's recorder, its wire kernels' launches
-    recorded by ``kernels.seam``. The record's ``fed_axis_bytes`` is the
+    ``fed.distributed.build_fed_step`` runs its round on a (fed, model)
+    view of the mesh, a worker's local training tensor-parallel over the
+    rest of the mesh (its model group) through the step's own
+    ``train_sharded``, the costs' gather and the sync under the
+    transport's recorder, its wire kernels' launches recorded by
+    ``kernels.seam``. The record's ``fed_axis_bytes`` is the
     protocol bytes a device hands the fed axis: fedavg (f32 weights) vs
     fedpc (int8 ternary) vs fedpc_packed (2-bit codes) vs fedpc_reduce
     (f16 sums) — the Fig. 6 comparison."""
@@ -244,9 +224,9 @@ def run_fed(arch: str, strategy: str, multi_pod: bool = False,
         view = Mesh({fed_axis: F, "model": M},
                     {fed_axis: col.AxisGroup.meta(F, 0, fed_axis),
                      "model": col.AxisGroup.meta(M, 0, "model")})
-        step = build_fed_step(_ShardedTraining(model, local_mesh), view,
-                              fed_axis, strategy, local_steps=local_steps,
-                              device="meta")
+        step = build_fed_step(model, view, fed_axis, strategy,
+                              local_steps=local_steps, device="meta",
+                              local_mesh=local_mesh)
         state = fed_state_init(params, F)
         batches = {"tokens": torch.empty((local_steps, local_batch, seq),
                                          dtype=torch.int32, device="meta")}
@@ -262,10 +242,8 @@ def run_fed(arch: str, strategy: str, multi_pod: bool = False,
                 n *= d
             b = n * torch.empty((), dtype=getattr(
                 torch, c["dtype"])).element_size()
-            kind = _TRANSPORT_KINDS[c["primitive"]]
-            result = (b * F if kind == "all-gather" else
-                      b // F if kind == "reduce-scatter" else b)
-            counter.add_collective(kind, result, F, fed_axis)
+            kind, result = col.RING[c["primitive"]]
+            counter.add_collective(kind, result(b, F), F, fed_axis)
         model_b = trec.stats["axis_bytes"].get("model", 0)
         if model_b:                    # the new buffer's gather over model
             counter.add_collective("all-gather", model_b * M, M, "model")
@@ -332,11 +310,35 @@ def main(argv=None):
     ap.add_argument("--fed", default=None, choices=list(FED_STRATEGIES),
                     help="dry-run one federated round step instead of the "
                          "plain train/serve step")
+    fed = ap.add_argument_group("--fed only")
+    fed.add_argument("--mesh", default=None,
+                     help="an F x M debug mesh ('2x2') instead of the "
+                          "production mesh")
+    fed.add_argument("--reduced", action="store_true",
+                     help="the config's reduced variant")
+    fed.add_argument("--layers", type=int, default=None,
+                     help="cut the config's depth to this many layers")
+    fed.add_argument("--local-steps", type=int, default=1)
+    fed.add_argument("--local-batch", type=int, default=16)
+    fed.add_argument("--seq", type=int, default=4096)
     args = ap.parse_args(argv)
 
     if args.fed:
-        rec = run_fed(args.arch or "mistral-nemo-12b", args.fed,
-                      multi_pod=args.multi_pod)
+        arch = args.arch or "mistral-nemo-12b"
+        cfg = get_config(arch)
+        if args.reduced:
+            cfg = cfg.reduced()
+        if args.layers:
+            cfg = cfg.replace(n_layers=args.layers)
+        mesh = None
+        if args.mesh:
+            from repro_torch.launch.mesh import fake_mesh
+            mesh = fake_mesh(tuple(int(n) for n in args.mesh.split("x")),
+                             ("data", "model"))
+        rec = run_fed(arch, args.fed, multi_pod=args.multi_pod,
+                      local_steps=args.local_steps,
+                      local_batch=args.local_batch, seq=args.seq, cfg=cfg,
+                      mesh=mesh)
         append_result(rec, args.out)
         raise SystemExit(1 if rec["status"] == "fail" else 0)
 

@@ -36,34 +36,13 @@ from dataclasses import dataclass, field
 import torch
 from torch.utils._python_dispatch import TorchDispatchMode
 
-_KINDS = {
-    "all_gather_into_tensor": "all-gather",
-    "all_gather_into_tensor_coalesced": "all-gather",
-    "all_reduce": "all-reduce",
-    "all_reduce_coalesced": "all-reduce",
-    "reduce_scatter_tensor": "reduce-scatter",
-    "reduce_scatter_tensor_coalesced": "reduce-scatter",
-    "all_to_all_single": "all-to-all",
-    "shard_dim_alltoall": "all-to-all",
-    "broadcast": "collective-permute",
-}
+from repro_torch.fed.collectives import DTENSOR_OPS
+from repro_torch.fed.collectives import collective_moved as _collective_moved
+
 # ops that allocate or alias and move no bytes
 _FREE = {"empty", "empty_strided", "empty_like", "detach", "alias",
          "lift_fresh", "wait_tensor", "_wrap_tensor_autograd", "new_empty",
          "new_empty_strided"}
-
-
-def _collective_moved(kind: str, result_bytes: int, g: int) -> float:
-    """Bytes a participating device moves for one collective (ring model;
-    ``g`` the group size), as the JAX package counts them."""
-    kind = kind.replace("-start", "")
-    if kind == "all-reduce":
-        return 2.0 * (g - 1) / g * result_bytes
-    if kind in ("all-gather", "all-to-all", "ragged-all-to-all"):
-        return (g - 1) / g * result_bytes
-    if kind == "reduce-scatter":
-        return (g - 1) * result_bytes          # operand = result × g
-    return float(result_bytes)                  # collective-permute
 
 
 def _tensors(x):
@@ -246,9 +225,8 @@ class OpCounter(TorchDispatchMode):
         name = func._schema.name.split("::", 1)[-1]
         m = self._mult
         if ns in ("_c10d_functional", "_dtensor"):
-            kind = _KINDS.get(name)
-            if kind is not None:
-                self._collective(kind, func, args, out)
+            if name in DTENSOR_OPS:
+                self._collective(DTENSOR_OPS[name][0], func, args, out)
             return
         packet = func._overloadpacket
         if packet in flop_registry:

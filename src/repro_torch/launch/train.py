@@ -8,11 +8,14 @@ Two modes:
   LM data, through ``FedSimulator``.
 * ``distributed`` — the mesh runtime (``fed.distributed.build_fed_step``):
   an (F fed × M model) mesh of ``torch.distributed`` ranks, each fed
-  worker its own process. It spawns the F·M processes itself (start method
-  ``spawn``) unless ``torchrun``'s environment (``RANK``, ``WORLD_SIZE``)
-  is there. ``--backend`` is required: ``nccl`` puts rank r on card
-  ``LOCAL_RANK`` (one card a rank), ``gloo`` puts every rank on card 0 (or
-  on the CPU with ``--device cpu``).
+  worker's model tensor-parallel over its ``--model-shards`` M ranks
+  (DTensors placed by ``param_specs`` on the worker's model group). It
+  spawns the F·M processes itself (start method ``spawn``) unless
+  ``torchrun``'s environment (``RANK``, ``WORLD_SIZE``) is there.
+  ``--backend`` is required: ``nccl`` puts rank r on card ``LOCAL_RANK``
+  (one card a rank), ``gloo`` puts every rank on card 0 (or on the CPU
+  with ``--device cpu``), the model axis's collectives staged through
+  host memory.
 
 Both run on the card unless given ``--device cpu``, and raise without one.
 
@@ -164,7 +167,9 @@ def main(argv=None) -> int:
     dist.add_argument("--backend", required=True, choices=["gloo", "nccl"])
     dist.add_argument("--device", default="cuda", choices=["cuda", "cpu"])
     dist.add_argument("--fed-workers", type=int, default=4)
-    dist.add_argument("--model-shards", type=int, default=2)
+    dist.add_argument("--model-shards", type=int, default=2,
+                      help="M: the ranks a fed worker's model is "
+                           "tensor-parallel over")
     dist.add_argument("--rounds", type=int, default=3)
     dist.add_argument("--local-steps", type=int, default=2)
     dist.add_argument("--local-batch", type=int, default=2)

@@ -127,7 +127,11 @@ def moe(p: dict, cfg: ArchConfig, x: torch.Tensor
     rows = xf[:, None].expand(T, K, D).reshape(T * K, D)     # token-major
     contrib = torch.where(keep[:, None], rows, 0).to(x.dtype)
     buf = torch.zeros((n_slots + 1, D), dtype=x.dtype, device=x.device)
-    buf = buf.index_put((torch.where(keep, slot, n_slots),), contrib)
+    at, contrib = act.scatter_rows("aten::index_put (MoE scatter, split "
+                                   "slots)", torch.where(keep, slot, n_slots),
+                                   contrib)
+    buf = buf.index_put((at,), contrib)
+    del at                      # a temporary, as the slots of the gather
     buf = act.expert_block_buf(buf[:n_slots].view(E, s_blk, C, D))
 
     # ---- expert SwiGLU over the E axis ----------------------------------
@@ -143,8 +147,9 @@ def moe(p: dict, cfg: ArchConfig, x: torch.Tensor
             E, s_blk, C, D))                                 # (E, s, C, D)
 
     # ---- block-local gather + combine -----------------------------------
-    y_flat = out_buf.reshape(n_slots, D)[
-        torch.where(keep, slot, blk * C + C - 1)]            # (T*K, D)
+    y_flat = act.gather_rows(
+        "aten::index (MoE gather, sharded slots)", out_buf, (n_slots, D),
+        lambda: torch.where(keep, slot, blk * C + C - 1), E)  # (T*K, D)
     y = (y_flat.float() * gate_flat[:, None]).reshape(T, K, D).sum(1)
     y = y.to(x.dtype)
     if "shared" in p:

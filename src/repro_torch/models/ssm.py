@@ -74,7 +74,18 @@ def init_mamba(cfg: ArchConfig, generator: torch.Generator) -> dict:
 def _causal_conv(x, w, b):
     """Depthwise causal conv. x (B, S, di), w (dc, di)."""
     dc = w.shape[0]
-    pad = F.pad(x, (0, 0, dc - 1, 0))
+    if act.old_dtensor_on_mesh(x):
+        # torch before 2.13: no redistribution plan for the pad of a
+        # channel-sharded x, and a tap's (1, 1, di) view of a multi-axis
+        # shard takes the local length: the zero rows placed as x is and
+        # joined on the unsharded sequence dim, the taps gathered whole
+        zeros = torch.zeros((x.shape[0], dc - 1, x.shape[2]),
+                            dtype=x.dtype, device=x.device)
+        pad = torch.cat([act.like("aten::constant_pad_nd (causal conv)",
+                                  zeros, x), x], dim=1)
+        w = act.replicated("aten::view (causal conv taps)", w)
+    else:
+        pad = F.pad(x, (0, 0, dc - 1, 0))
     # the taps as (1, 1, di): a mesh places them as it does x's channels
     out = sum(pad[:, j:j + x.shape[1]] * w[j].view(1, 1, -1)
               for j in range(dc))
@@ -130,8 +141,9 @@ def _mamba_forward(p: dict, cfg: ArchConfig, x: torch.Tensor,
     dt_r = proj[..., :dtr]
     Bm = proj[..., dtr:dtr + ds].float()                    # (B,S,ds)
     Cm = proj[..., dtr + ds:].float()
-    dt = _softplus((dt_r @ p["dt_proj"]).float()
-                   + p["dt_bias"].float())                  # (B,S,di)
+    dt = _softplus(act.add("aten::add (dt bias, a shard beside a partial "
+                           "sum)", (dt_r @ p["dt_proj"]).float(),
+                           p["dt_bias"].float()))           # (B,S,di)
     A = -torch.exp(p["A_log"])                              # (di, ds) fp32
     xcf = xc.float()
 
@@ -145,7 +157,11 @@ def _mamba_forward(p: dict, cfg: ArchConfig, x: torch.Tensor,
         binc = (dt_c * x_c)[..., None] * b_c[:, :, None, :]  # (B,Q,di,ds)
         h_all, h = _ssm_scan_chunk(a, binc, h)
         del a, binc
-        ys.append(torch.einsum("bqns,bqs->bqn", h_all, c_c))  # (B,Q,di)
+        if act.old_dtensor_on_mesh(h_all) and act.on_mesh(
+                "aten::einsum (SSM readout, a product and a sum)"):
+            ys.append((h_all * c_c[:, :, None, :]).sum(-1))
+        else:
+            ys.append(torch.einsum("bqns,bqs->bqn", h_all, c_c))  # (B,Q,di)
         del h_all
     ys = ys * (S // Q // len(ys))
     y = torch.cat(ys, dim=1)                                # (B,S,di)

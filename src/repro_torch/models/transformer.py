@@ -195,7 +195,8 @@ def _apply_block_train(cfg: ArchConfig, bp: dict, mixer: str, f: str, x,
         h = attn.attn_train(bp["mixer"], cfg, h, cos, sin, causal=causal)
     else:
         h = _recurrent(mixer).train(bp["mixer"], cfg, h)
-    x = act.residual(x + h)
+    x = act.residual(act.add("aten::add (residual, a partial sum beside "
+                             "a shard)", x, h))
     return _ffn_residual(cfg, bp, x, cross_kv)
 
 

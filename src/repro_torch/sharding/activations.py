@@ -20,13 +20,27 @@ Where DTensor has no strategy for an op on these placements, the model
 calls :func:`replicated` on its operands at that site: they are gathered
 whole and the op is listed in :data:`REPLICATED_OPS`, which the dry run
 reports. An op with no strategy at all is run another way under a mesh
-(:func:`on_mesh`), and listed too.
+(:func:`on_mesh`), and listed too. Torch before 2.13 lacks a few
+strategies that 2.13 has (:data:`OLD_DTENSOR`): the sites that need them
+step round there only (:func:`gather_rows`, :func:`scatter_rows`,
+:func:`add`, :func:`old_dtensor_on_mesh`), so that what 2.13 runs and
+counts stays as it is.
 """
 from __future__ import annotations
 
 from contextlib import contextmanager
 
+import torch
+
 from repro_torch.sharding.specs import mesh_axes, placements
+
+#: DTensor of a torch before 2.13: no strategy for an index whose indices
+#: split one dim over two mesh dims, nor for a view that splits a sharded
+#: dim in the backward of the MoE's gather; no redistribution of a shard
+#: to a partial sum; no plan for the pad of a channel-sharded tensor; an
+#: einsum's views of a shard split over two mesh dims take local lengths.
+OLD_DTENSOR = tuple(int(v) for v in
+                    torch.__version__.split("+")[0].split(".")[:2]) < (2, 13)
 
 _DISABLED = [False]
 _MESH = [None]
@@ -54,6 +68,18 @@ def set_disabled(value: bool) -> None:
     """Disable all activation placements (the fed dry run, whose local
     training keeps the fed axis out of the activations)."""
     _DISABLED[0] = bool(value)
+
+
+@contextmanager
+def disabled():
+    """:func:`set_disabled` for this block, the previous setting restored
+    after it."""
+    prev = _DISABLED[0]
+    _DISABLED[0] = True
+    try:
+        yield
+    finally:
+        _DISABLED[0] = prev
 
 
 def _current_mesh():
@@ -127,6 +153,110 @@ def replicated(op: str, *xs):
         REPLICATED_OPS.append(op)
     out = tuple(_place(x, mesh, (None,) * x.ndim) for x in xs)
     return out if len(out) > 1 else out[0]
+
+
+def old_dtensor_on_mesh(x) -> bool:
+    """Whether ``x`` is a DTensor under a mesh on a torch before 2.13
+    (:data:`OLD_DTENSOR`): a site that steps round that torch's holes
+    does so then only."""
+    from torch.distributed.tensor import DTensor
+
+    return OLD_DTENSOR and _MESH[0] is not None and isinstance(x, DTensor)
+
+
+def _hybrid(x) -> bool:
+    """Whether a DTensor splits one of its dims over two mesh dims."""
+    return any(sum(p.is_shard(d) for p in x.placements) > 1
+               for d in range(x.ndim))
+
+
+class _WholeGrad(torch.autograd.Function):
+    """Identity; its gradient redistributed whole (replicated)."""
+
+    @staticmethod
+    def forward(ctx, x):
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        from torch.distributed.tensor import Replicate
+        return g.redistribute(g.device_mesh,
+                              [Replicate()] * g.device_mesh.ndim)
+
+
+def gather_rows(op: str, table, shape: tuple, index, groups: int):
+    """``table.reshape(shape)[index()]``, rows gathered from ``table``
+    (its leading dim ``groups`` groups of rows, the MoE's experts), in
+    that order. On a torch before 2.13 under a mesh, with the indices
+    sharded, where that torch has no strategy (``op`` listed each time):
+    under a gradient, indices split over two mesh dims are gathered whole
+    with the rows, and the rows' gradient is made whole before it is
+    viewed as the groups (whose sharded dim it would split) when the
+    indices split over two mesh dims or over mesh dims that do not divide
+    ``groups``; with no gradient, an index whose sharding propagation
+    fails is retried on whole operands. Else as it is."""
+    flat = table.reshape(shape)
+    idx = index()
+    if not (old_dtensor_on_mesh(idx) and any(p.is_shard()
+                                             for p in idx.placements)):
+        return flat[idx]
+    grad = torch.is_grad_enabled() and table.requires_grad
+    shards = 1
+    for n, p in zip(idx.device_mesh.shape, idx.placements):
+        shards *= n if p.is_shard() else 1
+    hybrid = _hybrid(idx)
+    if grad and hybrid:           # the rows whole before they are viewed
+        table, idx = replicated(op, table, idx)
+        flat = table.reshape(shape)
+    if grad and (hybrid or groups % shards):
+        if op + " (gradient whole)" not in REPLICATED_OPS:
+            REPLICATED_OPS.append(op + " (gradient whole)")
+        flat = _WholeGrad.apply(flat)
+    try:
+        return flat[idx]
+    except RuntimeError:        # no strategy for these sharded indices
+        if grad:
+            raise
+    flat, idx = replicated(op, flat, idx)
+    return flat[idx]
+
+
+def scatter_rows(op: str, idx, rows):
+    """``(idx, rows)`` for ``buf.index_put((idx,), rows)``: on a torch
+    before 2.13 under a mesh and a gradient, indices split over two mesh
+    dims gathered whole with the rows (``op`` listed) — the backward
+    indexes the buffer's gradient by them, which that torch cannot. Else
+    as they are."""
+    if (old_dtensor_on_mesh(idx) and torch.is_grad_enabled()
+            and rows.requires_grad and _hybrid(idx)):
+        return replicated(op, idx, rows)
+    return idx, rows
+
+
+def partial_beside_shard(a, b) -> bool:
+    """Whether DTensors ``a`` and ``b`` hold a partial sum and a shard on
+    one mesh dim, where a plan may redistribute the shard to a partial
+    sum."""
+    from torch.distributed.tensor import DTensor
+    if not (isinstance(a, DTensor) and isinstance(b, DTensor)):
+        return False
+    return any((p.is_partial() and q.is_shard())
+               or (p.is_shard() and q.is_partial())
+               for p, q in zip(a.placements, b.placements))
+
+
+def add(op: str, a, b):
+    """``a + b``; on a torch before 2.13 under a mesh, with a partial sum
+    beside a shard (:func:`partial_beside_shard`), where DTensor's plan
+    redistributes the shard to a partial sum, which that torch cannot,
+    both operands gathered whole and added again (``op`` listed)."""
+    try:
+        return a + b
+    except RuntimeError:
+        if not (old_dtensor_on_mesh(a) and partial_beside_shard(a, b)):
+            raise
+    a, b = replicated(op, a, b)
+    return a + b
 
 
 def on_mesh(op: str) -> bool:

@@ -107,9 +107,27 @@ def flat(tree: dict) -> np.ndarray:
 
 STEP_ARCH = "fedpc-paper"
 STEP = dict(local_steps=2, batch=2, seq_len=16, lr=0.05, rounds=2)
-# (name, mesh, strategy, masked wire, participation mask)
-STEP_CASES = (("packed", (2, 2), "fedpc_packed", False, False),
-              ("masked", (4, 1), "fedpc", True, True))
+# (name, mesh, strategy, masked wire, participation mask, reduced config);
+# at M = 2 each worker trains tensor-parallel over its two model ranks
+STEP_CASES = (("packed", (2, 2), "fedpc_packed", False, False, STEP_ARCH),
+              ("masked", (4, 1), "fedpc", True, True, STEP_ARCH),
+              ("qwen3", (2, 2), "fedpc_packed", False, False, "qwen3-14b"),
+              ("moe", (2, 2), "fedpc_packed", False, False,
+               "deepseek-moe-16b"),
+              ("sitout", (2, 2), "fedpc_packed", False, True, STEP_ARCH))
+
+
+# The step oracle's cases split over processes that run side by side
+STEP_ORACLE_SPLIT = ("packed,masked,qwen3,sitout", "moe")
+
+
+def step_jobs() -> list[dict]:
+    """One rank job a mesh of STEP_CASES, its cases in order."""
+    jobs: dict = {}
+    for name, (F, M), *_ in STEP_CASES:
+        jobs.setdefault((F, M), {"task": "step", "F": F, "M": M,
+                                 "cases": []})["cases"].append(name)
+    return list(jobs.values())
 
 
 def step_params(tree: dict) -> dict:
@@ -161,19 +179,40 @@ from repro.configs import get_config
 from repro.fed.distributed import build_fed_step, fed_state_init
 from repro.models import build_model
 from repro.privacy import PrivacySpec
+from repro.sharding.specs import param_specs
 
-cfg = get_config(H.STEP_ARCH).reduced()
-m = build_model(cfg)
-init = H.step_params(jax.tree_util.tree_map(np.asarray,
-                                            m.init(jax.random.PRNGKey(0))))
-out = {"init": H.flat_tree(init)}
-for name, (F, M), strat, masked, use_mask in H.STEP_CASES:
+out = {}
+only = sys.argv[3].split(",") if len(sys.argv) > 3 else None
+for name, (F, M), strat, masked, use_mask, arch in H.STEP_CASES:
+    if only is not None and name not in only:
+        continue
+    cfg = get_config(arch).reduced()
+    m = build_model(cfg)
+    init = H.step_params(jax.tree_util.tree_map(
+        np.asarray, m.init(jax.random.PRNGKey(0))))
+    out[f"{name}_init"] = H.flat_tree(init)
+    if arch == H.STEP_ARCH:
+        out["init"] = out[f"{name}_init"]
     mesh = Mesh(np.array(jax.devices()[:F * M]).reshape(F, M),
                 ("data", "model"))
     params = jax.tree_util.tree_map(jnp.asarray, init)
-    st = fed_state_init(params, F)
     opt_F = jax.tree_util.tree_map(lambda x: jnp.stack([x] * F),
                                    m.optimizer.init(params))
+    if M > 1:
+        # the params and optimizer state sharded over 'model' within a
+        # worker, as the port's are and as the JAX fed dry run places them:
+        # param_specs with the fed axis dropped (fed_shardings' own
+        # params_F would name 'data' twice where a dim is FSDP-sharded)
+        NS, P = jax.sharding.NamedSharding, jax.sharding.PartitionSpec
+        drop = lambda spec: P(*[None if a == "data" else a for a in spec])
+        is_p = lambda x: isinstance(x, P)
+        params = jax.device_put(params, jax.tree_util.tree_map(
+            lambda s: NS(mesh, drop(s)), param_specs(params, mesh),
+            is_leaf=is_p))
+        opt_F = jax.device_put(opt_F, jax.tree_util.tree_map(
+            lambda s: NS(mesh, P("data", *drop(s))),
+            param_specs(m.optimizer.init(init), mesh), is_leaf=is_p))
+    st = fed_state_init(params, F)
     sizes = jnp.asarray([100.0 + 25 * k for k in range(F)])
     mask = (jnp.arange(F) != 1).astype(jnp.float32) if use_mask else None
     with mesh:
@@ -187,6 +226,9 @@ for name, (F, M), strat, masked, use_mask in H.STEP_CASES:
             st, opt_F, met = step(*args)
             out[f"{name}_k{r}"] = np.asarray(met["k_star"])
             out[f"{name}_cost{r}"] = np.asarray(met["cost_mean"])
+            if r == 0:
+                out[f"{name}_params0"] = H.flat_tree(
+                    jax.tree_util.tree_map(np.asarray, st["params"]))
     out[f"{name}_params"] = H.flat_tree(jax.tree_util.tree_map(
         np.asarray, st["params"]))
     for f in range(F):
@@ -260,12 +302,13 @@ np.savez(sys.argv[2], **out)
 """
 
 
-def start_oracle(script: str, out_path: str) -> tuple:
+def start_oracle(script: str, out_path: str, *args: str) -> tuple:
     """Start a JAX script (``argv[1]`` this directory, ``argv[2]`` the
-    ``.npz`` to write) in a subprocess with 8 host devices; pass what it
-    returns to :func:`oracle_result`."""
+    ``.npz`` to write, then ``args``) in a subprocess with 8 host devices;
+    pass what it returns to :func:`oracle_result`."""
     env = dict(os.environ, PYTHONPATH=SRC, JAX_PLATFORMS="cpu")
-    proc = subprocess.Popen([sys.executable, "-c", script, HERE, out_path],
+    proc = subprocess.Popen([sys.executable, "-c", script, HERE, out_path,
+                             *args],
                             env=env, stdout=subprocess.PIPE,
                             stderr=subprocess.PIPE, text=True)
     return proc, out_path
@@ -426,45 +469,294 @@ def as_u64(x):
 
 
 def _step_task(job, mesh, F, M, rank) -> dict:
-    """``build_fed_step`` on the reduced transformer: one STEP_CASES
-    entry, the JAX run's initial weights and batches."""
+    """``build_fed_step`` on a reduced transformer: the job's STEP_CASES
+    entries in turn, each from the JAX run's initial weights and batches.
+    At M > 1 also what the first local step trained on: whether every
+    param and optimizer leaf was a DTensor, their local bytes, and the
+    bytes ``param_specs`` places on the worker's model axis; and how
+    often ``fed.distributed.train_sharded`` ran. Then the model axis's
+    transport checks (:func:`_model_axis_checks`)."""
+    import dataclasses
+
     import torch
     import torch.distributed as dist
+    from torch.distributed.tensor import DTensor
     from repro_torch.configs import get_config
-    from repro_torch.fed.distributed import build_fed_step, fed_state_init
+    from repro_torch.fed import distributed as fd
+    from repro_torch.launch.mesh import Mesh
     from repro_torch.models import build_model
     from repro_torch.privacy import PrivacySpec
-    from repro_torch.utils import tree_map
-    name, _, strat, masked, use_mask = next(
-        c for c in STEP_CASES if c[0] == job["case"])
+    from repro_torch.sharding.specs import param_specs, spec_leaves
+    from repro_torch.utils import tree_leaves, tree_map
     f = mesh.axes["data"].index
-    cfg = get_config(STEP_ARCH).reduced()
+    out = {}
+    calls = []
+    sharded = fd.train_sharded
+    fd.train_sharded = lambda *a, **k: (calls.append(1), sharded(*a, **k))[1]
+    for name in job["cases"]:
+        _, _, strat, masked, use_mask, arch = next(
+            c for c in STEP_CASES if c[0] == name)
+        cfg = get_config(arch).reduced()
+        m = build_model(cfg)
+        own = m.init(torch.Generator().manual_seed(0), device="cpu")
+        params = tree_map(torch.from_numpy,
+                          step_params(tree_map(lambda x: x.numpy(), own)))
+        state = fd.fed_state_init(params, F)
+        opt = m.optimizer.init(params)
+        sizes = torch.tensor([100.0 + 25 * k for k in range(F)])
+        mask = ((torch.arange(F) != 1).to(torch.float32) if use_mask
+                else None)
+        seen = []
+        m = dataclasses.replace(m, train_step=lambda p, o, *a, _ts=(
+            m.train_step): (seen.append((p, o)) if not seen else None,
+                            _ts(p, o, *a))[1])
+        step = fd.build_fed_step(m, mesh, "data", strat,
+                                 local_steps=STEP["local_steps"],
+                                 lr=STEP["lr"],
+                                 privacy=PrivacySpec() if masked else None,
+                                 device="cpu")
+        del calls[:]
+        out[f"{name}_init"] = flat_tree(tree_map(lambda x: x.numpy(),
+                                                 params))
+        if arch == STEP_ARCH:
+            out["init"] = out[f"{name}_init"]
+        for r in range(STEP["rounds"]):
+            batch = {"tokens": torch.from_numpy(
+                step_tokens(F, r, cfg.vocab)[f])}
+            state, opt, met = step(state, opt, batch, sizes, mask)
+            out[f"{name}_k{r}"] = met["k_star"].numpy()
+            out[f"{name}_cost{r}"] = met["cost_mean"].numpy()
+            if r == 0:
+                out[f"{name}_params0"] = flat_tree(tree_map(
+                    lambda x: x.numpy(), state["params"]))
+        out[f"{name}_sharded_calls"] = np.array(len(calls))
+        out[f"{name}_params"] = flat_tree(tree_map(lambda x: x.numpy(),
+                                                   state["params"]))
+        whole = tree_map(lambda x: (x.full_tensor() if isinstance(
+            x, DTensor) else x).numpy(), opt)
+        mine = torch.from_numpy(flat_tree(whole))
+        opts = [torch.empty_like(mine) for _ in range(F * M)]
+        dist.all_gather(opts, mine)
+        for g in range(F):
+            out[f"{name}_opt{g}"] = opts[g * M].numpy()
+        if M > 1:
+            out[f"{name}_opt_kept_dtensor"] = np.array(all(
+                isinstance(x, DTensor) for x in tree_leaves(opt)))
+            # what the first local step trained on, beside param_specs
+            p0, o0 = seen[0]
+            spec_mesh = Mesh({"model": M}, {})
+            for what, tree in (("params", p0), ("opt", o0)):
+                leaves = tree_leaves(tree)
+                want = sum(x.numel() * x.element_size() // M ** sum(
+                    "model" in ((s,) if isinstance(s, str) else s or ())
+                    for s in spec)
+                    for x, spec in zip(leaves, spec_leaves(
+                        param_specs(tree, spec_mesh))))
+                out[f"{name}_{what}_dtensor"] = np.array(all(
+                    isinstance(x, DTensor) for x in leaves))
+                out[f"{name}_{what}_bytes"] = np.array([
+                    sum((x.to_local() if isinstance(x, DTensor) else x)
+                        .nbytes for x in leaves), want,
+                    sum(x.numel() * x.element_size() for x in leaves)])
+    fd.train_sharded = sharded
+    if M > 1:
+        out.update(_model_axis_checks(mesh))
+        out.update(_old_dtensor_checks())
+    return out
+
+
+def _model_axis_checks(mesh, device: str = "cpu",
+                       transport: bool = True) -> dict:
+    """A DTensor matmul and each redistribution the training step issues
+    on the model axis (all-gather, reduce-scatter, all-reduce,
+    all-to-all) on ``device``: as DTensor runs them on gloo and, with
+    ``transport``, through ``fed.collectives.model_transport`` (under
+    sync-debug "error" on a card); this rank's results each way and the
+    kinds and staged copies the transport booked."""
+    import torch
+    from torch.distributed.tensor import DTensor, Partial, Replicate, Shard
+    from repro_torch.fed import collectives as col
+    from repro_torch.fed.distributed import model_mesh
+    axis = mesh.axes["model"]
+    dm = model_mesh(mesh, device=device)
+    i = axis.index
+    g = torch.Generator().manual_seed(7)       # the same on every rank
+    a = torch.randn(8, 12, generator=g).to(device)
+    b = torch.randn(12, 6, generator=g).to(device)
+    mine = a + i                               # a shard, a partial sum
+    cases = {
+        "matmul": lambda: (DTensor.from_local(a[:, 6 * i:6 * i + 6], dm,
+                                              [Shard(1)], run_check=False)
+                           @ DTensor.from_local(b[6 * i:6 * i + 6], dm,
+                                                [Shard(0)], run_check=False)
+                           ).full_tensor(),
+        "all_gather": lambda: DTensor.from_local(
+            mine, dm, [Shard(0)], run_check=False).full_tensor(),
+        "reduce_scatter": lambda: DTensor.from_local(
+            mine, dm, [Partial()], run_check=False).redistribute(
+                dm, [Shard(0)]).to_local(),
+        "all_reduce": lambda: DTensor.from_local(
+            mine, dm, [Partial()], run_check=False).redistribute(
+                dm, [Replicate()]).to_local(),
+        "all_to_all": lambda: DTensor.from_local(
+            mine, dm, [Shard(0)], run_check=False).redistribute(
+                dm, [Shard(1)]).to_local(),
+    }
+    cuda = device == "cuda"
+    out = {}
+    for key, fn in cases.items():
+        if not cuda:        # gloo on CUDA tensors is what staging avoids
+            out[f"axis_{key}_dtensor"] = fn().cpu().numpy()
+        if not transport:
+            continue
+        col.reset_stats()
+        with col.model_transport(axis):
+            if cuda:
+                torch.cuda.synchronize()
+                torch.cuda.set_sync_debug_mode("error")
+            try:
+                got = fn()
+            finally:
+                if cuda:
+                    torch.cuda.set_sync_debug_mode(0)
+        out[f"axis_{key}_transport"] = got.cpu().numpy()
+        out[f"axis_{key}_kinds"] = np.array(sorted(
+            col.STATS["dtensor"]["kinds"]))
+        out[f"axis_{key}_staged"] = np.array(col.STATS["staged"])
+    return out
+
+
+# The step-rounds of a torch before 2.13 (``sharding.activations.
+# OLD_DTENSOR``), run on this torch: one Mamba + MoE layer of reduced
+# jamba on a (pod, data, model) = (2, 1, 2) mesh, its tokens' batch split
+# over two mesh dims as a multi-pod mesh splits it
+OLD_MESH = ((2, 1, 2), ("pod", "data", "model"))
+OLD_SITES = ("aten::view (causal conv taps)",
+             "aten::add (dt bias, a shard beside a partial sum)",
+             "aten::einsum (SSM readout, a product and a sum)",
+             "aten::index_put (MoE scatter, split slots)",
+             "aten::index (MoE gather, sharded slots)",
+             "aten::index (MoE gather, sharded slots) (gradient whole)")
+
+
+def _old_hole():
+    """A dispatch mode that raises where a torch before 2.13 fails: an add
+    of a partial sum beside a shard, an index by indices split over two
+    mesh dims. Entered only inside ``act.add`` and ``act.gather_rows``,
+    whose first attempt it fails, so that their retries run."""
+    import torch
+    from torch.distributed.tensor import DTensor
+    from torch.utils._python_dispatch import TorchDispatchMode
+    from repro_torch.sharding import activations as act
+
+    class Hole(TorchDispatchMode):
+        def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+            if not any(issubclass(t, DTensor) for t in types):
+                return func(*args, **(kwargs or {}))
+            if (func is torch.ops.aten.add.Tensor
+                    and act.partial_beside_shard(*args[:2])):
+                raise RuntimeError("a shard to a partial sum")
+            if func is torch.ops.aten.index.Tensor and any(
+                    isinstance(i, DTensor) and act._hybrid(i)
+                    for i in args[1]):
+                raise RuntimeError("indices split over two mesh dims")
+            return NotImplemented
+    return Hole
+
+
+def _old_dtensor_checks() -> dict:
+    """One train step and one loss with no gradient, the model's
+    placements by ``param_specs`` and its activation hooks on, the same on
+    every rank: as this torch runs them, and with ``OLD_DTENSOR`` set and
+    the holes of :func:`_old_hole` in the two retrying helpers; the loss,
+    the no-gradient loss, the new optimizer state (the step's gradients)
+    whole each way, and the ops the step-rounds listed."""
+    import torch
+    from torch.distributed.device_mesh import init_device_mesh
+    from torch.distributed.tensor import DTensor
+    from repro_torch.configs import get_config
+    from repro_torch.fed import distributed as fd
+    from repro_torch.models import build_model
+    from repro_torch.sharding import activations as act
+    from repro_torch.sharding.specs import batch_spec, placements
+    from repro_torch.utils import tree_leaves
+    mesh = init_device_mesh("cpu", OLD_MESH[0], mesh_dim_names=OLD_MESH[1])
+    cfg = get_config("jamba-1.5-large-398b").reduced().replace(
+        n_layers=1, pattern=(("mamba", "moe"),))
     m = build_model(cfg)
-    own = m.init(torch.Generator().manual_seed(0), device="cpu")
-    params = tree_map(torch.from_numpy,
-                      step_params(tree_map(lambda x: x.numpy(), own)))
-    state = fed_state_init(params, F)
+    params = m.init(torch.Generator().manual_seed(0), device="cpu")
     opt = m.optimizer.init(params)
+    tokens = torch.randint(0, cfg.vocab, (4, 32),
+                           generator=torch.Generator().manual_seed(1))
+    whole = lambda x: x.full_tensor() if isinstance(x, DTensor) else x
+    Hole = _old_hole()
+    real = act.add, act.gather_rows, act.OLD_DTENSOR
+
+    def holed(fn):
+        def call(*a):
+            with Hole():
+                return fn(*a)
+        return call
+
+    out = {}
+    try:
+        for way in ("default", "old"):
+            if way == "old":
+                act.OLD_DTENSOR = True
+                act.add, act.gather_rows = holed(real[0]), holed(real[1])
+            act.REPLICATED_OPS.clear()
+            with act.use_mesh(mesh):
+                p, o = fd.shard_tree(params, mesh), fd.shard_tree(opt, mesh)
+                batch = {"tokens": fd._shard(tokens, mesh, placements(
+                    batch_spec(mesh, 4), mesh))}
+                _, o2, met = m.train_step(p, o, batch, 0.05)
+                with torch.no_grad():
+                    loss = m.loss(p, batch)
+            out[f"old_{way}_loss"] = whole(met["loss"]).numpy()
+            out[f"old_{way}_forward"] = whole(
+                loss[0] if isinstance(loss, tuple) else loss).numpy()
+            out[f"old_{way}_opt"] = torch.cat([
+                whole(x).reshape(-1) for x in tree_leaves(o2)]).numpy()
+            out[f"old_{way}_ops"] = np.array(list(act.REPLICATED_OPS))
+    finally:
+        act.add, act.gather_rows, act.OLD_DTENSOR = real
+    return out
+
+
+def _axis_task(job, mesh, F, M, rank) -> dict:
+    """The model axis on ``job["device"]`` (a card: every rank on card 0)
+    beside the CPU: the transport checks, DTensor's own on the CPU; and
+    one ``build_fed_step`` round of reduced ``qwen3-14b``
+    (``fedpc_packed``) on each, from the same weights and batch."""
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.fed import distributed as fd
+    from repro_torch.models import build_model
+    from repro_torch.utils import tree_leaves, tree_map
+    dev = job["device"]
+    if dev == "cuda":
+        torch.cuda.set_device(0)
+    out = {f"cpu_{k}": v for k, v in _model_axis_checks(
+        mesh, "cpu", transport=False).items()}
+    out.update(_model_axis_checks(mesh, dev))
+    cfg = get_config("qwen3-14b").reduced()
+    m = build_model(cfg)
+    params = m.init(torch.Generator().manual_seed(0), device="cpu")
+    tokens = torch.from_numpy(step_tokens(F, 0, cfg.vocab)[
+        mesh.axes["data"].index])
     sizes = torch.tensor([100.0 + 25 * k for k in range(F)])
-    mask = ((torch.arange(F) != 1).to(torch.float32) if use_mask else None)
-    step = build_fed_step(m, mesh, "data", strat,
-                          local_steps=STEP["local_steps"], lr=STEP["lr"],
-                          privacy=PrivacySpec() if masked else None,
-                          device="cpu")
-    out = {"init": flat_tree(tree_map(lambda x: x.numpy(), params))}
-    for r in range(STEP["rounds"]):
-        batch = {"tokens": torch.from_numpy(
-            step_tokens(F, r, cfg.vocab)[f])}
-        state, opt, met = step(state, opt, batch, sizes, mask)
-        out[f"{name}_k{r}"] = met["k_star"].numpy()
-        out[f"{name}_cost{r}"] = met["cost_mean"].numpy()
-    out[f"{name}_params"] = flat_tree(tree_map(lambda x: x.numpy(),
-                                               state["params"]))
-    mine = torch.from_numpy(flat_tree(tree_map(lambda x: x.numpy(), opt)))
-    opts = [torch.empty_like(mine) for _ in range(F * M)]
-    dist.all_gather(opts, mine)
-    for g in range(F):
-        out[f"{name}_opt{g}"] = opts[g * M].numpy()
+    for where in ("cpu", dev):
+        on = tree_map(lambda x: x.to(where), params)
+        step = fd.build_fed_step(m, mesh, "data", "fedpc_packed",
+                                 local_steps=STEP["local_steps"],
+                                 lr=STEP["lr"], device=where)
+        state, _, met = step(fd.fed_state_init(on, F),
+                             m.optimizer.init(on), {"tokens": tokens.to(
+                                 where)}, sizes.to(where))
+        out[f"step_{where}"] = torch.cat([x.reshape(-1).cpu() for x in
+                                          tree_leaves(state["params"])]
+                                         ).numpy()
+        out[f"step_{where}_cost"] = met["cost_mean"].cpu().numpy()
     return out
 
 
@@ -504,7 +796,8 @@ def _fed_bytes_task(job, mesh, F, M, rank) -> dict:
 
 
 TASKS = {"sync": _sync_task, "transport": _transport_task,
-         "step": _step_task, "fedbytes": _fed_bytes_task}
+         "step": _step_task, "fedbytes": _fed_bytes_task,
+         "axis": _axis_task}
 
 
 def _rank_main(job_path: str, rank: int) -> None:

@@ -1,13 +1,17 @@
 """The port's ``build_fed_step`` and its CLI (``launch.train``) against the
 JAX package's.
 
-Reduced ``fedpc-paper`` (a 2-layer transformer), the same initial weights
-and token batches from numpy (``_torch_dist.step_params`` /
-``step_tokens``), 2 rounds of 2 local momentum-SGD steps a worker:
-``fedpc_packed`` on the (2, 2) mesh, and the masked wire
-(``PrivacySpec()``) with a participation mask on (4, 1). The JAX runtime
-runs on ``Mesh(devs, ("data", "model"))`` over forced host devices; the
-port on gloo ranks on the CPU.
+Reduced ``fedpc-paper`` (a 2-layer transformer), reduced ``qwen3-14b`` and
+reduced ``deepseek-moe-16b``, the same initial weights and token batches
+from numpy (``_torch_dist.step_params`` / ``step_tokens``), 2 rounds of 2
+local momentum-SGD steps a worker: ``fedpc_packed`` on the (2, 2) mesh,
+where each worker trains tensor-parallel over its two model ranks (the
+JAX side's params and optimizer state placed by ``fed_shardings``), and
+the masked wire (``PrivacySpec()``) with a participation mask on (4, 1),
+and ``fedpc_packed`` with that mask on (2, 2), where the worker that sits
+out keeps a sharded optimizer state.
+The JAX runtime runs on ``Mesh(devs, ("data", "model"))`` over forced host
+devices; the port on gloo ranks on the CPU, one rank job a mesh.
 
 Pass conditions: the same pilot each round; the round's mean cost within
 ``rtol=1e-4`` and the initial weights bitwise; the final global params
@@ -16,10 +20,20 @@ the JAX run's, the float32 drift of XLA's and ATen's other summation
 orders over a few local steps (as the federated-LM tests allow; a local
 model drifting across a ternarization threshold would flip a code and
 fail it); the optimizer state of the worker that sits out stays at its
-initial zeros.
+initial zeros. The larger two configs' last round may flip a few codes
+(at most ``FLIPS`` entries, each within one code step of Eq. (3)). At M = 2
+every leaf the first local step trains on is a
+DTensor holding the bytes ``param_specs`` places on the model axis, and
+``fed.distributed.train_sharded`` runs once a round; the model axis's
+transport gives DTensor's own results, bitwise. On the same ranks, the
+model code that steps round a torch before 2.13's DTensor holes
+(``sharding.activations.OLD_DTENSOR``: the MoE's gather and scatter, the
+dt-bias add, the Mamba conv's pad and taps, its readout) runs with those
+holes simulated and gives this torch's loss and gradients.
 
 The CLI runs in a subprocess with ``--device cpu``: ``simulate`` for 2
-rounds and ``distributed`` on an F = 2, M = 1 mesh for 1 round.
+rounds and ``distributed`` on an F = 2, M = 1 mesh for 1 round, and on
+F = 1, M = 2 (one worker, tensor-parallel) for 1 round.
 """
 import os
 import subprocess
@@ -36,12 +50,16 @@ DRIFT = dict(rtol=1e-4, atol=1e-6)
 @pytest.fixture(scope="module")
 def runs(tmp_path_factory):
     d = tmp_path_factory.mktemp("dist_step")
-    oracle = H.start_oracle(H.STEP_ORACLE, str(d / "oracle.npz"))
+    oracles = [H.start_oracle(H.STEP_ORACLE, str(d / f"oracle{i}.npz"),
+                              names)
+               for i, names in enumerate(H.STEP_ORACLE_SPLIT)]
     port = {}
-    for name, (F, M), *_ in H.STEP_CASES:
-        port.update(H.run_ranks({"task": "step", "case": name, "F": F,
-                                 "M": M}, str(d)))
-    return H.oracle_result(oracle), port
+    for job in H.step_jobs():
+        port.update(H.run_ranks(job, str(d)))
+    oracle = {}
+    for started in oracles:
+        oracle.update(H.oracle_result(started))
+    return oracle, port
 
 
 @pytest.mark.parametrize("case", H.STEP_CASES, ids=lambda c: c[0])
@@ -50,10 +68,22 @@ def test_same_pilots_and_costs(runs, case):
     name = case[0]
     np.testing.assert_array_equal(port["init"].view(np.uint32),
                                   oracle["init"].view(np.uint32))
+    np.testing.assert_array_equal(port[f"{name}_init"].view(np.uint32),
+                                  oracle[f"{name}_init"].view(np.uint32))
     for r in range(H.STEP["rounds"]):
         assert int(port[f"{name}_k{r}"]) == int(oracle[f"{name}_k{r}"])
         np.testing.assert_allclose(port[f"{name}_cost{r}"],
                                    oracle[f"{name}_cost{r}"], rtol=1e-4)
+
+
+# The cases whose millions of params put a few local-model entries
+# within float32 drift of an Eq. (5) threshold by the last round: such an
+# entry takes the neighbouring ternary code in one package, and its new
+# value moves by one code step of Eq. (3), 2 w_k |P^1 - P^0| (w_k <= 1
+# the non-pilot worker's weight; P^1 the first round's model, P^0 the
+# initial one), as the federated-LM tests found (measured here: 1 entry
+# of 1,443,328 for qwen3-14b, 6 of 10,243,840 for deepseek-moe-16b).
+FLIPS = {"qwen3": 4, "moe": 16}         # the entries allowed to flip
 
 
 @pytest.mark.parametrize("case", H.STEP_CASES, ids=lambda c: c[0])
@@ -62,8 +92,75 @@ def test_params_within_drift(runs, case):
     name = case[0]
     got, want = port[f"{name}_params"], oracle[f"{name}_params"]
     assert np.isfinite(got).all()
-    assert not np.array_equal(want, oracle["init"])   # the rounds moved it
-    np.testing.assert_allclose(got, want, **DRIFT)
+    assert not np.array_equal(want, oracle[f"{name}_init"])   # it moved
+    np.testing.assert_allclose(port[f"{name}_params0"],
+                               oracle[f"{name}_params0"], **DRIFT)
+    if name not in FLIPS:
+        np.testing.assert_allclose(got, want, **DRIFT)
+        return
+    near = np.isclose(got, want, **DRIFT)
+    assert (~near).sum() <= FLIPS[name], int((~near).sum())
+    step = 2 * np.abs(oracle[f"{name}_params0"] - oracle[f"{name}_init"])
+    far = ~near
+    np.testing.assert_array_less(np.abs(got - want)[far],
+                                 step[far] + 1e-6 + 1e-4 * np.abs(want[far]))
+
+
+SHARDED = [c for c in H.STEP_CASES if c[1][1] > 1]
+
+
+@pytest.mark.parametrize("case", SHARDED, ids=lambda c: c[0])
+def test_optimizer_state_within_drift(runs, case):
+    oracle, port = runs
+    name, (F, _), use_mask = case[0], case[1], case[4]
+    for f in range(F):
+        np.testing.assert_allclose(port[f"{name}_opt{f}"],
+                                   oracle[f"{name}_opt{f}"], **DRIFT)
+        # worker 1 sits out under the mask and keeps its zeros
+        assert port[f"{name}_opt{f}"].any() != (use_mask and f == 1)
+
+
+@pytest.mark.parametrize("case", SHARDED, ids=lambda c: c[0])
+def test_workers_train_tensor_parallel(runs, case):
+    # every param and optimizer leaf of the first local step is a DTensor
+    # whose local shard holds what param_specs places on the model axis:
+    # less than the whole (replicas fail this), and the step's one
+    # sharded-training function ran once a round
+    _, port = runs
+    name = case[0]
+    for what in ("params", "opt"):
+        assert port[f"{name}_{what}_dtensor"], what
+        local, want, whole = port[f"{name}_{what}_bytes"]
+        assert local == want < whole, (what, local, want, whole)
+    assert port[f"{name}_sharded_calls"] == H.STEP["rounds"]
+
+
+@pytest.mark.parametrize("key", ["matmul", "all_gather", "reduce_scatter",
+                                 "all_reduce", "all_to_all"])
+def test_model_axis_transport_equals_dtensor(runs, key):
+    _, port = runs
+    np.testing.assert_array_equal(port[f"axis_{key}_transport"],
+                                  port[f"axis_{key}_dtensor"])
+    kinds = {"matmul": "all-reduce", "all_gather": "all-gather",
+             "reduce_scatter": "reduce-scatter", "all_reduce": "all-reduce",
+             "all_to_all": "all-to-all"}
+    assert kinds[key] in port[f"axis_{key}_kinds"]
+
+
+@pytest.mark.parametrize("what", ["loss", "forward", "opt"])
+def test_old_dtensor_step_rounds_equal_this_torch(runs, what):
+    # the sites that step round a torch before 2.13's DTensor holes, run
+    # here with its holes simulated, against this torch's own path: the
+    # loss, a loss with no gradient, and the step's gradients (momentum)
+    _, port = runs
+    np.testing.assert_allclose(port[f"old_old_{what}"],
+                               port[f"old_default_{what}"], **DRIFT)
+
+
+def test_old_dtensor_step_rounds_ran(runs):
+    _, port = runs
+    assert set(H.OLD_SITES) <= set(port["old_old_ops"].tolist())
+    assert not set(H.OLD_SITES) & set(port["old_default_ops"].tolist())
 
 
 def test_sitting_out_freezes_the_optimizer(runs):
@@ -74,6 +171,19 @@ def test_sitting_out_freezes_the_optimizer(runs):
         np.testing.assert_allclose(port[f"{name}_opt{f}"],
                                    oracle[f"{name}_opt{f}"], **DRIFT)
     assert not port[f"{name}_opt1"].any()      # worker 1 never trained
+    assert port[f"{name}_opt0"].any()
+
+
+def test_sitting_out_freezes_the_sharded_optimizer(runs):
+    # on (2, 2) each worker's optimizer state is DTensors on its model
+    # group; worker 1 sits both rounds out and its shards stay zero
+    oracle, port = runs
+    name = "sitout"
+    for f in range(2):
+        np.testing.assert_allclose(port[f"{name}_opt{f}"],
+                                   oracle[f"{name}_opt{f}"], **DRIFT)
+    assert port[f"{name}_opt_kept_dtensor"]
+    assert not port[f"{name}_opt1"].any()
     assert port[f"{name}_opt0"].any()
 
 
@@ -94,5 +204,13 @@ def test_cli_simulate_on_the_cpu():
 def test_cli_distributed_on_the_cpu():
     proc = _cli("distributed", "--backend", "gloo", "--device", "cpu",
                 "--fed-workers", "2", "--model-shards", "1", "--rounds", "1")
+    assert proc.returncode == 0, proc.stderr[-3000:]
+    assert "[train] round 1: cost=" in proc.stdout
+
+
+def test_cli_distributed_tensor_parallel_on_the_cpu():
+    # one fed worker, its model tensor-parallel over two ranks
+    proc = _cli("distributed", "--backend", "gloo", "--device", "cpu",
+                "--fed-workers", "1", "--model-shards", "2", "--rounds", "1")
     assert proc.returncode == 0, proc.stderr[-3000:]
     assert "[train] round 1: cost=" in proc.stdout
