@@ -165,6 +165,14 @@ result:
    versions) picking the same pilots; an LM worker's captured training
    step (the token gather and its backward) replayed against the same
    step called eagerly, bitwise.
+   federated LM scan — the same federation on equal contiguous shards of
+   48 sequences (a multiple of every batch size) through
+   ``run_fedpc_scan``: each worker's LM step captured into a CUDA graph,
+   the whole round loop under sync-debug "error"; two scan runs and
+   ``run_fedpc`` from the same state bitwise equal, and with
+   ``participation=0.6`` the scan driver == ``run_fedpc``; the CPU's scan
+   run (plain versions) picks the same pilots. Its #1/#2 launches join
+   the ``kernels`` line.
    MoE and recurrent serving — the same serving at full width and depth
    for ``deepseek-moe-16b`` (28 layers, a dense first one, 64 routed
    experts top-6 + 2 shared; 16,375,728,128 params) and ``xlstm-350m``
@@ -182,8 +190,23 @@ result:
    Mamba mixer alone at its width (d_model 8192, d_inner 16384):
    ``mamba_prefill`` on 4 x 1,024, 8 ``mamba_decode`` steps under
    sync-debug "error", held to float32 (0.08) and to every token decoded
-   one at a time (0.08 in bf16, 1e-4 in float32). Then the federated LM
-   on the reduced ``deepseek-moe-16b``: its launches join #1's and #2's.
+   one at a time (0.08 in bf16, 1e-4 in float32).
+   the rest of the zoo — the same serving at full width and depth in
+   bfloat16, then at 4 layers in float32, for ``mistral-nemo-12b`` (40
+   layers, d_model 5120, 32 heads over 8 KV heads, a 131,072-token
+   window; 12,247,782,400 params), ``phi4-mini-3.8b`` (32 layers, a
+   200,064-token vocabulary; 4,450,618,368), ``qwen2-vl-7b`` (28 layers;
+   7,628,332,544), its 4 x 1,024 random patch embeddings added to the
+   prompt and M-RoPE positions (the patches on a 32 x 32 grid, decode
+   steps' positions device tensors) and ``whisper-medium`` (24 + 24
+   layers; 812,036,096), its encoder over 4 x 1,500 random frame
+   embeddings and its cross-attention cache (the float32 twin's encoder
+   cut to 4 layers too); the bounds count the encoder, the
+   cross-attention (K/V projections of the frames once, scores over
+   1,500 keys a query) and the adapters, decode's bytes the cross cache
+   and not the weights only a prefill reads. Each prints its seconds.
+   Then the federated LM on the reduced ``deepseek-moe-16b``: its
+   launches join #1's and #2's.
    distributed slice — the mesh runtime (``fed.distributed``) on this
    card: the (10, 1) and (4, 2) meshes, each rank a spawned process on
    card 0 with gloo (every collective staged through host memory), the
@@ -273,6 +296,7 @@ table of ``PERF.md`` (#1–#14); the last is ``{"ok": true, "device":
 from __future__ import annotations
 
 import json
+import math
 import os
 import re
 import statistics
@@ -2395,7 +2419,18 @@ SERVE_ARCH = "qwen3-14b"          # the model zoo's serving phase
 # tests/test_torch_model_zoo.py derives them with jax.eval_shape.
 SERVE_PARAMS_OF = {"qwen3-14b": 14_768_307_200,
                    "deepseek-moe-16b": 16_375_728_128,
-                   "xlstm-350m": 443_057_248}
+                   "xlstm-350m": 443_057_248,
+                   "mistral-nemo-12b": 12_247_782_400,
+                   "phi4-mini-3.8b": 4_450_618_368,
+                   "qwen2-vl-7b": 7_628_332_544,
+                   "whisper-medium": 812_036_096}
+# The rest of the zoo that fits one card, served after the MoE and the
+# LSTM stack: dense GQA with a 128k window (24.5 GB in bfloat16), dense
+# GQA with a 200,064-token vocabulary, the VLM (patches and M-RoPE) and
+# the encoder-decoder (an encoder over its 1,500 frames, cross-attention
+# caches).
+ZOO_ARCHS = ("mistral-nemo-12b", "phi4-mini-3.8b", "qwen2-vl-7b",
+             "whisper-medium")
 SERVE_BATCH = 4
 SERVE_PROMPT = 1024               # a multiple of the 512-key prefill block
 SERVE_NEW = 32                    # greedy tokens decoded
@@ -2464,12 +2499,54 @@ def _device_busy(torch, fn, calls: int = 1) -> list:
                  "; ".join(f"{k[:60]} {v / calls:.2f} ms" for k, v in top))]
 
 
-def _serve_checks(torch, m, params, prompt, dev) -> dict:
+def _serve_batch(torch, cfg, gen, dev) -> tuple:
+    """The served request batch of ``cfg``: SERVE_BATCH x SERVE_PROMPT
+    random tokens; a VLM's ``vision_embed`` (B, n_patches, D) and an
+    encoder-decoder's ``audio_embed`` (B, n_frames, D), random, in the
+    weights' dtype (the reference's input specs give the stub frontends'
+    outputs so); a VLM's M-RoPE ``positions`` (3, B, S): its patches on a
+    square grid (t 0, h and w the patch's row and column), any text
+    after them one position past the grid. Returns the batch and
+    ``step_pos(i)``: decode step i's M-RoPE positions (3, B, 1), a view
+    of a device tensor (the text after the prompt), or None off a VLM."""
+    from repro_torch.models.layers import dtype_of
+    B, S, D = SERVE_BATCH, SERVE_PROMPT, cfg.d_model
+    dt = dtype_of(cfg.param_dtype)
+    batch = {"tokens": torch.randint(0, cfg.vocab, (B, S), generator=gen,
+                                     device=dev)}
+    if cfg.is_encdec:
+        batch["audio_embed"] = torch.randn(
+            (B, cfg.n_frames, D), generator=gen, device=dev).to(dt)
+    if cfg.arch_type != "vlm":
+        return batch, None
+    n_p = cfg.n_patches
+    side = math.isqrt(n_p)
+    check(side * side == n_p, f"{n_p} patches are not a square grid")
+    check(n_p <= S, f"{n_p} patches do not fit the {S}-token prompt")
+    batch["vision_embed"] = torch.randn((B, n_p, D), generator=gen,
+                                        device=dev).to(dt)
+    i = torch.arange(S, device=dev)
+    text = side + i - n_p
+    img = i < n_p
+    pos = torch.stack([torch.where(img, 0, text),
+                       torch.where(img, i // side, text),
+                       torch.where(img, i % side, text)]).to(torch.int32)
+    batch["positions"] = pos[:, None].expand(3, B, S).contiguous()
+    after = (side + max(S - n_p, 0) + torch.arange(
+        SERVE_NEW, device=dev)).to(torch.int32)
+    return batch, lambda k: after[k].expand(3, B, 1)
+
+
+def _serve_checks(torch, m, params, batch, dev, step_pos=None) -> dict:
     """The consistency checks of one served model, each a relative L2
     distance held to ``SERVE_TOL``: the blocked prefill's last logits
-    against ``forward``'s materialized full sequence, and a short prefill
-    then one decode step against ``prefill_sequential`` then the same
-    step (logits and caches). A MoE model's short prefill routes B x
+    against ``forward``'s materialized full sequence (``batch``, its
+    patches and frames too), and a short prefill then one decode step
+    against ``prefill_sequential`` then the same step (logits and
+    caches): the first SERVE_SHORT tokens, with their M-RoPE positions
+    and the audio frames but no patches (``prefill_sequential`` embeds a
+    token at a time and takes none, as the reference's does); the step
+    at ``step_pos(0)`` on a VLM. A MoE model's short prefill routes B x
     SERVE_SHORT tokens at once and its sequential twin B at a time, so
     the capacity each sees differs; that check runs the same weights with
     a capacity of T·K slots an expert (``capacity_factor = E``), where no
@@ -2483,11 +2560,11 @@ def _serve_checks(torch, m, params, prompt, dev) -> dict:
     if m.cfg.param_dtype == "bfloat16" and any(
             mx in ("mlstm", "slstm") for mx, _ in m.cfg.pattern):
         tol = SERVE_TOL_LSTM_BF16
-    b, s = prompt.shape
+    b, s = batch["tokens"].shape
     out = {}
     state = m.init_decode_state(b, s + SERVE_NEW, device=dev)
-    last, state = m.prefill(params, {"tokens": prompt}, state)
-    full, _ = m.forward(params, {"tokens": prompt})
+    last, state = m.prefill(params, batch, state)
+    full, _ = m.forward(params, batch)
     check(bool(torch.isfinite(full).all()), "forward logits not finite")
     out["blocked prefill vs materialized"] = _rel_l2(torch, last,
                                                      full[:, -1:])
@@ -2495,15 +2572,20 @@ def _serve_checks(torch, m, params, prompt, dev) -> dict:
     if m.cfg.n_experts:
         m = build_model(m.cfg.replace(
             capacity_factor=float(m.cfg.n_experts)))
-    short = prompt[:, :SERVE_SHORT]
+    short = {"tokens": batch["tokens"][:, :SERVE_SHORT]}
+    if "positions" in batch:
+        short["positions"] = batch["positions"][:, :, :SERVE_SHORT]
+    if "audio_embed" in batch:
+        short["audio_embed"] = batch["audio_embed"]
     runs = []
     for fn in (m.prefill, m.prefill_sequential):
         st = m.init_decode_state(b, SERVE_SHORT + 1, device=dev)
-        logits, st = fn(params, {"tokens": short}, st)
+        logits, st = fn(params, short, st)
         runs.append((logits, st))
-    tok = runs[0][0].argmax(-1)
-    steps = [m.decode_step(params, st, {"token": tok, "pos": SERVE_SHORT})
-             for _, st in runs]
+    step = {"token": runs[0][0].argmax(-1), "pos": SERVE_SHORT}
+    if step_pos is not None:
+        step["positions"] = step_pos(0)
+    steps = [m.decode_step(params, st, step) for _, st in runs]
     out["prefill vs prefill_sequential"] = _rel_l2(torch, runs[0][0],
                                                    runs[1][0])
     out["decode step after each"] = _rel_l2(torch, steps[0][0],
@@ -2553,12 +2635,16 @@ class _Routes:
 
 
 def _kind_ops(cfg, bp, mixer: str, ffn: str, tokens: int, B: int,
-              keys: int) -> tuple[float, float]:
+              keys: int, frames: int = 0,
+              frame_tokens: int = 0) -> tuple[float, float]:
     """(matmul ops in the params' dtype, float32 ops outside the tensor
     cores) of one block of the stacked tree ``bp`` (leaves (n, ...)) over
     ``tokens`` tokens, 2 a multiply-add; causal attention over ``keys``
-    keys a query on average. The routed experts are counted apart, by the
-    kept assignments."""
+    keys a query on average. A decoder block's cross-attention: its query
+    and output projections a token, its scores over ``frames`` keys a
+    query, and its K/V projections over ``frame_tokens`` encoder frames
+    (all of them in a prefill, none in a decode step: the cross cache).
+    The routed experts are counted apart, by the kept assignments."""
     def mats(tree, *names):
         return sum(tree[k][0].numel() for k in names if k in tree)
 
@@ -2584,6 +2670,10 @@ def _kind_ops(cfg, bp, mixer: str, ffn: str, tokens: int, B: int,
     elif mixer == "slstm":
         mm += 2 * tokens * mats(mx, "out_proj")
         f32 += 2 * tokens * mats(mx, "gates_w", "r_gates_w")
+    if "cross" in bp:
+        mm += 2 * tokens * mats(bp["cross"], "wq", "wo")
+        mm += 2 * frame_tokens * mats(bp["cross"], "wk", "wv")
+        mm += 4 * tokens * cfg.n_heads * cfg.resolved_head_dim * frames
     if ffn == "mlp":
         mm += 2 * tokens * mats(bp["ffn"], "w_gate", "w_up", "w_down")
     elif ffn == "moe":
@@ -2595,51 +2685,79 @@ def _kind_ops(cfg, bp, mixer: str, ffn: str, tokens: int, B: int,
 
 
 def _model_ops(cfg, params, tokens: int, B: int, keys: int,
-               kept: float) -> tuple[float, float]:
+               kept: float, prompt: bool = False) -> tuple[float, float]:
     """(matmul ops, float32 ops) of the whole stack over ``tokens``
     tokens, the LM head at B positions, and the routed experts' SwiGLU at
-    ``kept`` token-expert pairs (summed over the MoE blocks)."""
+    ``kept`` token-expert pairs (summed over the MoE blocks); an
+    encoder-decoder's cross-attention over its n_frames frames a query.
+    With ``prompt`` (a prefill) also what a request runs once: the
+    encoder's blocks over B x n_frames frames (each attending to every
+    frame), the cross-attention's K/V projections of them, and the
+    adapters: ``audio_proj`` over the frames, ``patch_proj`` over B x
+    n_patches patches."""
+    frames = cfg.n_frames if cfg.is_encdec else 0
+    frame_tokens = B * frames if prompt else 0
     mm = f32 = 0.0
-    blocks = [(params["units"][f"b{j}"], mixer, f, cfg.n_units)
-              for j, (mixer, f) in enumerate(cfg.pattern)]
+    blocks = [(params["units"][f"b{j}"], mixer, f, cfg.n_units, tokens,
+               keys) for j, (mixer, f) in enumerate(cfg.pattern)]
     if "dense_blocks" in params:
         blocks.append((params["dense_blocks"], "attn", "mlp",
-                       cfg.first_k_dense))
-    for bp, mixer, f, n in blocks:
-        a, b = _kind_ops(cfg, bp, mixer, f, tokens, B, keys)
+                       cfg.first_k_dense, tokens, keys))
+    if frame_tokens:
+        blocks.append((params["encoder_blocks"], "attn", "mlp",
+                       cfg.n_encoder_layers, frame_tokens, frames))
+        mm += 2 * frame_tokens * params["audio_proj"].numel()
+    if prompt and "patch_proj" in params:
+        mm += 2 * B * cfg.n_patches * params["patch_proj"].numel()
+    for bp, mixer, f, n, t, k in blocks:
+        a, b = _kind_ops(cfg, bp, mixer, f, t, B, k, frames, frame_tokens)
         mm, f32 = mm + n * a, f32 + n * b
     mm += 2 * B * params.get("lm_head", params["embed"]).numel()
     mm += 2 * kept * 3 * cfg.d_model * cfg.d_expert_ff
     return mm, f32
 
 
-def _split_state(state: dict) -> tuple[int, int]:
-    """(KV cache bytes, recurrent state bytes) of a decode state."""
-    from repro_torch.utils import tree_leaves
+def _prompt_only_bytes(params) -> int:
+    """Bytes of the weights a decode step does not read: the encoder, the
+    adapters, and the cross-attention's K/V projections (their outputs
+    are the cross cache)."""
+    from repro_torch.utils import tree_bytes
+    once = [params.get(k, {}) for k in ("encoder_blocks", "enc_norm_f",
+                                        "audio_proj", "patch_proj")]
+    once += [{k: unit["cross"][k] for k in ("wk", "wv")}
+             for unit in params["units"].values() if "cross" in unit]
+    return tree_bytes(once)
+
+
+def _split_state(state: dict) -> tuple[int, int, int]:
+    """(KV cache bytes, recurrent state bytes, cross-attention cache
+    bytes) of a decode state."""
+    from repro_torch.utils import tree_bytes
     kv = rec = 0
-    for key, tree in (*state["units"].items(),
-                      ("dense", state.get("dense", {}))):
-        for x in tree_leaves(tree):
-            n = x.numel() * x.element_size()
-            if isinstance(tree, dict) and set(tree) == {"k", "v"}:
-                kv += n
-            else:
-                rec += n
-    return kv, rec
+    for tree in (*state["units"].values(), state.get("dense", {})):
+        if set(tree) == {"k", "v"}:
+            kv += tree_bytes(tree)
+        else:
+            rec += tree_bytes(tree)
+    return kv, rec, tree_bytes(state.get("cross", {}))
 
 
 def _serve_model(torch, cfg, dev, rate: float | None) -> dict | None:
     """Init ``cfg`` from a seeded generator on the card, prefill
-    SERVE_BATCH x SERVE_PROMPT random tokens, greedy-decode SERVE_NEW
-    tokens (``pos`` a device tensor, every step under sync-debug "error"),
-    check the logits finite and the consistency checks; with a memory
-    ``rate`` print prefill and decode times beside their bounds, counted
-    a block kind at a time (``_model_ops``): a MoE block's routed experts
-    at the prefill's kept assignments, and decode's bytes without the
-    experts no token was routed to."""
+    SERVE_BATCH x SERVE_PROMPT random tokens (with a VLM's patches and
+    M-RoPE positions, an encoder-decoder's audio frames:
+    ``_serve_batch``), greedy-decode SERVE_NEW tokens (``pos`` and a
+    VLM's positions device tensors, every step under sync-debug
+    "error"), check the logits finite and the consistency checks; with a
+    memory ``rate`` print prefill and decode times beside their bounds,
+    counted a block kind at a time (``_model_ops``): a MoE block's routed
+    experts at the prefill's kept assignments, an encoder-decoder's
+    encoder and cross-attention, and decode's bytes without the experts
+    no token was routed to and the weights only a prefill reads, with
+    the cross cache."""
     from repro_torch.models import build_model, moe
     from repro_torch.models.layers import CHUNK
-    from repro_torch.utils import tree_leaves, tree_size
+    from repro_torch.utils import tree_bytes, tree_leaves, tree_size
     m = build_model(cfg)
     resident = torch.cuda.memory_allocated()
     torch.cuda.reset_peak_memory_stats()
@@ -2649,25 +2767,29 @@ def _serve_model(torch, cfg, dev, rate: float | None) -> dict | None:
     torch.cuda.synchronize()
     init_s = time.perf_counter() - t0
     n = tree_size(params)
-    nbytes = sum(x.numel() * x.element_size() for x in tree_leaves(params))
+    nbytes = tree_bytes(params)
     init_peak = torch.cuda.max_memory_allocated()
     # A stacked leaf is allocated once and filled a unit at a time, each
     # draw in chunks of CHUNK values: init holds the weights, one unit's
-    # draw and a few chunks' float64 temporaries (1 GiB allows 8).
-    unit_bytes = sum(x[0].numel() * x.element_size()
-                     for x in tree_leaves(params["units"]))
+    # draw of the stack being drawn (the decoder's units, the dense
+    # prefix's, the encoder's: the largest) and a few chunks' float64
+    # temporaries (1 GiB allows 8).
+    unit_bytes = max(
+        sum(x[0].numel() * x.element_size() for x in tree_leaves(stack))
+        for stack in (params["units"], params.get("dense_blocks", {}),
+                      params.get("encoder_blocks", {})))
     init_cap = nbytes + unit_bytes + 8 * CHUNK * 8
     check(init_peak - resident <= init_cap,
           f"init peaked at {(init_peak - resident) / 1e9:.2f} GB over the "
           f"{resident / 1e9:.2f} GB held before it, above the weights plus "
           f"one unit's draw plus 1 GiB ({init_cap / 1e9:.2f} GB)")
-    prompt = torch.randint(0, cfg.vocab, (SERVE_BATCH, SERVE_PROMPT),
-                           generator=gen, device=dev)
+    batch, step_pos = _serve_batch(torch, cfg, gen, dev)
+    prompt = batch["tokens"]
     lstm = any(mx in ("mlstm", "slstm") for mx, _ in cfg.pattern)
     with torch.no_grad():
         state = m.init_decode_state(SERVE_BATCH, SERVE_PROMPT + SERVE_NEW,
                                     device=dev)
-        kv_bytes, rec_bytes = _split_state(state)
+        kv_bytes, rec_bytes, cross_bytes = _split_state(state)
         prefill_ms = []
         # The first call warms cuBLAS up; an LSTM's host-paced prefill
         # (seconds) is timed once, its GEMMs warmed by the earlier phases.
@@ -2675,7 +2797,7 @@ def _serve_model(torch, cfg, dev, rate: float | None) -> dict | None:
             a = torch.cuda.Event(enable_timing=True)
             b = torch.cuda.Event(enable_timing=True)
             a.record()
-            logits, state = m.prefill(params, {"tokens": prompt}, state)
+            logits, state = m.prefill(params, batch, state)
             b.record()
             b.synchronize()
             prefill_ms.append(a.elapsed_time(b))
@@ -2690,8 +2812,10 @@ def _serve_model(torch, cfg, dev, rate: float | None) -> dict | None:
         torch.cuda.set_sync_debug_mode("error")
         try:
             for i in range(SERVE_NEW):
-                logits, state = m.decode_step(params, state,
-                                              {"token": tok, "pos": pos})
+                sb = {"token": tok, "pos": pos}
+                if step_pos is not None:
+                    sb["positions"] = step_pos(i)
+                logits, state = m.decode_step(params, state, sb)
                 ends[i + 1].record()
                 issued.append(time.perf_counter())
                 finite.append(torch.isfinite(logits).all())
@@ -2709,39 +2833,47 @@ def _serve_model(torch, cfg, dev, rate: float | None) -> dict | None:
             # An LSTM's prefill is a loop of ~20 launches a layer and
             # token; the profiler records a SERVE_LSTM_PROFILED-token one
             # (timed alone too), not the 1,024-token one.
-            short = prompt[:, :SERVE_LSTM_PROFILED] if lstm else prompt
+            short = ({"tokens": prompt[:, :SERVE_LSTM_PROFILED]} if lstm
+                     else batch)
+            n_short = short["tokens"].shape[1]
             prof_ms = prefill_ms[-1]
             if lstm:
-                st = m.init_decode_state(SERVE_BATCH, short.shape[1],
-                                         device=dev)
+                st = m.init_decode_state(SERVE_BATCH, n_short, device=dev)
                 a = torch.cuda.Event(enable_timing=True)
                 b = torch.cuda.Event(enable_timing=True)
                 a.record()
-                m.prefill(params, {"tokens": short}, st)
+                m.prefill(params, short, st)
                 b.record()
                 b.synchronize()
                 prof_ms = a.elapsed_time(b)
                 del st
             with _Routes() as pre_routes:
                 busy = _device_busy(torch, lambda: m.prefill(
-                    params, {"tokens": short}, m.init_decode_state(
-                        SERVE_BATCH, short.shape[1], device=dev)))
-            steps = [SERVE_PROMPT + i for i in range(SERVE_PROFILED)]
+                    params, short, m.init_decode_state(
+                        SERVE_BATCH, n_short, device=dev)))
+
+            def profiled_step(i):
+                sb = {"token": toks[i], "pos": torch.full(
+                    (), SERVE_PROMPT + i, dtype=torch.int32, device=dev)}
+                if step_pos is not None:
+                    sb["positions"] = step_pos(i)
+                return m.decode_step(params, state, sb)
+
             with _Routes() as dec_routes:
-                busy += _device_busy(torch, lambda: [m.decode_step(
-                    params, state, {"token": toks[i], "pos": torch.full(
-                        (), p, dtype=torch.int32, device=dev)})
-                    for i, p in enumerate(steps)], len(steps))
+                busy += _device_busy(torch, lambda: [
+                    profiled_step(i) for i in range(SERVE_PROFILED)],
+                    SERVE_PROFILED)
         logits_bytes = logits.numel() * logits.element_size()
         del state, logits
-        errs = _serve_checks(torch, m, params, prompt, dev)
+        errs = _serve_checks(torch, m, params, batch, dev, step_pos)
     peak = torch.cuda.max_memory_allocated()
     label = f"serve {cfg.name} {cfg.param_dtype} {cfg.n_layers} layers"
     print(f"{label}: {n:,} params ({nbytes / 1e9:.2f} GB) drawn on the card "
           f"in {init_s:.1f} s, peak {init_peak / 1e9:.2f} GB after init "
           f"({resident / 1e9:.2f} GB held by earlier phases); "
-          f"KV cache {kv_bytes / 1e9:.3f} GB and recurrent state "
-          f"{rec_bytes / 1e6:.1f} MB (B = {SERVE_BATCH}, max_len "
+          f"KV cache {kv_bytes / 1e9:.3f} GB, recurrent state "
+          f"{rec_bytes / 1e6:.1f} MB and cross-attention cache "
+          f"{cross_bytes / 1e9:.3f} GB (B = {SERVE_BATCH}, max_len "
           f"{SERVE_PROMPT + SERVE_NEW}); max_memory_allocated "
           f"{peak / 1e9:.2f} GB; continuation of request 0 "
           f"{[int(t[0, 0]) for t in toks[:12]]}", flush=True)
@@ -2752,13 +2884,12 @@ def _serve_model(torch, cfg, dev, rate: float | None) -> dict | None:
         want = SERVE_PARAMS_OF[cfg.name]
         check(n == want, f"{n:,} params, expected {want:,}")
     if rate is None:
-        del params, prompt, m
+        del params, prompt, batch, m
         _release(torch)
         return None
     pre, dec = busy
     B, S = SERVE_BATCH, SERVE_PROMPT
     tokens = B * S
-    head = params.get("lm_head", params["embed"]).numel()
     embed_bytes = params["embed"].numel() * params["embed"].element_size()
     row_bytes = cfg.d_model * params["embed"].element_size()
     expert_bytes = 0
@@ -2789,23 +2920,32 @@ def _serve_model(torch, cfg, dev, rate: float | None) -> dict | None:
               f"{cfg.n_experts} experts routed to a block and step (B = "
               f"{B}, top-{cfg.top_k})", flush=True)
     # Prefill: the products of every block kind over the prompt (causal
-    # attention over (S + 1) / 2 keys a query on average), the LM head at
-    # the last positions; bytes: the weights but the embedding (its B x S
-    # rows), the caches written, the logits.
-    mm, f32 = _model_ops(cfg, params, tokens, B, (S + 1) / 2, kept)
+    # attention over (S + 1) / 2 keys a query on average), the encoder,
+    # cross-attention and adapters (``_model_ops``), the LM head at the
+    # last positions; bytes: the weights but the embedding (its B x S
+    # rows), the patches or frames read, the caches written (the cross
+    # cache too), the logits.
+    mm, f32 = _model_ops(cfg, params, tokens, B, (S + 1) / 2, kept,
+                         prompt=True)
     pre_ops_ms = (mm / BF16_PEAK + f32 / FP32_OPS_PER_S) * 1e3
-    pre_bytes = (nbytes - embed_bytes + tokens * row_bytes + kv_bytes
-                 * S / (S + SERVE_NEW) + rec_bytes + logits_bytes)
+    embeds = sum(batch[k].numel() * batch[k].element_size()
+                 for k in ("vision_embed", "audio_embed") if k in batch)
+    pre_bytes = (nbytes - embed_bytes + tokens * row_bytes + embeds
+                 + kv_bytes * S / (S + SERVE_NEW) + rec_bytes + cross_bytes
+                 + logits_bytes)
     pre_bound = max(pre_ops_ms, pre_bytes / rate * 1e3)
-    # Decode: the weights but the embedding (B rows of it) and the experts
-    # no token was routed to, the recurrent states read and written, the
-    # KV cache's filled part at the median timed step, the logits.
+    # Decode: the weights but the embedding (B rows of it), the experts
+    # no token was routed to and what only a prefill reads (the encoder,
+    # the adapters, the cross K/V projections), the recurrent states read
+    # and written, the KV cache's filled part at the median timed step,
+    # the cross cache, the logits.
     filled = S + SERVE_NEW // 2 + 1
     kv_read = kv_bytes * filled / (S + SERVE_NEW)
     unrouted = sum(cfg.n_experts - r for r in routed) / max(
         SERVE_PROFILED, 1) * expert_bytes
-    dec_bytes = (nbytes - embed_bytes + B * row_bytes - unrouted
-                 + 2 * rec_bytes + kv_read + logits_bytes)
+    once = _prompt_only_bytes(params)
+    dec_bytes = (nbytes - embed_bytes + B * row_bytes - unrouted - once
+                 + 2 * rec_bytes + kv_read + cross_bytes + logits_bytes)
     dmm, df32 = _model_ops(cfg, params, B, B, filled,
                            B * cfg.top_k * sum(f == "moe" for _, f in
                                                cfg.pattern) * cfg.n_units)
@@ -2829,10 +2969,12 @@ def _serve_model(torch, cfg, dev, rate: float | None) -> dict | None:
           f"(step 1 {step_ms[0]:.2f}; min {min(step_ms[1:]):.2f}, max "
           f"{max(step_ms[1:]):.2f}), against {dec_bound:.3f} ms = max("
           f"{dec_bytes / 1e9:.3f} GB at {rate / 1e12:.2f} TB/s: the "
-          f"weights but the embedding and {unrouted / 1e9:.2f} GB of "
-          f"unrouted experts, {B} embedding rows, {2 * rec_bytes / 1e6:.1f}"
+          f"weights but the embedding, {unrouted / 1e9:.2f} GB of "
+          f"unrouted experts and {once / 1e9:.3f} GB read by a prefill "
+          f"only, {B} embedding rows, {2 * rec_bytes / 1e6:.1f}"
           f" MB of recurrent state read and written, {kv_read / 1e9:.3f} "
-          f"GB of KV cache at {filled} positions, the logits; "
+          f"GB of KV cache at {filled} positions, "
+          f"{cross_bytes / 1e9:.3f} GB of cross cache, the logits; "
           f"{dec_ops_ms:.3f} ms of ops) (all the weights: "
           f"{nbytes / rate * 1e3:.2f} ms); under sync-debug 'error' with "
           f"no sync", flush=True)
@@ -2853,7 +2995,7 @@ def _serve_model(torch, cfg, dev, rate: float | None) -> dict | None:
           f"{dec.busy_ms:.2f} ms a token (idle "
           f"{1 - dec.busy_ms / rest:.1%} of the timed {rest:.2f} ms), "
           f"by kernel {dec.top}", flush=True)
-    del params, prompt, m
+    del params, prompt, batch, m
     _release(torch)
     return {"param_bytes": nbytes, "prefill_products": mm}
 
@@ -2862,15 +3004,21 @@ def phase_model_serving(torch, dev, rate: float,
                         arch: str = SERVE_ARCH) -> dict:
     """The model zoo served on the card: ``arch`` at full width and depth
     in bfloat16, timed, then at full width and SERVE_F32_LAYERS layers in
-    float32 for the tight consistency checks. Returns the bfloat16 run's
-    parameter bytes and its prefill's matmul products (``_model_ops``)."""
+    float32 (an encoder cut to as many) for the tight consistency checks.
+    Prints the phase's seconds. Returns the bfloat16 run's parameter
+    bytes and its prefill's matmul products (``_model_ops``)."""
     from repro_torch.configs import get_config
+    t0 = time.perf_counter()
     _release(torch)
     cfg = get_config(arch)
     got = _serve_model(torch, cfg.replace(param_dtype="bfloat16"), dev,
                        rate)
-    _serve_model(torch, cfg.replace(n_layers=SERVE_F32_LAYERS,
-                                    param_dtype="float32"), dev, None)
+    cut = dict(n_layers=SERVE_F32_LAYERS)
+    if cfg.is_encdec:
+        cut["n_encoder_layers"] = SERVE_F32_LAYERS
+    _serve_model(torch, cfg.replace(param_dtype="float32", **cut), dev, None)
+    print(f"serve {arch}: phase took {time.perf_counter() - t0:.1f} s",
+          flush=True)
     return got
 
 
@@ -2887,7 +3035,7 @@ def phase_mamba_mixer(torch, dev, rate: float) -> None:
     bounds."""
     from repro_torch.configs import get_config
     from repro_torch.models import ssm
-    from repro_torch.utils import tree_leaves, tree_map
+    from repro_torch.utils import tree_bytes, tree_leaves, tree_map
     _release(torch)
     cfg = get_config(MAMBA_ARCH).replace(param_dtype="bfloat16")
     B, S, D = SERVE_BATCH, SERVE_PROMPT, cfg.d_model
@@ -2895,7 +3043,7 @@ def phase_mamba_mixer(torch, dev, rate: float) -> None:
     p16 = ssm.init_mamba(cfg, gen)
     x = torch.randn((B, S + MAMBA_NEW, D), generator=gen, device=dev,
                     dtype=torch.float32).to(torch.bfloat16)
-    nbytes = sum(t.numel() * t.element_size() for t in tree_leaves(p16))
+    nbytes = tree_bytes(p16)
 
     def serve(p, xs):
         out, st = ssm.mamba_prefill(p, cfg, xs[:, :S])
@@ -2960,8 +3108,7 @@ def phase_mamba_mixer(torch, dev, rate: float) -> None:
             check(d <= tol, f"Mamba mixer: {name} at relative L2 {d:.3g} "
                   f"> {tol}")
             errs[name] = (d, tol)
-        st_bytes = sum(t.numel() * t.element_size()
-                       for t in tree_leaves(st))
+        st_bytes = tree_bytes(st)
     tokens = B * S
     mats = sum(p16[k].numel() for k in ("in_proj", "x_proj", "dt_proj",
                                         "out_proj"))
@@ -3007,11 +3154,16 @@ def phase_mamba_mixer(torch, dev, rate: float) -> None:
     _release(torch)
 
 
-def _lm_federation(torch, dev, seed: int = SEED, arch: str = SERVE_ARCH):
+def _lm_federation(torch, dev, seed: int = SEED, arch: str = SERVE_ARCH,
+                   equal: bool = False):
     """``launch/train.py simulate``'s federation through the port: the
     reduced ``arch``, LM_WORKERS workers on SyntheticLM sequences split
-    by ``sequence_split``, batch sizes from (16, 8); the weights drawn on
-    the CPU from ``seed`` and placed on ``dev``."""
+    by ``sequence_split`` (with ``equal``, into equal contiguous shards of
+    LM_SEQUENCES / LM_WORKERS, a multiple of every batch size), batch
+    sizes from (16, 8); the weights drawn on the CPU from ``seed`` and
+    placed on ``dev``."""
+    import numpy as np
+
     from repro_torch.configs import get_config
     from repro_torch.data.pipeline import BatchIterator
     from repro_torch.data.synthetic import SyntheticLM, sequence_split
@@ -3020,7 +3172,8 @@ def _lm_federation(torch, dev, seed: int = SEED, arch: str = SERVE_ARCH):
     m = build_model(get_config(arch).reduced())
     toks = SyntheticLM(n_sequences=LM_SEQUENCES, seq_len=LM_SEQ_LEN,
                        vocab=m.cfg.vocab, seed=seed).generate()
-    splits = sequence_split(len(toks), LM_WORKERS, seed=seed)
+    splits = (np.array_split(np.arange(len(toks)), LM_WORKERS) if equal
+              else sequence_split(len(toks), LM_WORKERS, seed=seed))
     cfgs = make_worker_configs(LM_WORKERS, [len(s) for s in splits],
                                seed=seed, batch_menu=(16, 8))
     workers = [Worker(cfg=cfgs[k],
@@ -3093,6 +3246,99 @@ def phase_fed_lm(torch, dev, arch: str = SERVE_ARCH) -> dict:
           f"worker's graph replay == its eager step over {steps} steps, "
           f"bitwise", flush=True)
     del kept, oracle
+    _release(torch)
+    return own
+
+
+def phase_fed_lm_scan(torch, dev, arch: str = SERVE_ARCH) -> dict:
+    """The reduced ``arch`` federated through ``run_fedpc_scan``
+    (``launch/train.py simulate``'s setup on equal shards: every worker's
+    shard a multiple of its batch, so each trains through its LM step
+    captured into a CUDA graph, the whole round loop under sync-debug
+    "error"): ROUNDS rounds twice on the card, bitwise equal to each
+    other and to ``run_fedpc`` from the same state; the same with
+    ``participation=SCAN_PARTICIPATION`` against ``run_fedpc``; the scan
+    driver on the CPU (the plain versions): the same pilots. Prints the
+    phase's seconds. Returns the launch counts of its card runs (#1 and
+    #2 once a round)."""
+    import numpy as np
+
+    from repro_torch import prng
+    from repro_torch.core import protocol as proto
+    from repro_torch.fed import rounds as rd
+    from repro_torch.fed.simulator import FedSimulator
+    from repro_torch.utils import tree_size
+    t0 = time.perf_counter()
+    own = {"uplink_stacked": 0, "master": 0}
+    label = f"federated LM scan {arch}"
+    cases = ((None, ("run_fedpc_scan", "run_fedpc_scan", "run_fedpc")),
+             (SCAN_PARTICIPATION, ("run_fedpc_scan", "run_fedpc")))
+    for frac, drivers in cases:
+        kw = ({} if frac is None else
+              dict(participation=frac, participation_seed=SEED))
+        n_part = LM_WORKERS if frac is None else max(
+            1, round(frac * LM_WORKERS))
+        runs, walls = [], []
+        for driver in drivers:
+            _, _, workers, params = _lm_federation(torch, dev, arch=arch,
+                                                   equal=True)
+            check(all(w.uniform_batches for w in workers), "a ragged shard")
+            sim = FedSimulator(workers, params, device=dev)
+            if driver == "run_fedpc":
+                d = _drive(torch, sim, ROUNDS, **kw)
+                res, launches, wall = d.res, d.launches, d.wall
+                synced = "round_step"
+            else:
+                res, launches, _, wall = _drive_scan(torch, sim, ROUNDS,
+                                                     **kw)
+                synced = "the whole round loop"
+            check(all(ts.graph is not None for w in workers
+                      for ts in w._steps.values()) and all(
+                          w._steps for w in workers),
+                  f"{label}: a worker's step was not captured")
+            want = proto.fedpc_bytes_per_round(
+                proto.model_size_bytes(params), n_part)
+            for k, n in _check_run(
+                    torch, res, launches, {k: ROUNDS for k in own},
+                    [want] * ROUNDS, workers,
+                    f"{label}, participation {frac}", driver=driver,
+                    synced=synced).items():
+                own[k] += n
+            runs.append(res)
+            walls.append(wall)
+            del sim, workers
+            _release(torch)
+        if frac is not None:
+            masks = rd.participation_masks(prng.PRNGKey(SEED), ROUNDS,
+                                           LM_WORKERS, frac).numpy()
+            check(all(masks[i][k] > 0
+                      for i, k in enumerate(runs[0].pilot_history)),
+                  f"{label}: a pilot that was not sampled")
+        for other, driver in zip(runs[1:], drivers[1:]):
+            _same_runs(torch, runs[0], other,
+                       f"{label}: run_fedpc_scan vs {driver}")
+        print(f"{label}, participation {frac}: "
+              + " == ".join(drivers) + " bitwise (pilots, costs, bytes, "
+              f"params); wall {', '.join(f'{w:.2f}' for w in walls)} s",
+              flush=True)
+        if frac is None:
+            card = runs[0]
+    _, _, cworkers, cparams = _lm_federation(torch, torch.device("cpu"),
+                                             arch=arch, equal=True)
+    cres = FedSimulator(cworkers, cparams, device="cpu").run_fedpc_scan(
+        ROUNDS)
+    check(cres.pilot_history == card.pilot_history,
+          f"{label}: pilots card {card.pilot_history} cpu "
+          f"{cres.pilot_history}")
+    check(np.allclose(card.costs, cres.costs, rtol=1e-3),
+          f"{label}: costs card {card.costs} cpu {cres.costs}")
+    print(f"{label}: {tree_size(cparams):,} params, {LM_WORKERS} workers "
+          f"on equal shards of {LM_SEQUENCES // LM_WORKERS} x {LM_SEQ_LEN} "
+          f"tokens, each worker's step a CUDA graph; card and CPU scan "
+          f"drivers agree, pilots {cres.pilot_history}, costs card "
+          f"{[round(c, 5) for c in card.costs]} cpu "
+          f"{[round(c, 5) for c in cres.costs]}; #1/#2 launches {own}; "
+          f"phase took {time.perf_counter() - t0:.1f} s", flush=True)
     _release(torch)
     return own
 
@@ -5432,28 +5678,26 @@ def _dryrun_records(tmp: str) -> list:
 
 
 def _count_prefill(torch, cfg) -> tuple:
-    """The serving phase's prefill (SERVE_BATCH x SERVE_PROMPT, bfloat16)
-    counted on ``meta`` with no mesh: (counter stats, ``_model_ops``'s
+    """The serving phase's prefill (SERVE_BATCH x SERVE_PROMPT, with the
+    family's patches, positions or frames) counted on ``meta`` with no mesh, on the batch ``_serve_batch``
+    builds there: (counter stats, ``_model_ops``'s
     matmul products for it with causal attention over (S + 1) / 2 keys a
     query, as the phase's bound counts them, and over every key, as the
     blocked attention computes them: it visits every key block)."""
     from repro_torch.launch import hlo_stats
     from repro_torch.models import build_model, scan_config
+    B, S = SERVE_BATCH, SERVE_PROMPT
     m = build_model(cfg)
     params = m.init(None, device="meta")
-    state = m.init_decode_state(SERVE_BATCH, SERVE_PROMPT + SERVE_NEW,
-                                device="meta")
-    tokens = torch.empty((SERVE_BATCH, SERVE_PROMPT), dtype=torch.int64,
-                         device="meta")
+    state = m.init_decode_state(B, S + SERVE_NEW, device="meta")
+    batch, _ = _serve_batch(torch, cfg, None, "meta")
     counter = hlo_stats.OpCounter()
     counter.hold_arguments(params)
     with torch.no_grad(), scan_config.counting(counter), counter:
-        m.prefill(params, {"tokens": tokens}, state)
-    tokens = SERVE_BATCH * SERVE_PROMPT
-    causal, _ = _model_ops(cfg, params, tokens, SERVE_BATCH,
-                           (SERVE_PROMPT + 1) / 2, 0.0)
-    every, _ = _model_ops(cfg, params, tokens, SERVE_BATCH, SERVE_PROMPT,
-                          0.0)
+        m.prefill(params, batch, state)
+    causal, _ = _model_ops(cfg, params, B * S, B, (S + 1) / 2, 0.0,
+                           prompt=True)
+    every, _ = _model_ops(cfg, params, B * S, B, S, 0.0, prompt=True)
     return counter.stats, causal, every
 
 
@@ -5848,11 +6092,14 @@ def main() -> int:
         for kind in ("uplink_masked", "master_masked"):
             launches[kind] += telemetry[kind] + privacy[kind]
         served = phase_model_serving(torch, dev, rate)
-        for kind, n in phase_fed_lm(torch, dev).items():
+        for kind, n in (*phase_fed_lm(torch, dev).items(),
+                        *phase_fed_lm_scan(torch, dev).items()):
             launches[kind] += n
         phase_model_serving(torch, dev, rate, MOE_ARCH)
         phase_model_serving(torch, dev, rate, XLSTM_ARCH)
         phase_mamba_mixer(torch, dev, rate)
+        for arch in ZOO_ARCHS:
+            phase_model_serving(torch, dev, rate, arch)
         for kind, n in phase_fed_lm(torch, dev, MOE_ARCH).items():
             launches[kind] += n
         mesh, first_rank = phase_distributed_slice(torch, dev)

@@ -2,11 +2,13 @@
 the twin of serve_llm.py.
 
 Exercises the serving path (parallel prefill → KV caches → one-token
-decode steps) for the attention + MLP architectures of the model zoo; the
-recurrent and MoE ones raise until their mixers are ported. Runs on the
-card; ``--device cpu`` runs on the CPU. ``--full-size`` with
-``--param-dtype bfloat16`` serves qwen3-14b (29.5 GB of weights) on one
-80 GB card.
+decode steps) for every family of the model zoo: Whisper's encoder and
+cross-attention caches over its audio frames, Qwen2-VL's patches and
+M-RoPE positions. The stub frontends' embeddings come in the weights'
+dtype, as the reference's input specs give them. Runs on the card;
+``--device cpu`` runs on the CPU. ``--full-size`` with ``--param-dtype
+bfloat16`` serves qwen3-14b (29.5 GB of weights), mistral-nemo-12b
+(24.5 GB), qwen2-vl-7b or whisper-medium on one 80 GB card.
 
 Run:  PYTHONPATH=src python examples/serve_llm_torch.py --arch qwen3-14b \
           --batch 4 --prompt-len 32 --new-tokens 16 [--device cpu]
@@ -18,6 +20,7 @@ import torch
 
 from repro_torch.configs import get_config
 from repro_torch.models import build_model
+from repro_torch.models.layers import dtype_of
 from repro_torch.utils import resolve_device
 
 
@@ -55,12 +58,15 @@ def main():
     if cfg.mrope:
         batch["positions"] = torch.arange(
             S, dtype=torch.int32, device=device).expand(3, B, S)
+    embed_dtype = dtype_of(cfg.param_dtype)
     if cfg.is_encdec:
         batch["audio_embed"] = torch.randn(
-            (B, cfg.n_frames, cfg.d_model), generator=gen, device=device)
+            (B, cfg.n_frames, cfg.d_model), generator=gen,
+            device=device).to(embed_dtype)
     if cfg.arch_type == "vlm":
         batch["vision_embed"] = torch.randn(
-            (B, cfg.n_patches, cfg.d_model), generator=gen, device=device)
+            (B, min(cfg.n_patches, S), cfg.d_model), generator=gen,
+            device=device).to(embed_dtype)
 
     with torch.no_grad():
         state = m.init_decode_state(B, S + args.new_tokens, device=device)

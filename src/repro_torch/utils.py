@@ -7,6 +7,10 @@ are walked in **sorted** order, as ``jax.tree_util`` does, so a model's
 flat buffer lays its leaves out exactly as the JAX package does
 (``layer0.b, layer0.w, layer1.b, ...``; ``layer10`` sorts before
 ``layer2``).
+
+The JAX package's ``split_rngs`` has no counterpart here (a worker draws
+from its own ``torch.Generator``), and its ``iter_jaxpr_eqns`` /
+``jaxpr_primitive_counts`` have :func:`program_op_counts`.
 """
 from __future__ import annotations
 
@@ -110,6 +114,12 @@ def value_and_grad(loss_fn: Callable, params: PyTree, batch
 def tree_size(tree: PyTree) -> int:
     """Total number of scalar parameters in a tree."""
     return sum(math.prod(x.shape) for x in tree_leaves(tree))
+
+
+def tree_bytes(tree: PyTree) -> int:
+    """Total bytes of a tree of tensors."""
+    return sum(math.prod(x.shape) * x.element_size()
+               for x in tree_leaves(tree))
 
 
 def tree_zeros_like(tree: PyTree) -> PyTree:

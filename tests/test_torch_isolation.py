@@ -131,3 +131,19 @@ def test_distributed_entry_points_default_to_cuda():
         train.main(["simulate"])
     with pytest.raises(SystemExit):          # the backend is the caller's
         train.main(["distributed", "--device", "cpu"])
+
+
+def test_card_tests_import_neither_jax_nor_the_jax_package():
+    # The card's test files run on the machine with the card, which has
+    # no JAX: every import statement, those inside functions too.
+    files = sorted((ROOT / "tests").glob("test_torch_*_gpu.py"))
+    assert "test_torch_model_zoo_gpu.py" in [p.name for p in files]
+    for path in files:
+        names = []
+        for node in ast.walk(ast.parse(path.read_text())):
+            if isinstance(node, ast.Import):
+                names += [a.name for a in node.names]
+            elif isinstance(node, ast.ImportFrom):
+                names.append(node.module or "")
+        assert [n for n in names if n.split(".")[0] in FORBIDDEN] == [], \
+            path.name

@@ -74,13 +74,33 @@ def test_every_config_builds_at_full_size(arch):
     assert tree_size(own) == sum(math.prod(s) for _, s, _ in want)
 
 
-def test_chip_smoke_param_counts_are_the_reference_s():
+@functools.lru_cache(maxsize=None)
+def _smoke():
     spec = importlib.util.spec_from_file_location(
         "chip_smoke", Path(__file__).resolve().parents[1] / "chip_smoke.py")
     smoke = importlib.util.module_from_spec(spec)
     spec.loader.exec_module(smoke)
+    return smoke
+
+
+def test_chip_smoke_param_counts_are_the_reference_s():
+    smoke = _smoke()
+    assert set(smoke.ZOO_ARCHS) <= set(smoke.SERVE_PARAMS_OF)
     for arch, n in smoke.SERVE_PARAMS_OF.items():
         assert n == sum(math.prod(s) for _, s, _ in _full_size(arch)), arch
+
+
+@pytest.mark.parametrize("arch", ["qwen3-14b", "mistral-nemo-12b",
+                                  "phi4-mini-3.8b", "qwen2-vl-7b",
+                                  "whisper-medium"])
+def test_chip_smoke_prefill_bound_counts_the_counter_s_products(arch):
+    # The serving bound's matmul products (with attention over every key,
+    # as the blocked prefill visits them): the dry run's counter on the
+    # same full-size prefill on meta, the encoder, the cross-attention
+    # and the adapters included.
+    stats, _, every = _smoke()._count_prefill(
+        torch, tget(arch).replace(param_dtype="bfloat16"))
+    assert stats.flops == pytest.approx(every, rel=1e-9)
 
 
 def test_entry_points_default_to_cuda():

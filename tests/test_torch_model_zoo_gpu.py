@@ -9,7 +9,9 @@ caches; cuBLAS and ATen's CPU kernels sum in other orders. The configs
 are the attention + MLP ones and the MoE / recurrent ones (DeepSeekMoE,
 Grok-1, Jamba, xLSTM). A federated LM worker's captured training step
 (a dense one and a MoE one) is replayed against the same step called
-eagerly, bitwise.
+eagerly, bitwise, and two LM workers on equal shards go through
+``run_fedpc_scan``, each on its captured step, bitwise equal to
+``run_fedpc``.
 
 Needs a CUDA card; every test here is marked ``gpu`` and skips where
 ``torch.cuda.is_available()`` is false. It imports nothing of JAX::
@@ -23,7 +25,8 @@ import torch
 from repro_torch.configs import get_config
 from repro_torch.data.pipeline import BatchIterator
 from repro_torch.data.synthetic import SyntheticLM
-from repro_torch.fed.worker import Worker, WorkerConfig
+from repro_torch.fed.simulator import FedSimulator
+from repro_torch.fed.worker import Worker, WorkerConfig, make_worker_configs
 from repro_torch.models import build_model
 from repro_torch.utils import tree_leaves, tree_map
 
@@ -61,8 +64,9 @@ def _close(a, b):
 
 @pytest.mark.gpu
 @pytest.mark.parametrize("arch", ["fedpc-paper", "qwen3-14b",
-                                  "mistral-nemo-12b", "whisper-medium",
-                                  "qwen2-vl-7b", "deepseek-moe-16b",
+                                  "mistral-nemo-12b", "phi4-mini-3.8b",
+                                  "whisper-medium", "qwen2-vl-7b",
+                                  "deepseek-moe-16b",
                                   "grok-1-314b", "jamba-1.5-large-398b",
                                   "xlstm-350m"])
 def test_model_on_card_matches_cpu(cuda, arch):
@@ -148,3 +152,35 @@ def _graph_replay_equals_eager_step(cuda, arch, optimizer):
     for run in outs[1:]:
         for a, b in zip(outs[0], run):
             assert torch.equal(a, b)
+
+
+@pytest.mark.gpu
+def test_lm_scan_driver_replays_graphs_and_equals_run_fedpc(cuda):
+    # Two reduced qwen3-14b workers on equal shards of 24 sequences at
+    # batch 8: run_fedpc_scan trains each through its captured step and
+    # equals run_fedpc from the same state, bitwise.
+    cfg = get_config("qwen3-14b").reduced()
+    m = build_model(cfg)
+    toks = SyntheticLM(n_sequences=48, seq_len=32, vocab=cfg.vocab,
+                       seed=0).generate()
+    shards = np.array_split(np.arange(48), 2)
+    cpu = m.init(torch.Generator().manual_seed(0), device="cpu")
+    runs, sims = [], []
+    for method in ("run_fedpc_scan", "run_fedpc"):
+        cfgs = make_worker_configs(2, [24, 24], seed=2, batch_menu=(8,))
+        workers = [Worker(cfgs[k], BatchIterator((toks[shards[k]],), 8,
+                                                 seed=k), m.loss_and_grad)
+                   for k in range(2)]
+        sim = FedSimulator(workers, tree_map(lambda a: a.to(cuda), cpu),
+                           device=cuda)
+        runs.append(getattr(sim, method)(2))
+        sims.append(sim)
+    for w in sims[0].workers:
+        assert w._steps and all(ts.graph is not None
+                                for ts in w._steps.values())
+    a, b = runs
+    assert a.pilot_history == b.pilot_history
+    assert a.bytes_per_round == b.bytes_per_round
+    assert list(a.costs) == list(b.costs)
+    for x, y in zip(tree_leaves(a.params), tree_leaves(b.params)):
+        assert torch.equal(x, y)
