@@ -173,11 +173,11 @@ result:
    ``participation=0.6`` the scan driver == ``run_fedpc``; the CPU's scan
    run (plain versions) picks the same pilots. Its #1/#2 launches join
    the ``kernels`` line.
-   MoE and recurrent serving — the same serving at full width and depth
-   for ``deepseek-moe-16b`` (28 layers, a dense first one, 64 routed
-   experts top-6 + 2 shared; 16,375,728,128 params) and ``xlstm-350m``
-   (24 alternating mLSTM / sLSTM blocks; 443,057,248 params), each then at
-   4 layers in float32; the MoE's prefill / ``prefill_sequential`` check
+   MoE and recurrent serving — the same serving at full width, its
+   depth cut (``SERVE_LAYERS_OF``), for ``deepseek-moe-16b`` (14 of its
+   28 layers, a dense first one, 64 routed experts top-6 + 2 shared;
+   16,375,728,128 params at full depth) and ``xlstm-350m`` (4 of its 24
+   alternating mLSTM / sLSTM blocks), each then at 4 layers in float32; the MoE's prefill / ``prefill_sequential`` check
    at a capacity where no assignment drops (the two see other token
    counts); the bf16 xLSTM's checks within ``SERVE_TOL_LSTM_BF16``; prints the prefill's kept token-expert pairs (its
    drop_frac) and the experts routed to a decode step; bounds counted a
@@ -207,6 +207,21 @@ result:
    and not the weights only a prefill reads. Each prints its seconds.
    Then the federated LM on the reduced ``deepseek-moe-16b``: its
    launches join #1's and #2's.
+   surface — the reference's options on the card, each line beside the
+   card's name and power limit: (a) ``qwen3-14b`` at its published widths
+   cut to 2 layers, float32, B = 1, S = 2,048: one loss and gradient with
+   the gradient path materialized (the default) and under
+   ``set_attn_block(512)``, the loss within rtol 1e-4 and the gradients'
+   relative L2 within 1e-4, each route's ms and peak allocated bytes;
+   (b) ``xlstm-350m`` at its widths cut to 2 layers, float32, B = 2,
+   S = 256, at ``set_lstm_chunk(64)`` (the default) and ``None``: the
+   loss within 1e-5, the gradients' relative L2 within 1e-5, ms and
+   peak bytes; (c) the quickstart MLP's worker, 5 local steps of
+   ``momentum(nesterov=True)`` on the card (its graph-captured step)
+   against the same steps on the CPU, within rtol 1e-5, atol 1e-6;
+   (d) ``fedpc_bytes_per_round`` at 32- and 16-bit weights for the
+   federated LM's model beside ``model_size_bytes(force_itemsize=None)``
+   of its float32 and bfloat16 trees. No kernel launches here.
    distributed slice — the mesh runtime (``fed.distributed``) on this
    card: the (10, 1) and (4, 2) meshes, each rank a spawned process on
    card 0 with gloo (every collective staged through host memory), the
@@ -2437,6 +2452,16 @@ SERVE_NEW = 32                    # greedy tokens decoded
 SERVE_SHORT = 64                  # prompt of the prefill_sequential check
 SERVE_PROFILED = 4                # decode steps profiled (positions again)
 SERVE_F32_LAYERS = 4              # depth of the float32 consistency model
+# Depth of a bfloat16 serving run cut to keep the script inside its time
+# limit (widths kept): the xLSTM's host-paced time loops took 73–82 s at
+# its 24 layers, the MoE's phase 34–36 s at its 28; two runs of one tree
+# spread by about 80 s, and the whole script ran 896 s with the xLSTM cut
+# alone.
+SERVE_LAYERS_OF = {"xlstm-350m": 4, "deepseek-moe-16b": 14}
+# Parameter counts at those depths, the JAX package's as for
+# SERVE_PARAMS_OF.
+SERVE_CUT_PARAMS_OF = {"xlstm-350m": 159_695_888,
+                       "deepseek-moe-16b": 8_145_659_904}
 SERVE_LSTM_PROFILED = 128         # prompt of an LSTM's profiled prefill
 MOE_ARCH = "deepseek-moe-16b"     # served and federated (7b)
 XLSTM_ARCH = "xlstm-350m"         # served (7b)
@@ -2881,7 +2906,8 @@ def _serve_model(torch, cfg, dev, rate: float | None) -> dict | None:
     print(f"{label}: consistency (relative L2, limit {tol:.3g}): "
           + ", ".join(f"{k} {v:.3g}" for k, v in errs.items()), flush=True)
     if cfg.param_dtype == "bfloat16":
-        want = SERVE_PARAMS_OF[cfg.name]
+        want = SERVE_CUT_PARAMS_OF[cfg.name] if cfg.name in SERVE_LAYERS_OF \
+            else SERVE_PARAMS_OF[cfg.name]
         check(n == want, f"{n:,} params, expected {want:,}")
     if rate is None:
         del params, prompt, batch, m
@@ -3003,16 +3029,19 @@ def _serve_model(torch, cfg, dev, rate: float | None) -> dict | None:
 def phase_model_serving(torch, dev, rate: float,
                         arch: str = SERVE_ARCH) -> dict:
     """The model zoo served on the card: ``arch`` at full width and depth
-    in bfloat16, timed, then at full width and SERVE_F32_LAYERS layers in
-    float32 (an encoder cut to as many) for the tight consistency checks.
-    Prints the phase's seconds. Returns the bfloat16 run's parameter
-    bytes and its prefill's matmul products (``_model_ops``)."""
+    (or ``SERVE_LAYERS_OF``'s) in bfloat16, timed, then at full width and
+    SERVE_F32_LAYERS layers in float32 (an encoder cut to as many) for the
+    tight consistency checks. Prints the phase's seconds. Returns the
+    bfloat16 run's parameter bytes and its prefill's matmul products
+    (``_model_ops``)."""
     from repro_torch.configs import get_config
     t0 = time.perf_counter()
     _release(torch)
     cfg = get_config(arch)
-    got = _serve_model(torch, cfg.replace(param_dtype="bfloat16"), dev,
-                       rate)
+    depth = {"n_layers": SERVE_LAYERS_OF[arch]} if arch in SERVE_LAYERS_OF \
+        else {}
+    got = _serve_model(torch, cfg.replace(param_dtype="bfloat16", **depth),
+                       dev, rate)
     cut = dict(n_layers=SERVE_F32_LAYERS)
     if cfg.is_encdec:
         cut["n_encoder_layers"] = SERVE_F32_LAYERS
@@ -3248,6 +3277,180 @@ def phase_fed_lm(torch, dev, arch: str = SERVE_ARCH) -> dict:
     del kept, oracle
     _release(torch)
     return own
+
+
+SURFACE_ATTN = ("qwen3-14b", 2, 1, 2048, 512)   # arch, layers, B, S, block
+SURFACE_LSTM = ("xlstm-350m", 2, 2, 256, 64)    # arch, layers, B, S, chunk
+SURFACE_ATTN_TOL = 1e-4           # loss rtol and gradients' relative L2
+SURFACE_LSTM_TOL = 1e-5           # loss abs and gradients' relative L2
+SURFACE_NESTEROV_STEPS = 5
+SURFACE_NESTEROV_TOL = (1e-5, 1e-6)  # rtol, atol: card against the CPU
+
+
+def _surface_routes(torch, dev, spec: tuple, setter, settings: tuple,
+                    restore) -> list:
+    """One loss and gradient of ``spec``'s model (published widths, cut
+    to its layers, float32, weights drawn on the card from SEED) under
+    each of ``settings`` of a toggle, ``setter`` restored to ``restore``
+    after: ``[(setting, loss, grads, ms, peak bytes)]``, each route run
+    once to warm up and once timed."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import build_model
+    from repro_torch.utils import tree_leaves
+    arch, layers, B, S, _ = spec
+    cfg = get_config(arch).replace(n_layers=layers, param_dtype="float32")
+    m = build_model(cfg)
+    gen = torch.Generator(dev).manual_seed(SEED)
+    params = m.init(gen, device=dev)
+    batch = {"tokens": torch.randint(0, cfg.vocab, (B, S), generator=gen,
+                                     device=dev, dtype=torch.int32)}
+    out = []
+    try:
+        for value in settings:
+            setter(value)
+            for timed in (False, True):
+                held = torch.cuda.memory_allocated()
+                torch.cuda.reset_peak_memory_stats()
+                a = torch.cuda.Event(enable_timing=True)
+                b = torch.cuda.Event(enable_timing=True)
+                a.record()
+                (loss, _), grads = m.loss_and_grad(params, batch)
+                b.record()
+                torch.cuda.synchronize()
+                if timed:
+                    out.append((value, loss, tree_leaves(grads),
+                                a.elapsed_time(b),
+                                torch.cuda.max_memory_allocated() - held))
+                del grads
+    finally:
+        setter(restore)
+    del params
+    _release(torch)
+    return out
+
+
+def _surface_compare(torch, label: str, routes: list, tol: float,
+                     loss_rel: bool, smi: str) -> None:
+    """Route 1 against route 0: the loss (relative or absolute) and the
+    gradients' relative L2 over every leaf, within ``tol``; each route's
+    ms and peak bytes printed."""
+    (v0, l0, g0, ms0, pk0), (v1, l1, g1, ms1, pk1) = routes
+    dl = abs(float(l1) - float(l0))
+    dl = dl / abs(float(l0)) if loss_rel else dl
+    num = sum(float((x.double() - y.double()).square().sum())
+              for x, y in zip(g1, g0))
+    den = sum(float(y.double().square().sum()) for y in g0)
+    worst = max(_rel_l2(torch, x, y) for x, y in zip(g1, g0)
+                if float(y.norm()) > 0)
+    rel = math.sqrt(num / den)
+    finite = all(bool(torch.isfinite(x).all()) for x in g0 + g1)
+    check(finite and math.isfinite(float(l0)) and math.isfinite(float(l1)),
+          f"surface: {label}: a loss or a gradient is not finite")
+    check(dl <= tol and rel <= tol,
+          f"surface: {label}: {v1} against {v0}: loss "
+          f"{'rel' if loss_rel else 'abs'} diff {dl:.3e}, gradients' rel "
+          f"L2 {rel:.3e} (worst leaf {worst:.3e}), bound {tol:g}")
+    print(f"surface: {label}: {v0}: {ms0:.2f} ms, peak {pk0:,} B above "
+          f"the held; {v1}: {ms1:.2f} ms, peak {pk1:,} B; loss "
+          f"{float(l0):.6f}, {'rel' if loss_rel else 'abs'} diff "
+          f"{dl:.3e}, gradients' rel L2 {rel:.3e} (worst leaf {worst:.3e}) "
+          f"within {tol:g}; on {smi}", flush=True)
+
+
+def phase_surface(torch, dev) -> None:
+    """The reference's public options on the card: (a) blocked attention
+    on the gradient path (``set_attn_block``) against the materialized
+    scores, (b) the LSTM checkpoint chunk against the naive loop
+    (``set_lstm_chunk(None)``), (c) Nesterov momentum on the card against
+    the CPU and (d) Eq. (8) at 16- and 32-bit weights."""
+    import numpy as np
+
+    from repro_torch.core import protocol as proto
+    from repro_torch.data.pipeline import BatchIterator
+    from repro_torch.data.synthetic import SyntheticClassification
+    from repro_torch.fed.worker import Worker, WorkerConfig
+    from repro_torch.models import attention, build_model, ssm
+    from repro_torch.models.mlp import init_mlp_classifier, \
+        mlp_loss_and_grad
+    from repro_torch.optim.optimizers import momentum
+    from repro_torch.configs import get_config
+    from repro_torch.utils import tree_leaves, tree_map
+    t0 = time.perf_counter()
+    smi = _smi()
+    _release(torch)
+    arch, layers, B, S, blk = SURFACE_ATTN
+    routes = _surface_routes(torch, dev, SURFACE_ATTN,
+                             attention.set_attn_block, (None, blk), None)
+    _surface_compare(torch, f"{arch} {layers} layers float32 B={B} S={S}, "
+                     f"gradient path materialized vs set_attn_block({blk})",
+                     routes, SURFACE_ATTN_TOL, True, smi)
+    del routes
+    arch, layers, B, S, chunk = SURFACE_LSTM
+    routes = _surface_routes(torch, dev, SURFACE_LSTM, ssm.set_lstm_chunk,
+                             (chunk, None), chunk)
+    _surface_compare(torch, f"{arch} {layers} layers float32 B={B} S={S}, "
+                     f"set_lstm_chunk({chunk}) vs set_lstm_chunk(None)",
+                     routes, SURFACE_LSTM_TOL, False, smi)
+    del routes
+    _release(torch)
+
+    # (c) the quickstart MLP's worker, SURFACE_NESTEROV_STEPS local steps
+    x, y = SyntheticClassification(n_samples=1800, n_features=24,
+                                   n_classes=6, seed=SEED).generate()
+    n = 32 * SURFACE_NESTEROV_STEPS
+    runs = []
+    for d in (dev, torch.device("cpu")):
+        w = Worker(WorkerConfig(worker_id=0, batch_size=32),
+                   BatchIterator((x[:n], y[:n]), 32, seed=SEED),
+                   mlp_loss_and_grad)
+        w.opt = momentum(nesterov=True)
+        p0 = init_mlp_classifier(torch.Generator().manual_seed(SEED), 24, 6,
+                                 device="cpu")
+        p, cost = w.train_round_device(tree_map(lambda a: a.to(d), p0))
+        check(w.step == SURFACE_NESTEROV_STEPS,
+              f"surface: Nesterov worker took {w.step} steps")
+        runs.append((tree_leaves(p), float(cost)))
+    rtol, atol = SURFACE_NESTEROV_TOL
+    worst = max(float((a.cpu() - b).abs().max())
+                for a, b in zip(runs[0][0], runs[1][0]))
+    rel = max(_rel_l2(torch, a.cpu(), b)
+              for a, b in zip(runs[0][0], runs[1][0]))
+    close = all(np.allclose(a.cpu().numpy(), b.numpy(), rtol=rtol,
+                            atol=atol)
+                for a, b in zip(runs[0][0], runs[1][0]))
+    check(close and math.isclose(runs[0][1], runs[1][1], rel_tol=rtol),
+          f"surface: Nesterov card vs CPU: max abs diff {worst:.3e}, worst "
+          f"leaf rel L2 {rel:.3e}, costs {runs[0][1]} / {runs[1][1]}")
+    print(f"surface: quickstart MLP worker, {SURFACE_NESTEROV_STEPS} steps "
+          f"of momentum(nesterov=True) at batch 32: card == CPU within "
+          f"rtol {rtol:g}, atol {atol:g} (max abs diff {worst:.3e}, worst "
+          f"leaf rel L2 {rel:.3e}), cost {runs[0][1]:.6f}; on {smi}",
+          flush=True)
+
+    # (d) Eq. (8) for the federated LM phase's model at 16 and 32 bits
+    m = build_model(get_config(SERVE_ARCH).reduced())
+    params = m.init(torch.Generator(dev).manual_seed(SEED), device=dev)
+    half = tree_map(lambda a: a.to(torch.bfloat16), params)
+    v32 = proto.model_size_bytes(params, force_itemsize=None)
+    v16 = proto.model_size_bytes(half, force_itemsize=None)
+    check(v32 == proto.model_size_bytes(params) and 2 * v16 == v32,
+          f"surface: model_size_bytes {v32} / {v16}")
+    d32 = proto.fedpc_bytes_per_round(v32, LM_WORKERS)
+    d16 = proto.fedpc_bytes_per_round(v16, LM_WORKERS, weight_bits=16)
+    check(d32 == v32 * (LM_WORKERS + 1) + v32 * (LM_WORKERS - 1) / 16
+          and d16 == v16 * (LM_WORKERS + 1) + v16 * (LM_WORKERS - 1) / 8,
+          f"surface: Eq. (8) bytes {d32} / {d16}")
+    print(f"surface: Eq. (8) for reduced {SERVE_ARCH}, N = {LM_WORKERS}: "
+          f"model_size_bytes(force_itemsize=None) {v32:,} B float32, "
+          f"{v16:,} B bfloat16; fedpc_bytes_per_round {d32:,.1f} B at "
+          f"weight_bits 32 (R = 16), {d16:,.1f} B at 16 (R = 8); saved vs "
+          f"FedAvg {proto.reduction_vs_fedavg(v32, LM_WORKERS):.4%} / "
+          f"{proto.reduction_vs_fedavg(v16, LM_WORKERS, 16):.4%}; on {smi}",
+          flush=True)
+    del params, half
+    _release(torch)
+    print(f"surface: phase took {time.perf_counter() - t0:.1f} s",
+          flush=True)
 
 
 def phase_fed_lm_scan(torch, dev, arch: str = SERVE_ARCH) -> dict:
@@ -6102,6 +6305,7 @@ def main() -> int:
             phase_model_serving(torch, dev, rate, arch)
         for kind, n in phase_fed_lm(torch, dev, MOE_ARCH).items():
             launches[kind] += n
+        phase_surface(torch, dev)
         mesh, first_rank = phase_distributed_slice(torch, dev)
         for (F, M), mine in mesh.items():     # the fault plan runs at M = 1
             check(set(mine) <= set(MESH_KINDS) and all(

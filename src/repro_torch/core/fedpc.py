@@ -40,6 +40,11 @@ class FedPCConfig:
     alpha0: float = 0.01          # master lr for the round-1 rule of Eq. (3)
     beta: float = 0.2             # significance threshold of Eq. (5)
     alpha_round1: float = 0.01    # Eq. (4) threshold (worker lr at round 1)
+    # Wire widths per ternary code and per weight, kept for the
+    # reference's signature: no code of either package reads them. Eq. (8)
+    # takes its width only as fedpc_bytes_per_round(weight_bits=).
+    pack_bits: int = 2
+    weight_bits: int = 32
     betas: tuple | None = None    # per-worker beta_k; None = uniform
     participation: float = 1.0    # C-fraction of workers per round
     privacy: PrivacySpec | None = None  # secure-agg / local-DP wire

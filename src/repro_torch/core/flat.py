@@ -49,9 +49,40 @@ class FlatLayout(NamedTuple):
         return self.rows * LANES
 
     @property
+    def packed_rows(self) -> int:
+        """Rows of the (packed_rows, 128) uint8 wire buffer."""
+        return self.rows // PACK
+
+    @property
     def shard_rows(self) -> int:
         """Rows of one model shard's (shard_rows, 128) slab."""
         return self.rows // self.shards
+
+    @property
+    def packed_shard_rows(self) -> int:
+        """Rows of one model shard's (·, 128) packed uint8 slab."""
+        return self.shard_rows // PACK
+
+    @property
+    def packed_bytes(self) -> int:
+        """Exact §3.3 wire bytes of the ``n`` real scalars (Eq. (8) counts
+        them, not the padded buffer)."""
+        return round_up(self.n, PACK) // PACK
+
+
+class FlatParams(NamedTuple):
+    """A model tree flattened to one padded (rows, 128) float32 buffer."""
+    buf: torch.Tensor
+    layout: FlatLayout
+
+    @classmethod
+    def from_tree(cls, tree: PyTree, layout: FlatLayout | None = None
+                  ) -> "FlatParams":
+        layout = layout or layout_of(tree)
+        return cls(flatten_tree(tree, layout), layout)
+
+    def to_tree(self) -> PyTree:
+        return unflatten_tree(self.buf, self.layout)
 
 
 def layout_of(tree: PyTree, shards: int = 1) -> FlatLayout:

@@ -17,7 +17,7 @@ from typing import Any
 
 from repro_torch.core.packing import packed_size
 from repro_torch.core.tree import TreeSpec
-from repro_torch.utils import PyTree, tree_size
+from repro_torch.utils import PyTree, tree_bytes, tree_size
 
 
 class Command(enum.Enum):
@@ -74,18 +74,21 @@ class CommLedger:
                 + sum(self.uplink_ternary))
 
 
-def _fedpc_wire_bytes(model_bytes: float, n_workers: int,
-                      code_bits: float) -> float:
+def _fedpc_wire_bytes(model_bytes: float, n_workers: int, code_bits: float,
+                      weight_bits: int = 32) -> float:
     """The Eq. (8) shape: V(N+1) download and pilot upload, plus N-1
-    non-pilot uplinks at ``code_bits`` per float32 parameter."""
-    ratio = 32 / code_bits
+    non-pilot uplinks at ``code_bits`` per parameter
+    (R = weight_bits / code_bits)."""
+    ratio = weight_bits / code_bits
     return (model_bytes * (n_workers + 1)
             + model_bytes * (n_workers - 1) / ratio)
 
 
-def fedpc_bytes_per_round(model_bytes: float, n_workers: int) -> float:
-    """Eq. (8): D = V(N+1) + V(N-1)/16, float32 weights and 2-bit codes."""
-    return _fedpc_wire_bytes(model_bytes, n_workers, 2.0)
+def fedpc_bytes_per_round(model_bytes: float, n_workers: int,
+                          weight_bits: int = 32) -> float:
+    """Eq. (8): D = V(N+1) + V(N-1)/R with R = weight_bits / 2 (2-bit
+    codes): R = 16 for the paper's float32 weights, 8 for 16-bit ones."""
+    return _fedpc_wire_bytes(model_bytes, n_workers, 2.0, weight_bits)
 
 
 def fedpc_masked_bytes_per_round(model_bytes: float, n_workers: int,
@@ -149,14 +152,19 @@ def phong_bytes_per_round(model_bytes: float, n_workers: int) -> float:
     return 2.0 * model_bytes * n_workers
 
 
-def reduction_vs_fedavg(model_bytes: float, n_workers: int) -> float:
+def reduction_vs_fedavg(model_bytes: float, n_workers: int,
+                        weight_bits: int = 32) -> float:
     """Fraction of FedAvg's bytes that FedPC saves (paper: 31.25% at N = 3
-    up to 42.20% at N = 10)."""
-    fp = fedpc_bytes_per_round(model_bytes, n_workers)
+    up to 42.20% at N = 10, float32 weights)."""
+    fp = fedpc_bytes_per_round(model_bytes, n_workers, weight_bits)
     fa = fedavg_bytes_per_round(model_bytes, n_workers)
     return 1.0 - fp / fa
 
 
-def model_size_bytes(params: PyTree) -> int:
-    """Size of a model instance on the wire (float32 weights, §5.2)."""
-    return tree_size(params) * 4
+def model_size_bytes(params: PyTree, force_itemsize: int | None = 4) -> int:
+    """Size of a model instance on the wire: float32 weights by default, as
+    the paper counts them (§5.2); ``force_itemsize=None`` sums the leaves'
+    in-memory dtypes instead."""
+    if force_itemsize is None:
+        return tree_bytes(params)
+    return tree_size(params) * force_itemsize

@@ -139,9 +139,22 @@ def _sdpa_grouped(q, k, v, mask, dh):
     return out.to(v.dtype).reshape(b, sq, h, dh)
 
 
-# Blocked (flash-style) attention for inference prefill, in 512-key
-# blocks; the gradient path materializes its scores, as in the reference.
-ATTN_BLOCK_PREFILL = 512
+# Blocked (flash-style) attention for full-sequence passes, by the key
+# block. By default only inference prefill is blocked, in 512-key blocks:
+# on the gradient path autograd keeps every tile's scores for the
+# backward, so the blocked route saves no memory there and runs slower
+# than the materialized scores. ``set_attn_block`` opts the gradient path
+# in all the same; None keeps it materialized.
+ATTN_BLOCK = [None]           # gradient path
+ATTN_BLOCK_PREFILL = [512]    # inference prefill
+
+
+def set_attn_block(b):
+    ATTN_BLOCK[0] = b
+
+
+def set_attn_block_prefill(b):
+    ATTN_BLOCK_PREFILL[0] = b
 
 
 def _sdpa_blocked(q, k, v, dh, causal: bool, window: Optional[int],
@@ -205,17 +218,18 @@ def _blocked(q, k, v, dh, causal: bool, window: Optional[int], block: int):
 
 def _sdpa_full_seq(q, k, v, dh, causal: bool, window: Optional[int],
                    grad_path: bool = True):
-    """Full-sequence attention dispatcher: off the gradient path, blocked
-    when the key length is a multiple of ``ATTN_BLOCK_PREFILL`` above one
-    block and the heads shard over the model axis; else the
-    materialized-score baseline."""
+    """Full-sequence attention dispatcher: blocked when the path's block
+    (``ATTN_BLOCK[0]`` on the gradient path, ``ATTN_BLOCK_PREFILL[0]``
+    off it) is set, the key length is a multiple of it above one block and
+    the heads shard over the model axis; else the materialized-score
+    baseline."""
     s = k.shape[1]
-    blk = ATTN_BLOCK_PREFILL
+    blk = ATTN_BLOCK[0] if grad_path else ATTN_BLOCK_PREFILL[0]
     msize = act.model_size()
     heads_shard = (msize == 1 or k.shape[2] % msize == 0
                    or q.shape[2] % msize == 0)
-    if not grad_path and s % blk == 0 and s > blk and heads_shard:
-        if msize > 1 and k.shape[2] % msize != 0:
+    if blk and s % blk == 0 and s > blk and heads_shard:
+        if not grad_path and msize > 1 and k.shape[2] % msize != 0:
             # repeat so the head dim shards inside the blocked loops too
             k = act.heads(_repeat_kv(k, q.shape[2]))
             v = act.heads(_repeat_kv(v, q.shape[2]))

@@ -19,8 +19,9 @@ under ``loop_trip_counts``:
     scans. Under a gradient they are traced in full: the backward keeps
     every iteration's saved tensors, which the peak must hold;
   * the mLSTM/sLSTM time loops always, as the reference keeps them rolled:
-    one ``LSTM_CHUNK`` of steps is traced (4,096 steps a layer on
-    ``meta`` would take minutes). Under a gradient the chunk runs through
+    one chunk of ``ssm.LSTM_CHUNK[0]`` steps is traced (4,096 steps a
+    layer on ``meta`` would take minutes; a chunk of ``None`` traces them
+    all). Under a gradient the chunk runs through
     :func:`rolled_call`, whose backward (the checkpoint's recompute and
     the gradient) is counted ``trips`` times too.
 """

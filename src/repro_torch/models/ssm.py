@@ -299,18 +299,25 @@ def _mlstm_step(carry, inp):
 
 
 # Chunked remat of the recurrent time loops: under autograd the carry is
-# checkpointed every LSTM_CHUNK steps (torch.utils.checkpoint over each
+# checkpointed every LSTM_CHUNK[0] steps (torch.utils.checkpoint over each
 # chunk of the loop), so the backward keeps O(S/C · state) residuals and
 # recomputes a chunk's forward. The forward's numbers do not depend on it.
-LSTM_CHUNK = 64
+# None is the naive loop: residuals at every step, no recompute.
+LSTM_CHUNK = [64]
+
+
+def set_lstm_chunk(c):
+    LSTM_CHUNK[0] = c
 
 
 def _time_loop(step, carry, xs, S: int, name: str, weights=()):
     """``step(carry, x_t, *weights) -> (carry, y_t)`` over the S steps of
     the (B, S, ...) inputs ``xs``; returns (final carry, [y_t] * S).
-    Chunked and checkpointed under autograd when S is a multiple of
-    ``LSTM_CHUNK`` above it; while the dry run's counter counts, one chunk
-    is traced and counted S / LSTM_CHUNK times (:func:`_rolled_time_loop`).
+    Chunked and checkpointed under autograd when S is a multiple of the
+    chunk ``LSTM_CHUNK[0]`` above it; while the dry run's counter counts,
+    one chunk is traced and counted S / chunk times
+    (:func:`_rolled_time_loop`). A chunk of ``None`` runs (and the dry run
+    counts) every step.
     """
     def run(carry, lo, hi, xs=xs, weights=weights):
         ys = []
@@ -319,10 +326,12 @@ def _time_loop(step, carry, xs, S: int, name: str, weights=()):
             ys.append(y)
         return carry, ys
 
-    Q = LSTM_CHUNK
-    if scan_config.rolled() and S > Q and S % Q == 0:
-        return _rolled_time_loop(run, carry, xs, weights, S, name)
-    if not (torch.is_grad_enabled() and S > Q and S % Q == 0):
+    Q = LSTM_CHUNK[0]
+    if not (Q and S > Q and S % Q == 0):
+        return run(carry, 0, S)
+    if scan_config.rolled():
+        return _rolled_time_loop(run, carry, xs, weights, S, name, Q)
+    if not torch.is_grad_enabled():
         return run(carry, 0, S)
     n_c = len(carry)
     ys = []
@@ -336,13 +345,12 @@ def _time_loop(step, carry, xs, S: int, name: str, weights=()):
     return carry, ys
 
 
-def _rolled_time_loop(run, carry, xs, weights, S: int, name: str):
-    """The time loop as the dry run counts it: the first ``LSTM_CHUNK``
-    steps traced, under the counter's scale of S / LSTM_CHUNK; the chunk's
-    outputs stand for every chunk's. The chunk indexes the whole inputs a
-    step at a time, as the loop does, so its backward moves what each
-    chunk's does."""
-    Q = LSTM_CHUNK
+def _rolled_time_loop(run, carry, xs, weights, S: int, name: str, Q: int):
+    """The time loop as the dry run counts it: the first ``Q`` steps (one
+    chunk) traced, under the counter's scale of S / Q; the chunk's outputs
+    stand for every chunk's. The chunk indexes the whole inputs a step at
+    a time, as the loop does, so its backward moves what each chunk's
+    does."""
     trips = S // Q
     if not torch.is_grad_enabled():
         with scan_config.loop_scope(name, trips):

@@ -50,9 +50,11 @@ def _zeros_of(dtype: torch.dtype):
     return lambda p: torch.zeros(p.shape, dtype=dtype, device=p.device)
 
 
-def momentum(decay: float = 0.9,
+def momentum(decay: float = 0.9, nesterov: bool = False,
              accum_dtype: torch.dtype = torch.float32) -> Optimizer:
-    """Heavy-ball momentum (Qian 1999) — the paper's ResNet optimizer."""
+    """Heavy-ball momentum (Qian 1999) — the paper's ResNet optimizer.
+    ``nesterov=True`` steps by ``-lr · (decay · v_new + g)`` instead of
+    ``-lr · v_new``."""
 
     def init(params):
         return MomentumState(velocity=tree_map(_zeros_of(accum_dtype),
@@ -61,7 +63,12 @@ def momentum(decay: float = 0.9,
     def update(grads, state, params, lr):
         vel = tree_map(lambda v, g: decay * v + g.to(accum_dtype),
                        state.velocity, grads)
-        upd = tree_map(lambda v, p: (v * -lr).to(p.dtype), vel, params)
+        if nesterov:
+            upd = tree_map(
+                lambda v, g, p: ((decay * v + g.to(accum_dtype))
+                                 * -lr).to(p.dtype), vel, grads, params)
+        else:
+            upd = tree_map(lambda v, p: (v * -lr).to(p.dtype), vel, params)
         return upd, MomentumState(velocity=vel)
 
     return Optimizer("momentum", init, update)

@@ -14,6 +14,7 @@ from its own ``torch.Generator``), and its ``iter_jaxpr_eqns`` /
 """
 from __future__ import annotations
 
+import functools
 import math
 from typing import Any, Callable
 
@@ -88,9 +89,11 @@ def tree_unflatten(treedef, leaves) -> PyTree:
     return _build(treedef, iter(leaves))
 
 
-def tree_map(fn: Callable, tree: PyTree, *rest: PyTree) -> PyTree:
-    leaves, treedef = tree_flatten(tree)
-    others = [tree_flatten(r)[0] for r in rest]
+def tree_map(fn: Callable, *trees: PyTree) -> PyTree:
+    """``fn`` over the leaves of ``trees[0]`` and, beside each, the leaves
+    of the other trees (of the same structure)."""
+    leaves, treedef = tree_flatten(trees[0])
+    others = [tree_flatten(r)[0] for r in trees[1:]]
     return tree_unflatten(treedef,
                           [fn(*xs) for xs in zip(leaves, *others)])
 
@@ -122,12 +125,45 @@ def tree_bytes(tree: PyTree) -> int:
                for x in tree_leaves(tree))
 
 
+def tree_ravel(tree: PyTree) -> tuple[torch.Tensor, Callable]:
+    """The leaves raveled into one 1-D tensor, and the function that maps
+    such a vector back to the tree, as ``jax.flatten_util.ravel_pytree``:
+    leaves of one dtype are concatenated as they are and unraveled in the
+    vector's dtype; leaves of several are promoted to a common dtype, and
+    the vector they unravel from must have it (else ``TypeError``), each
+    leaf cast back to its own."""
+    leaves, treedef = tree_flatten(tree)
+    if not leaves:
+        return (torch.zeros(0, dtype=torch.float32),
+                lambda v: tree_unflatten(treedef, []))
+    shapes = [tuple(l.shape) for l in leaves]
+    sizes = [math.prod(s) for s in shapes]
+    dtypes = [l.dtype for l in leaves]
+    to = functools.reduce(torch.promote_types, dtypes)
+    vec = torch.cat([l.reshape(-1).to(to) for l in leaves])
+    single = all(dt == to for dt in dtypes)
+
+    def unravel(v: torch.Tensor) -> PyTree:
+        if not single and v.dtype != to:
+            raise TypeError(f"unravel function given array of dtype "
+                            f"{v.dtype}, but expected dtype {to}")
+        parts = [p.reshape(s) for p, s in zip(torch.split(v, sizes), shapes)]
+        if not single:
+            parts = [p.to(dt) for p, dt in zip(parts, dtypes)]
+        return tree_unflatten(treedef, parts)
+    return vec, unravel
+
+
 def tree_zeros_like(tree: PyTree) -> PyTree:
     return tree_map(torch.zeros_like, tree)
 
 
 def tree_add(a: PyTree, b: PyTree) -> PyTree:
     return tree_map(lambda x, y: x + y, a, b)
+
+
+def tree_sub(a: PyTree, b: PyTree) -> PyTree:
+    return tree_map(lambda x, y: x - y, a, b)
 
 
 def tree_scale(a: PyTree, s) -> PyTree:
@@ -143,6 +179,37 @@ def tree_weighted_sum(trees, weights) -> PyTree:
     for t, w in zip(trees[1:], weights[1:]):
         out = tree_add(out, tree_scale(t, w))
     return out
+
+
+def tree_allfinite(tree: PyTree) -> torch.Tensor:
+    """0-d bool tensor on the leaves' device: every element of every leaf
+    finite. No host sync."""
+    return torch.stack([torch.isfinite(x).all()
+                        for x in tree_leaves(tree)]).all()
+
+
+def human_bytes(n: float) -> str:
+    for unit in ("B", "KiB", "MiB", "GiB", "TiB", "PiB"):
+        if abs(n) < 1024.0:
+            return f"{n:.2f} {unit}"
+        n /= 1024.0
+    return f"{n:.2f} EiB"
+
+
+def human_count(n: float) -> str:
+    for unit in ("", "K", "M", "B", "T"):
+        if abs(n) < 1000.0:
+            return f"{n:.2f}{unit}"
+        n /= 1000.0
+    return f"{n:.2f}Q"
+
+
+def log2_int(x: int) -> int:
+    """log2 of a power of two; ``AssertionError`` for any other positive
+    integer, ``ValueError`` for one that is not positive."""
+    l = int(math.log2(x))
+    assert (1 << l) == x, f"{x} is not a power of two"
+    return l
 
 
 # -- op accounting (structural asserts in tests and the chip smoke) --------

@@ -151,9 +151,14 @@ def _count(fn, *args, rolled: bool):
 
 
 @pytest.fixture()
-def short_chunks(monkeypatch):
+def short_chunks():
     """Time-loop chunks of 4 steps: what is traced a chunk stays small."""
-    monkeypatch.setattr(ssm, "LSTM_CHUNK", 4)
+    before = ssm.LSTM_CHUNK[0]
+    try:
+        ssm.set_lstm_chunk(4)
+        yield
+    finally:
+        ssm.set_lstm_chunk(before)
 
 
 def _loop_case(mixer, grad):
@@ -161,7 +166,7 @@ def _loop_case(mixer, grad):
     init = {"mlstm": ssm.init_mlstm, "slstm": ssm.init_slstm}[mixer]
     train = {"mlstm": ssm.mlstm_train, "slstm": ssm.slstm_train}[mixer]
     p = {k: v.requires_grad_(grad) for k, v in init(cfg, None).items()}
-    x = torch.empty((2, 4 * ssm.LSTM_CHUNK, cfg.d_model), device="meta",
+    x = torch.empty((2, 4 * ssm.LSTM_CHUNK[0], cfg.d_model), device="meta",
                     requires_grad=grad)
 
     def run(p, x):
@@ -192,6 +197,22 @@ def test_a_rolled_time_loop_counts_the_whole_loop(mixer, grad,
     # gradients across chunks (trips - 1 sums of each): bytes within 6%.
     assert rolled.flops == pytest.approx(full.flops, rel=1 / x.shape[1])
     assert rolled.bytes == pytest.approx(full.bytes, rel=0.06)
+
+
+@pytest.mark.parametrize("mixer", ["mlstm", "slstm"])
+def test_the_naive_time_loop_is_counted_step_by_step(mixer, short_chunks):
+    # set_lstm_chunk(None): no chunk to roll, so the dry run's counter
+    # traces every one of the S steps, as the unrolled count does.
+    run, p, x = _loop_case(mixer, True)
+    try:
+        ssm.set_lstm_chunk(None)
+        rolled = _count(run, p, x, rolled=True)
+        full = _count(run, p, x, rolled=False)
+    finally:
+        ssm.set_lstm_chunk(4)
+    assert not rolled.loop_trip_counts and not full.loop_trip_counts
+    assert (rolled.flops, rolled.bytes) == (full.flops, full.bytes)
+    assert rolled.flops > 0
 
 
 def test_the_mamba_chunk_loop_rolled_and_unrolled_count_alike():

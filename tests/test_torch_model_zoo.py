@@ -56,10 +56,13 @@ def test_registry_matches():
 
 
 @functools.lru_cache(maxsize=None)
-def _full_size(arch: str) -> tuple:
-    """The JAX package's full-size tree of ``arch`` as (path, shape,
-    dtype), traced with ``jax.eval_shape`` (nothing allocated)."""
-    return tuple(_paths(jax.eval_shape(jbuild(jget(arch)).init,
+def _full_size(arch: str, n_layers: int | None = None) -> tuple:
+    """The JAX package's full-size tree of ``arch`` (at ``n_layers``
+    layers where given) as (path, shape, dtype), traced with
+    ``jax.eval_shape`` (nothing allocated)."""
+    cfg = jget(arch) if n_layers is None else jget(arch).replace(
+        n_layers=n_layers)
+    return tuple(_paths(jax.eval_shape(jbuild(cfg).init,
                                        jax.random.PRNGKey(0))))
 
 
@@ -88,6 +91,11 @@ def test_chip_smoke_param_counts_are_the_reference_s():
     assert set(smoke.ZOO_ARCHS) <= set(smoke.SERVE_PARAMS_OF)
     for arch, n in smoke.SERVE_PARAMS_OF.items():
         assert n == sum(math.prod(s) for _, s, _ in _full_size(arch)), arch
+    # the served depth of a cut bfloat16 run
+    assert set(smoke.SERVE_CUT_PARAMS_OF) == set(smoke.SERVE_LAYERS_OF)
+    for arch, n in smoke.SERVE_CUT_PARAMS_OF.items():
+        tree = _full_size(arch, smoke.SERVE_LAYERS_OF[arch])
+        assert n == sum(math.prod(s) for _, s, _ in tree), arch
 
 
 @pytest.mark.parametrize("arch", ["qwen3-14b", "mistral-nemo-12b",
@@ -153,7 +161,7 @@ def test_bfloat16_model_holds_to_the_float32_reference():
     assert _rel_l2(last, want_logits) <= 0.03
 
 
-def test_blocked_prefill_through_the_model(monkeypatch):
+def test_blocked_prefill_through_the_model():
     # A 1,024-token prompt takes the blocked path in prefill; with the
     # block widened past the prompt it is materialized: the same logits
     # and caches.
@@ -163,12 +171,15 @@ def test_blocked_prefill_through_the_model(monkeypatch):
     toks = torch.from_numpy(np.random.default_rng(2).integers(
         0, cfg.vocab, (1, 1024)).astype(np.int32))
     outs = []
-    for blk in (512, 1024):
-        monkeypatch.setattr(tattn, "ATTN_BLOCK_PREFILL", blk)
-        with torch.no_grad():
-            outs.append(tm.prefill(tp, {"tokens": toks},
-                                   tm.init_decode_state(1, 1024,
-                                                        device="cpu")))
+    try:
+        for blk in (512, 1024):
+            tattn.set_attn_block_prefill(blk)
+            with torch.no_grad():
+                outs.append(tm.prefill(tp, {"tokens": toks},
+                                       tm.init_decode_state(1, 1024,
+                                                            device="cpu")))
+    finally:
+        tattn.set_attn_block_prefill(512)
     _close(outs[0][0], outs[1][0].numpy(), SERVE)
     for a, b in zip(tree_leaves(outs[0][1]), tree_leaves(outs[1][1])):
         _close(a, b.numpy(), SERVE)

@@ -11,7 +11,10 @@ Grok-1, Jamba, xLSTM). A federated LM worker's captured training step
 (a dense one and a MoE one) is replayed against the same step called
 eagerly, bitwise, and two LM workers on equal shards go through
 ``run_fedpc_scan``, each on its captured step, bitwise equal to
-``run_fedpc``.
+``run_fedpc``. The reference's toggles run on the card too: blocked
+attention on the gradient path and the LSTM chunk (16 steps and the naive
+loop), loss and gradients against the CPU and the default route, and
+five Nesterov momentum steps against the CPU.
 
 Needs a CUDA card; every test here is marked ``gpu`` and skips where
 ``torch.cuda.is_available()`` is false. It imports nothing of JAX::
@@ -184,3 +187,67 @@ def test_lm_scan_driver_replays_graphs_and_equals_run_fedpc(cuda):
     assert list(a.costs) == list(b.costs)
     for x, y in zip(tree_leaves(a.params), tree_leaves(b.params)):
         assert torch.equal(x, y)
+
+
+def _loss_and_grads(m, params, batch):
+    (loss, _), grads = m.loss_and_grad(params, batch)
+    return [loss, *tree_leaves(grads)]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("toggle", ["attn_block", "lstm_chunk"])
+def test_toggles_on_card_match_cpu(cuda, toggle):
+    # Blocked attention on the gradient path (reduced qwen3-14b, 32-key
+    # blocks at S = 256) and the LSTM chunk (reduced xlstm-350m at S = 32:
+    # 16-step chunks and the naive loop): loss and gradients on the card
+    # against the same setting on the CPU, and against the card's default
+    # route.
+    from repro_torch.models import attention, ssm
+    if toggle == "attn_block":
+        arch, s, settings, default = "qwen3-14b", 256, (32,), None
+        setter, n_layers = attention.set_attn_block, None
+    else:
+        arch, s, settings, default = "xlstm-350m", 32, (16, None), 64
+        setter, n_layers = ssm.set_lstm_chunk, 2
+    cfg = get_config(arch).reduced()
+    if n_layers:
+        cfg = cfg.replace(n_layers=n_layers)
+    m = build_model(cfg)
+    cpu = m.init(torch.Generator().manual_seed(0), device="cpu")
+    card = tree_map(lambda a: a.to(cuda), cpu)
+    batch = {"tokens": torch.from_numpy(np.random.default_rng(1).integers(
+        0, cfg.vocab, (B, s)).astype(np.int32))}
+    cbatch = {k: v.to(cuda) for k, v in batch.items()}
+    base = _loss_and_grads(m, card, cbatch)
+    try:
+        for value in settings:
+            setter(value)
+            on_card = _loss_and_grads(m, card, cbatch)
+            for a, b in zip(on_card, _loss_and_grads(m, cpu, batch)):
+                _close(a, b)
+            for a, b in zip(on_card, base):
+                _close(a, b.cpu())
+    finally:
+        setter(default)
+
+
+@pytest.mark.gpu
+def test_nesterov_on_card_matches_cpu(cuda):
+    from repro_torch.optim.optimizers import apply_updates, momentum
+    rng = np.random.default_rng(2)
+    params = {"w": torch.from_numpy(rng.standard_normal((64, 32)).astype(
+        np.float32)), "b": torch.from_numpy(rng.standard_normal(32).astype(
+            np.float32))}
+    grads = [tree_map(lambda p: torch.from_numpy(rng.standard_normal(
+        tuple(p.shape)).astype(np.float32)), params) for _ in range(5)]
+    opt = momentum(nesterov=True)
+    outs = []
+    for dev in (cuda, "cpu"):
+        p = tree_map(lambda a: a.to(dev), params)
+        st = opt.init(p)
+        for g in grads:
+            u, st = opt.update(tree_map(lambda a: a.to(dev), g), st, p, 0.05)
+            p = apply_updates(p, u)
+        outs.append(p)
+    for a, b in zip(tree_leaves(outs[0]), tree_leaves(outs[1])):
+        _close(a, b)

@@ -148,7 +148,8 @@ def test_blocked_equals_materialized_at_1024(window):
                                         512), SUMS)
     # the prefill dispatcher takes the blocked path here, the train path
     # the materialized one
-    assert tattn.ATTN_BLOCK_PREFILL == 512
+    assert tattn.ATTN_BLOCK_PREFILL[0] == 512
+    assert tattn.ATTN_BLOCK[0] is None
     _close(tattn._sdpa_full_seq(tq, tk, tv, 16, True, window,
                                 grad_path=False), blocked.numpy(), F32)
     _close(tattn._sdpa_full_seq(tq, tk, tv, 16, True, window), full.numpy(),

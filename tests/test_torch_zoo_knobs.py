@@ -1,29 +1,31 @@
-"""The reference's attention and LSTM toggles against the port's one route.
+"""The reference's attention and LSTM toggles, set in both packages.
 
-The JAX package lets a caller choose its blocked attention on the
-gradient path (``set_attn_block``), the prefill block
-(``set_attn_block_prefill``) and the LSTM checkpoint chunk, ``None`` the
-naive loop (``set_lstm_chunk``). Nothing outside its tests sets them, so
-the port keeps one route: the gradient path materializes its scores,
-``ATTN_BLOCK_PREFILL`` and ``LSTM_CHUNK`` are module constants (the tests
-below ``monkeypatch`` them). Here that route is held to the reference
-under each of its settings:
+Both packages let a caller choose blocked attention on the gradient path
+(``set_attn_block``, ``None`` materializes the scores: the default), the
+prefill block (``set_attn_block_prefill``, 512 by default) and the LSTM
+checkpoint chunk (``set_lstm_chunk``, 64 by default; ``None`` the naive
+loop). Here the port is held to the reference under each setting, made in
+both packages through their setters:
 
-* the port's materialized gradient path, with a 32-key prefill block, is
-  held to the JAX package's 32-key blocked gradient path: reduced
-  ``qwen3-14b`` at S = 256, causal and with a 64-token window,
-  ``attn_train`` and the model's loss and gradients within ``rtol=1e-4,
-  atol=1e-5`` (``tests/test_parity.py``'s bound for the blocked path);
+* ``set_attn_block(32)``: reduced ``qwen3-14b`` at S = 256, causal and
+  with a 64-token window, ``attn_train`` and the model's loss and
+  gradients within ``rtol=1e-4, atol=1e-5`` (``tests/test_parity.py``'s
+  bound for the blocked path) of the JAX package's at the same block; the
+  port's default, materialized route is held to the same numbers;
 * ``prefill``'s last logits and caches at 16- and 64-key prefill blocks
-  (64: the prompt is one block, the path materializes) against the JAX
-  package's at the same block, within the zoo's serving bound;
+  (64: the prompt is one block, the path materializes) and at ``None``
+  against the JAX package's at the same block, within the zoo's serving
+  bound;
 * reduced ``xlstm-350m`` at 2 layers, S = 32: the loss within 1e-5 and
   the gradients within ``rtol=1e-4, atol=1e-5`` of the JAX package's at
-  the same chunk, and at 16-step chunks against its naive loop;
+  the same chunk (16, 64 and ``None``), and at 16-step chunks against its
+  naive loop;
 * ``utils.tree_bytes`` equal to the JAX package's.
 
-Each toggle is restored in ``finally`` in the JAX package.
+Each toggle is restored in ``finally``, in both packages.
 """
+import contextlib
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -87,6 +89,21 @@ def _tokens(cfg, b: int, s: int, seed: int = 1) -> np.ndarray:
                                                 (b, s)).astype(np.int32)
 
 
+@contextlib.contextmanager
+def _setting(name: str, own, ref, default):
+    """Set a toggle in both packages (``set_<name>``), and restore both to
+    ``default`` after."""
+    jmod = jssm if name == "lstm_chunk" else jattn
+    tmod = tssm if name == "lstm_chunk" else tattn
+    try:
+        getattr(jmod, f"set_{name}")(ref)
+        getattr(tmod, f"set_{name}")(own)
+        yield
+    finally:
+        getattr(jmod, f"set_{name}")(default)
+        getattr(tmod, f"set_{name}")(default)
+
+
 class _Counted:
     """Counts the calls of the port's blocked attention."""
 
@@ -118,18 +135,19 @@ def test_attn_train_holds_to_the_blocked_gradient_path(monkeypatch, window):
     tcs = trope(torch.arange(256)[None], tcfg.resolved_head_dim,
                 tcfg.rope_theta)
     calls = _Counted(monkeypatch)
-    monkeypatch.setattr(tattn, "ATTN_BLOCK_PREFILL", 32)
-    try:
-        jattn.set_attn_block(32)
-        want = jattn.attn_train(jp, cfg, jnp.asarray(x), *jcs)
-    finally:
-        jattn.set_attn_block(None)
-    xt = torch.from_numpy(x).requires_grad_()
-    got = tattn.attn_train(tp, tcfg, xt, *tcs)
-    got.square().sum().backward()
-    assert calls.n == 0                      # the gradient path materializes
-    assert xt.grad is not None and torch.isfinite(xt.grad).all()
-    np.testing.assert_allclose(_np(got), _np(want), **BLOCKED)
+    grads = []
+    for own in (None, 32):                   # materialized, then blocked
+        with _setting("attn_block", own, 32, None):
+            if own is None:
+                want = jattn.attn_train(jp, cfg, jnp.asarray(x), *jcs)
+            xt = torch.from_numpy(x).requires_grad_()
+            got = tattn.attn_train(tp, tcfg, xt, *tcs)
+            got.square().sum().backward()
+        assert calls.n == (0 if own is None else 1)
+        assert xt.grad is not None and torch.isfinite(xt.grad).all()
+        np.testing.assert_allclose(_np(got), _np(want), **BLOCKED)
+        grads.append(xt.grad)
+    np.testing.assert_allclose(_np(grads[1]), _np(grads[0]), **BLOCKED)
 
 
 @pytest.mark.parametrize("window", [None, 64])
@@ -138,64 +156,61 @@ def test_loss_and_grad_hold_to_the_blocked_gradient_path(monkeypatch,
     cfg, jm, tm, jp, tp = _pair("qwen3-14b", sliding_window=window)
     toks = _tokens(cfg, 2, 256)
     calls = _Counted(monkeypatch)
-    monkeypatch.setattr(tattn, "ATTN_BLOCK_PREFILL", 32)
-    try:
-        jattn.set_attn_block(32)
+    with _setting("attn_block", None, 32, None):
         (jl, _), jg = _jax_loss_and_grad(jm, toks)(jp)
-    finally:
-        jattn.set_attn_block(None)
-    (tl, _), tg = tm.loss_and_grad(tp, {"tokens": torch.from_numpy(toks)})
-    assert calls.n == 0
-    np.testing.assert_allclose(_np(tl), _np(jl), **BLOCKED)
-    for a, b in zip(tree_leaves(tg), jax.tree_util.tree_leaves(jg)):
-        np.testing.assert_allclose(_np(a), _np(b), **BLOCKED)
+    for own in (None, 32):                   # materialized, then blocked
+        with _setting("attn_block", own, None, None):
+            (tl, _), tg = tm.loss_and_grad(tp,
+                                           {"tokens": torch.from_numpy(toks)})
+        assert calls.n == (0 if own is None else cfg.n_layers)
+        np.testing.assert_allclose(_np(tl), _np(jl), **BLOCKED)
+        for a, b in zip(tree_leaves(tg), jax.tree_util.tree_leaves(jg)):
+            np.testing.assert_allclose(_np(a), _np(b), **BLOCKED)
 
 
-@pytest.mark.parametrize("block,window", [(16, None), (64, None), (16, 32)])
+@pytest.mark.parametrize("block,window", [(16, None), (64, None), (16, 32),
+                                          (None, None)])
 def test_prefill_block(monkeypatch, block, window):
     cfg, jm, tm, jp, tp = _pair("qwen3-14b", sliding_window=window)
     toks = _tokens(cfg, 2, 64)
     calls = _Counted(monkeypatch)
-    monkeypatch.setattr(tattn, "ATTN_BLOCK_PREFILL", block)
-    try:
-        jattn.set_attn_block_prefill(block)
+    with _setting("attn_block_prefill", block, block, 512):
         jlog, js = jm.prefill(jp, {"tokens": jnp.asarray(toks)},
                               jm.init_decode_state(2, 80))
-    finally:
-        jattn.set_attn_block_prefill(512)
-    with torch.no_grad():
-        tlog, ts = tm.prefill(tp, {"tokens": torch.from_numpy(toks)},
-                              tm.init_decode_state(2, 80, device="cpu"))
-    assert calls.n == (cfg.n_layers if block < 64 else 0)
+        with torch.no_grad():
+            tlog, ts = tm.prefill(tp, {"tokens": torch.from_numpy(toks)},
+                                  tm.init_decode_state(2, 80, device="cpu"))
+    assert calls.n == (cfg.n_layers if block and block < 64 else 0)
     np.testing.assert_allclose(_np(tlog), _np(jlog), **SERVE)
     for a, b in zip(tree_leaves(ts), jax.tree_util.tree_leaves(js)):
         np.testing.assert_allclose(_np(a), _np(b), **SERVE)
 
 
 @pytest.mark.parametrize("name,own,ref", [
-    ("ATTN_BLOCK_PREFILL", lambda: tattn.ATTN_BLOCK_PREFILL,
+    ("ATTN_BLOCK_PREFILL", lambda: tattn.ATTN_BLOCK_PREFILL[0],
      lambda: jattn.ATTN_BLOCK_PREFILL[0]),
-    ("LSTM_CHUNK", lambda: tssm.LSTM_CHUNK, lambda: jssm.LSTM_CHUNK[0])])
+    ("LSTM_CHUNK", lambda: tssm.LSTM_CHUNK[0], lambda: jssm.LSTM_CHUNK[0]),
+    ("ATTN_BLOCK", lambda: tattn.ATTN_BLOCK[0],
+     lambda: jattn.ATTN_BLOCK[0])])
 def test_constants_are_the_reference_s_defaults(name, own, ref):
     assert own() == ref(), name
     assert jattn.ATTN_BLOCK[0] is None       # the reference materializes too
+    assert tattn.ATTN_BLOCK[0] is None
 
 
 # --------------------------------------------------------------------------
 # LSTM chunks
 # --------------------------------------------------------------------------
 
-@pytest.mark.parametrize("own,ref", [(16, 16), (64, 64), (16, None)])
-def test_lstm_chunk_loss_and_grad(monkeypatch, own, ref):
+@pytest.mark.parametrize("own,ref", [(16, 16), (64, 64), (16, None),
+                                     (None, None)])
+def test_lstm_chunk_loss_and_grad(own, ref):
     cfg, jm, tm, jp, tp = _pair("xlstm-350m", n_layers=2)
     toks = _tokens(cfg, 2, 32)        # two 16-step chunks; 64: one loop
-    monkeypatch.setattr(tssm, "LSTM_CHUNK", own)
-    try:
-        jssm.set_lstm_chunk(ref)
+    with _setting("lstm_chunk", own, ref, 64):
         (jl, _), jg = _jax_loss_and_grad(jm, toks)(jp)
-    finally:
-        jssm.set_lstm_chunk(64)
-    (tl, _), tg = tm.loss_and_grad(tp, {"tokens": torch.from_numpy(toks)})
+        (tl, _), tg = tm.loss_and_grad(tp,
+                                       {"tokens": torch.from_numpy(toks)})
     assert abs(float(tl) - float(jl)) < 1e-5
     for a, b in zip(tree_leaves(tg), jax.tree_util.tree_leaves(jg)):
         np.testing.assert_allclose(_np(a), _np(b), **BLOCKED)
